@@ -1,0 +1,40 @@
+"""SoftmaxAttention (no decode mode).
+
+Counterpart of ``attention_models_tpu/models/attention.py::SoftmaxAttention``
+with the reference's parameter names: no-bias ``q.0``, fused no-bias
+``kv.0`` whose output is viewed as (b, t, 2, h, d), biased ``W_o``, scale
+``d ** -0.5``. Self-attention, unmasked: the path ViTVQGAN runs. The packed
+kv goes to the flash op unsplit.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from attention_models_torch.ops.flash_attention import (
+    _flash_reference,
+    flash_attention_bthd_kv,
+)
+
+
+class SoftmaxAttention(nn.Module):
+    def __init__(self, dim: int, num_heads: int = 8, dim_head: int = 64):
+        super().__init__()
+        self.num_heads, self.dim_head = num_heads, dim_head
+        self.q = nn.Sequential(nn.Linear(dim, num_heads * dim_head, bias=False))
+        self.kv = nn.Sequential(
+            nn.Linear(dim, 2 * num_heads * dim_head, bias=False))
+        self.W_o = nn.Linear(num_heads * dim_head, dim)
+        self.kernels = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, d = self.num_heads, self.dim_head
+        b, t = x.shape[:2]
+        q = self.q(x).view(b, t, h, d)
+        kv = self.kv(x).view(b, t, 2, h, d)
+        if self.kernels:
+            out, _ = flash_attention_bthd_kv(q, kv, scale=d ** -0.5)
+        else:
+            out, _ = _flash_reference(q, kv, d ** -0.5, False)
+        return self.W_o(out.reshape(b, t, h * d))

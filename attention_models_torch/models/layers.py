@@ -1,0 +1,74 @@
+"""Layers of the ViTVQGAN path: LayerNorm, Mlp, the fused pre-LN MLP block.
+
+Counterparts of ``attention_models_tpu/models/layers.py``. Parameter names
+are the reference PyTorch modules' (``weight``/``bias``; the Mlp is a
+``Sequential`` of Linear, GELU, Linear, so its keys are ``0.*`` and ``2.*``).
+
+Modules that call a kernel carry ``kernels`` (default True). With it, each
+op dispatches on its tensor's device: kernel on CUDA, plain on the CPU.
+``ViTVQGAN.use_kernels(False)`` switches a whole model to the plain versions,
+which is how the kernels are compared with them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from attention_models_torch.ops.ffn import _ln_mlp_reference, fused_ln_mlp
+from attention_models_torch.ops.layernorm import _ln_reference, layernorm
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with learnable weight and bias, torch semantics, fp32
+    statistics, output in the input's dtype."""
+
+    eps = 1e-5
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.kernels = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = layernorm if self.kernels else _ln_reference
+        return fn(x, self.weight, self.bias, self.eps)
+
+
+def xformers_hidden(hidden_features: int) -> int:
+    """ViTVQGAN FFN hidden width: (int(h*2/3)+7)//8*8."""
+    return (int(hidden_features * 2 / 3) + 7) // 8 * 8
+
+
+class Mlp(nn.Sequential):
+    """Linear -> exact GELU -> Linear, biased (the repaired reference FFN)."""
+
+    def __init__(self, dim: int, hidden_dim: int):
+        super().__init__(nn.Linear(dim, hidden_dim), nn.GELU(),
+                         nn.Linear(hidden_dim, dim))
+
+
+def ln_mlp_block(x: torch.Tensor, norm: LayerNorm, mlp: Mlp, *,
+                 kernels: bool = True) -> torch.Tensor:
+    """``x + mlp(norm(x))``. In bf16 the whole block is one fused op (the
+    ln_mlp kernel on the card); in fp32 it is the LayerNorm followed by the
+    plain Mlp, as the JAX package gates it."""
+    if x.dtype == torch.bfloat16:
+        args = (x, norm.weight, norm.bias, mlp[0].weight, mlp[0].bias,
+                mlp[2].weight, mlp[2].bias)
+        if kernels:
+            return fused_ln_mlp(*args, eps=norm.eps)
+        return _ln_mlp_reference(*args, norm.eps)
+    return x + mlp(norm(x))
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal (+-2 sd) with variance
+    1/fan_in, fan_in being a torch Linear weight's second dim."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)

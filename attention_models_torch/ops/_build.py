@@ -1,0 +1,127 @@
+"""Builds the port's CUDA kernels and binds them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a``, and the objects are linked into one shared library
+with a plain C interface under ``build/attention_models_torch/`` in the
+checkout. The library's name carries a hash of the sources and flags, so an
+edit rebuilds and an unchanged tree reuses the last build. The build runs at
+the first kernel launch of a process (or from ``build()``); nothing here runs
+at import.
+
+Each C entry point takes pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launch; ``launch`` raises on a
+nonzero code, so a refused launch is never silent.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from attention_models_torch.ops.dispatch import require_hopper
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "attention_models_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "amt_layernorm": [_P, _P, _P, _P, ctypes.c_int64, _I, _F, _I, _P],
+    "amt_nearest_codes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "amt_flash_fwd_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "amt_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+
+
+def _tag(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for p in sources:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile (if needed) and return the path of the kernels' library."""
+    sources = sorted(CSRC.glob("*.cu"))
+    tag = _tag(sources + sorted(CSRC.glob("*.cuh")))
+    out = BUILD_DIR / f"libamt_kernels_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    jobs = []
+    for src in sources:
+        obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+        cmd = [nvcc, *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, proc))
+    failed = []
+    for src, _, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", *(str(o) for _, o, _ in jobs), "-o", str(tmp)],
+        capture_output=True, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernels' library, built at the first call."""
+    global _lib
+    if _lib is None:
+        require_hopper()
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.amt_error_string.argtypes = [ctypes.c_int]
+        lib.amt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name`` and raise if it reports a CUDA error."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.amt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,67 @@
+"""flax ViTVQGAN params -> the port's ``state_dict``.
+
+The inverse of ``attention_models_tpu/utils/torch_convert.py::
+convert_vitvqgan``, written against plain nested dicts of arrays (anything
+``np.asarray`` takes), so this module needs neither JAX nor flax. Dense
+kernels (in, out) are transposed to torch Linear weights (out, in); LayerNorm
+gamma/beta become weight/bias; names become the reference PyTorch keys.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lin(tree: Mapping, key: str, sd: dict) -> None:
+    sd[f"{key}.weight"] = _t(tree["kernel"]).T.contiguous()
+    if "bias" in tree:
+        sd[f"{key}.bias"] = _t(tree["bias"])
+
+
+def _ln(tree: Mapping, key: str, sd: dict) -> None:
+    sd[f"{key}.weight"] = _t(tree["gamma"])
+    sd[f"{key}.bias"] = _t(tree["beta"])
+
+
+def _blocks(tower: Mapping, key: str, sd: dict) -> None:
+    depth = sum(1 for name in tower if name.startswith("layers_"))
+    for i in range(depth):
+        blk, p = tower[f"layers_{i}"], f"{key}.layers.{i}"
+        _ln(blk["norm1"], f"{p}.norm1", sd)
+        _lin(blk["self_attn"]["wq"], f"{p}.self_attn.q.0", sd)
+        _lin(blk["self_attn"]["wkv"], f"{p}.self_attn.kv.0", sd)
+        _lin(blk["self_attn"]["wo"], f"{p}.self_attn.W_o", sd)
+        _ln(blk["norm2"], f"{p}.norm2", sd)
+        _lin(blk["mlp"]["mlp_in"], f"{p}.feed_forward.0", sd)
+        _lin(blk["mlp"]["mlp_out"], f"{p}.feed_forward.2", sd)
+
+
+def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
+    """ViTVQGAN flax params (with or without the top-level ``"params"``)
+    -> fp32 ``state_dict`` for ``models.vitvqgan.ViTVQGAN``."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd: dict[str, torch.Tensor] = {}
+    enc, dec = tree["encoder"], tree["decoder"]
+    pe = enc["patch_embed"]
+    _ln(pe["norm1"], "encoder.to_patch_embedding.1", sd)
+    _lin(pe["proj"], "encoder.to_patch_embedding.2", sd)
+    _ln(pe["norm2"], "encoder.to_patch_embedding.3", sd)
+    sd["encoder.pos_enc"] = _t(enc["pos_enc"])
+    _ln(enc["pre_norm"], "encoder.pre_norm", sd)
+    _blocks(enc, "encoder.encoder", sd)
+    _lin(tree["pre_quant"], "pre_quant", sd)
+    sd["codebook.embedding.weight"] = _t(tree["codebook"]["embedding"])
+    _lin(tree["post_quant"], "post_quant", sd)
+    sd["decoder.pos_enc"] = _t(dec["pos_enc"])
+    _ln(dec["pre_norm"], "decoder.pre_norm", sd)
+    _blocks(dec, "decoder.decoder", sd)
+    _lin(dec["fc"], "decoder.fc", sd)
+    return sd

@@ -1,0 +1,150 @@
+"""Rules of the PyTorch/CUDA port (attention_models_torch):
+
+- it imports neither JAX nor the JAX package, and chip_smoke.py neither;
+- entry points default to the card and raise without CUDA; device="cpu"
+  runs the plain path;
+- a kernel wrapper given CPU tensors runs its plain version and leaves its
+  launch counter alone.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import attention_models_torch
+from attention_models_torch.entry import entry
+from attention_models_torch.models.vitvqgan import vitvqgan_base
+from attention_models_torch.ops import codebook, dispatch, ffn, flash_attention
+from attention_models_torch.ops import layernorm as ln_ops
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import attention_models_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'attention_models_tpu')]\n"
+        "assert len(mods) >= 15, mods\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert "attention_models_torch" in names
+    assert not names & {"jax", "jaxlib", "flax", "attention_models_tpu"}
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"},
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+@pytest.mark.parametrize("call", [
+    lambda: entry(),
+    lambda: vitvqgan_base(device=None, img_size=32),
+    lambda: dispatch.resolve_device("cuda"),
+])
+def test_card_entry_points_raise_without_cuda(monkeypatch, call):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+def test_cpu_entry_builds_main_path_shapes():
+    fn, (model, imgs) = entry(device="cpu")
+    assert imgs.shape == (8, 3, 256, 256) and imgs.dtype == torch.bfloat16
+    assert model.dtype == torch.bfloat16 and model.num_patches == 1024
+    assert next(model.parameters()).device.type == "cpu"
+
+
+def test_cpu_device_runs_full_width_model():
+    model = vitvqgan_base(img_size=32, device="cpu")
+    imgs = torch.from_numpy(
+        np.random.RandomState(0).rand(2, 3, 32, 32).astype(np.float32))
+    with torch.no_grad():
+        rec, loss = model(imgs)
+    assert rec.shape == (2, 3, 32, 32) and bool(torch.isfinite(rec).all())
+    assert float(loss) > 0
+
+
+def test_seeded_init_is_deterministic():
+    a = vitvqgan_base(img_size=32, device="cpu", seed=3).state_dict()
+    b = vitvqgan_base(img_size=32, device="cpu", seed=3).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    # the JAX package's inits: unit-normal tables, zero biases, LN ones
+    assert abs(float(a["codebook.embedding.weight"].std()) - 1.0) < 0.05
+    assert float(a["decoder.fc.bias"].abs().max()) == 0.0
+    assert float(a["encoder.pre_norm.weight"].min()) == 1.0
+
+
+def _wrapper_cases():
+    rs = np.random.RandomState(0)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))  # noqa: E731
+    return [
+        (ln_ops.layernorm, ln_ops._ln_reference,
+         (t(8, 192), t(192), t(192)), (1e-5,)),
+        (codebook.nearest_codes, codebook._nearest_codes_reference,
+         (t(32, 16), t(64, 16)), ()),
+        (flash_attention.flash_attention_bthd_kv,
+         lambda q, kv: flash_attention._flash_reference(q, kv, 0.125, False),
+         (t(1, 16, 2, 64), t(1, 16, 2, 2, 64)), ()),
+        (ffn.fused_ln_mlp, ffn._ln_mlp_reference,
+         (t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96), t(64)),
+         (1e-5,)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
+    wrapper, plain, args, extra = _wrapper_cases()[case]
+    before = wrapper.launches
+    got = wrapper(*args)
+    want = plain(*args, *extra)
+    assert wrapper.launches == before
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+
+
+def test_is_kernel_path_by_device():
+    assert dispatch.is_kernel_path(torch.zeros(1)) is False
+    assert dispatch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        dispatch.is_kernel_path(torch.zeros(1, device="meta"))
+
+
+def test_inference_cli_runs_on_cpu(capsys):
+    from attention_models_torch.inference.vitvqgan import main
+
+    indices, rec = main(["--device", "cpu", "--resolution", "32",
+                         "--batch", "2", "--seed", "1"])
+    assert indices.shape == (2, 16) and rec.shape == (2, 3, 32, 32)
+    assert "unique codes" in capsys.readouterr().out
+
+
+def test_sync_is_exported():
+    assert callable(attention_models_torch.sync)
