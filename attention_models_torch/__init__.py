@@ -4,13 +4,19 @@ A package beside ``attention_models_tpu`` (the JAX reference it is held
 against), for one NVIDIA H100. It imports torch and never JAX.
 
 - ``ops``       — kernel wrappers and their plain versions: flash attention on
-                  packed kv, the fused LN + MLP block, LayerNorm, the
-                  nearest-code argmin. Kernels are CUDA C++ in ``csrc/``, built
-                  with nvcc at first use (``ops/_build.py``).
-- ``models``    — the ViTVQGAN tokenizer with the reference's parameter names.
-- ``utils``     — flax params -> ``state_dict`` conversion.
+                  packed kv and the fused LN + MLP block (forward and
+                  backward), LayerNorm, the nearest-code argmin; the
+                  autograd Functions around them. Kernels are CUDA C++ in
+                  ``csrc/``, built with nvcc at first use (``ops/_build.py``).
+- ``models``    — the ViTVQGAN tokenizer with the reference's parameter
+                  names, the PatchGAN discriminator, ``build_model``.
+- ``training``  — GAN losses and LPIPS, optax-style Adam, schedules, the
+                  base and ViTVQGAN trainers.
+- ``data``      — synthetic and COCO datasets, the transform, the loader.
+- ``utils``     — config, checkpoints, metrics, eval metrics, flax params ->
+                  ``state_dict`` conversion.
 - ``serving``   — the tokenize and reconstruct batch programs.
-- ``entry``     — the main path's entry point.
+- ``entry``     — the serving path's entry point; ``main`` the training CLI.
 """
 
 __version__ = "0.1.0"

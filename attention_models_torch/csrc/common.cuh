@@ -63,6 +63,40 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// mma_bf16_16816 operand fragments read element by element from any
+// strided bf16 layout (shared or global memory), so one helper serves a
+// matrix and its transpose. A (16x16): element (m, k) at p[m * sm + k * sk];
+// B (16x8): element (k, n) at p[k * sk + n * sn].
+__device__ __forceinline__ void load_a_frag(uint32_t a[4],
+                                            const __nv_bfloat16* p, int sm,
+                                            int sk) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int k0 = 2 * t * sk, k1 = (2 * t + 1) * sk;
+  const int k8 = (2 * t + 8) * sk, k9 = (2 * t + 9) * sk;
+  a[0] = pack_bf16x2_raw(p[g * sm + k0], p[g * sm + k1]);
+  a[1] = pack_bf16x2_raw(p[(g + 8) * sm + k0], p[(g + 8) * sm + k1]);
+  a[2] = pack_bf16x2_raw(p[g * sm + k8], p[g * sm + k9]);
+  a[3] = pack_bf16x2_raw(p[(g + 8) * sm + k8], p[(g + 8) * sm + k9]);
+}
+__device__ __forceinline__ void load_b_frag(uint32_t b[2],
+                                            const __nv_bfloat16* p, int sk,
+                                            int sn) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  b[0] = pack_bf16x2_raw(p[2 * t * sk + g * sn], p[(2 * t + 1) * sk + g * sn]);
+  b[1] = pack_bf16x2_raw(p[(2 * t + 8) * sk + g * sn],
+                         p[(2 * t + 9) * sk + g * sn]);
+}
+// The A fragment of a product whose left operand is the fp32 accumulator of
+// an earlier one: the m16n8 C tiles 2kk and 2kk+1 (columns 16kk..16kk+15)
+// are exactly the A fragment of k-step kk, rounded to bf16.
+__device__ __forceinline__ void acc_to_a_frag(uint32_t a[4], const float c0[4],
+                                              const float c1[4]) {
+  a[0] = pack_bf16x2(c0[0], c0[1]);
+  a[1] = pack_bf16x2(c0[2], c0[3]);
+  a[2] = pack_bf16x2(c1[0], c1[1]);
+  a[3] = pack_bf16x2(c1[2], c1[3]);
+}
+
 // 16-byte asynchronous copy global -> shared (cp.async, sm_80+); with
 // valid == false nothing is read and the 16 shared bytes are zero-filled.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -4,7 +4,8 @@ Counterpart of ``attention_models_tpu/models/attention.py::SoftmaxAttention``
 with the reference's parameter names: no-bias ``q.0``, fused no-bias
 ``kv.0`` whose output is viewed as (b, t, 2, h, d), biased ``W_o``, scale
 ``d ** -0.5``. Self-attention, unmasked: the path ViTVQGAN runs. The packed
-kv goes to the flash op unsplit.
+kv goes to the flash op unsplit; on the card its backward returns the
+packed (dk, dv) cotangent, so the split never happens in either direction.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from attention_models_torch.models.layers import Linear
 from attention_models_torch.ops.flash_attention import (
     _flash_reference,
     flash_attention_bthd_kv,
@@ -22,10 +24,10 @@ class SoftmaxAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, dim_head: int = 64):
         super().__init__()
         self.num_heads, self.dim_head = num_heads, dim_head
-        self.q = nn.Sequential(nn.Linear(dim, num_heads * dim_head, bias=False))
+        self.q = nn.Sequential(Linear(dim, num_heads * dim_head, bias=False))
         self.kv = nn.Sequential(
-            nn.Linear(dim, 2 * num_heads * dim_head, bias=False))
-        self.W_o = nn.Linear(num_heads * dim_head, dim)
+            Linear(dim, 2 * num_heads * dim_head, bias=False))
+        self.W_o = Linear(num_heads * dim_head, dim)
         self.kernels = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,10 @@ Counterparts of ``attention_models_tpu/models/layers.py``. Parameter names
 are the reference PyTorch modules' (``weight``/``bias``; the Mlp is a
 ``Sequential`` of Linear, GELU, Linear, so its keys are ``0.*`` and ``2.*``).
 
+``Linear`` casts its weight and bias to the activations' dtype at use (an
+autograd-tracked ``.to()``, a no-op when they already are in it), so a model
+may hold fp32 parameters and compute in bf16, as flax's ``dtype=`` does.
+
 Modules that call a kernel carry ``kernels`` (default True). With it, each
 op dispatches on its tensor's device: kernel on CUDA, plain on the CPU.
 ``ViTVQGAN.use_kernels(False)`` switches a whole model to the plain versions,
@@ -15,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from attention_models_torch.ops.ffn import _ln_mlp_reference, fused_ln_mlp
@@ -38,6 +43,14 @@ class LayerNorm(nn.Module):
         return fn(x, self.weight, self.bias, self.eps)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
 def xformers_hidden(hidden_features: int) -> int:
     """ViTVQGAN FFN hidden width: (int(h*2/3)+7)//8*8."""
     return (int(hidden_features * 2 / 3) + 7) // 8 * 8
@@ -47,15 +60,16 @@ class Mlp(nn.Sequential):
     """Linear -> exact GELU -> Linear, biased (the repaired reference FFN)."""
 
     def __init__(self, dim: int, hidden_dim: int):
-        super().__init__(nn.Linear(dim, hidden_dim), nn.GELU(),
-                         nn.Linear(hidden_dim, dim))
+        super().__init__(Linear(dim, hidden_dim), nn.GELU(),
+                         Linear(hidden_dim, dim))
 
 
 def ln_mlp_block(x: torch.Tensor, norm: LayerNorm, mlp: Mlp, *,
                  kernels: bool = True) -> torch.Tensor:
     """``x + mlp(norm(x))``. In bf16 the whole block is one fused op (the
-    ln_mlp kernel on the card); in fp32 it is the LayerNorm followed by the
-    plain Mlp, as the JAX package gates it."""
+    ln_mlp kernels on the card, given the fp32 or bf16 parameters as they
+    are); in fp32 it is the LayerNorm followed by the plain Mlp, as the JAX
+    package gates it."""
     if x.dtype == torch.bfloat16:
         args = (x, norm.weight, norm.bias, mlp[0].weight, mlp[0].bias,
                 mlp[2].weight, mlp[2].bias)
@@ -67,8 +81,9 @@ def ln_mlp_block(x: torch.Tensor, norm: LayerNorm, mlp: Mlp, *,
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """flax ``lecun_normal``: truncated normal (+-2 sd) with variance
-    1/fan_in, fan_in being a torch Linear weight's second dim."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    1/fan_in, fan_in being the size of one output row of a torch Linear
+    (in) or Conv2d (in * kh * kw) weight."""
+    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)

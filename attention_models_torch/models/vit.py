@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from attention_models_torch.models.layers import LayerNorm
+from attention_models_torch.models.layers import LayerNorm, Linear
 
 
 class Patchify(nn.Module):
@@ -45,11 +45,13 @@ class PatchEmbedding(nn.Sequential):
     def __init__(self, dim: int, patch_size: int):
         feat = patch_size * patch_size * 3  # RGB
         super().__init__(Patchify(patch_size), LayerNorm(feat),
-                         nn.Linear(feat, dim), LayerNorm(dim))
+                         Linear(feat, dim), LayerNorm(dim))
 
-    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
+    def forward(self, imgs: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``dtype`` is the compute dtype (default: the weights' dtype)."""
         patchify, norm1, proj, norm2 = self
         # the first LayerNorm runs in the images' dtype, as in the JAX path,
-        # and its output is cast to the weights' dtype for the projection
-        x = norm1(patchify(imgs)).to(proj.weight.dtype)
+        # and its output is cast to the compute dtype for the projection
+        x = norm1(patchify(imgs)).to(dtype or proj.weight.dtype)
         return norm2(proj(x))

@@ -6,6 +6,13 @@ kernel) -> post_quant -> ViT decoder -> un-patchify. Parameter names are the
 reference PyTorch ``state_dict`` keys, so a released checkpoint loads with
 ``load_state_dict`` and no conversion.
 
+The compute dtype is separate from the parameters' dtype, as flax's
+``dtype=`` is: ``ViTVQGAN(..., dtype=torch.bfloat16)`` keeps fp32 parameters
+(the trainer's master weights) and runs the towers in bf16, every Linear
+weight, bias and ``pos_enc`` cast at use by an autograd-tracked ``.to()``.
+``dtype=None`` computes in the parameters' own dtype (the bf16 serving
+model). The codebook table stays fp32 and is L2-normalised in fp32.
+
 Semantics kept from the JAX package:
   - the encoder adds ``pos_enc`` cast to the activations' dtype;
   - the codebook L2-normalises z, the table and the lookup in fp32; the
@@ -22,6 +29,7 @@ from torch import nn
 from attention_models_torch.models.attention import SoftmaxAttention
 from attention_models_torch.models.layers import (
     LayerNorm,
+    Linear,
     Mlp,
     lecun_normal_,
     ln_mlp_block,
@@ -63,8 +71,8 @@ class _Blocks(nn.Module):
 
 def _check_dropout(dropout: float) -> None:
     if dropout != 0.0:
-        raise ValueError("the port's ViTVQGAN is inference-only: dropout "
-                         f"must be 0.0, got {dropout}")
+        raise ValueError("dropout is not ported yet: the port's ViTVQGAN "
+                         f"needs dropout 0.0, got {dropout}")
 
 
 class ViTEncoder(nn.Module):
@@ -79,8 +87,9 @@ class ViTEncoder(nn.Module):
         self.encoder = _Blocks(ViTVQGANBlock(dim, n_heads, d_head, mlp_dim)
                                for _ in range(depth))
 
-    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
-        x = self.to_patch_embedding(imgs)
+    def forward(self, imgs: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        x = self.to_patch_embedding(imgs, dtype)
         x = self.pre_norm(self.pos_enc.to(x.dtype) + x)
         for block in self.encoder.layers:
             x = block(x)
@@ -98,7 +107,7 @@ class ViTDecoder(nn.Module):
         self.pre_norm = LayerNorm(dim)
         self.decoder = _Blocks(ViTVQGANBlock(dim, n_heads, d_head, mlp_dim)
                                for _ in range(depth))
-        self.fc = nn.Linear(dim, patch_size ** 2 * 3)
+        self.fc = Linear(dim, patch_size ** 2 * 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.pre_norm(x + self.pos_enc.to(x.dtype))
@@ -141,35 +150,40 @@ class Codebook(nn.Module):
 
 
 class ViTVQGAN(nn.Module):
-    """``vit_params`` / ``codebook_params`` as the reference constructor."""
+    """``vit_params`` / ``codebook_params`` as the reference constructor;
+    ``dtype`` the compute dtype (None: the parameters' dtype)."""
 
-    def __init__(self, vit_params: dict, codebook_params: dict):
+    def __init__(self, vit_params: dict, codebook_params: dict,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.vit_params = dict(vit_params)
+        self.compute_dtype = dtype
         dim = vit_params["dim"]
         cb_dim = codebook_params["codebook_dim"]
         self.encoder = ViTEncoder(**vit_params)
-        self.pre_quant = nn.Linear(dim, cb_dim)
+        self.pre_quant = Linear(dim, cb_dim)
         self.codebook = Codebook(**codebook_params)
-        self.post_quant = nn.Linear(cb_dim, dim)
+        self.post_quant = Linear(cb_dim, dim)
         self.decoder = ViTDecoder(**vit_params)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.pre_quant.weight.dtype
+        """The compute dtype."""
+        return self.compute_dtype or self.pre_quant.weight.dtype
 
     @property
     def num_patches(self) -> int:
         return (self.vit_params["img_size"] // self.vit_params["patch_size"]) ** 2
 
     def forward(self, imgs: torch.Tensor):
-        z = self.pre_quant(self.encoder(imgs))
+        z = self.pre_quant(self.encoder(imgs, self.dtype))
         embeds, _, loss = self.codebook(z)
         rec = self.decoder(self.post_quant(embeds.to(self.dtype)))
         return rec, loss
 
     def encode_imgs(self, imgs: torch.Tensor) -> torch.Tensor:
-        return self.codebook.nearest(self.pre_quant(self.encoder(imgs)))
+        return self.codebook.nearest(
+            self.pre_quant(self.encoder(imgs, self.dtype)))
 
     def decode_indices(self, indices: torch.Tensor) -> torch.Tensor:
         embeds = self.codebook.indices_to_embeddings(indices)

@@ -36,6 +36,17 @@ def is_kernel_path(t: torch.Tensor) -> bool:
     raise RuntimeError(f"no kernel or plain path for device {t.device}")
 
 
+def needs_grad(*tensors: torch.Tensor | None) -> bool:
+    """True when autograd records and some tensor requires a gradient: the
+    kernel wrappers then go through their ``torch.autograd.Function``;
+    otherwise (serving, ``no_grad``) they launch the forward kernel
+    directly, without the Function's per-call host cost. ``chip_smoke.py``
+    measures that cost on the serving path (Function against direct,
+    alternating pairs in one process)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def require_hopper() -> None:
     """The kernels are built for sm_90a (H100/H200); refuse other cards."""
     major, minor = torch.cuda.get_device_capability()

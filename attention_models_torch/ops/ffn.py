@@ -1,22 +1,36 @@
-"""Fused pre-LN MLP block, x + Mlp(LayerNorm(x)): kernel (csrc/ln_mlp.cu)
-and plain version.
+"""Fused pre-LN MLP block, x + Mlp(LayerNorm(x)), forward and backward:
+kernels (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu) and plain versions.
 
-Counterpart of ``attention_models_tpu/ops/ffn.py``'s ``fused_ln_mlp``
-forward (bf16 only, as there). Weights are in the torch Linear layout:
-w1 (hid, d), w2 (d, hid). The kernel's gelu uses the true erf; the TPU
-kernel's A&S polynomial differs from it by at most 1.5e-7.
+Counterpart of ``attention_models_tpu/ops/ffn.py``'s ``fused_ln_mlp`` (bf16
+only on the kernel path, as there). Weights are in the torch Linear layout:
+w1 (hid, d), w2 (d, hid). The kernels' gelu uses the true erf; the TPU
+kernels' A&S polynomial differs from it by at most 1.5e-7.
+
+On the card ``_LnMlp`` wires the two kernels into autograd, as
+``_ln_mlp.defvjp`` does: the forward takes the (fp32 master) weights and
+casts them to the activations' dtype inside the op; the backward recomputes
+LN -> W1 -> gelu from x and returns the weight gradients in the parameters'
+dtype. Without a gradient to record (serving, ``no_grad``) the wrapper
+launches the forward kernel directly (``needs_grad``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from attention_models_torch.ops import _build
-from attention_models_torch.ops.dispatch import check_tensor, is_kernel_path
+from attention_models_torch.ops.dispatch import (
+    check_tensor,
+    is_kernel_path,
+    needs_grad,
+)
 from attention_models_torch.ops.layernorm import _ln_reference
 
-KERNEL_DIMS = (512,)  # model widths csrc/ln_mlp.cu instantiates
+KERNEL_DIMS = (512,)  # model widths csrc/ln_mlp*.cu instantiate
+BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's first pass
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -36,21 +50,44 @@ def _ln_mlp_reference(x, lng, lnb, w1, b1, w2, b2, eps):
     return x + _mlp_reference(_ln_reference(x, lng, lnb, eps), w1, b1, w2, b2)
 
 
-def fused_ln_mlp(
-    x: torch.Tensor,      # (..., d) bf16
-    ln_gamma: torch.Tensor,  # (d,)
-    ln_beta: torch.Tensor,   # (d,)
-    w1: torch.Tensor,     # (hid, d)
-    b1: torch.Tensor,     # (hid,)
-    w2: torch.Tensor,     # (d, hid)
-    b2: torch.Tensor,     # (d,)
-    *,
-    eps: float = 1e-5,
-) -> torch.Tensor:
-    """x + gelu(LN(x) @ w1^T + b1) @ w2^T + b2: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if not is_kernel_path(x):
-        return _ln_mlp_reference(x, ln_gamma, ln_beta, w1, b1, w2, b2, eps)
+def _ln_mlp_backward_reference(x, lng, lnb, w1, b1, w2, dy, eps):
+    """Plain version of the backward, the TPU kernel's formulas in fp32 with
+    its roundings to x's dtype (yc, g, dh): returns (dx in x's dtype,
+    dlng, dlnb, dw1, db1, dw2, db2 in fp32)."""
+    dt = x.dtype
+    d = x.shape[-1]
+    x32 = x.reshape(-1, d).float()
+    do = dy.reshape(-1, d)
+    do32 = do.float()
+    mean = x32.mean(-1, keepdim=True)
+    c = x32 - mean
+    rstd = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    xhat = c * rstd
+    yc = (xhat * lng.float() + lnb.float()).to(dt)
+    w1c, w2c = w1.to(dt), w2.to(dt)
+    h = (yc @ w1c.T).float() + b1.float()
+    phi = 0.5 * (1.0 + torch.erf(h * (1.0 / math.sqrt(2.0))))
+    g = (h * phi).to(dt)
+    db2 = do32.sum(0)
+    dw2 = (do.T @ g).float()                          # (d, hid)
+    dg = (do @ w2c).float()                           # (n, hid)
+    dh = dg * (phi + h * torch.exp(-0.5 * h * h) / math.sqrt(2.0 * math.pi))
+    db1 = dh.sum(0)
+    dhc = dh.to(dt)
+    dw1 = (dhc.T @ yc).float()                        # (hid, d)
+    dy_ln = (dhc @ w1c).float()                       # (n, d)
+    dlng = (dy_ln * xhat).sum(0)
+    dlnb = dy_ln.sum(0)
+    dxhat = dy_ln * lng.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = do32 + rstd * (dxhat - m1 - xhat * m2)
+    return dx.to(dt).reshape(x.shape), dlng, dlnb, dw1, db1, dw2, db2
+
+
+def _check_kernel_operands(x, w1, w2, vecs) -> list[torch.Tensor]:
+    """Shape/dtype/alignment checks shared by both kernels; returns the
+    1-D parameters as contiguous fp32."""
     check_tensor(x, "x", (torch.bfloat16,))
     d = x.shape[-1]
     hid = w1.shape[0]
@@ -64,23 +101,119 @@ def fused_ln_mlp(
                          f"of 8")
     if any(t.data_ptr() % 16 for t in (x, w1, w2)):
         raise ValueError("ln_mlp kernel: x, w1, w2 must be 16-byte aligned")
-    vecs = []
-    for name, p, size in (("ln_gamma", ln_gamma, d), ("ln_beta", ln_beta, d),
-                          ("b1", b1, hid), ("b2", b2, d)):
+    out = []
+    sizes = {"ln_gamma": d, "ln_beta": d, "b1": hid, "b2": d}
+    for name, p in vecs:
         check_tensor(p, name, (torch.float32, torch.bfloat16), 1, x.device)
-        if p.shape != (size,):
-            raise ValueError(f"ln_mlp kernel: {name} must be ({size},)")
-        vecs.append(p.float().contiguous())
-    lng, lnb, b1f, b2f = vecs
+        if p.shape != (sizes[name],):
+            raise ValueError(f"ln_mlp kernel: {name} must be ({sizes[name]},)")
+        out.append(p.float().contiguous())
+    return out
+
+
+def _ln_mlp_fwd_kernel(x, lng, lnb, w1, b1, w2, b2, eps):
+    lng, lnb, b1f, b2f = _check_kernel_operands(
+        x, w1, w2, (("ln_gamma", lng), ("ln_beta", lnb), ("b1", b1),
+                    ("b2", b2)))
+    d = x.shape[-1]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.launch(
             "amt_ln_mlp", x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
             w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-            out.data_ptr(), x.numel() // d, d, hid, eps, _build.stream_of(x),
+            out.data_ptr(), x.numel() // d, d, w1.shape[0], eps,
+            _build.stream_of(x),
         )
     fused_ln_mlp.launches += 1
     return out
+
+
+def fused_ln_mlp_backward(x, lng, lnb, w1, b1, w2, dy, *, eps: float = 1e-5):
+    """Gradients of ``fused_ln_mlp`` for the cotangent ``dy``: (dx in x's
+    dtype, dlng, dlnb, dw1, db1, dw2, db2 in fp32). ``w1``/``w2`` in x's
+    dtype. The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if not is_kernel_path(x):
+        return _ln_mlp_backward_reference(x, lng, lnb, w1, b1, w2, dy, eps)
+    dy = dy.contiguous()
+    check_tensor(dy, "dy", (x.dtype,), x.dim(), x.device)
+    if dy.shape != x.shape or dy.data_ptr() % 16:
+        raise ValueError("ln_mlp backward: dy must match x, 16-byte aligned")
+    lng, lnb, b1f = _check_kernel_operands(
+        x, w1, w2, (("ln_gamma", lng), ("ln_beta", lnb), ("b1", b1)))
+    d, hid = x.shape[-1], w1.shape[0]
+    n = x.numel() // d
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    # first pass -> scratch: yc (n, d), G and dH (n, hid) in bf16, per-block
+    # partial sums of dlng / dlnb and per-16-row partial sums of db1 (over
+    # the fp32 dH); second pass -> the weight gradients
+    yc = torch.empty(n, d, dtype=x.dtype, device=dev)
+    gs = torch.empty(n, hid, dtype=x.dtype, device=dev)
+    dhs = torch.empty(n, hid, dtype=x.dtype, device=dev)
+    blocks = -(-n // BWD_ROWS)
+    part = torch.empty(2, blocks, d, **f32)
+    dhpart = torch.empty(2 * blocks, hid, **f32)
+    dlng, dlnb = torch.empty(d, **f32), torch.empty(d, **f32)
+    dw1, db1 = torch.empty(hid, d, **f32), torch.empty(hid, **f32)
+    dw2, db2 = torch.empty(d, hid, **f32), torch.empty(d, **f32)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "amt_ln_mlp_bwd", x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+            w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), yc.data_ptr(), gs.data_ptr(), dhs.data_ptr(),
+            part.data_ptr(), dhpart.data_ptr(), dlng.data_ptr(),
+            dlnb.data_ptr(),
+            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
+            n, d, hid, eps, _build.stream_of(x),
+        )
+    fused_ln_mlp_backward.launches += 1
+    return dx, dlng, dlnb, dw1, db1, dw2, db2
+
+
+fused_ln_mlp_backward.launches = 0
+
+
+class _LnMlp(torch.autograd.Function):
+    """Forward and backward kernels; weights cast to x's dtype inside."""
+
+    @staticmethod
+    def forward(ctx, x, lng, lnb, w1, b1, w2, b2, eps):
+        w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
+        ctx.eps = eps
+        ctx.dtypes = tuple(p.dtype for p in (lng, lnb, w1, b1, w2, b2))
+        ctx.save_for_backward(x, lng, lnb, w1c, b1, w2c)
+        return _ln_mlp_fwd_kernel(x, lng, lnb, w1c, b1, w2c, b2, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, lng, lnb, w1c, b1, w2c = ctx.saved_tensors
+        grads = fused_ln_mlp_backward(x, lng, lnb, w1c, b1, w2c, dy,
+                                      eps=ctx.eps)
+        dx, rest = grads[0], grads[1:]
+        return (dx, *(g.to(dt) for g, dt in zip(rest, ctx.dtypes)), None)
+
+
+def fused_ln_mlp(
+    x: torch.Tensor,         # (..., d) bf16
+    ln_gamma: torch.Tensor,  # (d,)
+    ln_beta: torch.Tensor,   # (d,)
+    w1: torch.Tensor,        # (hid, d)
+    b1: torch.Tensor,        # (hid,)
+    w2: torch.Tensor,        # (d, hid)
+    b2: torch.Tensor,        # (d,)
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Differentiable x + gelu(LN(x) @ w1^T + b1) @ w2^T + b2: the kernels
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if not is_kernel_path(x):
+        return _ln_mlp_reference(x, ln_gamma, ln_beta, w1, b1, w2, b2, eps)
+    args = (x, ln_gamma, ln_beta, w1, b1, w2, b2)
+    if needs_grad(*args):
+        return _LnMlp.apply(*args, eps)
+    return _ln_mlp_fwd_kernel(x, ln_gamma, ln_beta, w1.to(x.dtype), b1,
+                              w2.to(x.dtype), b2, eps)
 
 
 fused_ln_mlp.launches = 0

@@ -5,6 +5,11 @@ biased variance (torch ``F.layer_norm`` semantics), optional beta, output in
 the input's dtype. The kernel takes any last dim up to 4096 (1024 when it is
 not a multiple of the 16-byte vector width), so the patch-embed LayerNorm at
 d = 192 runs on it too.
+
+On the card the kernel is the forward of ``_LayerNormFn``; its backward is
+the plain vjp of ``_ln_reference``, as the JAX package's ``_ln_b_bwd`` /
+``_ln_nb_bwd`` take it. Without a gradient to record (serving, ``no_grad``)
+the wrapper launches the kernel directly (``needs_grad``).
 """
 
 from __future__ import annotations
@@ -12,7 +17,11 @@ from __future__ import annotations
 import torch
 
 from attention_models_torch.ops import _build
-from attention_models_torch.ops.dispatch import check_tensor, is_kernel_path
+from attention_models_torch.ops.dispatch import (
+    check_tensor,
+    is_kernel_path,
+    needs_grad,
+)
 
 
 def _ln_reference(x: torch.Tensor, gamma: torch.Tensor,
@@ -28,13 +37,9 @@ def _ln_reference(x: torch.Tensor, gamma: torch.Tensor,
     return y.to(x.dtype)
 
 
-def layernorm(x: torch.Tensor, gamma: torch.Tensor,
-              beta: torch.Tensor | None = None,
-              eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis of ``x`` (..., d): the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
-    if not is_kernel_path(x):
-        return _ln_reference(x, gamma, beta, eps)
+def _layernorm_kernel(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor | None, eps: float) -> torch.Tensor:
+    """Checks, then one launch of the kernel; counts the launch."""
     check_tensor(x, "x", (torch.float32, torch.bfloat16))
     d = x.shape[-1]
     vec = 16 // x.element_size()
@@ -57,6 +62,40 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor,
         )
     layernorm.launches += 1
     return y
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """Forward: the kernel. Backward: the plain vjp of ``_ln_reference``."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, gamma, beta)
+        return _layernorm_kernel(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(True)
+                  for t in (x, gamma, beta) if t is not None]
+        with torch.enable_grad():
+            y = _ln_reference(inputs[0], inputs[1],
+                              inputs[2] if beta is not None else None, ctx.eps)
+            grads = torch.autograd.grad(y, inputs, g)
+        dbeta = grads[2] if beta is not None else None
+        return grads[0], grads[1], dbeta, None
+
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor,
+              beta: torch.Tensor | None = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Differentiable LayerNorm over the last axis of ``x`` (..., d): the
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not is_kernel_path(x):
+        return _ln_reference(x, gamma, beta, eps)
+    if needs_grad(x, gamma, beta):
+        return _LayerNormFn.apply(x, gamma, beta, eps)
+    return _layernorm_kernel(x, gamma, beta, eps)
 
 
 layernorm.launches = 0

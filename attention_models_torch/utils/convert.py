@@ -1,10 +1,16 @@
-"""flax ViTVQGAN params -> the port's ``state_dict``.
+"""flax params -> the port's ``state_dict``s.
 
-The inverse of ``attention_models_tpu/utils/torch_convert.py::
-convert_vitvqgan``, written against plain nested dicts of arrays (anything
-``np.asarray`` takes), so this module needs neither JAX nor flax. Dense
-kernels (in, out) are transposed to torch Linear weights (out, in); LayerNorm
-gamma/beta become weight/bias; names become the reference PyTorch keys.
+Written against plain nested dicts of arrays (anything ``np.asarray`` takes),
+so this module needs neither JAX nor flax:
+- ``from_jax_params``: the ViTVQGAN generator, the inverse of
+  ``attention_models_tpu/utils/torch_convert.py::convert_vitvqgan``. Dense
+  kernels (in, out) are transposed to torch Linear weights (out, in);
+  LayerNorm gamma/beta become weight/bias; names become the reference
+  PyTorch keys.
+- ``discriminator_from_jax``: ``NLayerDiscriminator`` params and
+  ``batch_stats``.
+- ``lpips_from_jax``: the LPIPS VGG16 tower and its 1x1 heads.
+Conv kernels go from flax HWIO to torch OIHW.
 """
 
 from __future__ import annotations
@@ -64,4 +70,39 @@ def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     _ln(dec["pre_norm"], "decoder.pre_norm", sd)
     _blocks(dec, "decoder.decoder", sd)
     _lin(dec["fc"], "decoder.fc", sd)
+    return sd
+
+
+def _conv(tree: Mapping, key: str, sd: dict) -> None:
+    sd[f"{key}.weight"] = _t(tree["kernel"]).permute(3, 2, 0, 1).contiguous()
+    if "bias" in tree:
+        sd[f"{key}.bias"] = _t(tree["bias"])
+
+
+def discriminator_from_jax(params: Mapping, batch_stats: Mapping
+                           ) -> dict[str, torch.Tensor]:
+    """flax ``NLayerDiscriminator`` params + batch_stats -> ``state_dict``
+    for ``models.discriminator.NLayerDiscriminator``."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, tree in params.items():
+        if name.startswith("conv"):
+            _conv(tree, name, sd)
+        else:  # bn{n}
+            sd[f"{name}.scale"] = _t(tree["scale"])
+            sd[f"{name}.bias"] = _t(tree["bias"])
+            sd[f"{name}.mean"] = _t(batch_stats[name]["mean"])
+            sd[f"{name}.var"] = _t(batch_stats[name]["var"])
+    return sd
+
+
+def lpips_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``LPIPS`` params (with or without the top-level ``"params"``)
+    -> ``state_dict`` for ``training.losses.LPIPS``."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for name, conv in tree["vgg"].items():
+        _conv(conv, f"vgg.{name}", sd)
+    for i in range(5):
+        _conv(tree[f"lin{i}"], f"lins.{i}", sd)
     return sd

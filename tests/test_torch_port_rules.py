@@ -1,10 +1,14 @@
 """Rules of the PyTorch/CUDA port (attention_models_torch):
 
 - it imports neither JAX nor the JAX package, and chip_smoke.py neither;
-- entry points default to the card and raise without CUDA; device="cpu"
-  runs the plain path;
+  importing it needs neither Pillow nor PyYAML;
+- entry points (the inference entry, the training CLI, the trainer) default
+  to the card and raise without CUDA; device="cpu" runs the plain path;
 - a kernel wrapper given CPU tensors runs its plain version and leaves its
-  launch counter alone.
+  launch counter alone;
+- on the kernel path a tensor that needs a gradient goes through the op's
+  ``torch.autograd.Function`` (kernel forward, kernel or plain backward), so
+  the graph is never cut; without one the forward kernel runs directly.
 """
 
 import ast
@@ -31,8 +35,8 @@ def test_port_imports_no_jax():
         "import attention_models_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'attention_models_tpu')]\n"
-        "assert len(mods) >= 15, mods\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'attention_models_tpu', 'yaml', 'PIL')]\n"
+        "assert len(mods) >= 30, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -63,10 +67,31 @@ def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch):
     assert '"ok"' not in res.stdout
 
 
+OVERFIT = str(ROOT / "cfg_exp" / "vitvqgan_overfit.yaml")
+
+
+def _train_cli():
+    from attention_models_torch.main import main
+
+    main([f"--config={OVERFIT}"])
+
+
+def _trainer():
+    from attention_models_torch.data.loaders import build_loader
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.training.build_trainer import build_trainer
+    from attention_models_torch.utils.config import load_config
+
+    cfg = load_config(OVERFIT)
+    build_trainer(cfg, build_model(cfg), build_loader(cfg))
+
+
 @pytest.mark.parametrize("call", [
     lambda: entry(),
     lambda: vitvqgan_base(device=None, img_size=32),
     lambda: dispatch.resolve_device("cuda"),
+    _train_cli,
+    _trainer,
 ])
 def test_card_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -104,6 +129,8 @@ def test_seeded_init_is_deterministic():
 def _wrapper_cases():
     rs = np.random.RandomState(0)
     t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))  # noqa: E731
+    q, kv, g = t(1, 16, 2, 64), t(1, 16, 2, 2, 64), t(1, 16, 2, 64)
+    o, lse = flash_attention._flash_reference(q, kv, 0.125, False)
     return [
         (ln_ops.layernorm, ln_ops._ln_reference,
          (t(8, 192), t(192), t(192)), (1e-5,)),
@@ -115,16 +142,29 @@ def _wrapper_cases():
         (ffn.fused_ln_mlp, ffn._ln_mlp_reference,
          (t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96), t(64)),
          (1e-5,)),
+        (lambda *a: flash_attention.flash_attention_bwd_kv(
+            *a, scale=0.125, causal=False),
+         flash_attention._flash_backward_reference,
+         (q, kv, o, lse, g), (0.125, False)),
+        (ffn.fused_ln_mlp_backward, ffn._ln_mlp_backward_reference,
+         (t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96), t(8, 64)),
+         (1e-5,)),
     ]
 
 
-@pytest.mark.parametrize("case", range(4))
+LAUNCH_COUNTERS = [ln_ops.layernorm, codebook.nearest_codes,
+                   flash_attention.flash_attention_bthd_kv, ffn.fused_ln_mlp,
+                   flash_attention.flash_attention_bwd_kv,
+                   ffn.fused_ln_mlp_backward]
+
+
+@pytest.mark.parametrize("case", range(6))
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     wrapper, plain, args, extra = _wrapper_cases()[case]
-    before = wrapper.launches
+    before = [c.launches for c in LAUNCH_COUNTERS]
     got = wrapper(*args)
     want = plain(*args, *extra)
-    assert wrapper.launches == before
+    assert [c.launches for c in LAUNCH_COUNTERS] == before
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
@@ -148,3 +188,82 @@ def test_inference_cli_runs_on_cpu(capsys):
 
 def test_sync_is_exported():
     assert callable(attention_models_torch.sync)
+
+
+def _fake_kernel_path(monkeypatch):
+    """The kernel path without a card: every op module takes CPU tensors as
+    if they were on the card, and each launch is replaced by its plain
+    version computed outside autograd (a kernel's output has no graph of
+    its own). Returns the list the fake launches append their names to."""
+    calls = []
+
+    def fake(name, fn):
+        def run(*a, **k):
+            calls.append(name)
+            with torch.no_grad():
+                return fn(*a, **k)
+        return run
+
+    for mod in (ln_ops, flash_attention, ffn):
+        monkeypatch.setattr(mod, "is_kernel_path", lambda t: True)
+    monkeypatch.setattr(ln_ops, "_layernorm_kernel",
+                        fake("layernorm", ln_ops._ln_reference))
+    monkeypatch.setattr(flash_attention, "_flash_fwd_kernel",
+                        fake("flash", flash_attention._flash_reference))
+    monkeypatch.setattr(
+        flash_attention, "flash_attention_bwd_kv",
+        fake("flash_bwd", lambda *a, scale, causal:
+             flash_attention._flash_backward_reference(*a, scale, causal)))
+    monkeypatch.setattr(ffn, "_ln_mlp_fwd_kernel",
+                        fake("ln_mlp", ffn._ln_mlp_reference))
+    monkeypatch.setattr(
+        ffn, "fused_ln_mlp_backward",
+        fake("ln_mlp_bwd", lambda *a, eps:
+             ffn._ln_mlp_backward_reference(*a, eps)))
+    return calls
+
+
+def _grad_cases():
+    rs = np.random.RandomState(1)
+    t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))  # noqa: E731
+    return {
+        "layernorm": (ln_ops.layernorm, ln_ops._ln_reference,
+                      [t(8, 64), t(64), t(64)], (1e-5,), "_LayerNormFn"),
+        "flash": (lambda q, kv: flash_attention.flash_attention_bthd_kv(
+                      q, kv, scale=0.125)[0],
+                  lambda q, kv: flash_attention._flash_reference(
+                      q, kv, 0.125, False)[0],
+                  [t(1, 16, 2, 64), t(1, 16, 2, 2, 64)], (), "_FlashKV"),
+        "ln_mlp": (ffn.fused_ln_mlp, ffn._ln_mlp_reference,
+                   [t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96),
+                    t(64)], (1e-5,), "_LnMlp"),
+    }
+
+
+@pytest.mark.parametrize("op", ["layernorm", "flash", "ln_mlp"])
+def test_kernel_path_keeps_the_autograd_graph(monkeypatch, op):
+    """Every kernel wrapper with an input that needs a gradient is reached
+    through its autograd Function, whose backward gives the plain
+    gradients; without a gradient the forward kernel runs directly."""
+    wrapper, plain, args, extra, fn_name = _grad_cases()[op]
+    want_args = [a.clone().requires_grad_(True) for a in args]
+    want_out = plain(*want_args, *extra)
+    cot = torch.ones_like(want_out)
+    want = torch.autograd.grad(want_out, want_args, cot)
+
+    calls = _fake_kernel_path(monkeypatch)
+    got_args = [a.clone().requires_grad_(True) for a in args]
+    out = wrapper(*got_args)
+    assert type(out.grad_fn).__name__ == fn_name + "Backward"
+    got = torch.autograd.grad(out, got_args, cot)
+    for a, b in zip(got, want):  # fp32; the explicit backwards sum in
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)  # other orders
+    fwd = {"layernorm": "layernorm", "flash": "flash", "ln_mlp": "ln_mlp"}[op]
+    assert calls[0] == fwd
+    assert calls[1:] == ({"flash": ["flash_bwd"], "ln_mlp": ["ln_mlp_bwd"]}
+                         .get(op, []))
+
+    calls.clear()
+    with torch.no_grad():
+        out = wrapper(*got_args)
+    assert out.grad_fn is None and calls == [fwd]
