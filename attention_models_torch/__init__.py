@@ -5,17 +5,19 @@ against), for one NVIDIA H100. It imports torch and never JAX.
 
 - ``ops``       — kernel wrappers and their plain versions: flash attention on
                   packed kv and the fused LN + MLP block (forward and
-                  backward), LayerNorm, the nearest-code argmin; the
+                  backward), LayerNorm, the nearest-code argmin, the GEGLU
+                  FFN, the samplers and the fused sampling epilogue; the
                   autograd Functions around them. Kernels are CUDA C++ in
                   ``csrc/``, built with nvcc at first use (``ops/_build.py``).
 - ``models``    — the ViTVQGAN tokenizer with the reference's parameter
-                  names, the PatchGAN discriminator, ``build_model``.
+                  names, the PatchGAN discriminator, the transformer encoder
+                  and MaskGIT over the tokenizer, ``build_model``.
 - ``training``  — GAN losses and LPIPS, optax-style Adam, schedules, the
                   base and ViTVQGAN trainers.
 - ``data``      — synthetic and COCO datasets, the transform, the loader.
 - ``utils``     — config, checkpoints, metrics, eval metrics, flax params ->
                   ``state_dict`` conversion.
-- ``serving``   — the tokenize and reconstruct batch programs.
+- ``serving``   — the tokenize, reconstruct and MaskGIT batch programs.
 - ``entry``     — the serving path's entry point; ``main`` the training CLI.
 """
 

@@ -1,32 +1,117 @@
-"""build_model(cfg): the config's model, unplaced and not yet initialised
-(the trainer seeds and places it).
+"""build_model(cfg): the config's model.
 
-Counterpart of ``attention_models_tpu/models/factory.py``'s ``vitvqgan``
-branch: ``model.transformer`` gives the ViT widths,
-``dataset.preprocessing.resolution`` the image size, ``codebook`` the
-quantiser, and ``training.mixed_precision: bf16`` the bf16 compute dtype
-over fp32 parameters. Other models raise until their slice is ported.
+Counterpart of ``attention_models_tpu/models/factory.py``. The compute
+dtype is bf16 over fp32 parameters with ``training.mixed_precision: bf16``,
+fp32 otherwise.
+
+- ``vitvqgan``: ``model.transformer`` gives the ViT widths,
+  ``dataset.preprocessing.resolution`` the image size, ``codebook`` the
+  quantiser. Unplaced and not yet initialised: the trainer seeds and places
+  it.
+- ``maskgit``: the generator over the ``vitvqgan`` block's tokenizer. It
+  has no trainer yet, so it comes seeded from ``training.seed``, with the
+  tokenizer checkpoint ``vitvqgan.checkpoint`` loaded over its ``vq`` when
+  the file exists, placed on ``device`` (None: the card, raising without
+  CUDA; ``"cpu"`` runs the plain path). Its decode is deterministic, so
+  ``model.dropout`` waits for the training slice; ``training.remat``,
+  ``training.scan_layers``, ``training.pipeline_microbatches`` and
+  ``model.quant`` are not ported yet and raise.
+
+Other models raise until their slice is ported.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+
 import torch
 
+from attention_models_torch.models.maskgit import MaskGitTransformer
 from attention_models_torch.models.vitvqgan import ViTVQGAN
+from attention_models_torch.ops.dispatch import resolve_device
+
+log = logging.getLogger(__name__)
 
 
-def build_model(cfg) -> ViTVQGAN:
-    name = cfg.model.name
-    if name != "vitvqgan":
-        raise NotImplementedError(f"model {name!r} is not ported yet")
-    t = cfg.model.transformer
+def _dtype(cfg) -> torch.dtype:
     mp = str(cfg.training.get("mixed_precision", "no") or "no")
-    return ViTVQGAN(
-        vit_params=dict(
-            dim=t.dim, img_size=cfg.dataset.preprocessing.resolution,
-            patch_size=t.patch_size, n_heads=t.n_heads, d_head=t.d_head,
-            depth=t.depth, mlp_dim=t.mlp_dim, dropout=t.dropout),
-        codebook_params=dict(codebook_dim=cfg.codebook.codebook_dim,
-                             codebook_size=cfg.codebook.codebook_size),
-        dtype=torch.bfloat16 if mp == "bf16" else torch.float32,
-    )
+    return torch.bfloat16 if mp == "bf16" else torch.float32
+
+
+def _vit_params(node, cfg) -> dict:
+    return dict(dim=node.dim, img_size=cfg.dataset.preprocessing.resolution,
+                patch_size=node.patch_size, n_heads=node.n_heads,
+                d_head=node.d_head, depth=node.depth, mlp_dim=node.mlp_dim,
+                dropout=node.dropout)
+
+
+def _codebook_params(cfg) -> dict:
+    return dict(codebook_dim=cfg.codebook.codebook_dim,
+                codebook_size=cfg.codebook.codebook_size)
+
+
+def load_vq_checkpoint(path: str | None) -> dict[str, torch.Tensor] | None:
+    """The frozen tokenizer's ``state_dict``: a reference ``VitVQGAN.pt``
+    (its keys are the port's), or the port's own VQGANTrainer checkpoint
+    (a ``step_<n>.pt`` file or its directory, the newest step; the EMA
+    weights over the live ones when it kept an EMA). A missing path warns
+    and returns None (the tokenizer keeps its seeded init); a directory of
+    another kind (the JAX package's orbax checkpoints) raises."""
+    if not path or not os.path.exists(path):
+        log.warning("VQ checkpoint %s not found; frozen tokenizer keeps its "
+                    "seeded init", path)
+        return None
+    if os.path.isdir(path):
+        from attention_models_torch.utils.checkpoint import CheckpointManager
+
+        if CheckpointManager(path).latest_step() is None:
+            raise NotImplementedError(
+                f"{path}: orbax checkpoint directories are not ported; give "
+                f"a VitVQGAN.pt or a checkpoint of the port's VQGANTrainer")
+        ckpt = CheckpointManager(path).restore()
+    else:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if "g" in ckpt:  # VQGANTrainer.state_dict() + "ema"
+        return {**ckpt["g"], **(ckpt.get("ema") or {})}
+    return ckpt.get("state_dict", ckpt)
+
+
+def _refuse_unported(cfg) -> None:
+    for key, on in (
+            ("training.remat", cfg.training.get("remat", False)),
+            ("training.scan_layers", cfg.training.get("scan_layers", False)),
+            ("training.pipeline_microbatches",
+             cfg.training.get("pipeline_microbatches") is not None),
+            ("model.quant (int8)", cfg.model.get("quant") is not None)):
+        if on:
+            raise NotImplementedError(f"{key} is not ported yet")
+
+
+def build_model(cfg, device: str | torch.device | None = None):
+    """The config's model; ``device`` places the ``maskgit`` model (the
+    ``vitvqgan`` model is placed by its trainer)."""
+    name = cfg.model.name
+    if name == "vitvqgan":
+        t = cfg.model.transformer
+        return ViTVQGAN(vit_params=_vit_params(t, cfg),
+                        codebook_params=_codebook_params(cfg),
+                        dtype=_dtype(cfg))
+    if name == "maskgit":
+        dev = resolve_device(device)
+        _refuse_unported(cfg)
+        m = cfg.model
+        model = MaskGitTransformer(
+            dim=m.dim,
+            vq_config=dict(vit_params=_vit_params(cfg.vitvqgan.transformer, cfg),
+                           codebook_params=_codebook_params(cfg)),
+            vocab_size=cfg.codebook.codebook_size, n_heads=m.n_heads,
+            d_head=m.d_head, dec_depth=m.depth, mult=m.mult,
+            dtype=_dtype(cfg))
+        model.reset_parameters(
+            torch.Generator().manual_seed(int(cfg.training.get("seed", 0))))
+        vq = load_vq_checkpoint(cfg.vitvqgan.get("checkpoint"))
+        if vq is not None:
+            model.vq.load_state_dict(vq)
+        return model.to(dev)
+    raise NotImplementedError(f"model {name!r} is not ported yet")

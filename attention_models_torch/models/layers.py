@@ -1,8 +1,10 @@
-"""Layers of the ViTVQGAN path: LayerNorm, Mlp, the fused pre-LN MLP block.
+"""Layers of the ViTVQGAN and MaskGIT paths: LayerNorm, Mlp, the fused
+pre-LN MLP block; the gamma-only LayerNorm and the GEGLU FeedForward.
 
 Counterparts of ``attention_models_tpu/models/layers.py``. Parameter names
 are the reference PyTorch modules' (``weight``/``bias``; the Mlp is a
-``Sequential`` of Linear, GELU, Linear, so its keys are ``0.*`` and ``2.*``).
+``Sequential`` of Linear, GELU, Linear, so its keys are ``0.*`` and ``2.*``;
+the FeedForward's ``ff`` is Linear, GEGLU, GammaLayerNorm, Linear).
 
 ``Linear`` casts its weight and bias to the activations' dtype at use (an
 autograd-tracked ``.to()``, a no-op when they already are in it), so a model
@@ -22,7 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from attention_models_torch.ops.ffn import _ln_mlp_reference, fused_ln_mlp
+from attention_models_torch.ops.ffn import (
+    _ffn_reference,
+    _ln_mlp_reference,
+    ffn_supported,
+    fused_ffn,
+    fused_ln_mlp,
+    gelu_exact,
+)
 from attention_models_torch.ops.layernorm import _ln_reference, layernorm
 
 
@@ -77,6 +86,56 @@ def ln_mlp_block(x: torch.Tensor, norm: LayerNorm, mlp: Mlp, *,
             return fused_ln_mlp(*args, eps=norm.eps)
         return _ln_mlp_reference(*args, norm.eps)
     return x + mlp(norm(x))
+
+
+class GammaLayerNorm(nn.Module):
+    """LayerNorm with a learnable ``gamma`` and a zero ``beta`` buffer that
+    is never trained (the reference's gamma-only LayerNorm, whose
+    ``state_dict`` holds both); it runs as the beta-less LayerNorm."""
+
+    eps = 1e-5
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.register_buffer("beta", torch.zeros(dim))
+        self.kernels = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = layernorm if self.kernels else _ln_reference
+        return fn(x, self.gamma, None, self.eps)
+
+
+class GEGLU(nn.Module):
+    """a, gate = chunk(2): gate * gelu(a), gelu on the FIRST half."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, gate = x.chunk(2, dim=-1)
+        return gate * gelu_exact(a)
+
+
+class FeedForward(nn.Module):
+    """GEGLU FFN: Linear(2 * inner, no bias) -> GEGLU -> GammaLayerNorm(inner)
+    -> Linear(dim, no bias), inner = int(dim * mult * 2 / 3); keys ``ff.0``,
+    ``ff.2.gamma``, ``ff.3``. Under the JAX package's gate (``ffn_supported``)
+    the whole block is one fused op (the ffn kernel on the card); otherwise
+    the unfused chain, its LayerNorm through the LayerNorm op."""
+
+    def __init__(self, dim: int, mult: float = 4):
+        super().__init__()
+        inner = int(dim * mult * 2 / 3)
+        self.ff = nn.Sequential(Linear(dim, 2 * inner, bias=False), GEGLU(),
+                                GammaLayerNorm(inner),
+                                Linear(inner, dim, bias=False))
+        self.kernels = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w1, _, norm, w2 = self.ff
+        inner = norm.gamma.shape[0]
+        if ffn_supported(x.shape, x.shape[-1], inner):
+            fn = fused_ffn if self.kernels else _ffn_reference
+            return fn(x, w1.weight, norm.gamma, w2.weight, eps=norm.eps)
+        return self.ff(x)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

@@ -1,0 +1,191 @@
+"""MaskGIT: a bidirectional transformer over the frozen ViTVQGAN's token
+grid, and its iterative parallel decode.
+
+Counterpart of ``attention_models_tpu/models/maskgit.py``. Keys: ``vq.*``
+(the tokenizer, frozen), ``bidirectional_transformer.{input_proj.weight
+(vocab + 1 rows, the last the mask token), pos_enc, init_norm,
+decoder.layers.{i}, final_norm, linear.weight (no bias)}``. The embedding
+table, ``pos_enc`` and the head are cast to the compute dtype at use, as
+flax's ``dtype=`` does; the parameters stay in their own dtype.
+
+``generate`` keeps the JAX loop step for step: ``ts = linspace(0, 1, T)``;
+``num_to_mask = max(int(cos(t * pi / 2) * num_masked), 1)`` in fp32; the
+lowest-confidence ``num_to_mask`` positions (stable, ties toward earlier
+positions) within the re-maskable set are masked; the logits are sampled
+with top-k filtered Gumbel noise at temperature ``steps_left / T``; the
+scores are the chosen classes' softmax probabilities on the masked
+positions and 1.0 elsewhere; the final ids are decoded by the tokenizer.
+Exact mode draws its noise from one ``torch.Generator`` per row, approx
+mode runs the fused epilogue (kernel on the card) with a Philox seed per
+row, so a row's ids never depend on the rest of the batch. ``noise``
+replaces both with given per-step Gumbel draws (approx mode then runs the
+unfused chain, as the JAX package does off the TPU). The training loss
+(``targets=``) and dropout come with the generator-training slice; the
+forward here is flax's ``deterministic=True`` one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from attention_models_torch.models.layers import (
+    GammaLayerNorm,
+    Linear,
+    lecun_normal_,
+)
+from attention_models_torch.models.vitvqgan import ViTVQGAN
+from attention_models_torch.models.transformer import Encoder
+from attention_models_torch.models.vq_common import build_vq, vq_num_patches
+from attention_models_torch.ops.sampling import (
+    _sample_epilogue_reference,
+    cosine_schedule,
+    gumbel,
+    lowest_score_mask,
+    num_kept,
+    sample_epilogue_fused,
+    sample_topk_filtered,
+)
+
+
+def decode_schedule(timesteps: int, num_masked: int) -> list[tuple[int, float]]:
+    """(num_to_mask, temperature) of each decode step, in fp32 as the JAX
+    loop computes them: ts = linspace(0, 1, T) (iota / (T - 1)),
+    max(int(cos(t * pi / 2) * num_masked), 1), steps_left / T."""
+    ts = torch.arange(timesteps, dtype=torch.float32)
+    if timesteps > 1:
+        ts = ts / (timesteps - 1)
+    counts = (cosine_schedule(ts) * num_masked).to(torch.int32).clamp(min=1)
+    return [(int(c), float(np.float32(timesteps - 1 - i) / np.float32(timesteps)))
+            for i, c in enumerate(counts)]
+
+
+class BiDirectionalTransformer(nn.Module):
+    """Embedding(vocab + 1) + pos_enc -> gamma-LN -> Encoder -> gamma-LN ->
+    no-bias head. ``dtype`` is the compute dtype (None: the parameters')."""
+
+    def __init__(self, dim: int, vocab_size: int = 8192, num_patches: int = 256,
+                 n_heads: int = 8, d_head: int = 64, dec_depth: int = 6,
+                 mult: float = 4, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.input_proj = nn.Embedding(vocab_size + 1, dim)
+        self.pos_enc = nn.Parameter(torch.zeros(1, num_patches, dim))
+        self.init_norm = GammaLayerNorm(dim)
+        self.decoder = Encoder(dim, n_heads, d_head, dec_depth, mult)
+        self.final_norm = GammaLayerNorm(dim)
+        self.linear = Linear(dim, vocab_size, bias=False)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.compute_dtype or self.linear.weight.dtype
+
+    def forward(self, x: torch.Tensor, targets=None) -> torch.Tensor:
+        """Token ids (b, n) -> logits (b, n, vocab) in the compute dtype."""
+        if targets is not None:
+            raise NotImplementedError(
+                "the training loss (targets=) comes with the generator "
+                "training slice")
+        dt = self.dtype
+        h = F.embedding(x.long(), self.input_proj.weight).to(dt)
+        h = self.init_norm(h + self.pos_enc.to(dt))
+        h = self.final_norm(self.decoder(h))
+        return self.linear(h)
+
+
+class MaskGitTransformer(nn.Module):
+    def __init__(self, dim: int, vq_config: dict, vocab_size: int = 8192,
+                 n_heads: int = 8, d_head: int = 64, dec_depth: int = 6,
+                 mult: float = 4, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.vq = build_vq(vq_config, dtype=dtype).requires_grad_(False)
+        self.mask_token_id = vocab_size
+        self.num_patches = vq_num_patches(vq_config)
+        self.bidirectional_transformer = BiDirectionalTransformer(
+            dim, vocab_size, self.num_patches, n_heads, d_head, dec_depth,
+            mult, dtype)
+        self.kernels = True
+
+    def forward(self, imgs, *args, **kwargs):
+        raise NotImplementedError(
+            "the MaskGIT training loss comes with the generator training "
+            "slice; serving calls generate()")
+
+    use_kernels = ViTVQGAN.use_kernels  # the tokenizer's modules included
+
+    def reset_parameters(self, generator: torch.Generator) -> "MaskGitTransformer":
+        """The JAX package's inits: the tokenizer's own, lecun-normal Linear
+        weights and zero biases, unit gammas, google-maskgit's normal(0.02)
+        truncated at 2 sd for the embedding, position table and head."""
+        self.vq.reset_parameters(generator)
+        t = self.bidirectional_transformer
+        with torch.no_grad():
+            for m in t.modules():
+                if isinstance(m, nn.Linear) and m is not t.linear:
+                    lecun_normal_(m.weight, generator)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, GammaLayerNorm):
+                    m.gamma.fill_(1.0)
+            for p in (t.input_proj.weight, t.pos_enc, t.linear.weight):
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04,
+                                      generator=generator)
+        return self
+
+    def encode_to_indices(self, imgs: torch.Tensor) -> torch.Tensor:
+        """The frozen tokenizer's token grid (b, n) of ``imgs``."""
+        with torch.no_grad():
+            return self.vq.encode_imgs(imgs)
+
+    @torch.no_grad()
+    def generate(self, imgs: torch.Tensor | None = None, batch: int = 1,
+                 num_masked: int = 200, timesteps: int = 18,
+                 filter_p: float = 0.9, approx_topk: bool = False, *,
+                 seeds=None, noise=None) -> torch.Tensor:
+        """Images (b, 3, H, W) decoded from ids sampled from scratch
+        (``imgs=None``: ``batch`` rows, every position re-maskable) or by
+        inpainting the first ``num_masked`` positions of ``imgs``' tokens.
+        ``seeds``: one int per row (default 0, 1, ...). ``noise``: per-step
+        Gumbel draws, (b, n, k) in exact mode and (b, n, C) in approx mode."""
+        t = self.bidirectional_transformer
+        dev = t.pos_enc.device
+        n = self.num_patches
+        if imgs is None:
+            ids = torch.full((batch, n), self.mask_token_id, dtype=torch.long,
+                             device=dev)
+            base_mask = torch.ones(batch, n, dtype=torch.bool, device=dev)
+        else:
+            batch = imgs.shape[0]
+            ids = self.vq.encode_imgs(imgs).long()
+            base_mask = (torch.arange(n, device=dev) < num_masked).expand(batch, n)
+        seeds = torch.as_tensor(np.arange(batch) if seeds is None else
+                                np.asarray(seeds), dtype=torch.int64)
+        if seeds.shape != (batch,):
+            raise ValueError(f"seeds: one per row ({batch}), got {tuple(seeds.shape)}")
+        k = num_kept(t.linear.weight.shape[0], filter_p)
+        gens = ([torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
+                if not approx_topk and noise is None else None)
+        scores = torch.zeros(batch, n, device=dev)
+        epilogue = (sample_epilogue_fused if self.kernels
+                    else _sample_epilogue_reference)
+        for step, (num_to_mask, temperature) in enumerate(
+                decode_schedule(timesteps, num_masked)):
+            mask = lowest_score_mask(scores, num_to_mask) & base_mask
+            logits = t(torch.where(mask, self.mask_token_id, ids))
+            if approx_topk and noise is None:
+                pred, new_scores = epilogue(
+                    logits, p=filter_p, temperature=temperature,
+                    seeds=seeds.to(dev), step=step)
+            else:
+                nz = noise[step] if noise is not None else torch.stack(
+                    [gumbel((n, k), g, dev) for g in gens])
+                pred, chosen = sample_topk_filtered(
+                    logits, filter_p, temperature, approx=approx_topk, noise=nz)
+                new_scores = torch.exp(
+                    chosen - torch.logsumexp(logits.float(), dim=-1))
+            ids = torch.where(mask, pred.long(), ids)
+            scores = torch.where(mask, new_scores, 1.0)
+        return self.vq.decode_indices(ids)
+

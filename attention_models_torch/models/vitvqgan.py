@@ -137,7 +137,10 @@ class Codebook(nn.Module):
         return fn(flat, table).reshape(z.shape[:-1])
 
     def indices_to_embeddings(self, indices: torch.Tensor) -> torch.Tensor:
-        return l2_normalize(self.embedding(indices.long()).float())
+        """Indices past the table read its last row, as JAX's gather clamps
+        them (MaskGIT's never-unmasked positions hold the mask token id)."""
+        idx = indices.long().clamp(max=self.embedding.num_embeddings - 1)
+        return l2_normalize(self.embedding(idx).float())
 
     def forward(self, z: torch.Tensor):
         zn = l2_normalize(z.float())

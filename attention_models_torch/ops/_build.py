@@ -42,6 +42,9 @@ _SIGNATURES = {
     "amt_ln_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "amt_flash_bwd_kv": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp_bwd": [_P] * 19 + [_I, _I, _I, _F, _P],
+    "amt_ffn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+    "amt_sample_epilogue": [_P] * 4 + [_I, _I, _P, _P, _I, _I, _I, _I, _F,
+                                       _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

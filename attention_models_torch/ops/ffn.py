@@ -1,10 +1,16 @@
-"""Fused pre-LN MLP block, x + Mlp(LayerNorm(x)), forward and backward:
-kernels (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu) and plain versions.
+"""Fused feed-forward blocks: kernels and plain versions.
 
-Counterpart of ``attention_models_tpu/ops/ffn.py``'s ``fused_ln_mlp`` (bf16
-only on the kernel path, as there). Weights are in the torch Linear layout:
-w1 (hid, d), w2 (d, hid). The kernels' gelu uses the true erf; the TPU
-kernels' A&S polynomial differs from it by at most 1.5e-7.
+- ``fused_ln_mlp``: the pre-LN MLP block x + Mlp(LayerNorm(x)), forward and
+  backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu).
+- ``fused_ffn``: the GEGLU FFN LN_gamma(gate * gelu(a)) W2 with
+  [a | gate] = x W1, no biases (csrc/ffn.cu), forward only: its backward
+  comes with the generator-training slice.
+
+Counterparts of ``attention_models_tpu/ops/ffn.py``'s ``fused_ln_mlp``
+(bf16 only on the kernel path, as there) and ``fused_ffn`` (bf16 and fp32).
+Weights are in the torch Linear layout: w1 (hid, d), w2 (d, hid). The
+kernels' gelu uses the true erf; the TPU kernels' A&S polynomial differs
+from it by at most 1.5e-7.
 
 On the card ``_LnMlp`` wires the two kernels into autograd, as
 ``_ln_mlp.defvjp`` does: the forward takes the (fp32 master) weights and
@@ -217,3 +223,79 @@ def fused_ln_mlp(
 
 
 fused_ln_mlp.launches = 0
+
+
+def _ffn_reference(x, w1, gamma, w2, eps):
+    """Plain version of the GEGLU FFN with the TPU kernel's rounding points:
+    H = x w1^T from x's dtype's operands into fp32, g = gate * gelu(a) and
+    its two-pass LN statistics in fp32, y = ghat * gamma rounded to x's
+    dtype before the W2 product. In fp32 it is the JAX package's
+    ``_ffn_reference``; in bf16 that one also rounds H and g to bf16, which
+    the kernel does not. w1 (2i, d), w2 (d, i)."""
+    dt = x.dtype
+    h = F.linear(x.float(), w1.to(dt).float())
+    i = w2.shape[1]
+    g = h[..., i:] * gelu_exact(h[..., :i])
+    mean = g.mean(-1, keepdim=True)
+    var = g.var(-1, keepdim=True, unbiased=False)
+    y = (g - mean) / torch.sqrt(var + eps) * gamma.float()
+    return F.linear(y.to(dt), w2.to(dt))
+
+
+def ffn_supported(shape: tuple, d: int, inner: int) -> bool:
+    """The JAX package's fused-FFN gate without its backend test: inner and
+    d lane-aligned (128), the rows a nonzero multiple of 8."""
+    n = math.prod(shape[:-1])
+    return inner % 128 == 0 and d % 128 == 0 and n % 8 == 0 and n >= 8
+
+
+def fused_ffn(
+    x: torch.Tensor,      # (..., d) bf16 or fp32
+    w1: torch.Tensor,     # (2i, d)
+    gamma: torch.Tensor,  # (i,)
+    w2: torch.Tensor,     # (d, i)
+    *,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LN_gamma(gate * gelu(a)) @ w2^T with [a | gate] = x @ w1^T, in x's
+    dtype (the weights are cast to it): the kernel for a CUDA tensor, the
+    plain version for a CPU tensor. The backward is not ported yet, so a
+    CUDA input that needs a gradient raises."""
+    if not is_kernel_path(x):
+        return _ffn_reference(x, w1, gamma, w2, eps)
+    if needs_grad(x, w1, gamma, w2):
+        raise NotImplementedError(
+            "fused_ffn: backward not ported yet (it comes with the generator "
+            "training slice); call it under torch.no_grad()")
+    check_tensor(x, "x", (torch.float32, torch.bfloat16))
+    d = x.shape[-1]
+    inner = w2.shape[1]
+    w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
+    if w1c.shape != (2 * inner, d) or w2c.shape != (d, inner):
+        raise ValueError(f"ffn kernel: w1 {tuple(w1.shape)} and w2 "
+                         f"{tuple(w2.shape)} do not fit d={d}")
+    if d % 128 or inner % 64:
+        raise ValueError(f"ffn kernel: d={d} must be a multiple of 128 and "
+                         f"inner={inner} of 64")
+    check_tensor(w1c, "w1", (x.dtype,), 2, x.device)
+    check_tensor(gamma, "gamma", (torch.float32, torch.bfloat16), 1, x.device)
+    if gamma.shape != (inner,):
+        raise ValueError(f"ffn kernel: gamma must be ({inner},)")
+    if any(t.data_ptr() % 16 for t in (x, w1c, w2c)):
+        raise ValueError("ffn kernel: x, w1, w2 must be 16-byte aligned")
+    n = x.numel() // d
+    g = torch.empty(n, inner, dtype=torch.float32, device=x.device)
+    y = torch.empty(n, inner, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    gam = gamma.float().contiguous()
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "amt_ffn", x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
+            w2c.data_ptr(), g.data_ptr(), y.data_ptr(), out.data_ptr(), n, d,
+            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x),
+        )
+    fused_ffn.launches += 1
+    return out
+
+
+fused_ffn.launches = 0

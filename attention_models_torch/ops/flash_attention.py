@@ -33,6 +33,7 @@ from attention_models_torch.ops.dispatch import (
 )
 
 HEAD_DIM = 64  # the head width the flash kernels are written for
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 
 
 def _check_causal_lengths(tq: int, tk: int) -> None:
@@ -63,11 +64,23 @@ def _scores(qh, kh, scale: float, causal: bool) -> torch.Tensor:
 def _flash_reference(q: torch.Tensor, kv: torch.Tensor, scale: float,
                      causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version: the full fp32 score matrix, its logsumexp and the
-    normalised product with v."""
+    normalised product with v. In bf16 with the kernels' rounding points
+    (the TPU kernel's and csrc/flash_attention.cu's): q scaled by
+    scale * log2(e) and rounded to bf16, the softmax in exp2, P rounded to
+    bf16 for the PV product while its row sum stays fp32."""
     qh, kh, vh = _heads(q, kv)
-    s = _scores(qh, kh, scale, causal)
-    lse = torch.logsumexp(s, dim=-1)                # (b, h, tq)
-    out = torch.exp(s - lse[..., None]) @ vh
+    if q.dtype == torch.bfloat16:
+        q2 = (qh * (scale * LOG2E)).to(q.dtype).float()
+        s2 = _scores(q2, kh, 1.0, causal)            # log2 domain
+        m = s2.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s2 - m)
+        lsum = p.sum(dim=-1, keepdim=True)
+        out = (p.to(q.dtype).float() @ vh) / lsum
+        lse = ((m + torch.log2(lsum)) * LN2)[..., 0]
+    else:
+        s = _scores(qh, kh, scale, causal)
+        lse = torch.logsumexp(s, dim=-1)            # (b, h, tq)
+        out = torch.exp(s - lse[..., None]) @ vh
     return (out.permute(0, 2, 1, 3).to(q.dtype),
             lse.permute(0, 2, 1).contiguous())
 

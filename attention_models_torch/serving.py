@@ -1,10 +1,11 @@
-"""Batch programs for the tokenizer services.
+"""Batch programs for the tokenizer and MaskGIT services.
 
-Counterparts of ``attention_models_tpu/serving.py``'s ``vq_encode_service``
-and ``vq_recon_service``: each returns ``run_batch(imgs, seeds)``, taking a
-batch of images (b, 3, H, W) as float32 and ignoring the seeds (both
-services are deterministic). Results are tensors on the model's device.
-The dynamic-batching engine is not ported yet.
+Counterparts of ``attention_models_tpu/serving.py``'s ``vq_encode_service``,
+``vq_recon_service`` and ``maskgit_service``: each returns
+``run_batch(inputs, seeds)``. The tokenizer services take a batch of images
+(b, 3, H, W) as float32 and ignore the seeds (both are deterministic).
+Results are tensors on the model's device. The dynamic-batching engine is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -35,5 +36,25 @@ def vq_recon_service(model):
         with torch.inference_mode():
             rec, _ = model(_images(model, imgs))
         return rec
+
+    return run_batch
+
+
+def maskgit_service(model, *, timesteps: int = 18, num_masked: int = 200,
+                    filter_p: float = 0.9, approx_topk: bool = False,
+                    inpaint: bool = False):
+    """MaskGIT's iterative decode: unconditional (inputs ignored, one image
+    per seed) or inpainting (inputs: images (b, 3, H, W)). The batch runs
+    as one forward; row i's noise depends on ``seeds[i]`` only, so its image
+    does not depend on the rest of the batch."""
+
+    def run_batch(inputs, seeds):
+        seeds = np.asarray(seeds, np.int64).reshape(-1)
+        kw = dict(num_masked=num_masked, timesteps=timesteps,
+                  filter_p=filter_p, approx_topk=approx_topk, seeds=seeds)
+        with torch.inference_mode():
+            if inpaint:
+                return model.generate(_images(model, inputs), **kw)
+            return model.generate(batch=len(seeds), **kw)
 
     return run_batch

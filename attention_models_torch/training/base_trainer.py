@@ -10,7 +10,7 @@ an EMA of the trainable weights (``training.ema_decay``) and ``pad_batch``.
 Subclasses build their modules and optimizers, then call ``maybe_resume``,
 and implement ``state_dict`` / ``load_state_dict`` over their own parts,
 ``train_step`` and ``evaluate``. ``tensor_parallel``, ``sequence_parallel``,
-``pipeline_parallel`` or ``fsdp`` above 1 raise: parallelism is slice 8 of
+``pipeline_parallel`` or ``fsdp`` above 1 raise: parallelism is slice 10 of
 the port. ``training.profile_step`` raises too (not ported yet).
 """
 
@@ -88,10 +88,10 @@ class BaseTrainer:
             if int(cfg.training.get(key, 1) or 1) > 1:
                 raise NotImplementedError(
                     f"training.{key} > 1: parallelism is not ported yet "
-                    f"(slice 8)")
+                    f"(slice 10)")
         if cfg.training.get("fsdp", False):
             raise NotImplementedError("training.fsdp: parallelism is not "
-                                      "ported yet (slice 8)")
+                                      "ported yet (slice 10)")
         if cfg.training.get("profile_step") is not None:
             raise NotImplementedError("training.profile_step is not ported "
                                       "yet")

@@ -7,6 +7,9 @@ so this module needs neither JAX nor flax:
   kernels (in, out) are transposed to torch Linear weights (out, in);
   LayerNorm gamma/beta become weight/bias; names become the reference
   PyTorch keys.
+- ``maskgit_from_jax``: ``MaskGitTransformer`` (its ``vq`` subtree through
+  ``from_jax_params``); gamma-only LayerNorms keep ``gamma`` and gain their
+  zero ``beta`` buffer.
 - ``discriminator_from_jax``: ``NLayerDiscriminator`` params and
   ``batch_stats``.
 - ``lpips_from_jax``: the LPIPS VGG16 tower and its 1x1 heads.
@@ -70,6 +73,38 @@ def from_jax_params(tree: Mapping) -> dict[str, torch.Tensor]:
     _ln(dec["pre_norm"], "decoder.pre_norm", sd)
     _blocks(dec, "decoder.decoder", sd)
     _lin(dec["fc"], "decoder.fc", sd)
+    return sd
+
+
+def _gamma_ln(tree: Mapping, key: str, sd: dict) -> None:
+    sd[f"{key}.gamma"] = _t(tree["gamma"])
+    sd[f"{key}.beta"] = torch.zeros_like(sd[f"{key}.gamma"])
+
+
+def maskgit_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``MaskGitTransformer`` params (with or without the top-level
+    ``"params"``) -> fp32 ``state_dict`` for
+    ``models.maskgit.MaskGitTransformer``."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd = {f"vq.{k}": v for k, v in from_jax_params(tree["vq"]).items()}
+    bt, p = tree["bidirectional_transformer"], "bidirectional_transformer"
+    sd[f"{p}.input_proj.weight"] = _t(bt["input_proj"]["embedding"])
+    sd[f"{p}.pos_enc"] = _t(bt["pos_enc"])
+    _gamma_ln(bt["init_norm"], f"{p}.init_norm", sd)
+    dec = bt["decoder"]
+    for i in range(sum(1 for name in dec if name.startswith("layers_"))):
+        blk, q = dec[f"layers_{i}"], f"{p}.decoder.layers.{i}"
+        _gamma_ln(blk["norm1"], f"{q}.norm1", sd)
+        _lin(blk["self_attn"]["wq"], f"{q}.self_attn.q.0", sd)
+        _lin(blk["self_attn"]["wkv"], f"{q}.self_attn.kv.0", sd)
+        _lin(blk["self_attn"]["wo"], f"{q}.self_attn.W_o", sd)
+        _gamma_ln(blk["norm2"], f"{q}.norm2", sd)
+        _lin(blk["ff"]["ff_in"], f"{q}.feed_forward.ff.0", sd)
+        _gamma_ln(blk["ff"]["norm"], f"{q}.feed_forward.ff.2", sd)
+        _lin(blk["ff"]["ff_out"], f"{q}.feed_forward.ff.3", sd)
+    _gamma_ln(bt["final_norm"], f"{p}.final_norm", sd)
+    sd[f"{p}.linear.weight"] = _t(bt["linear"]["kernel"]).T.contiguous()
     return sd
 
 

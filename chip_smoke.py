@@ -29,7 +29,23 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               parameters changing at the optimizer steps only, micro-step
               time, imgs/s, peak memory; device time by kernel over 2
               traced micro-steps
+  8. maskgit  MaskGIT iterative decode: build_model on cfg/maskgit.yaml
+              (restated in Python as MASKGIT_YAML, seeded weights) with
+              training.mixed_precision=bf16, through maskgit_service:
+              unconditional (batch 8, 18 steps, num_masked 1024, approx
+              top-k), inpainting (batch 8, num_masked 200, approx) and
+              exact mode once; exact launch deltas per call (MASKGIT_STEP per
+              step, VQ_DECODE / VQ_ENCODE for the tokenizer); the first
+              decode step's logits and picks, kernels against plain, in bf16
+              and in fp32 (the shipped mixed_precision "no"), and the
+              bf16 logits of both paths against the fp32 ones; layer 0's
+              update in bf16, kernels and plain against fp32; whole-generate
+              id agreement (reported); ms/step, images/s, peak memory; device
+              time by kernel over one generate
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
+Each kernel's "launches" there is the sum of its counts over the three
+driven paths (serving, training, maskgit, each counted from 0), listed
+one by one beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -48,13 +64,39 @@ Tolerances (kernel against plain on the card):
     kernels) and <= 1e-5 in fp32 (summation order only), on every output;
   - the full-width block: dx and every parameter gradient within relative
     L2 2e-2 of the plain path. No whole-model gradient is gated: codebook
-    near-ties flip indices between the two paths.
+    near-ties flip indices between the two paths;
+  - the GEGLU FFN: relative L2 1e-2 in bf16, 1e-5 in fp32 (TF32 off);
+  - the sampling epilogue, against its plain version on the same bits
+    (given, or Philox computed by both): picks equal wherever the plain
+    noised top-2 gap exceeds 1e-5 * |top|, every pick in the kept set, the
+    score within relative 1e-5 where the picks agree; Philox in the kernel:
+    temperature 0 is the argmax, a row's picks do not depend on the batch,
+    8192 picks on constant logits cover >= 60 % of the classes (uniform
+    sampling covers 63.2 %), another step gives other picks;
+  - flash in bf16 is also held, at 1e-2, against the plain version without
+    the kernels' rounding points (fp32 q and P throughout);
+  - MaskGIT's first decode step: logits within relative L2 2e-2 in bf16
+    (beside it the plain path's own drift when 1 % of the embedding rows
+    move by about one bf16 ulp is reported: the seeded 16-layer model
+    carries any bf16-level difference to about that size, so this gate
+    sits on the model's floor); in fp32 (TF32 off) within 1e-4, and the
+    picks equal wherever the plain noised top-2 gap exceeds 1e-4; the bf16
+    logits' error against the fp32 plain logits, kernels at most
+    FLOOR_RATIO (1.25) times the plain path's (two right bf16 paths read a
+    ratio near 1, whatever the model's floor);
+  - MaskGIT's layer 0 on the first step's hidden state, bf16, its update
+    (out - h): kernels within relative L2 1e-2 of plain, and the kernels'
+    error against the same layer in fp32 at most FLOOR_RATIO times the
+    plain path's;
+  - whole-generate ids are reported, not gated: one flipped near-tie
+    changes every later step.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -64,6 +106,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # fp32 outside the tensor cores
 BF16_TOL, F32_TOL, MODEL_BF16_TOL = 1e-2, 1e-5, 2e-2
+FLOOR_RATIO = 1.25
 BWD_BF16_TOL = 2e-2
 
 # cfg/vitvqgan.yaml as PyYAML reads it (the card's machine promises no
@@ -107,7 +150,67 @@ TRAIN_OVERRIDES = {"dataset.name": "synthetic",
 # each block's attention and ln_mlp backward once
 PER_MICRO_STEP = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                   "layernorm": 16, "nearest_codes": 1,
-                  "flash_attention_bwd_kv": 12, "ln_mlp_bwd": 12}
+                  "flash_attention_bwd_kv": 12, "ln_mlp_bwd": 12,
+                  "ffn": 0, "sample_epilogue": 0}
+
+# cfg/maskgit.yaml as PyYAML reads it; tests/test_torch_port_rules.py holds
+# the two equal
+MASKGIT_YAML = {
+    "experiment": {
+        "project_name": "maskgit", "exp_name": "run1",
+        "max_train_examples": 10000000, "save_every": 1000, "eval_every": 500,
+        "sample_every": 10000000, "log_every": 500, "log_level": "info",
+        "resume_path_from_checkpoint": None, "wandb": False},
+    "codebook": {"codebook_dim": 32, "beta": 0.25, "codebook_size": 8192},
+    "vitvqgan": {
+        "checkpoint": "outputs/vitvqgan/checkpoints/VitVQGAN.pt",
+        "transformer": {"dim": 512, "patch_size": 8, "n_heads": 8,
+                        "d_head": 64, "depth": 6, "dropout": 0.0,
+                        "mlp_dim": 2048}},
+    "model": {"name": "maskgit", "dim": 768, "n_heads": 12, "d_head": 64,
+              "depth": 16, "mult": 8, "dropout": 0.1},
+    "dataset": {
+        "name": "coco",
+        "params": {"train_path": "/datasets/coco2017", "val_path": None,
+                   "num_workers": 4, "pin_memory": True, "batch_size": 8,
+                   "persistent_workers": True, "shuffle": True,
+                   "train_test_split": 0.9},
+        "preprocessing": {"resolution": 256, "center_crop": False,
+                          "random_flip": False, "random_crop": True,
+                          "mean": None, "std": None, "scale": 1.0}},
+    "optimizer": {"name": "adamw", "params": {
+        "learning_rate": "1e-4", "beta1": 0.9, "beta2": 0.999,
+        "weight_decay": 0.01}},
+    "lr_scheduler": {"name": "constant_with_warmup", "params": {
+        "learning_rate": "${optimizer.params.learning_rate}",
+        "warmup_steps": 1000, "decay_steps": None}},
+    "training": {"gradient_accumulation_steps": 32, "mixed_precision": "no",
+                 "seed": 42, "num_epochs": 200, "max_grad_norm": None,
+                 "tensor_parallel": 1},
+}
+# kernel launches of the tokenizer under MaskGIT (bf16): decode_indices runs
+# the decoder (pre_norm + 6 blocks of norm1, attention, fused LN + MLP);
+# encode_imgs the encoder (patch norms, pre_norm, 6 blocks) and the codebook
+VQ_DECODE = {"flash_attention_bthd_kv": 6, "ln_mlp": 6, "layernorm": 7}
+VQ_ENCODE = {"flash_attention_bthd_kv": 6, "ln_mlp": 6, "layernorm": 9,
+             "nearest_codes": 1}
+
+
+def maskgit_step(depth: int, approx: bool) -> dict:
+    """Launches of one decode step: attention and the GEGLU FFN once a
+    layer, the gamma LayerNorms init_norm + 2 a layer + final_norm, and the
+    sampling epilogue once in approx mode."""
+    return {"flash_attention_bthd_kv": depth, "ffn": depth,
+            "layernorm": 2 * depth + 2, "sample_epilogue": int(approx)}
+
+
+def maskgit_config(mixed_precision: str):
+    """cfg/maskgit.yaml with training.mixed_precision overridden."""
+    from attention_models_torch.utils.config import Config
+
+    cfg = Config(json.loads(json.dumps(MASKGIT_YAML)))
+    cfg.set_path("training.mixed_precision", mixed_precision)
+    return cfg
 
 
 def training_config(output_dir: str):
@@ -149,15 +252,18 @@ def main() -> int:
     from attention_models_torch.models.factory import build_model
     from attention_models_torch.models.vitvqgan import ViTVQGANBlock
     from attention_models_torch.ops.ffn import (
-        _ln_mlp_backward_reference, _ln_mlp_reference, fused_ln_mlp,
-        fused_ln_mlp_backward)
+        _ffn_reference, _ln_mlp_backward_reference, _ln_mlp_reference,
+        fused_ffn, fused_ln_mlp, fused_ln_mlp_backward)
     from attention_models_torch.ops.flash_attention import (
         _flash_backward_reference, _flash_reference, flash_attention_bthd_kv,
         flash_attention_bwd_kv)
     from attention_models_torch.training.build_trainer import build_trainer
     from attention_models_torch.ops.layernorm import _ln_reference, layernorm
+    from attention_models_torch.ops.sampling import (
+        _sample_epilogue_reference, gumbel_of_bits, kth_value_bisect,
+        philox_bits, sample_epilogue_fused)
     from attention_models_torch.serving import (
-        vq_encode_service, vq_recon_service)
+        maskgit_service, vq_encode_service, vq_recon_service)
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -222,12 +328,14 @@ def main() -> int:
     variants = []
 
     def record(kernel, label, dtype, tol, err, abs_err, ms, plain_ms,
-               lib_ms, bytes_moved, flops, metric="rel_l2"):
+               lib_ms, bytes_moved, flops, metric="rel_l2", main=False):
+        """``main``: the variant at the main path's dtype and shape that the
+        kernels line reports (default: the kernel's first bf16 variant)."""
         b_ms, b_by = bound(bytes_moved, flops, dtype)
         v = dict(kernel=kernel, variant=label, dtype=str(dtype).split(".")[-1],
                  metric=metric, err=err, tol=tol, max_abs_err=abs_err, ms=ms,
                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                 bound_by=b_by)
+                 bound_by=b_by, main=main)
         variants.append(v)
         print(f"[kernel] {kernel} {label}: {metric} {err:.3e} (tol {tol:g}) "
               f"max_abs {abs_err:.3e} | kernel {ms:.4f} ms, plain "
@@ -239,21 +347,29 @@ def main() -> int:
 
     n_tok, dim, patch_feat, hid = 8 * 1024, 512, 192, 1368
 
+    mg_dim, mg_inner, mg_heads = 768, 4096, 12  # cfg/maskgit.yaml's widths
+
     # LayerNorm: the model-width rows (bf16 in the bf16 model, fp32 in the
-    # fp32 one) and the patch-embed rows (fp32 images from the services)
-    for d, dtype in ((dim, torch.bfloat16), (dim, torch.float32),
-                     (patch_feat, torch.float32), (patch_feat, torch.bfloat16)):
+    # fp32 one), the patch-embed rows (fp32 images from the services) and
+    # MaskGIT's gamma-only rows (no beta)
+    for d, dtype, beta in ((dim, torch.bfloat16, True),
+                           (dim, torch.float32, True),
+                           (patch_feat, torch.float32, True),
+                           (patch_feat, torch.bfloat16, True),
+                           (mg_dim, torch.bfloat16, False),
+                           (mg_dim, torch.float32, False)):
         x = randn(n_tok, d, dtype=dtype, scale=2.0, shift=0.5)
-        g, b = randn(d, scale=0.1, shift=1.0), randn(d, scale=0.1)
+        g = randn(d, scale=0.1, shift=1.0)
+        b = randn(d, scale=0.1) if beta else None
         got, want = layernorm(x, g, b), _ln_reference(x, g, b, 1e-5)
-        gl, bl = g.to(dtype), b.to(dtype)
-        record("layernorm", f"({n_tok},{d})", dtype,
-               BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+        gl, bl = g.to(dtype), b.to(dtype) if beta else None
+        record("layernorm", f"({n_tok},{d})" + ("" if beta else " no beta"),
+               dtype, BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                rel_l2(got, want), max_abs(got, want),
                time_ms(lambda: layernorm(x, g, b)),
                time_ms(lambda: _ln_reference(x, g, b, 1e-5)),
                time_ms(lambda: F.layer_norm(x, (d,), gl, bl)),
-               nbytes(x, x, g, b), 8 * x.numel())
+               nbytes(x, x, g, *([b] if beta else [])), 8 * x.numel())
 
     # fused LN + MLP, bf16 only (the fp32 model runs LN kernel + matmuls)
     x = randn(n_tok, dim, dtype=torch.bfloat16)
@@ -284,31 +400,47 @@ def main() -> int:
            time_ms(ln_mlp_library),
            nbytes(x, x, lng, lnb, w1, b1, w2, b2), 4 * n_tok * dim * hid)
 
-    # flash attention on packed kv, both dtypes, plus causal at tq = tk
+    # flash attention on packed kv, both dtypes, plus causal at tq = tk;
+    # ViTVQGAN's 8 heads and MaskGIT's 12
     b_, t_, h_, d_ = 8, 1024, 8, 64
-    for dtype, causal in ((torch.bfloat16, False), (torch.float32, False),
-                          (torch.bfloat16, True), (torch.float32, True)):
-        q = randn(b_, t_, h_, d_, dtype=dtype)
-        kv = randn(b_, t_, 2, h_, d_, dtype=dtype)
+    for hh, dtype, causal in ((h_, torch.bfloat16, False),
+                              (h_, torch.float32, False),
+                              (h_, torch.bfloat16, True),
+                              (h_, torch.float32, True),
+                              (mg_heads, torch.bfloat16, False),
+                              (mg_heads, torch.float32, False)):
+        q = randn(b_, t_, hh, d_, dtype=dtype)
+        kv = randn(b_, t_, 2, hh, d_, dtype=dtype)
         out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
         out_p, lse_p = _flash_reference(q, kv, d_ ** -0.5, causal)
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
         lse_err = rel_l2(lse, lse_p)
         if not lse_err <= tol:
             raise AssertionError(f"flash lse rel_l2 {lse_err} > {tol}")
+        # bf16: also against the plain version without the kernels' rounding
+        # points (fp32 q and P throughout), gated alike
+        unrounded = ""
+        if dtype == torch.bfloat16:
+            out_u = _flash_reference(q.float(), kv.float(), d_ ** -0.5,
+                                     causal)[0].to(dtype)
+            u_err = rel_l2(out, out_u)
+            if not u_err <= tol:
+                raise AssertionError(f"flash against the unrounded plain "
+                                     f"version: rel_l2 {u_err} > {tol}")
+            unrounded = f", unrounded plain rel_l2 {u_err:.3e}"
         qs = q.transpose(1, 2).contiguous()
         ks = kv[:, :, 0].transpose(1, 2).contiguous()
         vs = kv[:, :, 1].transpose(1, 2).contiguous()
         pairs = t_ * (t_ + 1) // 2 if causal else t_ * t_
         record("flash_attention_bthd_kv",
-               f"b{b_} t{t_} h{h_} d{d_} causal={causal} (lse rel_l2 "
-               f"{lse_err:.2e})", dtype, tol,
+               f"b{b_} t{t_} h{hh} d{d_} causal={causal} (lse rel_l2 "
+               f"{lse_err:.2e}{unrounded})", dtype, tol,
                rel_l2(out, out_p), max_abs(out, out_p),
                time_ms(lambda: flash_attention_bthd_kv(q, kv, causal=causal)),
                time_ms(lambda: _flash_reference(q, kv, d_ ** -0.5, causal)),
                time_ms(lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, is_causal=causal)),
-               nbytes(q, kv, out, lse), 4 * b_ * h_ * d_ * pairs)
+               nbytes(q, kv, out, lse), 4 * b_ * hh * d_ * pairs)
 
     def plain_distances(z, codes):
         zf, cf = z.float(), codes.float()
@@ -408,27 +540,180 @@ def main() -> int:
            time_ms(ln_mlp_library_fwd_bwd),
            nbytes(x, lng, lnb, w1, b1, w2, dy, *got), 10 * n_tok * dim * hid)
 
+    # the GEGLU FFN at MaskGIT's decode shape (8 x 1024 rows, d 768, inner
+    # 4096), bf16 and fp32 (TF32 off); the library chain is F.linear ->
+    # chunk -> gelu * gate -> F.layer_norm -> F.linear
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(n_tok, mg_dim, dtype=dtype)
+        w1 = randn(2 * mg_inner, mg_dim, dtype=dtype, scale=mg_dim ** -0.5)
+        gam = randn(mg_inner, scale=0.1, shift=1.0)
+        w2 = randn(mg_dim, mg_inner, dtype=dtype, scale=mg_inner ** -0.5)
+        got, want = fused_ffn(x, w1, gam, w2), _ffn_reference(x, w1, gam, w2,
+                                                             1e-5)
+        gam_c = gam.to(dtype)
+
+        def ffn_library():
+            a, gate = F.linear(x, w1).chunk(2, dim=-1)
+            y = F.layer_norm(gate * F.gelu(a), (mg_inner,), gam_c)
+            return F.linear(y, w2)
+
+        record("ffn", f"({n_tok},{mg_dim}) inner {mg_inner}", dtype,
+               BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+               rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: fused_ffn(x, w1, gam, w2)),
+               time_ms(lambda: _ffn_reference(x, w1, gam, w2, 1e-5)),
+               time_ms(ffn_library), nbytes(x, w1, gam, w2, got),
+               6 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
+
+    # the sampling epilogue at the decode shape: 8 x 1024 rows of 8192
+    # logits, p 0.9 (k 820), step 0's temperature 17/18, CFG scale 3
+    n_cls, p_keep, gs = 8192, 0.9, 3.0
+    k_keep = math.ceil((1 - p_keep) * n_cls)
+    temp0 = float(np.float32(17) / np.float32(18))
+    inf = float("inf")
+
+    def guided(cond, null):
+        """The fp32 logits the epilogue samples from (its CFG combine)."""
+        x32 = cond.reshape(-1, n_cls).float()
+        if null is None:
+            return x32
+        n32 = null.reshape(-1, n_cls).float()
+        return n32 + torch.tensor(gs, dtype=torch.float32) * (x32 - n32)
+
+    def epilogue_check(label, x32, bits, temp, got, want, gap_tol,
+                       relative=True, x32_got=None):
+        """Picks equal wherever the plain noised top-2 gap (of the plain
+        logits x32) exceeds gap_tol (times |top| if ``relative``), every
+        pick in the kept set of the logits it was drawn from (``x32_got``,
+        default x32), scores within relative 1e-5 where the picks agree.
+        Returns (score rel err, its max abs err)."""
+        pred, score = (t.reshape(-1) for t in got)
+        pred_p, score_p = (t.reshape(-1) for t in want)
+        kth = kth_value_bisect(x32, k_keep)[:, None]
+        noised = torch.where(x32 >= kth, x32 + torch.tensor(
+            temp, dtype=torch.float32) * gumbel_of_bits(bits), -inf)
+        top2 = noised.topk(2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        if relative:
+            gap = gap / top2[:, 0].abs()
+        differ = pred != pred_p
+        worst = float(gap[differ].max()) if bool(differ.any()) else 0.0
+        xg = x32 if x32_got is None else x32_got
+        kept = bool((xg.gather(1, pred.long()[:, None])[:, 0]
+                     >= kth_value_bisect(xg, k_keep)).all())
+        agree = ~differ
+        err = float(((score - score_p).abs() / score_p)[agree].max())
+        abs_err = float((score - score_p).abs()[agree].max())
+        print(f"[kernel] sample_epilogue {label}: pick agreement "
+              f"{float(agree.float().mean()):.6f}, largest "
+              f"{'relative ' if relative else ''}top-2 gap "
+              f"at a disagreement {worst:.3e} (tol {gap_tol:g}), picks kept "
+              f"{kept}", flush=True)
+        if not (worst <= gap_tol and kept):
+            raise AssertionError(f"sample_epilogue {label}: pick criterion")
+        return err, abs_err
+
+    seeds8 = torch.arange(100, 108, device=dev)
+    for dtype, with_null, philox in ((torch.bfloat16, False, False),
+                                     (torch.bfloat16, True, False),
+                                     (torch.float32, False, False),
+                                     (torch.float32, True, False),
+                                     (torch.bfloat16, False, True),
+                                     (torch.float32, False, True)):
+        cond = randn(8, 1024, n_cls, dtype=dtype, scale=3.0)
+        null = randn(8, 1024, n_cls, dtype=dtype, scale=3.0) if with_null else None
+        if philox:
+            ext = None
+            bits = philox_bits(seeds8, 1024, 5, n_cls)
+        else:
+            ext = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 1024, n_cls),
+                                generator=gen, device=dev, dtype=torch.int32)
+            bits = ext.reshape(-1, n_cls)
+        kw = dict(guidance_scale=gs, p=p_keep, temperature=temp0,
+                  seeds=seeds8, step=5, noise_bits=ext)
+        x32 = guided(cond, null)
+        err, abs_err = epilogue_check(
+            f"{dtype} null={with_null} bits={'philox' if philox else 'given'}",
+            x32, bits, temp0, sample_epilogue_fused(cond, null, **kw),
+            _sample_epilogue_reference(cond, null, **kw), 1e-5)
+        g_k = gumbel_of_bits(bits[:, :k_keep])
+
+        def sample_library():
+            xl = cond if null is None else null + gs * (cond - null)
+            vals, idx = torch.topk(xl.reshape(-1, n_cls), k_keep)
+            choice = (vals.float() + temp0 * g_k).argmax(-1, keepdim=True)
+            lse = torch.logsumexp(xl.reshape(-1, n_cls).float(), -1)
+            return (idx.gather(-1, choice),
+                    torch.exp(vals.gather(-1, choice)[:, 0].float() - lse))
+
+        pred_out = torch.empty(8 * 1024, dtype=torch.int32, device=dev)
+        score_out = torch.empty(8 * 1024, dtype=torch.float32, device=dev)
+        record("sample_epilogue",
+               f"({8 * 1024},{n_cls}) null={with_null} "
+               f"bits={'philox' if philox else 'given'}", dtype, 1e-5, err,
+               abs_err, time_ms(lambda: sample_epilogue_fused(cond, null, **kw)),
+               time_ms(lambda: _sample_epilogue_reference(cond, null,
+                                                          **kw)),
+               time_ms(sample_library),
+               nbytes(cond, *(t for t in (null, ext) if t is not None),
+                      pred_out, score_out), 0,
+               metric="score rel err (agreeing picks)",
+               main=philox and dtype == torch.bfloat16)
+
+    # the in-kernel Philox stream
+    logits = randn(8, 1024, n_cls, dtype=torch.bfloat16, scale=3.0)
+    x32 = logits.reshape(-1, n_cls).float()
+    pred0, _ = sample_epilogue_fused(logits, temperature=0.0, seeds=seeds8)
+    col = torch.arange(n_cls, device=dev)
+    first_max = torch.where(x32 == x32.amax(-1, keepdim=True), col,
+                            n_cls).amin(-1)
+    greedy = bool((pred0.reshape(-1) == first_max).all())
+    pred_b8, _ = sample_epilogue_fused(logits, temperature=1.0, seeds=seeds8,
+                                       step=3)
+    pred_b1, _ = sample_epilogue_fused(logits[5:6], temperature=1.0,
+                                       seeds=seeds8[5:6], step=3)
+    alone = bool(torch.equal(pred_b1[0], pred_b8[5]))
+    pred_s4, _ = sample_epilogue_fused(logits, temperature=1.0, seeds=seeds8,
+                                       step=4)
+    step_moved = float((pred_s4 != pred_b8).float().mean())
+    flat = torch.zeros(1, n_cls, n_cls, dtype=torch.bfloat16, device=dev)
+    pred_u, _ = sample_epilogue_fused(flat, temperature=1.0,
+                                      seeds=seeds8[:1], step=0)
+    coverage = torch.unique(pred_u).numel() / n_cls
+    print(f"[kernel] sample_epilogue Philox: temperature 0 = first argmax "
+          f"{greedy}; row 5 alone = row 5 of 8 {alone}; step 4 vs 3 moves "
+          f"{step_moved:.4f} of the picks; 8192 picks on constant logits "
+          f"cover {coverage:.4f} of the classes (tol >= 0.60)", flush=True)
+    if not (greedy and alone and step_moved > 0 and coverage >= 0.60):
+        raise AssertionError("sample_epilogue Philox criteria failed")
+    del cond, null, ext, bits, x32, logits, flat
+
     # ---------------------------------------------------------- 4 and 5 --
     wrappers = {"flash_attention_bthd_kv": flash_attention_bthd_kv,
                 "ln_mlp": fused_ln_mlp, "layernorm": layernorm,
                 "nearest_codes": nearest_codes,
                 "flash_attention_bwd_kv": flash_attention_bwd_kv,
-                "ln_mlp_bwd": fused_ln_mlp_backward}
-    fwd_names = ("flash_attention_bthd_kv", "ln_mlp", "layernorm",
-                 "nearest_codes")
+                "ln_mlp_bwd": fused_ln_mlp_backward, "ffn": fused_ffn,
+                "sample_epilogue": sample_epilogue_fused}
     per_forward = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
-                   "layernorm": 16, "nearest_codes": 1,
-                   "flash_attention_bwd_kv": 0, "ln_mlp_bwd": 0}
+                   "layernorm": 16, "nearest_codes": 1}
     per_encode = {"flash_attention_bthd_kv": 6, "ln_mlp": 6,
-                  "layernorm": 9, "nearest_codes": 1,
-                  "flash_attention_bwd_kv": 0, "ln_mlp_bwd": 0}
+                  "layernorm": 9, "nearest_codes": 1}
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
 
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+        return counts()
+
     def expect_delta(before, want, what):
+        """Every kernel's launches since ``before`` equal ``want`` (0 for a
+        kernel it does not name)."""
         now = counts()
         delta = {k: now[k] - before[k] for k in now}
+        want = {k: want.get(k, 0) for k in now}
         if delta != want:
             raise AssertionError(f"{what}: launches {delta}, expected {want}")
         return now
@@ -449,7 +734,9 @@ def main() -> int:
 
     c = counts()
     grads_k = block_grads(True)
-    expect_delta(c, {k: int(k != "nearest_codes") for k in wrappers},
+    expect_delta(c, {k: 1 for k in ("flash_attention_bthd_kv", "ln_mlp",
+                                     "layernorm", "flash_attention_bwd_kv",
+                                     "ln_mlp_bwd")},
                  "block forward + backward")
     grads_p = block_grads(False)
     blk_errs = {k: rel_l2(a, b) for k, a, b in zip(blk_names, grads_k,
@@ -469,9 +756,7 @@ def main() -> int:
     recon, encode = vq_recon_service(model), vq_encode_service(model)
 
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-    c = counts()
+    c = zero_counts()
     rec0, loss0 = fn(model, imgs0)
     c = expect_delta(c, per_forward, "entry forward")
     recs = []
@@ -559,9 +844,8 @@ def main() -> int:
         raise AssertionError("TF32 must be off for the fp32 golden path")
     model32 = vitvqgan_base(img_size=256, dtype=torch.float32, device=dev)
     x32 = torch.as_tensor(requests[1], device=dev)
-    golden_want = {"flash_attention_bthd_kv": 6, "ln_mlp": 0,
-                   "layernorm": 15, "nearest_codes": 1,
-                   "flash_attention_bwd_kv": 0, "ln_mlp_bwd": 0}
+    golden_want = {"flash_attention_bthd_kv": 6, "layernorm": 15,
+                   "nearest_codes": 1}
     with torch.inference_mode():
         c = counts()
         idx_k = model32.encode_imgs(x32).reshape(-1)
@@ -611,8 +895,7 @@ def main() -> int:
     trainer.train_step = traced_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in wrappers.values():
-        w.launches = 0
+    zero_counts()
     trainer.train()
     torch.cuda.synchronize()
     launches = counts()
@@ -653,6 +936,181 @@ def main() -> int:
                             lambda: step_fn(img), "2 training micro-steps")
 
     # ---------------------------------------------------------------- 8 --
+    # MaskGIT's iterative decode at cfg/maskgit.yaml's widths, bf16 compute
+    # over fp32 parameters (training.mixed_precision=bf16), seeded weights
+    del trainer
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mcfg = maskgit_config("bf16")
+    mg = build_model(mcfg, device=dev).eval()
+    depth, n_steps = mcfg.model.depth, 18
+    print(f"[maskgit] build_model(cfg/maskgit.yaml, mixed_precision=bf16) on "
+          f"the card in {time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in mg.parameters()) / 1e6:.1f} M parameters",
+          flush=True)
+    uncond = maskgit_service(mg, timesteps=n_steps, num_masked=1024,
+                             approx_topk=True)
+    services = {
+        "unconditional": (uncond, {}, True, False),
+        "inpainting": (maskgit_service(mg, timesteps=n_steps, num_masked=200,
+                                       approx_topk=True, inpaint=True),
+                       requests[0], True, True),
+        "exact": (maskgit_service(mg, timesteps=n_steps, num_masked=1024),
+                  {}, False, False),
+    }
+    mg_seeds = list(range(8))
+    seeds_dev = torch.arange(8, device=dev)
+    final_ids = []
+    decode_real = mg.vq.decode_indices
+    mg.vq.decode_indices = lambda idx: final_ids.append(idx) or decode_real(idx)
+
+    def expected(approx, inpaint):
+        want = {k: v * n_steps for k, v in maskgit_step(depth, approx).items()}
+        for part in (VQ_DECODE, VQ_ENCODE) if inpaint else (VQ_DECODE,):
+            for k, v in part.items():
+                want[k] = want.get(k, 0) + v
+        return want
+
+    torch.cuda.synchronize()
+    c = zero_counts()
+    for label, (svc, inputs, approx, inpaint) in services.items():
+        out = svc(inputs, mg_seeds)
+        c = expect_delta(c, expected(approx, inpaint), f"maskgit {label}")
+        finite = bool(torch.isfinite(out).all())
+        if out.shape != (8, 3, 256, 256) or not finite:
+            raise AssertionError(f"maskgit {label}: {tuple(out.shape)}, "
+                                 f"finite {finite}")
+    torch.cuda.synchronize()
+    maskgit_launches = counts()
+    print(f"[maskgit] launches over unconditional + inpainting (approx) + "
+          f"exact generates, 18 steps each: {maskgit_launches} (per step "
+          f"{maskgit_step(depth, True)}, tokenizer decode {VQ_DECODE}, "
+          f"encode {VQ_ENCODE})", flush=True)
+
+    # the first decode step of the inpainting request, kernels against plain:
+    # its first 200 positions masked, the rest the image's own tokens
+    x0 = mg.encode_to_indices(torch.as_tensor(requests[0], device=dev)).long()
+    x0[:, :200] = mg.mask_token_id
+
+    def first_step(model, kernels):
+        model.use_kernels(kernels)
+        with torch.inference_mode():
+            lg = model.bidirectional_transformer(x0)
+            epi = (sample_epilogue_fused if kernels
+                   else _sample_epilogue_reference)
+            picks = epi(lg, temperature=temp0, seeds=seeds_dev, step=0)
+        model.use_kernels(True)
+        return lg, picks
+
+    step_bits = philox_bits(seeds_dev, 1024, 0, n_cls)
+    lg_k, picks_k = first_step(mg, True)
+    lg_p, picks_p = first_step(mg, False)
+    lg_err = rel_l2(lg_k, lg_p)
+    print(f"[maskgit] first decode step, bf16: logits rel_l2 {lg_err:.3e} "
+          f"(tol {MODEL_BF16_TOL:g}); pick agreement "
+          f"{float((picks_k[0] == picks_p[0]).float().mean()):.6f} (reported)",
+          flush=True)
+    if not lg_err <= MODEL_BF16_TOL:
+        raise AssertionError(f"maskgit bf16 first-step logits: {lg_err}")
+    # one full-width EncoderLayer (layer 0 of the seeded model) on the first
+    # step's hidden state: its update (out - h), kernels against plain in
+    # bf16, and each against the same layer in fp32 (plain, TF32 off) on the
+    # same bf16 input; the kernels' error must stay near the plain path's
+    bt = mg.bidirectional_transformer
+    layer0 = bt.decoder.layers[0]
+    with torch.inference_mode():
+        mg.use_kernels(False)
+        h0 = bt.init_norm(F.embedding(x0, bt.input_proj.weight).to(bt.dtype)
+                          + bt.pos_enc.to(bt.dtype))
+        upd32 = layer0(h0.float()) - h0.float()
+        upd_p = layer0(h0).float() - h0.float()
+        mg.use_kernels(True)
+        upd_k = layer0(h0).float() - h0.float()
+    layer_err = rel_l2(upd_k, upd_p)
+    layer_floor, layer_k32 = rel_l2(upd_p, upd32), rel_l2(upd_k, upd32)
+    print(f"[maskgit] layer 0 update, bf16: kernels vs plain rel_l2 "
+          f"{layer_err:.3e} (tol {BF16_TOL:g}); against fp32 kernels "
+          f"{layer_k32:.3e}, plain {layer_floor:.3e} (tol kernels <= "
+          f"{FLOOR_RATIO:g} x plain)", flush=True)
+    if not (layer_err <= BF16_TOL
+            and layer_k32 <= FLOOR_RATIO * layer_floor):
+        raise AssertionError(f"maskgit layer 0: {layer_err}, {layer_k32} vs "
+                             f"{layer_floor}")
+    del h0, upd32, upd_p, upd_k
+    # the model's own bf16 sensitivity, reported beside the gate: the plain
+    # path again with the embedding rows of every 97th token id scaled by
+    # 1 + 2^-7 (about one bf16 ulp)
+    emb = mg.bidirectional_transformer.input_proj.weight
+    emb_saved = emb.detach().clone()
+    with torch.no_grad():
+        emb[::97] *= 1 + 2 ** -7
+    lg_nudged, _ = first_step(mg, False)
+    with torch.no_grad():
+        emb.copy_(emb_saved)
+    nudge_err = rel_l2(lg_nudged, lg_p)
+    print(f"[maskgit] plain path with 1 % of the embedding rows nudged by "
+          f"about one bf16 ulp: logits rel_l2 {nudge_err:.3e} (reported)",
+          flush=True)
+    del lg_nudged, emb_saved
+    mg32 = build_model(maskgit_config("no"), device=dev).eval()  # same seed
+    lg32_k, picks32_k = first_step(mg32, True)
+    lg32_p, picks32_p = first_step(mg32, False)
+    lg32_err = rel_l2(lg32_k, lg32_p)
+    lg_k32, lg_p32 = rel_l2(lg_k, lg32_p), rel_l2(lg_p, lg32_p)
+    print(f"[maskgit] first decode step, fp32 (TF32 off): logits rel_l2 "
+          f"{lg32_err:.3e} (tol 1e-4); bf16 logits against them: kernels "
+          f"{lg_k32:.3e}, plain {lg_p32:.3e} (tol kernels <= {FLOOR_RATIO:g}"
+          f" x plain)", flush=True)
+    if not lg_k32 <= FLOOR_RATIO * lg_p32:
+        raise AssertionError(f"maskgit bf16 logits against fp32: kernels "
+                             f"{lg_k32}, plain {lg_p32}")
+    if not lg32_err <= 1e-4:
+        raise AssertionError(f"maskgit fp32 first-step logits: {lg32_err}")
+    epilogue_check("maskgit fp32 first step", lg32_p.reshape(-1, n_cls).float(),
+                   step_bits, temp0, picks32_k, picks32_p, 1e-4,
+                   relative=False, x32_got=lg32_k.reshape(-1, n_cls).float())
+    del mg32, lg32_k, lg32_p, lg_k, lg_p
+
+    # whole-generate ids, kernels against plain (reported: a flipped
+    # near-tie changes every later step)
+    final_ids.clear()
+    uncond({}, mg_seeds)
+    mg.use_kernels(False)
+    t = time.perf_counter()
+    uncond({}, mg_seeds)
+    torch.cuda.synchronize()
+    plain_gen_s = time.perf_counter() - t
+    mg.use_kernels(True)
+    id_agree = float((final_ids[0] == final_ids[1]).float().mean())
+    print(f"[maskgit] unconditional generate, kernels vs plain: id agreement "
+          f"{id_agree:.4f} (reported)", flush=True)
+
+    def generate_s():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        uncond({}, mg_seeds)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    generate_s()
+    gen_times = [generate_s() for _ in range(5)]
+    gen_s = float(np.median(gen_times))
+    torch.cuda.reset_peak_memory_stats()
+    generate_s()
+    mg_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    mg_ms_step, mg_ips = gen_s / n_steps * 1e3, 8 / gen_s
+    print(f"[maskgit] unconditional generate, batch 8, 18 steps, bf16, "
+          f"approx: {gen_s * 1e3:.2f} ms ({mg_ms_step:.3f} ms/step, "
+          f"{mg_ips:.3f} images/s; median of 5, "
+          f"{min(gen_times) * 1e3:.2f}-{max(gen_times) * 1e3:.2f} ms); plain "
+          f"path {plain_gen_s * 1e3:.2f} ms (1 run); peak memory "
+          f"{mg_peak_gib:.3f} GiB | {smi}", flush=True)
+    mg_profile = profile(torch, lambda: uncond({}, mg_seeds),
+                         lambda: uncond({}, mg_seeds),
+                         "1 MaskGIT generate (batch 8, 18 steps)")
+    mg.vq.decode_indices = decode_real
+
+    # ---------------------------------------------------------------- 9 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -662,29 +1120,30 @@ def main() -> int:
         "flash_attention_bwd_kv": ("flash_attention_bwd.cu",
                                    "attention_models_tpu/ops/flash_attention.py:498"),
         "ln_mlp_bwd": ("ln_mlp_bwd.cu", "attention_models_tpu/ops/ffn.py:652"),
+        "ffn": ("ffn.cu", "attention_models_tpu/ops/ffn.py:56"),
+        "sample_epilogue": ("sampling.cu", "attention_models_tpu/ops/sampling.py:143"),
     }
+    path_launches = {"serving": serving_launches, "training": launches,
+                     "maskgit": maskgit_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
-        v = next(v for v in variants if v["kernel"] == k
-                 and v["dtype"] == "bfloat16")  # the main path's dtype/shape
+        v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
+             or next(v for v in variants if v["kernel"] == k
+                     and v["dtype"] == "bfloat16"))
+        per_path = {f"launches_{p}": n[k] for p, n in path_launches.items()}
         row = dict(
             name=k, route="cuda", source=f"attention_models_torch/csrc/{src}",
-            replaces=replaces, launches=launches[k],
+            replaces=replaces, launches=sum(per_path.values()),
             max_abs_err=v["max_abs_err"], ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"],
-            library_ms=v["library_ms"])
-        if k in fwd_names:
-            row["launches_serving"] = serving_launches[k]
-            if serving_launches[k] == 0:
-                raise AssertionError(f"{k} never launched on the serving path")
+            library_ms=v["library_ms"], **per_path)
+        if row["launches"] == 0:
+            raise AssertionError(f"{k} never launched on a driven path")
         kernels.append(row)
-        if launches[k] == 0:
-            raise AssertionError(f"{k} never launched on the training path")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(device=name, nvidia_smi=smi, variants=variants,
-                           kernels=kernels, launches=launches,
-                           serving_launches=serving_launches,
+                           kernels=kernels, path_launches=path_launches,
                            block_grad_rel_l2=blk_errs,
                            recon_imgs_per_s=kern_ips,
                            plain_recon_imgs_per_s=plain_ips,
@@ -693,7 +1152,23 @@ def main() -> int:
                            profile=profile_rows, train_steps=steps,
                            train_step_ms=step_ms, train_imgs_per_s=train_ips,
                            train_peak_gib=peak_gib,
-                           train_profile=train_profile), f, indent=1)
+                           train_profile=train_profile,
+                           maskgit=dict(
+                               first_step_logits_rel_l2_bf16=lg_err,
+                               first_step_logits_rel_l2_fp32=lg32_err,
+                               bf16_logits_vs_fp32=dict(kernels=lg_k32,
+                                                        plain=lg_p32),
+                               layer0_update_rel_l2_bf16=dict(
+                                   kernels_vs_plain=layer_err,
+                                   kernels_vs_fp32=layer_k32,
+                                   plain_vs_fp32=layer_floor),
+                               nudged_embedding_rel_l2_bf16=nudge_err,
+                               generate_id_agreement=id_agree,
+                               generate_s=gen_times, ms_per_step=mg_ms_step,
+                               images_per_s=mg_ips,
+                               plain_generate_s=plain_gen_s,
+                               peak_gib=mg_peak_gib,
+                               profile=mg_profile)), f, indent=1)
     amt.sync()
     print(f"[nvidia-smi] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -150,6 +150,30 @@ def test_flash_plain_matches_pallas_interpret(causal, tq):
     _close(lse_t, lse_j)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_bf16_keeps_the_kernel_rounding_points(causal):
+    """bf16: the plain version rounds q * scale * log2(e) and P to bf16 as
+    the TPU kernel does, so it sits closer to that kernel (interpret mode,
+    t 256, 128-key blocks) than the same inputs through fp32 math; what is
+    left is P's rounding under the kernel's running max (tol 2.5e-3)."""
+    rs = np.random.RandomState(0)
+    q, kv = _np(rs, 2, 256, 2, 64), _np(rs, 2, 256, 2, 2, 64)
+    out_j, lse_j = j_flash._flash_forward_bthd_kv(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kv, jnp.bfloat16),
+        scale=0.125, causal=causal, block_q=128, block_k=128, interpret=True)
+    want = np.asarray(out_j, np.float32)
+    qb, kvb = torch.from_numpy(q).bfloat16(), torch.from_numpy(kv).bfloat16()
+    out, lse = t_flash._flash_reference(qb, kvb, 0.125, causal)
+    f32, _ = t_flash._flash_reference(qb.float(), kvb.float(), 0.125, causal)
+
+    def rel(a):
+        return np.linalg.norm(a - want) / np.linalg.norm(want)
+
+    assert out.dtype == torch.bfloat16
+    assert rel(out.float().numpy()) < min(2.5e-3, rel(f32.numpy()))
+    _close(lse, lse_j)
+
+
 def test_flash_plain_matches_multihead_attention():
     rs = np.random.RandomState(8)
     q, kv = _np(rs, 2, 16, 2, 64), _np(rs, 2, 16, 2, 2, 64)

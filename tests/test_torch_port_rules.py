@@ -2,13 +2,16 @@
 
 - it imports neither JAX nor the JAX package, and chip_smoke.py neither;
   importing it needs neither Pillow nor PyYAML;
-- entry points (the inference entry, the training CLI, the trainer) default
-  to the card and raise without CUDA; device="cpu" runs the plain path;
+- entry points (the inference entry and CLIs, the training CLI, the
+  trainer) default to the card and raise without CUDA; device="cpu" runs
+  the plain path;
 - a kernel wrapper given CPU tensors runs its plain version and leaves its
   launch counter alone;
 - on the kernel path a tensor that needs a gradient goes through the op's
   ``torch.autograd.Function`` (kernel forward, kernel or plain backward), so
   the graph is never cut; without one the forward kernel runs directly.
+  ``fused_ffn`` has no backward yet: such a tensor raises there;
+- chip_smoke.py's MaskGIT config restates cfg/maskgit.yaml.
 """
 
 import ast
@@ -25,6 +28,7 @@ from attention_models_torch.entry import entry
 from attention_models_torch.models.vitvqgan import vitvqgan_base
 from attention_models_torch.ops import codebook, dispatch, ffn, flash_attention
 from attention_models_torch.ops import layernorm as ln_ops
+from attention_models_torch.ops import sampling
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -86,12 +90,27 @@ def _trainer():
     build_trainer(cfg, build_model(cfg), build_loader(cfg))
 
 
+def _maskgit_cli():
+    from attention_models_torch.inference.maskgit import main
+
+    main(["--resolution", "32", "--dim", "128", "--depth", "1"])
+
+
+def _maskgit_build_model():
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.utils.config import load_config
+
+    build_model(load_config(str(ROOT / "cfg" / "maskgit.yaml")))
+
+
 @pytest.mark.parametrize("call", [
     lambda: entry(),
     lambda: vitvqgan_base(device=None, img_size=32),
     lambda: dispatch.resolve_device("cuda"),
     _train_cli,
     _trainer,
+    _maskgit_cli,
+    _maskgit_build_model,
 ])
 def test_card_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -149,16 +168,23 @@ def _wrapper_cases():
         (ffn.fused_ln_mlp_backward, ffn._ln_mlp_backward_reference,
          (t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96), t(8, 64)),
          (1e-5,)),
+        (ffn.fused_ffn, ffn._ffn_reference,
+         (t(8, 128), t(512, 128), t(256), t(128, 256)), (1e-5,)),
+        (lambda x, s: sampling.sample_epilogue_fused(x, seeds=s, step=3),
+         lambda x, s: sampling._sample_epilogue_reference(x, seeds=s,
+                                                          step=3),
+         (t(2, 4, 64), torch.tensor([5, 6])), ()),
     ]
 
 
 LAUNCH_COUNTERS = [ln_ops.layernorm, codebook.nearest_codes,
                    flash_attention.flash_attention_bthd_kv, ffn.fused_ln_mlp,
                    flash_attention.flash_attention_bwd_kv,
-                   ffn.fused_ln_mlp_backward]
+                   ffn.fused_ln_mlp_backward, ffn.fused_ffn,
+                   sampling.sample_epilogue_fused]
 
 
-@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("case", range(8))
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     wrapper, plain, args, extra = _wrapper_cases()[case]
     before = [c.launches for c in LAUNCH_COUNTERS]
@@ -267,3 +293,32 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch, op):
     with torch.no_grad():
         out = wrapper(*got_args)
     assert out.grad_fn is None and calls == [fwd]
+
+
+def test_fused_ffn_refuses_a_tensor_that_needs_a_gradient(monkeypatch):
+    """The kernel path has no backward yet: raise, never cut the graph."""
+    monkeypatch.setattr(ffn, "is_kernel_path", lambda t: True)
+    rs = np.random.RandomState(2)
+    x, w1, g, w2 = (torch.from_numpy(rs.randn(*s).astype(np.float32))
+                    for s in ((8, 128), (512, 128), (256,), (128, 256)))
+    before = ffn.fused_ffn.launches
+    with pytest.raises(NotImplementedError, match="backward not ported yet"):
+        ffn.fused_ffn(x.requires_grad_(True), w1, g, w2)
+    with pytest.raises(NotImplementedError, match="backward not ported yet"):
+        ffn.fused_ffn(x.detach(), w1.requires_grad_(True), g, w2)
+    assert ffn.fused_ffn.launches == before
+
+
+def test_chip_smoke_maskgit_config_restates_maskgit_yaml():
+    """chip_smoke.py builds its MaskGIT config in Python (the card's
+    machine promises no PyYAML); it must equal cfg/maskgit.yaml."""
+    import importlib.util
+
+    from attention_models_torch.utils.config import Config, load_config
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    got = Config(mod.MASKGIT_YAML)
+    assert got.to_dict() == load_config(str(ROOT / "cfg" / "maskgit.yaml")).to_dict()
