@@ -31,39 +31,30 @@
 //      fp32 scratch (n, i). H never reaches device memory.
 //   2. ln_rows: one block a row, two-pass fp32 mean and variance of g, then
 //      y = (g - mean) * rsqrt(var + eps) * gamma in the tower dtype.
-//   3. gemm: out = y W2^T, the same tiles.
+//   3. out = y W2^T: the same tiles, csrc/gemm.cuh's plain product.
 // The cost is the scratch: g is written once and read three times (fp32,
 // 134 MB at n 8192) and y is written once and read once per 128-column
 // output tile -- ~0.1 ms of traffic beside the 0.156 ms bound. The weights
 // (19 MB in bf16) are streamed through shared memory by cp.async in 32-deep
 // K slices (three stages) and stay in the 50 MB L2 across the tiles.
 // mma.sync in place of wgmma, and the scratch, are what later PRs tune.
-#include "common.cuh"
+#include "gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// bf16 tiles
-constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kLds = kBK + 8;  // shared row stride (bf16) of the A and B tiles
-constexpr size_t kGemmSmem = sizeof(__nv_bfloat16) * kStages * (kBM + kBN) * kLds;
-// fp32 tiles
-constexpr int kFM = 64, kFN = 64, kFK = 16;
+constexpr int kLds = kLdK;  // shared row stride (bf16) of the A and B tiles
 
 __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-// C = A B^T for bf16 A (M, K) and B (N, K), both row-major. kGeglu: B is W1
-// (2 * inner, K) and tile column c of block column bx reads W1 row
-// bx*64 + (c/16)*8 + c%8, plus inner when (c/8) is odd; the block writes
-// g = gate * gelu(a) for inner columns bx*64 .. bx*64+63 to fp32 C
-// (M, inner). Otherwise C is bf16 (M, N) and tile column c reads B row
-// bx*128 + c.
-template <bool kGeglu>
-__global__ __launch_bounds__(kThreads) void gemm_bf16_kernel(
+// H = x W1^T for bf16 x (M, K) and W1 (2 * inner, K), both row-major: tile
+// column c of block column bx reads W1 row bx*64 + (c/16)*8 + c%8, plus
+// inner when (c/8) is odd; the block writes g = gate * gelu(a) for inner
+// columns bx*64 .. bx*64+63 to fp32 C (M, inner).
+__global__ __launch_bounds__(kThreads) void gemm_geglu_bf16_kernel(
     const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    void* __restrict__ c, int M, int N, int K, int inner) {
+    float* __restrict__ c, int M, int K, int inner) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kBM][kLds]
   __nv_bfloat16* bs = as + kStages * kBM * kLds;                   // [kStages][kBN][kLds]
@@ -85,8 +76,7 @@ __global__ __launch_bounds__(kThreads) void gemm_bf16_kernel(
     const int r = id >> 2, kc = (id & 3) * 8;
     a_ok[i] = m0 + r < M;
     a_src[i] = a + (int64_t)(a_ok[i] ? m0 + r : 0) * K + kc;
-    const int brow = kGeglu ? blockIdx.x * 64 + (r >> 4) * 8 + (r & 7) + ((r >> 3) & 1) * inner
-                            : blockIdx.x * kBN + r;
+    const int brow = blockIdx.x * 64 + (r >> 4) * 8 + (r & 7) + ((r >> 3) & 1) * inner;
     b_src[i] = b + (int64_t)brow * K + kc;
     s_off[i] = r * kLds + kc;
   }
@@ -151,37 +141,26 @@ __global__ __launch_bounds__(kThreads) void gemm_bf16_kernel(
     for (int half = 0; half < 2; ++half) {
       const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
       if (row >= M) continue;
-      if (kGeglu) {
-        // tiles nt = 0, 1 (and 2, 3) hold a and gate of the same 8 columns
-        float* out = static_cast<float*>(c) + (int64_t)row * inner;
+      // tiles nt = 0, 1 (and 2, 3) hold a and gate of the same 8 columns
+      float* out = c + (int64_t)row * inner;
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int col = blockIdx.x * 64 + (wn * 2 + p) * 8 + 2 * t;
-          *reinterpret_cast<float2*>(out + col) = make_float2(
-              acc[mt][2 * p + 1][2 * half] * gelu_exact(acc[mt][2 * p][2 * half]),
-              acc[mt][2 * p + 1][2 * half + 1] * gelu_exact(acc[mt][2 * p][2 * half + 1]));
-        }
-      } else {
-        __nv_bfloat16* out = static_cast<__nv_bfloat16*>(c) + (int64_t)row * N;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = blockIdx.x * kBN + wn * 32 + nt * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(out + col) =
-              pack_bf16x2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-        }
+      for (int p = 0; p < 2; ++p) {
+        const int col = blockIdx.x * 64 + (wn * 2 + p) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(out + col) = make_float2(
+            acc[mt][2 * p + 1][2 * half] * gelu_exact(acc[mt][2 * p][2 * half]),
+            acc[mt][2 * p + 1][2 * half + 1] * gelu_exact(acc[mt][2 * p][2 * half + 1]));
       }
     }
   }
 }
 
-// The fp32 twin: C = A B^T with exact FMA products, 64 x 64 tiles, 16-deep
-// K slices, each thread rows ty + 16 i and columns tx + 16 j. kGeglu: tile
-// columns 0..31 are W1 rows bx*32 + c ("a") and 32..63 the matching "gate"
-// rows bx*32 + c - 32 + inner, so a thread's columns j and j + 2 pair up.
-template <bool kGeglu>
-__global__ __launch_bounds__(kThreads) void gemm_f32_kernel(
+// The fp32 twin with exact FMA products, 64 x 64 tiles, 16-deep K slices,
+// each thread rows ty + 16 i and columns tx + 16 j: tile columns 0..31 are
+// W1 rows bx*32 + c ("a") and 32..63 the matching "gate" rows
+// bx*32 + c - 32 + inner, so a thread's columns j and j + 2 pair up.
+__global__ __launch_bounds__(kThreads) void gemm_geglu_f32_kernel(
     const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-    int M, int N, int K, int inner) {
+    int M, int K, int inner) {
   __shared__ float as[kFK][kFM + 4];
   __shared__ float bs[kFK][kFN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -189,8 +168,7 @@ __global__ __launch_bounds__(kThreads) void gemm_f32_kernel(
   const int lr = tid / 4, lk = (tid % 4) * 4;  // this thread's float4 of each tile
   const bool a_ok = m0 + lr < M;
   const float* a_src = a + (int64_t)(a_ok ? m0 + lr : 0) * K + lk;
-  const int brow = kGeglu ? blockIdx.x * 32 + (lr & 31) + (lr >> 5) * inner
-                          : blockIdx.x * kFN + lr;
+  const int brow = blockIdx.x * 32 + (lr & 31) + (lr >> 5) * inner;
   const float* b_src = b + (int64_t)brow * K + lk;
 
   float acc[4][4];
@@ -225,29 +203,11 @@ __global__ __launch_bounds__(kThreads) void gemm_f32_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = m0 + ty + 16 * i;
     if (row >= M) continue;
-    if (kGeglu) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        c[(int64_t)row * inner + blockIdx.x * 32 + tx + 16 * j] =
-            acc[i][j + 2] * gelu_exact(acc[i][j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        c[(int64_t)row * N + blockIdx.x * kFN + tx + 16 * j] = acc[i][j];
-    }
+    for (int j = 0; j < 2; ++j)
+      c[(int64_t)row * inner + blockIdx.x * 32 + tx + 16 * j] =
+          acc[i][j + 2] * gelu_exact(acc[i][j]);
   }
-}
-
-// Sum over the block (256 threads), the same value in every thread.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by an earlier call
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
-  return s;
 }
 
 // y = (g - mean) * rsqrt(var + eps) * gamma per row of the fp32 scratch g,
@@ -300,36 +260,29 @@ AMT_EXPORT int amt_ffn(const void* x, const void* w1, const void* gamma, const v
     const auto* w2i = static_cast<const __nv_bfloat16*>(w2);
     auto* ys = static_cast<__nv_bfloat16*>(y_scratch);
     cudaError_t err = cudaFuncSetAttribute(
-        gemm_bf16_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
+        gemm_geglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTileSmem);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(gemm_bf16_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
-    if (err != cudaSuccess) return err;
-    const int mt = (n + kBM - 1) / kBM;
-    gemm_bf16_kernel<true><<<dim3(inner / 64, mt), kThreads, kGemmSmem, s>>>(
-        xi, w1i, gs, n, 2 * inner, d, inner);
+    gemm_geglu_bf16_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kTileSmem, s>>>(
+        xi, w1i, gs, n, d, inner);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ln_rows_kernel<__nv_bfloat16><<<n, kThreads, 0, s>>>(gs, gm, ys, inner, eps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    gemm_bf16_kernel<false><<<dim3(d / kBN, mt), kThreads, kGemmSmem, s>>>(
-        ys, w2i, out, n, d, inner, inner);
-    return cudaGetLastError();
+    return gemm_bf16<kK, kK, __nv_bfloat16>(ys, inner, w2i, inner,
+                                           static_cast<__nv_bfloat16*>(out), d, n, d,
+                                           inner, s);
   }
   if (dtype == AMT_F32) {
     const auto* xi = static_cast<const float*>(x);
     const auto* w1i = static_cast<const float*>(w1);
     const auto* w2i = static_cast<const float*>(w2);
     auto* ys = static_cast<float*>(y_scratch);
-    const int mt = (n + kFM - 1) / kFM;
     cudaError_t err;
-    gemm_f32_kernel<true><<<dim3(inner / 32, mt), kThreads, 0, s>>>(
-        xi, w1i, gs, n, 2 * inner, d, inner);
+    gemm_geglu_f32_kernel<<<dim3(inner / 32, (n + kFM - 1) / kFM), kThreads, 0, s>>>(
+        xi, w1i, gs, n, d, inner);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ln_rows_kernel<float><<<n, kThreads, 0, s>>>(gs, gm, ys, inner, eps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    gemm_f32_kernel<false><<<dim3(d / kFN, mt), kThreads, 0, s>>>(
-        ys, w2i, static_cast<float*>(out), n, d, inner, inner);
-    return cudaGetLastError();
+    return gemm_f32<kK, kK>(ys, inner, w2i, inner, static_cast<float*>(out), d, n, d, inner, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -52,12 +52,18 @@ class DataLoader:
             yield idx[s: s + self.batch_size]
 
     def __iter__(self) -> Iterator:
+        for batch_idx in self.iter_indices():
+            yield _collate([self.dataset[int(i)] for i in batch_idx])
+
+    def iter_indices(self) -> Iterator[np.ndarray]:
+        """The sample indices of each batch, with the epoch and order that
+        ``__iter__`` would use (it consumes the epoch alike): token-cached
+        training reads its grids from the cache without the images."""
         epoch = self._epoch
         self._epoch += 1
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
-        for batch_idx in self._batch_indices(epoch):
-            yield _collate([self.dataset[int(i)] for i in batch_idx])
+        yield from self._batch_indices(epoch)
 
 
 def build_loader(cfg):

@@ -3,6 +3,8 @@
     python -m attention_models_torch.main --config=cfg/vitvqgan.yaml \
         [dotted.key=value ...] [--device cuda|cpu]
 
+(``cfg/maskgit.yaml`` trains MaskGIT over the frozen tokenizer.)
+
 Counterpart of the repository's ``main.py``: config -> model -> loaders ->
 trainer -> ``train()``. ``--device`` defaults to the card and raises without
 CUDA; ``--device cpu`` runs the plain PyTorch path on the CPU.
@@ -49,7 +51,8 @@ def main(argv: list[str]):
     logging.basicConfig(level=LEVELS[level],
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    trainer = build_trainer(cfg, build_model(cfg), build_loader(cfg), dev)
+    trainer = build_trainer(cfg, build_model(cfg, dev), build_loader(cfg),
+                            dev)
     trainer.train()
     return trainer
 

@@ -8,12 +8,12 @@ fp32 otherwise.
   ``dataset.preprocessing.resolution`` the image size, ``codebook`` the
   quantiser. Unplaced and not yet initialised: the trainer seeds and places
   it.
-- ``maskgit``: the generator over the ``vitvqgan`` block's tokenizer. It
-  has no trainer yet, so it comes seeded from ``training.seed``, with the
-  tokenizer checkpoint ``vitvqgan.checkpoint`` loaded over its ``vq`` when
-  the file exists, placed on ``device`` (None: the card, raising without
-  CUDA; ``"cpu"`` runs the plain path). Its decode is deterministic, so
-  ``model.dropout`` waits for the training slice; ``training.remat``,
+- ``maskgit``: the generator over the ``vitvqgan`` block's tokenizer,
+  seeded from ``training.seed``, with the tokenizer checkpoint
+  ``vitvqgan.checkpoint`` loaded over its ``vq`` when the file exists,
+  placed on ``device`` (None: the card, raising without CUDA; ``"cpu"``
+  runs the plain path). ``model.dropout`` is the attention dropout of
+  training (the decode is deterministic); ``training.remat``,
   ``training.scan_layers``, ``training.pipeline_microbatches`` and
   ``model.quant`` are not ported yet and raise.
 
@@ -107,7 +107,7 @@ def build_model(cfg, device: str | torch.device | None = None):
                            codebook_params=_codebook_params(cfg)),
             vocab_size=cfg.codebook.codebook_size, n_heads=m.n_heads,
             d_head=m.d_head, dec_depth=m.depth, mult=m.mult,
-            dtype=_dtype(cfg))
+            dropout=float(m.get("dropout", 0.0) or 0.0), dtype=_dtype(cfg))
         model.reset_parameters(
             torch.Generator().manual_seed(int(cfg.training.get("seed", 0))))
         vq = load_vq_checkpoint(cfg.vitvqgan.get("checkpoint"))

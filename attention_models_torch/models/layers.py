@@ -1,5 +1,6 @@
 """Layers of the ViTVQGAN and MaskGIT paths: LayerNorm, Mlp, the fused
-pre-LN MLP block; the gamma-only LayerNorm and the GEGLU FeedForward.
+pre-LN MLP block; the gamma-only LayerNorm, the GEGLU FeedForward and
+Dropout.
 
 Counterparts of ``attention_models_tpu/models/layers.py``. Parameter names
 are the reference PyTorch modules' (``weight``/``bias``; the Mlp is a
@@ -136,6 +137,30 @@ class FeedForward(nn.Module):
             fn = fused_ffn if self.kernels else _ffn_reference
             return fn(x, w1.weight, norm.gamma, w2.weight, eps=norm.eps)
         return self.ff(x)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(p)``: keep ~ bernoulli(1 - p), then
+    ``where(keep, x / (1 - p), 0)`` in x's dtype. The draw comes from the
+    ``torch.Generator`` the caller passes (on x's device; the trainer owns
+    it) or is a given ``keep`` mask (tests). The identity when
+    ``deterministic`` or p = 0. No kernel: plain tensor code, as in JAX."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+        self.p = float(p)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        if deterministic or self.p == 0.0:
+            return x
+        if keep is None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

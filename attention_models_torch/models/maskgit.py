@@ -19,9 +19,17 @@ Exact mode draws its noise from one ``torch.Generator`` per row, approx
 mode runs the fused epilogue (kernel on the card) with a Philox seed per
 row, so a row's ids never depend on the rest of the batch. ``noise``
 replaces both with given per-step Gumbel draws (approx mode then runs the
-unfused chain, as the JAX package does off the TPU). The training loss
-(``targets=``) and dropout come with the generator-training slice; the
-forward here is flax's ``deterministic=True`` one.
+unfused chain, as the JAX package does off the TPU). ``generate`` runs
+the deterministic forward (no dropout).
+
+Training (``forward``, ``loss_from_indices``) keeps the JAX step: the
+frozen tokenizer's indices, ``random_mask`` (drawn from the caller's
+generator, or given draws), mask-token inputs and ignore-index targets,
+then the transformer with ``targets``: its dropout active unless
+``deterministic``, and the mean NLL over the masked positions through
+``fused_head_xent`` under the JAX gate (``cross_entropy_ignore_index``
+over the logits otherwise). One generator draws the mask, then the
+dropout, in that order.
 """
 
 from __future__ import annotations
@@ -42,11 +50,19 @@ from attention_models_torch.models.vq_common import build_vq, vq_num_patches
 from attention_models_torch.ops.sampling import (
     _sample_epilogue_reference,
     cosine_schedule,
+    cross_entropy_ignore_index,
     gumbel,
     lowest_score_mask,
+    mask_fill_inputs_and_targets,
     num_kept,
+    random_mask,
     sample_epilogue_fused,
     sample_topk_filtered,
+)
+from attention_models_torch.ops.xent import (
+    _head_xent_loss_reference,
+    fused_head_xent,
+    head_xent_supported,
 )
 
 
@@ -68,50 +84,98 @@ class BiDirectionalTransformer(nn.Module):
 
     def __init__(self, dim: int, vocab_size: int = 8192, num_patches: int = 256,
                  n_heads: int = 8, d_head: int = 64, dec_depth: int = 6,
-                 mult: float = 4, dtype: torch.dtype | None = None):
+                 mult: float = 4, dropout: float = 0.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.compute_dtype = dtype
         self.input_proj = nn.Embedding(vocab_size + 1, dim)
         self.pos_enc = nn.Parameter(torch.zeros(1, num_patches, dim))
         self.init_norm = GammaLayerNorm(dim)
-        self.decoder = Encoder(dim, n_heads, d_head, dec_depth, mult)
+        self.decoder = Encoder(dim, n_heads, d_head, dec_depth, mult, dropout)
         self.final_norm = GammaLayerNorm(dim)
         self.linear = Linear(dim, vocab_size, bias=False)
+        self.kernels = True  # the fused head loss
 
     @property
     def dtype(self) -> torch.dtype:
         return self.compute_dtype or self.linear.weight.dtype
 
-    def forward(self, x: torch.Tensor, targets=None) -> torch.Tensor:
-        """Token ids (b, n) -> logits (b, n, vocab) in the compute dtype."""
-        if targets is not None:
-            raise NotImplementedError(
-                "the training loss (targets=) comes with the generator "
-                "training slice")
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                targets: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Token ids (b, n) -> logits (b, n, vocab) in the compute dtype;
+        with ``targets`` (b, n) the mean NLL over the non-ignored (-1)
+        positions instead."""
         dt = self.dtype
         h = F.embedding(x.long(), self.input_proj.weight).to(dt)
         h = self.init_norm(h + self.pos_enc.to(dt))
-        h = self.final_norm(self.decoder(h))
-        return self.linear(h)
+        h = self.final_norm(self.decoder(h, deterministic, generator))
+        if targets is None:
+            return self.linear(h)
+        vocab = self.linear.weight.shape[0]
+        if head_xent_supported(h.shape, h.shape[-1], vocab):
+            fn = (fused_head_xent if self.kernels
+                  else _head_xent_loss_reference)
+            return fn(h, self.linear.weight, targets)
+        return cross_entropy_ignore_index(self.linear(h), targets)
 
 
 class MaskGitTransformer(nn.Module):
     def __init__(self, dim: int, vq_config: dict, vocab_size: int = 8192,
                  n_heads: int = 8, d_head: int = 64, dec_depth: int = 6,
-                 mult: float = 4, dtype: torch.dtype | None = None):
+                 mult: float = 4, dropout: float = 0.0,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.vq = build_vq(vq_config, dtype=dtype).requires_grad_(False)
         self.mask_token_id = vocab_size
         self.num_patches = vq_num_patches(vq_config)
         self.bidirectional_transformer = BiDirectionalTransformer(
             dim, vocab_size, self.num_patches, n_heads, d_head, dec_depth,
-            mult, dtype)
+            mult, dropout, dtype)
         self.kernels = True
 
-    def forward(self, imgs, *args, **kwargs):
-        raise NotImplementedError(
-            "the MaskGIT training loss comes with the generator training "
-            "slice; serving calls generate()")
+    def forward(self, imgs: torch.Tensor, *, deterministic: bool = False,
+                generator: torch.Generator | None = None,
+                mask_draws=None) -> torch.Tensor:
+        """The training loss of images (b, 3, H, W): the frozen tokenizer's
+        indices, then ``loss_from_indices``."""
+        return self.loss_from_indices(
+            self.encode_to_indices(imgs), deterministic=deterministic,
+            generator=generator, mask_draws=mask_draws)
+
+    def loss_from_indices(self, indices: torch.Tensor, *,
+                          deterministic: bool = False,
+                          generator: torch.Generator | None = None,
+                          mask_draws=None) -> torch.Tensor:
+        """The training loss from token grids (b, n): ``random_mask`` from
+        ``generator`` (or the given ``mask_draws`` = (t (b,), rand (b, n))),
+        mask-token inputs, ignore-index targets, the transformer's mean NLL
+        (its dropout from ``generator`` unless ``deterministic``)."""
+        _, inputs, targets = self._masked(indices, generator, mask_draws)
+        return self.bidirectional_transformer(
+            inputs, deterministic=deterministic, targets=targets,
+            generator=generator)
+
+    def _masked(self, indices, generator, mask_draws):
+        """(mask, inputs, targets) of token grids (b, n) under the training
+        mask."""
+        b, n = indices.shape
+        mask = random_mask(b, n, generator=generator, draws=mask_draws,
+                           device=indices.device)
+        return (mask, *mask_fill_inputs_and_targets(indices.long(), mask,
+                                                    self.mask_token_id))
+
+    @torch.no_grad()
+    def reconstruct(self, imgs: torch.Tensor, *,
+                    generator: torch.Generator | None = None,
+                    mask_draws=None) -> torch.Tensor:
+        """The eval reconstruction: mask the images' tokens as in training,
+        fill the masked ones with the deterministic forward's argmax, and
+        decode."""
+        indices = self.encode_to_indices(imgs).long()
+        mask, inputs, _ = self._masked(indices, generator, mask_draws)
+        pred = self.bidirectional_transformer(inputs).argmax(-1)
+        return self.vq.decode_indices(torch.where(mask, pred, indices))
 
     use_kernels = ViTVQGAN.use_kernels  # the tokenizer's modules included
 

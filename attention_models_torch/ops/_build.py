@@ -43,6 +43,9 @@ _SIGNATURES = {
     "amt_flash_bwd_kv": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp_bwd": [_P] * 19 + [_I, _I, _I, _F, _P],
     "amt_ffn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+    "amt_ffn_bwd": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
+    "amt_head_xent_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "amt_head_xent_bwd": [_P] * 11 + [_I] * 4 + [_P],
     "amt_sample_epilogue": [_P] * 4 + [_I, _I, _P, _P, _I, _I, _I, _I, _F,
                                        _F, _I, _P],
 }

@@ -12,6 +12,8 @@ the CPU is used only when the caller asks for it (``device="cpu"``).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -45,6 +47,13 @@ def needs_grad(*tensors: torch.Tensor | None) -> bool:
     alternating pairs in one process)."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def rows_lane_tileable(shape: tuple, d: int) -> bool:
+    """The JAX package's row-tiled kernel shape rule: d a multiple of 128,
+    the flattened leading rows a nonzero multiple of 8."""
+    n = math.prod(shape[:-1]) if len(shape) > 1 else 1
+    return d % 128 == 0 and n % 8 == 0 and n >= 8
 
 
 def require_hopper() -> None:

@@ -3,8 +3,8 @@
 - ``fused_ln_mlp``: the pre-LN MLP block x + Mlp(LayerNorm(x)), forward and
   backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu).
 - ``fused_ffn``: the GEGLU FFN LN_gamma(gate * gelu(a)) W2 with
-  [a | gate] = x W1, no biases (csrc/ffn.cu), forward only: its backward
-  comes with the generator-training slice.
+  [a | gate] = x W1, no biases, forward and backward (csrc/ffn.cu,
+  csrc/ffn_bwd.cu).
 
 Counterparts of ``attention_models_tpu/ops/ffn.py``'s ``fused_ln_mlp``
 (bf16 only on the kernel path, as there) and ``fused_ffn`` (bf16 and fp32).
@@ -16,8 +16,10 @@ On the card ``_LnMlp`` wires the two kernels into autograd, as
 ``_ln_mlp.defvjp`` does: the forward takes the (fp32 master) weights and
 casts them to the activations' dtype inside the op; the backward recomputes
 LN -> W1 -> gelu from x and returns the weight gradients in the parameters'
-dtype. Without a gradient to record (serving, ``no_grad``) the wrapper
-launches the forward kernel directly (``needs_grad``).
+dtype. ``_Ffn`` does the same for the GEGLU FFN, saving x and the cast
+weights as ``_ffn_fwd`` saves ``(x, w1, gamma, w2)``. Without a gradient to
+record (serving, ``no_grad``) the wrappers launch the forward kernel
+directly (``needs_grad``).
 """
 
 from __future__ import annotations
@@ -32,11 +34,13 @@ from attention_models_torch.ops.dispatch import (
     check_tensor,
     is_kernel_path,
     needs_grad,
+    rows_lane_tileable,
 )
 from attention_models_torch.ops.layernorm import _ln_reference
 
 KERNEL_DIMS = (512,)  # model widths csrc/ln_mlp*.cu instantiate
 BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's first pass
+FFN_BWD_ROWS = 16     # rows per block of csrc/ffn_bwd.cu's row pass
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -245,8 +249,144 @@ def _ffn_reference(x, w1, gamma, w2, eps):
 def ffn_supported(shape: tuple, d: int, inner: int) -> bool:
     """The JAX package's fused-FFN gate without its backend test: inner and
     d lane-aligned (128), the rows a nonzero multiple of 8."""
-    n = math.prod(shape[:-1])
-    return inner % 128 == 0 and d % 128 == 0 and n % 8 == 0 and n >= 8
+    return inner % 128 == 0 and rows_lane_tileable(shape, d)
+
+
+def _ffn_backward_reference(x, w1, gamma, w2, dy, eps):
+    """Plain version of the GEGLU FFN's backward, the TPU kernel's formulas
+    and rounding points (``_ffn_bwd_kernel``): a, gate, g and the LN
+    statistics in fp32 from x's dtype's operands, y rounded to x's dtype
+    before dW2, dy_ln in fp32, da and dgate rounded before dx and dW1.
+    w1 (2i, d), w2 (d, i). Returns (dx in x's dtype, dW1 (2i, d), dgamma,
+    dW2 (d, i) in fp32)."""
+    dt = x.dtype
+    d, i = x.shape[-1], w2.shape[1]
+    xf = x.reshape(-1, d)
+    do = dy.reshape(-1, d).to(dt)
+    w1c, w2c = w1.to(dt).float(), w2.to(dt).float()
+    h = xf.float() @ w1c.T
+    a, gate = h[:, :i], h[:, i:]
+    phi = 0.5 * (1.0 + torch.erf(a * (1.0 / math.sqrt(2.0))))
+    ga = a * phi
+    g = gate * ga
+    c = g - g.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    ghat = c * rstd
+    gamma32 = gamma.float()
+    y = (ghat * gamma32).to(dt)
+    dw2 = do.float().T @ y.float()                    # (d, i)
+    dy_ln = do.float() @ w2c                          # (n, i)
+    dgamma = (dy_ln * ghat).sum(0)
+    dghat = dy_ln * gamma32
+    m1 = dghat.mean(-1, keepdim=True)
+    m2 = (dghat * ghat).mean(-1, keepdim=True)
+    dg = rstd * (dghat - m1 - ghat * m2)
+    pdf = torch.exp(-0.5 * a * a) / math.sqrt(2.0 * math.pi)
+    dh = torch.cat([(dg * gate * (phi + a * pdf)).to(dt), (dg * ga).to(dt)], -1)
+    dx = (dh.float() @ w1c).to(dt)
+    dw1 = dh.float().T @ xf.float()                   # (2i, d)
+    return dx.reshape(x.shape), dw1, dgamma, dw2
+
+
+def _check_ffn_operands(x, w1c, gamma, w2c):
+    """The kernels' shape, dtype and alignment rules; gamma as contiguous
+    fp32."""
+    check_tensor(x, "x", (torch.float32, torch.bfloat16))
+    d, inner = x.shape[-1], w2c.shape[1]
+    if w1c.shape != (2 * inner, d) or w2c.shape != (d, inner):
+        raise ValueError(f"ffn kernel: w1 {tuple(w1c.shape)} and w2 "
+                         f"{tuple(w2c.shape)} do not fit d={d}")
+    if d % 128 or inner % 64:
+        raise ValueError(f"ffn kernel: d={d} must be a multiple of 128 and "
+                         f"inner={inner} of 64")
+    check_tensor(w1c, "w1", (x.dtype,), 2, x.device)
+    check_tensor(w2c, "w2", (x.dtype,), 2, x.device)
+    check_tensor(gamma, "gamma", (torch.float32, torch.bfloat16), 1, x.device)
+    if gamma.shape != (inner,):
+        raise ValueError(f"ffn kernel: gamma must be ({inner},)")
+    gam = gamma.float().contiguous()
+    if any(t.data_ptr() % 16 for t in (x, w1c, w2c, gam)):
+        raise ValueError("ffn kernel: x, w1, gamma, w2 must be 16-byte "
+                         "aligned")
+    return gam
+
+
+def _ffn_fwd_kernel(x, w1c, gamma, w2c, eps):
+    """One launch of the forward kernel on weights in x's dtype."""
+    gam = _check_ffn_operands(x, w1c, gamma, w2c)
+    d, inner = x.shape[-1], w2c.shape[1]
+    n = x.numel() // d
+    g = torch.empty(n, inner, dtype=torch.float32, device=x.device)
+    y = torch.empty(n, inner, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "amt_ffn", x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
+            w2c.data_ptr(), g.data_ptr(), y.data_ptr(), out.data_ptr(), n, d,
+            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x),
+        )
+    fused_ffn.launches += 1
+    return out
+
+
+def fused_ffn_backward(x, w1, gamma, w2, dy, *, eps: float = 1e-5):
+    """Gradients of ``fused_ffn`` for the cotangent ``dy``: (dx in x's
+    dtype, dW1 (2i, d), dgamma, dW2 (d, i) in fp32), with ``w1``/``w2`` in
+    x's dtype. The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if not is_kernel_path(x):
+        return _ffn_backward_reference(x, w1, gamma, w2, dy, eps)
+    gam = _check_ffn_operands(x, w1, gamma, w2)
+    dy = dy.contiguous()
+    check_tensor(dy, "dy", (x.dtype,), x.dim(), x.device)
+    if dy.shape != x.shape or dy.data_ptr() % 16:
+        raise ValueError("ffn backward: dy must match x, 16-byte aligned")
+    d, inner = x.shape[-1], w2.shape[1]
+    n = x.numel() // d
+    dev, dt = x.device, x.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    # scratch: H = [a | gate] and dy_ln in fp32, y and [da | dgate] in the
+    # dtype, per-block partial sums of dgamma
+    hs = torch.empty(n, 2 * inner, **f32)
+    dyln = torch.empty(n, inner, **f32)
+    ys = torch.empty(n, inner, dtype=dt, device=dev)
+    dhs = torch.empty(n, 2 * inner, dtype=dt, device=dev)
+    gpart = torch.empty(-(-n // FFN_BWD_ROWS), inner, **f32)
+    dx = torch.empty_like(x)
+    dw1, dgamma = torch.empty(2 * inner, d, **f32), torch.empty(inner, **f32)
+    dw2 = torch.empty(d, inner, **f32)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "amt_ffn_bwd", x.data_ptr(), w1.data_ptr(), gam.data_ptr(),
+            w2.data_ptr(), dy.data_ptr(), hs.data_ptr(), dyln.data_ptr(),
+            ys.data_ptr(), dhs.data_ptr(), gpart.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), dgamma.data_ptr(), dw2.data_ptr(), n, d, inner,
+            eps, _build.DTYPE_CODES[dt], _build.stream_of(x),
+        )
+    fused_ffn_backward.launches += 1
+    return dx, dw1, dgamma, dw2
+
+
+fused_ffn_backward.launches = 0
+
+
+class _Ffn(torch.autograd.Function):
+    """Forward and backward kernels; weights cast to x's dtype inside."""
+
+    @staticmethod
+    def forward(ctx, x, w1, gamma, w2, eps):
+        w1c = w1.to(x.dtype).contiguous()
+        w2c = w2.to(x.dtype).contiguous()
+        ctx.eps = eps
+        ctx.dtypes = (w1.dtype, gamma.dtype, w2.dtype)
+        ctx.save_for_backward(x, w1c, gamma, w2c)
+        return _ffn_fwd_kernel(x, w1c, gamma, w2c, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1c, gamma, w2c = ctx.saved_tensors
+        dx, *rest = fused_ffn_backward(x, w1c, gamma, w2c, dy, eps=ctx.eps)
+        return (dx, *(g.to(dt) for g, dt in zip(rest, ctx.dtypes)), None)
 
 
 def fused_ffn(
@@ -257,45 +397,15 @@ def fused_ffn(
     *,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """LN_gamma(gate * gelu(a)) @ w2^T with [a | gate] = x @ w1^T, in x's
-    dtype (the weights are cast to it): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor. The backward is not ported yet, so a
-    CUDA input that needs a gradient raises."""
+    """Differentiable LN_gamma(gate * gelu(a)) @ w2^T with [a | gate] =
+    x @ w1^T, in x's dtype (the weights are cast to it): the kernels for a
+    CUDA tensor, the plain version for a CPU tensor."""
     if not is_kernel_path(x):
         return _ffn_reference(x, w1, gamma, w2, eps)
     if needs_grad(x, w1, gamma, w2):
-        raise NotImplementedError(
-            "fused_ffn: backward not ported yet (it comes with the generator "
-            "training slice); call it under torch.no_grad()")
-    check_tensor(x, "x", (torch.float32, torch.bfloat16))
-    d = x.shape[-1]
-    inner = w2.shape[1]
-    w1c, w2c = w1.to(x.dtype).contiguous(), w2.to(x.dtype).contiguous()
-    if w1c.shape != (2 * inner, d) or w2c.shape != (d, inner):
-        raise ValueError(f"ffn kernel: w1 {tuple(w1.shape)} and w2 "
-                         f"{tuple(w2.shape)} do not fit d={d}")
-    if d % 128 or inner % 64:
-        raise ValueError(f"ffn kernel: d={d} must be a multiple of 128 and "
-                         f"inner={inner} of 64")
-    check_tensor(w1c, "w1", (x.dtype,), 2, x.device)
-    check_tensor(gamma, "gamma", (torch.float32, torch.bfloat16), 1, x.device)
-    if gamma.shape != (inner,):
-        raise ValueError(f"ffn kernel: gamma must be ({inner},)")
-    if any(t.data_ptr() % 16 for t in (x, w1c, w2c)):
-        raise ValueError("ffn kernel: x, w1, w2 must be 16-byte aligned")
-    n = x.numel() // d
-    g = torch.empty(n, inner, dtype=torch.float32, device=x.device)
-    y = torch.empty(n, inner, dtype=x.dtype, device=x.device)
-    out = torch.empty_like(x)
-    gam = gamma.float().contiguous()
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "amt_ffn", x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
-            w2c.data_ptr(), g.data_ptr(), y.data_ptr(), out.data_ptr(), n, d,
-            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x),
-        )
-    fused_ffn.launches += 1
-    return out
+        return _Ffn.apply(x, w1, gamma, w2, eps)
+    return _ffn_fwd_kernel(x, w1.to(x.dtype).contiguous(), gamma,
+                           w2.to(x.dtype).contiguous(), eps)
 
 
 fused_ffn.launches = 0

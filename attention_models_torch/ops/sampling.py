@@ -21,8 +21,11 @@ combine, bisection top-k threshold, Gumbel argmax, the chosen class's
 softmax probability). Its noise bits are Philox4x32-10 keyed by (row seed,
 step) with (column / 4, position under the seed) as the counter -- the
 kernel and ``philox_bits`` compute the same stream -- or an int32 tensor
-(``noise_bits``). ``random_mask`` and ``cross_entropy_ignore_index`` come
-with the training slice.
+(``noise_bits``).
+
+Training: ``random_mask`` (per-sample cosine mask rate, the lowest of a
+uniform draw) and ``cross_entropy_ignore_index`` (the mean over
+non-ignored positions, torch ``F.cross_entropy`` semantics).
 """
 
 from __future__ import annotations
@@ -131,6 +134,47 @@ def lowest_score_mask(scores: torch.Tensor, num_to_mask: int) -> torch.Tensor:
     iota = torch.arange(scores.shape[-1], device=scores.device)
     ranks = torch.empty_like(order).scatter_(-1, order, iota.expand_as(order))
     return ranks < num_to_mask
+
+
+def masked_count(mask_prob: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """max(round(seq_len * mask_prob), 1) in fp32, rounding half to even as
+    ``jnp.round`` does (``torch.round`` does too)."""
+    return torch.round(seq_len * mask_prob.clamp(min=0.0)).clamp(min=1.0)
+
+
+def random_mask(batch: int, seq_len: int, *,
+                generator: torch.Generator | None = None, draws=None,
+                device=None) -> torch.Tensor:
+    """Training mask (batch, seq_len), True = masked: per sample
+    t ~ U[0, 1), ``masked_count(cos(t pi / 2))`` positions, the lowest of a
+    uniform (batch, seq_len) draw (stable ties). ``draws`` = (t (b,),
+    rand (b, n)) replaces the two draws from ``generator`` (tests hand it
+    JAX's ``uniform(t_key)`` and ``uniform(perm_key)``)."""
+    if draws is None:
+        t = torch.rand(batch, generator=generator, device=device)
+        rand = torch.rand(batch, seq_len, generator=generator, device=device)
+    else:
+        t, rand = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                   for a in draws)
+        if t.shape != (batch,) or rand.shape != (batch, seq_len):
+            raise ValueError(f"mask draws {tuple(t.shape)}, "
+                             f"{tuple(rand.shape)} for ({batch}, {seq_len})")
+    num = masked_count(cosine_schedule(t), seq_len)
+    return lowest_score_mask(rand, num[:, None])
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, targets: torch.Tensor,
+                               ignore_index: int = -1) -> torch.Tensor:
+    """Mean cross-entropy of ``logits`` (..., C) in fp32 over the positions
+    whose target is not ``ignore_index``; targets broadcast to the logits'
+    leading shape and the count with them; 0 / max(count, 1)."""
+    lead = logits.shape[:-1]
+    tgt = torch.broadcast_to(targets, lead)
+    valid = tgt != ignore_index
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, tgt, 0).long()[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 def mask_fill_inputs_and_targets(indices: torch.Tensor, mask: torch.Tensor,

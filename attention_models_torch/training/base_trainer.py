@@ -214,11 +214,15 @@ class BaseTrainer:
         log.info("Train finished!")
 
     # -- EMA -----------------------------------------------------------------
-    def ema_init(self, module: torch.nn.Module) -> None:
-        """With ``training.ema_decay``: a copy of ``module``'s parameters."""
+    def ema_init(self, module: torch.nn.Module,
+                 exclude: tuple[str, ...] = ()) -> None:
+        """With ``training.ema_decay``: a copy of ``module``'s parameters
+        outside the top-level subtrees ``exclude`` (frozen towers never
+        move, so averaging them would only duplicate memory)."""
         if self.ema_decay:
             self.ema = {k: p.detach().clone()
-                        for k, p in module.named_parameters()}
+                        for k, p in module.named_parameters()
+                        if k.split(".")[0] not in exclude}
 
     @torch.no_grad()
     def ema_update(self, module: torch.nn.Module) -> None:

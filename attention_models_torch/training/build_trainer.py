@@ -1,18 +1,29 @@
-"""Trainer dispatch: the ViTVQGAN GAN trainer; other models raise until
-their slice is ported (counterpart of
+"""Trainer dispatch: the ViTVQGAN GAN trainer and the MaskGIT trainer;
+Muse and Parti raise until their models are ported (counterpart of
 ``attention_models_tpu/training/build_trainer.py``)."""
 
 from __future__ import annotations
 
 
 def build_trainer(cfg, model, dataloaders, device=None):
-    from attention_models_torch.training.vqgan_trainer import VQGANTrainer
-
     if cfg.model.get("quant"):
         raise ValueError("model.quant is inference-only; unset it for "
                          "training")
     name = cfg.model.name
-    if name != "vitvqgan":
-        raise NotImplementedError(f"no trainer for model {name!r} in the "
-                                  f"port yet")
-    return VQGANTrainer(cfg, model, dataloaders, device)
+    if name == "vitvqgan":
+        from attention_models_torch.training.vqgan_trainer import VQGANTrainer
+
+        return VQGANTrainer(cfg, model, dataloaders, device)
+    if name == "maskgit":
+        from attention_models_torch.training.generator_trainers import (
+            MaskGitTrainer,
+        )
+
+        return MaskGitTrainer(cfg, model, dataloaders, device)
+    if name in ("muse", "parti"):
+        raise NotImplementedError(
+            f"no trainer for model {name!r} in the port yet: it comes after "
+            f"the Muse/Parti serving slice brings the text tower, the "
+            f"cross-attention decoder and Parti")
+    raise NotImplementedError(f"no trainer for model {name!r} in the port "
+                              f"yet")

@@ -16,22 +16,36 @@ returns an ``OptaxAdam``, which applies, to the gradients handed to ``step``:
    far, which is ``global_step // k`` at the step that updates.
 
 Moments are ``exp_avg`` / ``exp_avg_sq`` and the accumulator ``acc_grad``
-in each parameter's state; the counters live in the param group, so
-``state_dict`` / ``load_state_dict`` carry everything.
+in each parameter's state; the counters and the per-parameter decay flags
+live in the param group, so ``state_dict`` / ``load_state_dict`` carry
+everything.
+
+The generator trainers build it over a module with ``frozen_subtrees``
+(``optax.masked`` + ``set_to_zero`` in JAX): the frozen parameters are left
+out, so they hold no moments and never move; and, for adamw with weight
+decay, ``no_decay_grouping``: the decoupled decay applies only where
+``decay_mask`` says, judged on each parameter's flax path.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Mapping, Sequence
 
 import torch
+from torch import nn
+
+NO_DECAY_NAMES = ("bias", "beta", "gamma", "scale", "embedding", "pos_enc",
+                  "class_token", "bias1", "bias2", "start_token")
 
 
 class OptaxAdam(torch.optim.Optimizer):
     def __init__(self, params, schedule: Callable[[int], float], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0, decoupled: bool = False,
-                 max_grad_norm: float | None = None, accum_steps: int = 1):
+                 max_grad_norm: float | None = None, accum_steps: int = 1,
+                 decay: Sequence[bool] | None = None):
+        """``decay``: one flag per parameter, whether the weight decay
+        applies to it (default: to every one)."""
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         defaults = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
@@ -40,6 +54,11 @@ class OptaxAdam(torch.optim.Optimizer):
         super().__init__(params, defaults)
         if len(self.param_groups) != 1:
             raise ValueError("OptaxAdam takes one parameter group")
+        group = self.param_groups[0]
+        group["decay"] = ([True] * len(group["params"]) if decay is None
+                          else [bool(f) for f in decay])
+        if len(group["decay"]) != len(group["params"]):
+            raise ValueError("one decay flag per parameter")
         self.schedule = schedule
 
     @property
@@ -94,8 +113,10 @@ class OptaxAdam(torch.optim.Optimizer):
         lr = float(self.schedule(group["count"]))
         group["count"] += 1
         c = group["count"]
-        if wd and not group["decoupled"]:
-            torch._foreach_add_(grads, params, alpha=wd)
+        decayed = [i for i, f in enumerate(group["decay"]) if f]
+        if wd and not group["decoupled"] and decayed:
+            torch._foreach_add_([grads[i] for i in decayed],
+                                [params[i] for i in decayed], alpha=wd)
         m = [self.state[p]["exp_avg"] for p in params]
         v = [self.state[p]["exp_avg_sq"] for p in params]
         torch._foreach_mul_(m, b1)
@@ -107,32 +128,85 @@ class OptaxAdam(torch.optim.Optimizer):
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
         torch._foreach_div_(upd, den)
-        if wd and group["decoupled"]:
-            torch._foreach_add_(upd, params, alpha=wd)
+        if wd and group["decoupled"] and decayed:
+            torch._foreach_add_([upd[i] for i in decayed],
+                                [params[i] for i in decayed], alpha=wd)
         torch._foreach_add_(params, upd, alpha=-lr)
         return True
 
 
-def build_optimizer(cfg, schedule: Callable[[int], float], params,
+def flax_paths(module: nn.Module) -> dict[str, tuple[str, ...]]:
+    """Each parameter's key -> the parts of its flax path that the JAX
+    masks test: the module path, then the leaf as flax names it (a torch
+    Linear's ``weight`` is a flax ``kernel``, an Embedding's an
+    ``embedding``, a LayerNorm's ``weight`` / ``bias`` are ``gamma`` /
+    ``beta``). So ``input_proj.weight`` is ``input_proj/embedding`` and
+    stays undecayed, as in JAX."""
+    leaf_names = {nn.Linear: {"weight": "kernel"},
+                  nn.Conv2d: {"weight": "kernel"},
+                  nn.Embedding: {"weight": "embedding"}}
+    out = {}
+    for mname, m in module.named_modules():
+        names = next((v for t, v in leaf_names.items() if isinstance(m, t)),
+                     {"weight": "gamma", "bias": "beta"}
+                     if type(m).__name__ == "LayerNorm" else {})
+        for pname, _ in m.named_parameters(recurse=False):
+            parts = tuple(mname.split(".")) if mname else ()
+            out[f"{mname}.{pname}" if mname else pname] = parts + (
+                names.get(pname, pname),)
+    return out
+
+
+def decay_mask(module: nn.Module,
+               no_decay_names: Sequence[str] = NO_DECAY_NAMES
+               ) -> dict[str, bool]:
+    """True where weight decay applies: tensors of 2+ dims whose flax path
+    holds none of ``no_decay_names`` (``training/optim.py::decay_mask``)."""
+    params = dict(module.named_parameters())
+    return {k: params[k].dim() >= 2 and not set(parts) & set(no_decay_names)
+            for k, parts in flax_paths(module).items()}
+
+
+def frozen_mask(module: nn.Module,
+                frozen_subtrees: Sequence[str]) -> dict[str, bool]:
+    """True where a parameter is trainable (outside the frozen subtrees)."""
+    return {k: not set(parts) & set(frozen_subtrees)
+            for k, parts in flax_paths(module).items()}
+
+
+def build_optimizer(cfg, schedule: Callable[[int], float],
+                    params: Sequence[torch.Tensor] | nn.Module,
                     frozen_subtrees: Sequence[str] = (),
                     no_decay_grouping: bool = False) -> OptaxAdam:
     """The config's ``optimizer`` (adam / adamw) with ``training.
-    max_grad_norm`` and ``training.gradient_accumulation_steps``."""
-    if frozen_subtrees or no_decay_grouping:
-        raise NotImplementedError(
-            "frozen_subtrees / no_decay_grouping are not ported yet (the "
-            "generator trainers of slice 4 need them)")
+    max_grad_norm`` and ``training.gradient_accumulation_steps``, over a
+    list of parameters or, with ``frozen_subtrees`` / ``no_decay_grouping``,
+    over a module's trainable parameters in ``named_parameters`` order."""
     name = cfg.optimizer.name
     if name not in ("adam", "adamw"):
         raise ValueError(f"unknown optimizer {name!r}")
     p = cfg.optimizer.params
+    wd = float(p.get("weight_decay", 0.0) or 0.0)
+    decay = None
+    if isinstance(params, nn.Module):
+        module = params
+        named: Mapping[str, torch.Tensor] = dict(module.named_parameters())
+        keep = frozen_mask(module, frozen_subtrees)
+        keys = [k for k in named if keep[k]]
+        params = [named[k] for k in keys]
+        if name == "adamw" and no_decay_grouping and wd > 0:
+            mask = decay_mask(module)
+            decay = [mask[k] for k in keys]
+    elif frozen_subtrees or no_decay_grouping:
+        raise TypeError("frozen_subtrees / no_decay_grouping need the "
+                        "module, to name its parameters")
     max_norm = cfg.training.get("max_grad_norm")
     return OptaxAdam(
         params, schedule, b1=float(p.beta1), b2=float(p.beta2),
-        eps=float(p.get("epsilon", 1e-8) or 1e-8),
-        weight_decay=float(p.get("weight_decay", 0.0) or 0.0),
+        eps=float(p.get("epsilon", 1e-8) or 1e-8), weight_decay=wd,
         decoupled=name == "adamw",
         max_grad_norm=float(max_norm) if max_norm else None,
         accum_steps=int(cfg.training.get("gradient_accumulation_steps", 1)
                         or 1),
+        decay=decay,
     )

@@ -12,7 +12,10 @@ Needs one Hopper card. Phases, one line each (any failure raises):
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
-              every parameter gradient (the gate on the autograd wiring)
+              every parameter gradient (the gate on the autograd wiring);
+              then one full-width MaskGIT EncoderLayer + final_norm + head
+              loss (b 8, t 1024, d 768, dropout 0.1 from one generator seed
+              on both paths), the same gate
   5. main     the serving path: entry() (ViTVQGAN 256 px, bf16, batch 8,
               seeded weights), 3 requests through vq_recon_service and 1
               through vq_encode_service; every kernel's launch count must
@@ -42,10 +45,26 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               update in bf16, kernels and plain against fp32; whole-generate
               id agreement (reported); ms/step, images/s, peak memory; device
               time by kernel over one generate
+  9. maskgit_train  MaskGIT training: build_model + build_trainer on
+              cfg/maskgit.yaml with training.mixed_precision=bf16 and
+              MASKGIT_TRAIN_OVERRIDES (cuts of scale only: synthetic data,
+              32 examples = 4 micro-steps of batch 8, accumulation 2 = 2
+              optimizer steps); exact launch deltas per micro-step
+              (MASKGIT_TRAIN_STEP), finite losses, the vq tokenizer
+              bit-equal throughout and without optimizer state, the
+              schedule (constant_with_warmup: the first optimizer step runs
+              at lr 0, so it moves the Adam moments and no parameter; the
+              second moves them); micro-step time, images/s, peak memory;
+              device time by kernel over 2 traced micro-steps
+ 10. fp32     one micro-step's loss and trainable gradients of the whole
+              model in fp32 (TF32 off), kernels against plain, on the same
+              weights, token grid, mask draws and dropout seed; the bf16
+              model's loss and global gradient on the same inputs, each
+              path against the fp32 plain one
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
-Each kernel's "launches" there is the sum of its counts over the three
-driven paths (serving, training, maskgit, each counted from 0), listed
-one by one beside it.
+Each kernel's "launches" there is the sum of its counts over the four
+driven paths (serving, training, maskgit, maskgit_train, each counted from
+0), listed one by one beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -89,7 +108,20 @@ Tolerances (kernel against plain on the card):
     error against the same layer in fp32 at most FLOOR_RATIO times the
     plain path's;
   - whole-generate ids are reported, not gated: one flipped near-tie
-    changes every later step.
+    changes every later step;
+  - the GEGLU FFN's backward and the head cross-entropy's backward:
+    relative L2 <= 2e-2 in bf16 (y, da, dgate and dl are rounded to bf16
+    before the products that take them, as in the TPU kernels), <= 1e-5 in
+    fp32, on every output; the head cross-entropy's forward: nll and lse
+    within relative L2 1e-2 in bf16 (the logits are rounded to bf16), 1e-5
+    in fp32;
+  - the full-width MaskGIT layer with its head loss: dx and every
+    parameter gradient within relative L2 2e-2 of the plain path;
+  - the whole MaskGIT model in fp32 (TF32 off): the loss within relative
+    1e-5 and every trainable gradient within relative L2 1e-4 of the plain
+    path (summation order only); in bf16 the loss's and the global
+    gradient's errors against the fp32 plain path, kernels at most
+    FLOOR_RATIO times the plain path's.
 """
 
 from __future__ import annotations
@@ -151,7 +183,8 @@ TRAIN_OVERRIDES = {"dataset.name": "synthetic",
 PER_MICRO_STEP = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                   "layernorm": 16, "nearest_codes": 1,
                   "flash_attention_bwd_kv": 12, "ln_mlp_bwd": 12,
-                  "ffn": 0, "sample_epilogue": 0}
+                  "ffn": 0, "sample_epilogue": 0, "ffn_bwd": 0,
+                  "head_xent": 0, "head_xent_bwd": 0}
 
 # cfg/maskgit.yaml as PyYAML reads it; tests/test_torch_port_rules.py holds
 # the two equal
@@ -196,6 +229,26 @@ VQ_ENCODE = {"flash_attention_bthd_kv": 6, "ln_mlp": 6, "layernorm": 9,
              "nearest_codes": 1}
 
 
+# MaskGIT training on cfg/maskgit.yaml, cut in scale only: synthetic
+# images, 32 examples = 4 micro-steps of batch 8 in one epoch, accumulation
+# 2 = 2 optimizer steps (training.mixed_precision=bf16 is the timed path's
+# dotted override, as in phase 8)
+MASKGIT_TRAIN_OVERRIDES = {"dataset.name": "synthetic",
+                           "experiment.max_train_examples": 32,
+                           "training.num_epochs": 1,
+                           "training.gradient_accumulation_steps": 2}
+# kernel launches per MaskGIT training micro-step (cache_vq_tokens off,
+# bf16): the frozen tokenizer's encode (VQ_ENCODE) and the transformer's
+# forward (maskgit_step without the epilogue), the fused head loss, then the
+# backward: each layer's FFN and attention once, the head once (the
+# gamma-LayerNorms' backward is the plain vjp, as in JAX)
+MASKGIT_TRAIN_STEP = {"flash_attention_bthd_kv": 16 + 6, "ln_mlp": 6,
+                      "layernorm": 34 + 9, "nearest_codes": 1, "ffn": 16,
+                      "ffn_bwd": 16, "flash_attention_bwd_kv": 16,
+                      "head_xent": 1, "head_xent_bwd": 1, "ln_mlp_bwd": 0,
+                      "sample_epilogue": 0}
+
+
 def maskgit_step(depth: int, approx: bool) -> dict:
     """Launches of one decode step: attention and the GEGLU FFN once a
     layer, the gamma LayerNorms init_norm + 2 a layer + final_norm, and the
@@ -210,6 +263,15 @@ def maskgit_config(mixed_precision: str):
 
     cfg = Config(json.loads(json.dumps(MASKGIT_YAML)))
     cfg.set_path("training.mixed_precision", mixed_precision)
+    return cfg
+
+
+def maskgit_train_config(output_dir: str):
+    """cfg/maskgit.yaml, bf16, with MASKGIT_TRAIN_OVERRIDES."""
+    cfg = maskgit_config("bf16")
+    for k, v in MASKGIT_TRAIN_OVERRIDES.items():
+        cfg.set_path(k, v)
+    cfg.set_path("experiment.output_dir", output_dir)
     return cfg
 
 
@@ -250,10 +312,18 @@ def main() -> int:
         _nearest_codes_reference, l2_normalize, nearest_codes)
     from attention_models_torch.data.loaders import build_loader
     from attention_models_torch.models.factory import build_model
+    from attention_models_torch.models.layers import (
+        GammaLayerNorm, lecun_normal_)
+    from attention_models_torch.models.transformer import EncoderLayer
     from attention_models_torch.models.vitvqgan import ViTVQGANBlock
     from attention_models_torch.ops.ffn import (
-        _ffn_reference, _ln_mlp_backward_reference, _ln_mlp_reference,
-        fused_ffn, fused_ln_mlp, fused_ln_mlp_backward)
+        _ffn_backward_reference, _ffn_reference, _ln_mlp_backward_reference,
+        _ln_mlp_reference, fused_ffn, fused_ffn_backward, fused_ln_mlp,
+        fused_ln_mlp_backward)
+    from attention_models_torch.ops.xent import (
+        _head_xent_backward_reference, _head_xent_fwd_kernel,
+        _head_xent_loss_reference, _head_xent_reference, fused_head_xent,
+        head_xent_backward)
     from attention_models_torch.ops.flash_attention import (
         _flash_backward_reference, _flash_reference, flash_attention_bthd_kv,
         flash_attention_bwd_kv)
@@ -479,12 +549,16 @@ def main() -> int:
     # backward kernels, bf16 and fp32, causal and not, at the main path's
     # shapes; the library call is SDPA's forward + backward
     scale = d_ ** -0.5
-    for dtype, causal in ((torch.bfloat16, False), (torch.float32, False),
-                          (torch.bfloat16, True), (torch.float32, True)):
-        q = randn(b_, t_, h_, d_, dtype=dtype)
-        kv = randn(b_, t_, 2, h_, d_, dtype=dtype)
+    for dtype, causal, hh in ((torch.bfloat16, False, h_),
+                              (torch.float32, False, h_),
+                              (torch.bfloat16, True, h_),
+                              (torch.float32, True, h_),
+                              (torch.bfloat16, False, mg_heads),
+                              (torch.float32, False, mg_heads)):
+        q = randn(b_, t_, hh, d_, dtype=dtype)
+        kv = randn(b_, t_, 2, hh, d_, dtype=dtype)
         out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
-        g = randn(b_, t_, h_, d_, dtype=dtype)
+        g = randn(b_, t_, hh, d_, dtype=dtype)
         dq, dkv = flash_attention_bwd_kv(q, kv, out, lse, g, scale=scale,
                                          causal=causal)
         dq_p, dkv_p = _flash_backward_reference(q, kv, out, lse, g, scale,
@@ -502,7 +576,7 @@ def main() -> int:
 
         n_pairs = t_ * (t_ + 1) // 2 if causal else t_ * t_
         record("flash_attention_bwd_kv",
-               f"b{b_} t{t_} h{h_} d{d_} causal={causal} (dq, dk, dv rel_l2 "
+               f"b{b_} t{t_} h{hh} d{d_} causal={causal} (dq, dk, dv rel_l2 "
                f"{errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e})", dtype,
                BWD_BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                max(errs), max(max_abs(a, b) for a, b in pairs),
@@ -512,7 +586,7 @@ def main() -> int:
                    q, kv, out, lse, g, scale, causal)),
                time_ms(sdpa_fwd_bwd),
                nbytes(q, kv, out, lse, g, dq, dkv),
-               10 * b_ * h_ * d_ * n_pairs)
+               10 * b_ * hh * d_ * n_pairs)
 
     # fused LN + MLP backward, bf16; the library call is layer_norm ->
     # linear -> gelu -> linear forward + backward
@@ -564,6 +638,90 @@ def main() -> int:
                time_ms(lambda: _ffn_reference(x, w1, gam, w2, 1e-5)),
                time_ms(ffn_library), nbytes(x, w1, gam, w2, got),
                6 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
+
+        # its backward (kernel 12) on the same operands; the library chain
+        # forward + backward
+        dy = randn(n_tok, mg_dim, dtype=dtype)
+        got = fused_ffn_backward(x, w1, gam, w2, dy)
+        want = _ffn_backward_reference(x, w1, gam, w2, dy, 1e-5)
+        errs = {k: rel_l2(a, b) for k, a, b in zip(
+            ("dx", "dw1", "dgamma", "dw2"), got, want)}
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, w1, gam_c, w2)]
+
+        def ffn_library_fwd_bwd():
+            xl, w1l, gl, w2l = leaves
+            a, gate = F.linear(xl, w1l).chunk(2, dim=-1)
+            y = F.linear(F.layer_norm(gate * F.gelu(a), (mg_inner,), gl), w2l)
+            return torch.autograd.grad(y, leaves, dy)
+
+        record("ffn_bwd", f"({n_tok},{mg_dim}) inner {mg_inner} (" + ", ".join(
+                   f"{k} {v:.2e}" for k, v in errs.items()) + ")", dtype,
+               BWD_BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+               max(errs.values()), max(max_abs(a, b) for a, b in zip(got, want)),
+               time_ms(lambda: fused_ffn_backward(x, w1, gam, w2, dy)),
+               time_ms(lambda: _ffn_backward_reference(x, w1, gam, w2, dy,
+                                                       1e-5)),
+               time_ms(ffn_library_fwd_bwd), nbytes(x, w1, gam, w2, dy, *got),
+               16 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
+        del got, want, leaves
+
+    # the fused head cross-entropy (kernels 13 and 14) at MaskGIT's training
+    # shape: 8 x 1024 rows, d 768, vocab 8192, ~36 % of the targets ignored
+    # (-1), without and with Parti's bias; the library is F.linear +
+    # F.cross_entropy(ignore_index=-1) (forward + backward for kernel 14)
+    n_voc = 8192
+    for dtype, with_bias in ((torch.bfloat16, False), (torch.bfloat16, True),
+                             (torch.float32, False), (torch.float32, True)):
+        h = randn(n_tok, mg_dim, dtype=dtype)
+        w = randn(n_voc, mg_dim, dtype=dtype, scale=mg_dim ** -0.5)
+        bias = randn(n_voc, scale=0.1) if with_bias else None
+        tgt = torch.randint(0, n_voc, (n_tok,), generator=gen, device=dev)
+        tgt[torch.rand(n_tok, generator=gen, device=dev) < 0.36] = -1
+        bias_c = bias.to(dtype) if with_bias else None
+        label = f"({n_tok},{mg_dim}) V {n_voc} bias={with_bias}"
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        nll, lse = _head_xent_fwd_kernel(h, w, bias, tgt)
+        nll_p, lse_p = _head_xent_reference(h, w, tgt, bias=bias)
+        errs = {"nll": rel_l2(nll, nll_p), "lse": rel_l2(lse, lse_p)}
+        extra = () if bias is None else (bias,)
+        record("head_xent", f"{label} (nll {errs['nll']:.2e}, lse "
+               f"{errs['lse']:.2e})", dtype, tol, max(errs.values()),
+               max(max_abs(nll, nll_p), max_abs(lse, lse_p)),
+               time_ms(lambda: _head_xent_fwd_kernel(h, w, bias, tgt)),
+               time_ms(lambda: _head_xent_reference(h, w, tgt, bias=bias)),
+               time_ms(lambda: F.cross_entropy(F.linear(h, w, bias_c), tgt,
+                                               ignore_index=-1)),
+               nbytes(h, w, tgt, nll, lse, *extra), 2 * n_tok * mg_dim * n_voc,
+               main=dtype == torch.bfloat16 and not with_bias)
+        valid = tgt != -1
+        coef = valid.float() / valid.sum()
+        got = head_xent_backward(h, w, tgt, lse_p, coef, bias=bias)
+        want = _head_xent_backward_reference(h, w, tgt, lse_p, coef, bias)
+        names = ("dh", "dw", "db")[:2 + with_bias]
+        errs = {k: rel_l2(a, b) for k, a, b in zip(names, got, want)}
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (h, w, *(() if bias_c is None else (bias_c,)))]
+
+        def xent_library_fwd_bwd():
+            loss = F.cross_entropy(F.linear(*leaves), tgt, ignore_index=-1)
+            return torch.autograd.grad(loss, leaves)
+
+        record("head_xent_bwd", f"{label} (" + ", ".join(
+                   f"{k} {v:.2e}" for k, v in errs.items()) + ")", dtype,
+               BWD_BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+               max(errs.values()),
+               max(max_abs(a, b) for a, b in zip(got, want) if b is not None),
+               time_ms(lambda: head_xent_backward(h, w, tgt, lse_p, coef,
+                                                  bias=bias)),
+               time_ms(lambda: _head_xent_backward_reference(
+                   h, w, tgt, lse_p, coef, bias)),
+               time_ms(xent_library_fwd_bwd),
+               nbytes(h, w, tgt, lse_p, coef, *extra,
+                      *(t for t in got if t is not None)),
+               6 * n_tok * mg_dim * n_voc,
+               main=dtype == torch.bfloat16 and not with_bias)
+        del got, want, leaves
 
     # the sampling epilogue at the decode shape: 8 x 1024 rows of 8192
     # logits, p 0.9 (k 820), step 0's temperature 17/18, CFG scale 3
@@ -694,7 +852,9 @@ def main() -> int:
                 "nearest_codes": nearest_codes,
                 "flash_attention_bwd_kv": flash_attention_bwd_kv,
                 "ln_mlp_bwd": fused_ln_mlp_backward, "ffn": fused_ffn,
-                "sample_epilogue": sample_epilogue_fused}
+                "sample_epilogue": sample_epilogue_fused,
+                "ffn_bwd": fused_ffn_backward, "head_xent": fused_head_xent,
+                "head_xent_bwd": head_xent_backward}
     per_forward = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                    "layernorm": 16, "nearest_codes": 1}
     per_encode = {"flash_attention_bthd_kv": 6, "ln_mlp": 6,
@@ -749,6 +909,61 @@ def main() -> int:
     if not all(e <= MODEL_BF16_TOL for e in blk_errs.values()):
         raise AssertionError(f"block gradients: {blk_errs}")
     del blk, grads_k, grads_p
+
+    # one full-width MaskGIT EncoderLayer, final_norm and the head loss, b 8,
+    # t 1024, d 768, bf16 compute over fp32 parameters, dropout 0.1 drawn
+    # from the same generator seed on both paths (so the masks are equal),
+    # ~36 % of the targets ignored: kernels against plain on dx and every
+    # parameter gradient
+    init = torch.Generator().manual_seed(1)
+    mlayer = EncoderLayer(mg_dim, mg_heads, 64, 8, dropout=0.1)
+    for m in mlayer.modules():
+        if isinstance(m, torch.nn.Linear):
+            lecun_normal_(m.weight, init)
+            if m.bias is not None:
+                torch.nn.init.zeros_(m.bias)
+    mlayer, fnorm = mlayer.to(dev), GammaLayerNorm(mg_dim).to(dev)
+    head_w = torch.nn.init.trunc_normal_(
+        torch.empty(8192, mg_dim), 0.0, 0.02, -0.04, 0.04,
+        generator=init).to(dev).requires_grad_(True)
+    xl = randn(8, 1024, mg_dim, dtype=torch.bfloat16)
+    tgt_l = torch.randint(0, 8192, (8, 1024), generator=gen, device=dev)
+    tgt_l[torch.rand(8, 1024, generator=gen, device=dev) < 0.36] = -1
+    lparams = [*mlayer.parameters(), *fnorm.parameters(), head_w]
+    lnames = (["dx"] + [f"layer.{k}" for k, _ in mlayer.named_parameters()]
+              + [f"final_norm.{k}" for k, _ in fnorm.named_parameters()]
+              + ["head"])
+
+    def layer_grads(kernels):
+        for m in (*mlayer.modules(), fnorm):
+            if hasattr(m, "kernels"):
+                m.kernels = kernels
+        xr = xl.clone().requires_grad_(True)
+        drop = torch.Generator(device=dev).manual_seed(5)
+        hf = fnorm(mlayer(xr, deterministic=False, generator=drop))
+        loss = (fused_head_xent if kernels else _head_xent_loss_reference)(
+            hf, head_w, tgt_l)
+        return torch.autograd.grad(loss, [xr, *lparams])
+
+    c = counts()
+    lgrads_k = layer_grads(True)
+    expect_delta(c, {"flash_attention_bthd_kv": 1, "layernorm": 3, "ffn": 1,
+                     "flash_attention_bwd_kv": 1, "ffn_bwd": 1,
+                     "head_xent": 1, "head_xent_bwd": 1},
+                 "MaskGIT layer + head forward + backward")
+    lgrads_p = layer_grads(False)
+    mlayer_errs = {k: rel_l2(a, b) for k, a, b in zip(lnames, lgrads_k,
+                                                      lgrads_p)}
+    worst = max(mlayer_errs, key=mlayer_errs.get)
+    print(f"[block] MaskGIT EncoderLayer + final_norm + head loss b8 t1024 "
+          f"d{mg_dim}, bf16 over fp32 params, dropout 0.1: fwd+bwd kernels "
+          f"vs plain: dx rel_l2 {mlayer_errs['dx']:.3e}, head "
+          f"{mlayer_errs['head']:.3e}, worst {worst} {mlayer_errs[worst]:.3e}"
+          f" (tol {MODEL_BF16_TOL:g}), {len(mlayer_errs)} gradients",
+          flush=True)
+    if not all(e <= MODEL_BF16_TOL for e in mlayer_errs.values()):
+        raise AssertionError(f"MaskGIT layer gradients: {mlayer_errs}")
+    del mlayer, fnorm, head_w, lgrads_k, lgrads_p, lparams
 
     fn, (model, imgs0) = entry()
     rs = np.random.RandomState(0)
@@ -1109,8 +1324,155 @@ def main() -> int:
                          lambda: uncond({}, mg_seeds),
                          "1 MaskGIT generate (batch 8, 18 steps)")
     mg.vq.decode_indices = decode_real
+    del mg, uncond, services, bt, layer0, emb, decode_real, final_ids
+    torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- 9 --
+    # MaskGIT training: build_model + build_trainer on cfg/maskgit.yaml with
+    # training.mixed_precision=bf16 and MASKGIT_TRAIN_OVERRIDES
+    t0 = time.perf_counter()
+    tcfg = maskgit_train_config(os.path.abspath(os.path.join(
+        "chiprun_out", "chip_smoke_maskgit_train")))
+    mtrainer = build_trainer(tcfg, build_model(tcfg, device=dev),
+                             build_loader(tcfg), dev)
+    print(f"[maskgit_train] build_model + build_trainer(cfg/maskgit.yaml, "
+          f"bf16, {MASKGIT_TRAIN_OVERRIDES}) in "
+          f"{time.perf_counter() - t0:.1f} s; lr at optimizer step 0 "
+          f"{mtrainer.schedule(0):g}", flush=True)
+    mstep_fn = mtrainer.train_step
+    mvq = mtrainer.model.vq
+    vq0 = {k: v.clone() for k, v in mvq.state_dict().items()}
+    msteps = []
+
+    def mg_traced_step(x, **kw):
+        torch.cuda.synchronize()
+        before = counts()
+        st = mtrainer.opt.state
+        p0 = [p.detach().clone() for p in mtrainer.trainable]
+        m0 = [st[p]["exp_avg"].clone() if p in st else None
+              for p in mtrainer.trainable]
+        t = time.perf_counter()
+        m = mstep_fn(x, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        msteps.append(dict(
+            ms=ms, loss=float(m["loss"]),
+            launches={k: v - before[k] for k, v in counts().items()},
+            changed=any(not torch.equal(a, p)
+                        for a, p in zip(p0, mtrainer.trainable)),
+            moments_moved=any(a is None or not torch.equal(a, st[p]["exp_avg"])
+                              for a, p in zip(m0, mtrainer.trainable)),
+            vq_equal=all(torch.equal(v, vq0[k])
+                         for k, v in mvq.state_dict().items())))
+        del p0, m0
+        return m
+
+    mtrainer.train_step = mg_traced_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    mtrainer.train()
+    torch.cuda.synchronize()
+    mtrain_launches = counts()
+    mtrainer.train_step = mstep_fn
+    mtrain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # micro-step i: an optimizer step at i = 1 and 3; the first runs at lr 0
+    # (constant_with_warmup, warmup 1000), so it moves the moments only
+    want_changed = {0: False, 1: False, 2: False, 3: True}
+    want_moved = {0: True, 1: True, 2: False, 3: True}
+    for i, st in enumerate(msteps):
+        print(f"[maskgit_train] micro-step {i}: {st['ms']:.2f} ms, loss "
+              f"{st['loss']:.4f}, parameters changed {st['changed']}, Adam "
+              f"moments moved {st['moments_moved']}, vq bit-equal "
+              f"{st['vq_equal']}", flush=True)
+        if st["launches"] != {k: MASKGIT_TRAIN_STEP.get(k, 0)
+                              for k in st["launches"]}:
+            raise AssertionError(f"maskgit micro-step {i}: launches "
+                                 f"{st['launches']}, expected "
+                                 f"{MASKGIT_TRAIN_STEP}")
+        if not (np.isfinite(st["loss"]) and st["vq_equal"]
+                and st["changed"] == want_changed[i]
+                and st["moments_moved"] == want_moved[i]):
+            raise AssertionError(f"maskgit micro-step {i}: {st}")
+    vq_state = [p for p in mvq.parameters() if p in mtrainer.opt.state]
+    if len(msteps) != 4 or mtrainer.opt.count != 2 or vq_state:
+        raise AssertionError(f"{len(msteps)} micro-steps, "
+                             f"{mtrainer.opt.count} optimizer steps, "
+                             f"{len(vq_state)} vq tensors with state")
+    mtrain_ms = float(np.mean([st["ms"] for st in msteps[2:]]))
+    mtrain_ips = mtrainer.batch_size / mtrain_ms * 1e3
+    print(f"[maskgit_train] 4 micro-steps, 2 optimizer steps, launches "
+          f"{mtrain_launches} (per micro-step {MASKGIT_TRAIN_STEP}); "
+          f"micro-step {mtrain_ms:.2f} ms (mean of steps 2-3; steps 0-1 "
+          f"{msteps[0]['ms']:.2f}, {msteps[1]['ms']:.2f} ms), "
+          f"{mtrain_ips:.2f} images/s, peak memory {mtrain_peak:.3f} GiB | "
+          f"{smi}", flush=True)
+    img = mtrainer.to_device(next(iter(mtrainer.train_dl))[0])
+    mtrain_profile = profile(torch, lambda: [mstep_fn(img) for _ in range(2)],
+                             lambda: mstep_fn(img),
+                             "2 MaskGIT training micro-steps")
+    del mtrainer, mvq, vq0, img
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 10 --
+    # the whole model's loss and gradients in fp32 (TF32 off), kernels
+    # against plain, on the same seeded weights, token grid, mask draws and
+    # dropout seed; then the bf16 model's, each path against the fp32 plain
+    # one (the tokenizer is held apart by phase 6: one token grid serves all)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the fp32 whole-model check")
+    m32 = build_model(maskgit_config("no"), device=dev)
+    idx = m32.encode_to_indices(torch.as_tensor(requests[0], device=dev))
+    draw = torch.Generator(device=dev).manual_seed(11)
+    mask_draws = (torch.rand(8, generator=draw, device=dev),
+                  torch.rand(8, 1024, generator=draw, device=dev))
+
+    def loss_grads(model, kernels):
+        model.use_kernels(kernels)
+        params = [p for k, p in model.named_parameters()
+                  if not k.startswith("vq.")]
+        loss = model.loss_from_indices(
+            idx, deterministic=False, mask_draws=mask_draws,
+            generator=torch.Generator(device=dev).manual_seed(12))
+        grads = torch.autograd.grad(loss, params)
+        model.use_kernels(True)
+        return loss.detach().double(), [g.float() for g in grads]
+
+    def flat(gs):
+        return torch.cat([g.reshape(-1) for g in gs])
+
+    loss32_k, g32_k = loss_grads(m32, True)
+    loss32_p, g32_p = loss_grads(m32, False)
+    loss32_err = float((loss32_k - loss32_p).abs() / loss32_p.abs())
+    grad32_errs = [rel_l2(a, b) for a, b in zip(g32_k, g32_p)]
+    print(f"[maskgit_train] fp32 whole model (TF32 off), kernels vs plain: "
+          f"loss {float(loss32_k):.6f} vs {float(loss32_p):.6f}, relative "
+          f"{loss32_err:.3e} (tol 1e-5); worst of {len(grad32_errs)} "
+          f"gradients rel_l2 {max(grad32_errs):.3e} (tol 1e-4)", flush=True)
+    if not (loss32_err <= 1e-5 and max(grad32_errs) <= 1e-4):
+        raise AssertionError(f"maskgit fp32 step: loss {loss32_err}, "
+                             f"gradients {max(grad32_errs)}")
+    g32_flat = flat(g32_p)
+    del m32, g32_k, g32_p
+    m16 = build_model(maskgit_config("bf16"), device=dev)  # same seed
+    ratio = {}
+    for kernels in (True, False):
+        loss16, g16 = loss_grads(m16, kernels)
+        ratio["kernels" if kernels else "plain"] = dict(
+            loss=float((loss16 - loss32_p).abs() / loss32_p.abs()),
+            grad=rel_l2(flat(g16), g32_flat))
+        del g16
+    print(f"[maskgit_train] bf16 against the fp32 plain path: loss relative "
+          f"kernels {ratio['kernels']['loss']:.3e}, plain "
+          f"{ratio['plain']['loss']:.3e}; global gradient rel_l2 kernels "
+          f"{ratio['kernels']['grad']:.3e}, plain {ratio['plain']['grad']:.3e}"
+          f" (tol kernels <= {FLOOR_RATIO:g} x plain)", flush=True)
+    for what in ("loss", "grad"):
+        if not ratio["kernels"][what] <= FLOOR_RATIO * ratio["plain"][what]:
+            raise AssertionError(f"maskgit bf16 {what} against fp32: {ratio}")
+    del m16, g32_flat
+
+    # --------------------------------------------------------------- 11 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -1122,9 +1484,13 @@ def main() -> int:
         "ln_mlp_bwd": ("ln_mlp_bwd.cu", "attention_models_tpu/ops/ffn.py:652"),
         "ffn": ("ffn.cu", "attention_models_tpu/ops/ffn.py:56"),
         "sample_epilogue": ("sampling.cu", "attention_models_tpu/ops/sampling.py:143"),
+        "ffn_bwd": ("ffn_bwd.cu", "attention_models_tpu/ops/ffn.py:171"),
+        "head_xent": ("xent.cu", "attention_models_tpu/ops/xent.py:42"),
+        "head_xent_bwd": ("xent.cu", "attention_models_tpu/ops/xent.py:69"),
     }
     path_launches = {"serving": serving_launches, "training": launches,
-                     "maskgit": maskgit_launches}
+                     "maskgit": maskgit_launches,
+                     "maskgit_train": mtrain_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
@@ -1168,7 +1534,16 @@ def main() -> int:
                                images_per_s=mg_ips,
                                plain_generate_s=plain_gen_s,
                                peak_gib=mg_peak_gib,
-                               profile=mg_profile)), f, indent=1)
+                               profile=mg_profile),
+                           maskgit_layer_grad_rel_l2=mlayer_errs,
+                           maskgit_train=dict(
+                               steps=msteps, step_ms=mtrain_ms,
+                               images_per_s=mtrain_ips,
+                               peak_gib=mtrain_peak,
+                               profile=mtrain_profile,
+                               fp32_loss_rel=loss32_err,
+                               fp32_grad_rel_l2=grad32_errs,
+                               bf16_vs_fp32=ratio)), f, indent=1)
     amt.sync()
     print(f"[nvidia-smi] {smi}")
     print(json.dumps({"kernels": kernels}))

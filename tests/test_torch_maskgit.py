@@ -275,9 +275,11 @@ def test_inpainting_service_keeps_unmasked_tokens(pair, monkeypatch):
 def test_kernels_switch_reaches_every_kernel_module(pair):
     _, _, tm, _ = pair
     flagged = [m for m in tm.modules() if hasattr(m, "kernels")]
-    # transformer: init/final norms, per layer norm1, attention, norm2, the
-    # FFN and its inner norm; the model; the tokenizer's 4 * 2 + 2 + 2 + 1
-    assert len(flagged) == 2 + 5 * MG["dec_depth"] + 1 + (8 * VIT["depth"] + 5)
+    # transformer: itself (the fused head loss), init/final norms, per layer
+    # norm1, attention, norm2, the FFN and its inner norm; the model; the
+    # tokenizer's 4 * 2 + 2 + 2 + 1
+    assert len(flagged) == (1 + 2 + 5 * MG["dec_depth"] + 1
+                            + (8 * VIT["depth"] + 5))
     tm.use_kernels(False)
     try:
         assert not any(m.kernels for m in flagged)

@@ -9,8 +9,7 @@
   launch counter alone;
 - on the kernel path a tensor that needs a gradient goes through the op's
   ``torch.autograd.Function`` (kernel forward, kernel or plain backward), so
-  the graph is never cut; without one the forward kernel runs directly.
-  ``fused_ffn`` has no backward yet: such a tensor raises there;
+  the graph is never cut; without one the forward kernel runs directly;
 - chip_smoke.py's MaskGIT config restates cfg/maskgit.yaml.
 """
 
@@ -28,7 +27,7 @@ from attention_models_torch.entry import entry
 from attention_models_torch.models.vitvqgan import vitvqgan_base
 from attention_models_torch.ops import codebook, dispatch, ffn, flash_attention
 from attention_models_torch.ops import layernorm as ln_ops
-from attention_models_torch.ops import sampling
+from attention_models_torch.ops import sampling, xent
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -103,6 +102,16 @@ def _maskgit_build_model():
     build_model(load_config(str(ROOT / "cfg" / "maskgit.yaml")))
 
 
+def _maskgit_trainer():
+    from attention_models_torch.data.loaders import build_loader
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.training.build_trainer import build_trainer
+    from attention_models_torch.utils.config import load_config
+
+    cfg = load_config(str(ROOT / "cfg_exp" / "maskgit_overfit.yaml"))
+    build_trainer(cfg, build_model(cfg, "cpu"), build_loader(cfg))
+
+
 @pytest.mark.parametrize("call", [
     lambda: entry(),
     lambda: vitvqgan_base(device=None, img_size=32),
@@ -111,6 +120,7 @@ def _maskgit_build_model():
     _trainer,
     _maskgit_cli,
     _maskgit_build_model,
+    _maskgit_trainer,
 ])
 def test_card_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -174,6 +184,15 @@ def _wrapper_cases():
          lambda x, s: sampling._sample_epilogue_reference(x, seeds=s,
                                                           step=3),
          (t(2, 4, 64), torch.tensor([5, 6])), ()),
+        (ffn.fused_ffn_backward, ffn._ffn_backward_reference,
+         (t(8, 128), t(512, 128), t(256), t(128, 256), t(8, 128)), (1e-5,)),
+        (xent.fused_head_xent, xent._head_xent_loss_reference,
+         (t(8, 128), t(256, 128), torch.tensor([1, -1, 3, 4, -1, 6, 7, 8])),
+         ()),
+        (lambda h, w, tg, lse, c: xent.head_xent_backward(h, w, tg, lse, c),
+         xent._head_xent_backward_reference,
+         (t(8, 128), t(256, 128), torch.tensor([1, -1, 3, 4, -1, 6, 7, 8]),
+          t(8), t(8)), ()),
     ]
 
 
@@ -181,10 +200,11 @@ LAUNCH_COUNTERS = [ln_ops.layernorm, codebook.nearest_codes,
                    flash_attention.flash_attention_bthd_kv, ffn.fused_ln_mlp,
                    flash_attention.flash_attention_bwd_kv,
                    ffn.fused_ln_mlp_backward, ffn.fused_ffn,
-                   sampling.sample_epilogue_fused]
+                   sampling.sample_epilogue_fused, ffn.fused_ffn_backward,
+                   xent.fused_head_xent, xent.head_xent_backward]
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(11))
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     wrapper, plain, args, extra = _wrapper_cases()[case]
     before = [c.launches for c in LAUNCH_COUNTERS]
@@ -193,7 +213,7 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     assert [c.launches for c in LAUNCH_COUNTERS] == before
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
-        assert torch.equal(g, w)
+        assert (g is None and w is None) or torch.equal(g, w)
 
 
 def test_is_kernel_path_by_device():
@@ -230,7 +250,7 @@ def _fake_kernel_path(monkeypatch):
                 return fn(*a, **k)
         return run
 
-    for mod in (ln_ops, flash_attention, ffn):
+    for mod in (ln_ops, flash_attention, ffn, xent):
         monkeypatch.setattr(mod, "is_kernel_path", lambda t: True)
     monkeypatch.setattr(ln_ops, "_layernorm_kernel",
                         fake("layernorm", ln_ops._ln_reference))
@@ -246,6 +266,19 @@ def _fake_kernel_path(monkeypatch):
         ffn, "fused_ln_mlp_backward",
         fake("ln_mlp_bwd", lambda *a, eps:
              ffn._ln_mlp_backward_reference(*a, eps)))
+    monkeypatch.setattr(ffn, "_ffn_fwd_kernel",
+                        fake("ffn", ffn._ffn_reference))
+    monkeypatch.setattr(
+        ffn, "fused_ffn_backward",
+        fake("ffn_bwd", lambda *a, eps: ffn._ffn_backward_reference(*a, eps)))
+    monkeypatch.setattr(
+        xent, "_head_xent_fwd_kernel",
+        fake("head_xent", lambda h, w, b, tg: xent._head_xent_reference(
+            h, w, tg, bias=b)))
+    monkeypatch.setattr(
+        xent, "head_xent_backward",
+        fake("head_xent_bwd", lambda h, w, tg, lse, c, bias:
+             xent._head_xent_backward_reference(h, w, tg, lse, c, bias)))
     return calls
 
 
@@ -263,10 +296,24 @@ def _grad_cases():
         "ln_mlp": (ffn.fused_ln_mlp, ffn._ln_mlp_reference,
                    [t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96),
                     t(64)], (1e-5,), "_LnMlp"),
+        "ffn": (ffn.fused_ffn, ffn._ffn_reference,
+                [t(8, 128), t(512, 128) * 0.1, t(256), t(128, 256) * 0.1],
+                (1e-5,), "_Ffn"),
+        "head_xent": (lambda h, w, b: xent.fused_head_xent(h, w, tg, bias=b),
+                      lambda h, w, b: xent._head_xent_loss_reference(
+                          h, w, tg, bias=b),
+                      [t(8, 128), t(256, 128) * 0.1, t(256) * 0.1], (),
+                      "_HeadNll"),
     }
 
 
-@pytest.mark.parametrize("op", ["layernorm", "flash", "ln_mlp"])
+tg = torch.tensor([1, -1, 3, 4, -1, 6, 7, 8])
+GRAD_OPS = {"layernorm": ("layernorm", []), "flash": ("flash", ["flash_bwd"]),
+            "ln_mlp": ("ln_mlp", ["ln_mlp_bwd"]), "ffn": ("ffn", ["ffn_bwd"]),
+            "head_xent": ("head_xent", ["head_xent_bwd"])}
+
+
+@pytest.mark.parametrize("op", list(GRAD_OPS))
 def test_kernel_path_keeps_the_autograd_graph(monkeypatch, op):
     """Every kernel wrapper with an input that needs a gradient is reached
     through its autograd Function, whose backward gives the plain
@@ -280,33 +327,25 @@ def test_kernel_path_keeps_the_autograd_graph(monkeypatch, op):
     calls = _fake_kernel_path(monkeypatch)
     got_args = [a.clone().requires_grad_(True) for a in args]
     out = wrapper(*got_args)
-    assert type(out.grad_fn).__name__ == fn_name + "Backward"
+    # the Function is the output's own node, or (the head loss) sits under
+    # the plain mean over the valid rows
+    nodes, seen = [out.grad_fn], []
+    while nodes:
+        node = nodes.pop()
+        seen.append(type(node).__name__)
+        nodes += [f for f, _ in node.next_functions if f is not None]
+    assert fn_name + "Backward" in seen
     got = torch.autograd.grad(out, got_args, cot)
     for a, b in zip(got, want):  # fp32; the explicit backwards sum in
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)  # other orders
-    fwd = {"layernorm": "layernorm", "flash": "flash", "ln_mlp": "ln_mlp"}[op]
+    fwd, bwd = GRAD_OPS[op]
     assert calls[0] == fwd
-    assert calls[1:] == ({"flash": ["flash_bwd"], "ln_mlp": ["ln_mlp_bwd"]}
-                         .get(op, []))
+    assert calls[1:] == bwd
 
     calls.clear()
     with torch.no_grad():
         out = wrapper(*got_args)
     assert out.grad_fn is None and calls == [fwd]
-
-
-def test_fused_ffn_refuses_a_tensor_that_needs_a_gradient(monkeypatch):
-    """The kernel path has no backward yet: raise, never cut the graph."""
-    monkeypatch.setattr(ffn, "is_kernel_path", lambda t: True)
-    rs = np.random.RandomState(2)
-    x, w1, g, w2 = (torch.from_numpy(rs.randn(*s).astype(np.float32))
-                    for s in ((8, 128), (512, 128), (256,), (128, 256)))
-    before = ffn.fused_ffn.launches
-    with pytest.raises(NotImplementedError, match="backward not ported yet"):
-        ffn.fused_ffn(x.requires_grad_(True), w1, g, w2)
-    with pytest.raises(NotImplementedError, match="backward not ported yet"):
-        ffn.fused_ffn(x.detach(), w1.requires_grad_(True), g, w2)
-    assert ffn.fused_ffn.launches == before
 
 
 def test_chip_smoke_maskgit_config_restates_maskgit_yaml():
@@ -321,4 +360,11 @@ def test_chip_smoke_maskgit_config_restates_maskgit_yaml():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     got = Config(mod.MASKGIT_YAML)
-    assert got.to_dict() == load_config(str(ROOT / "cfg" / "maskgit.yaml")).to_dict()
+    want = load_config(str(ROOT / "cfg" / "maskgit.yaml"))
+    assert got.to_dict() == want.to_dict()
+    # the training phase's config: the same, with its cuts of scale
+    want.set_path("training.mixed_precision", "bf16")
+    for k, v in mod.MASKGIT_TRAIN_OVERRIDES.items():
+        want.set_path(k, v)
+    want.set_path("experiment.output_dir", "OUT")
+    assert mod.maskgit_train_config("OUT").to_dict() == want.to_dict()

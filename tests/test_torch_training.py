@@ -190,18 +190,59 @@ def test_schedules_match_jax(name):
                                    err_msg=f"{name} step {step}")
 
 
-@pytest.mark.parametrize("name,wd", [("adam", 0.0), ("adam", 0.01),
-                                     ("adamw", 0.01)])
-def test_optimizer_matches_optax_multisteps(name, wd):
+def _maskgit_params(rs):
+    """A small MaskGIT of each package with the same random weights: the JAX
+    tree (shapes by tracing only) and the port module."""
+    from attention_models_torch.models.maskgit import MaskGitTransformer
+    from attention_models_torch.utils.convert import maskgit_from_jax
+    from attention_models_tpu.models.maskgit import (
+        MaskGitTransformer as JMaskGit,
+    )
+
+    vit = dict(dim=32, img_size=32, patch_size=8, n_heads=2, d_head=16,
+               depth=1, mlp_dim=64, dropout=0.0)
+    kw = dict(vq_config=dict(vit_params=vit, codebook_params=dict(
+        codebook_size=64, codebook_dim=8)), dim=64, vocab_size=64,
+        n_heads=2, d_head=32, dec_depth=1, mult=2)
+    jm = JMaskGit(**kw)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.key(0), jnp.zeros((1, 3, 32, 32)), jax.random.key(1),
+        method=JMaskGit.init_all))["params"]
+    params = jax.tree.map(lambda a: _np32(rs, *a.shape) * 0.1, shapes)
+    tm = MaskGitTransformer(**kw)
+    tm.load_state_dict(maskgit_from_jax(params), strict=True)
+    return params, tm
+
+
+def _mask_as_port(mask, params):
+    """A JAX tree of booleans -> one bool per port parameter key."""
+    from attention_models_torch.utils.convert import maskgit_from_jax
+
+    full = jax.tree.map(lambda m, p: np.full(p.shape, m, np.float32), mask,
+                        params)
+    return {k: bool(v.all()) for k, v in maskgit_from_jax(full).items()
+            if not k.endswith(".beta")}
+
+
+@pytest.mark.parametrize("name,wd,maskgit", [
+    pytest.param("adam", 0.0, False, id="adam-0.0"),
+    pytest.param("adam", 0.01, False, id="adam-0.01"),
+    pytest.param("adamw", 0.01, False, id="adamw-0.01"),
+    pytest.param("adamw", 0.01, True, id="adamw-0.01-maskgit"),
+    pytest.param("adam", 0.01, True, id="adam-0.01-maskgit")])
+def test_optimizer_matches_optax_multisteps(name, wd, maskgit):
     """OptaxAdam against the JAX package's build_optimizer (clip -> adam /
     adamw inside MultiSteps(k=2)) over 4 micro-steps of the same gradients,
     one clipped and one not per optimizer step: parameters and first
-    moments at rtol 1e-5."""
+    moments at rtol 1e-5. The ``maskgit`` cases build both over a small
+    MaskGIT with the generator trainers' frozen ``vq`` and no-decay
+    grouping: ``decay_mask`` and ``frozen_mask`` equal JAX's on the same
+    model, the frozen tokenizer gets no state and does not move."""
     import optax
 
-    from attention_models_torch.training.optim import build_optimizer as t_opt
+    from attention_models_torch.training import optim as t_optim
     from attention_models_torch.training.schedules import timm_cosine as t_tc
-    from attention_models_tpu.training.optim import build_optimizer as j_opt
+    from attention_models_tpu.training import optim as j_optim
     from attention_models_tpu.training.schedules import timm_cosine as j_tc
 
     cfgs = []
@@ -212,26 +253,71 @@ def test_optimizer_matches_optax_multisteps(name, wd):
         cfg.set_path("training.gradient_accumulation_steps", 2)
         cfgs.append(cfg)
     rs = np.random.RandomState(4)
-    params = {"a": _np32(rs, 16, 8), "b": _np32(rs, 8)}
-    grads = [{k: _np32(rs, *v.shape) * s for k, v in params.items()}
-             for s in (0.01, 3.0, 0.02, 0.01)]  # micro-step 1 gets clipped
+    if maskgit:
+        params, tm = _maskgit_params(rs)
+        frozen = ("vq",)
+        assert t_optim.decay_mask(tm) == _mask_as_port(
+            j_optim.decay_mask(params), params)
+        assert t_optim.frozen_mask(tm, frozen) == _mask_as_port(
+            j_optim.frozen_mask(params, frozen), params)
+        named = dict(tm.named_parameters())
+        keys = [k for k in named if not k.startswith("vq.")]
+        t_params = [named[k] for k in keys]
+        opt = t_optim.build_optimizer(cfgs[1], t_tc(1e-3, 10, 2), tm,
+                                      frozen_subtrees=frozen,
+                                      no_decay_grouping=True)
+        assert opt.param_groups[0]["params"] == t_params
+    else:
+        params = {"a": _np32(rs, 16, 8), "b": _np32(rs, 8)}
+        frozen = ()
+        keys = ["a", "b"]
+        t_params = [torch.from_numpy(params[k].copy()) for k in keys]
+        opt = t_optim.build_optimizer(cfgs[1], t_tc(1e-3, 10, 2), t_params)
+    scales = (0.01, 3.0, 0.02, 0.01) if not maskgit else (1e-3, 0.3, 2e-3,
+                                                          1e-3)
+    grads = [jax.tree.map(lambda a: _np32(rs, *a.shape) * s, params)
+             for s in scales]  # micro-step 1 gets clipped
     j_params = jax.tree.map(jnp.asarray, params)
-    tx = j_opt(cfgs[0], j_tc(1e-3, 10, 2), j_params)
+    tx = j_optim.build_optimizer(cfgs[0], j_tc(1e-3, 10, 2), j_params,
+                                 frozen_subtrees=frozen,
+                                 no_decay_grouping=maskgit)
     j_state = tx.init(j_params)
-    t_params = [torch.from_numpy(params[k].copy()) for k in ("a", "b")]
-    opt = t_opt(cfgs[1], t_tc(1e-3, 10, 2), t_params)
     for g in grads:
         upd, j_state = tx.update(jax.tree.map(jnp.asarray, g), j_state,
                                  j_params)
         j_params = optax.apply_updates(j_params, upd)
-        opt.step([torch.from_numpy(g[k]) for k in ("a", "b")])
+        tg = (_mask_as_port_values(g) if maskgit else
+              {k: torch.from_numpy(g[k]) for k in keys})
+        opt.step([tg[k] for k in keys])
     mu = _find(j_state, "mu")
-    for i, k in enumerate(("a", "b")):
-        np.testing.assert_allclose(t_params[i].numpy(),
-                                   np.asarray(j_params[k]), rtol=1e-5)
-        np.testing.assert_allclose(opt.state[t_params[i]]["exp_avg"].numpy(),
-                                   np.asarray(mu[k]), rtol=1e-5)
+    if maskgit:
+        want_p = _mask_as_port_values(j_params)
+        want_mu = _mask_as_port_values({"vq": params["vq"],
+                                        "bidirectional_transformer":
+                                            mu["bidirectional_transformer"]})
+        vq = _mask_as_port_values(params)
+        for k, p in tm.named_parameters():
+            if k.startswith("vq."):
+                assert torch.equal(p.detach(), vq[k]) and p not in opt.state
+    else:
+        want_p = {k: torch.from_numpy(np.array(j_params[k])) for k in keys}
+        want_mu = {k: torch.from_numpy(np.array(mu[k])) for k in keys}
+    # the maskgit cases: atol for elements that round to near zero
+    atol_p, atol_mu = (1e-7, 1e-9) if maskgit else (0, 0)
+    for k, p in zip(keys, t_params):
+        np.testing.assert_allclose(p.detach().numpy(), want_p[k].numpy(),
+                                   rtol=1e-5, atol=atol_p, err_msg=k)
+        np.testing.assert_allclose(opt.state[p]["exp_avg"].numpy(),
+                                   want_mu[k].numpy(), rtol=1e-5,
+                                   atol=atol_mu, err_msg=k)
     assert opt.count == 2
+
+
+def _mask_as_port_values(tree):
+    """A JAX MaskGIT tree of arrays -> the port's keys."""
+    from attention_models_torch.utils.convert import maskgit_from_jax
+
+    return maskgit_from_jax(jax.tree.map(np.asarray, tree))
 
 
 def _np32(rs, *shape):
