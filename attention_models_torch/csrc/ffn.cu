@@ -245,6 +245,18 @@ __global__ __launch_bounds__(kThreads) void ln_rows_kernel(
 
 }  // namespace
 
+// The first launch of the bf16 forward: g = gate * gelu(a) of x W1^T into
+// fp32 g (n, inner). csrc/quant.cu's wide int8 FFN takes it as it stands.
+cudaError_t amt_geglu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1, float* g,
+                           int n, int d, int inner, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_geglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTileSmem);
+  if (err != cudaSuccess) return err;
+  gemm_geglu_bf16_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kTileSmem, s>>>(
+      x, w1, g, n, d, inner);
+  return cudaGetLastError();
+}
+
 // g_scratch: fp32 (n, inner); y_scratch: (n, inner) in the tower dtype.
 AMT_EXPORT int amt_ffn(const void* x, const void* w1, const void* gamma, const void* w2,
                        void* g_scratch, void* y_scratch, void* out, int n, int d,
@@ -259,12 +271,8 @@ AMT_EXPORT int amt_ffn(const void* x, const void* w1, const void* gamma, const v
     const auto* w1i = static_cast<const __nv_bfloat16*>(w1);
     const auto* w2i = static_cast<const __nv_bfloat16*>(w2);
     auto* ys = static_cast<__nv_bfloat16*>(y_scratch);
-    cudaError_t err = cudaFuncSetAttribute(
-        gemm_geglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTileSmem);
+    cudaError_t err = amt_geglu_bf16(xi, w1i, gs, n, d, inner, s);
     if (err != cudaSuccess) return err;
-    gemm_geglu_bf16_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kTileSmem, s>>>(
-        xi, w1i, gs, n, d, inner);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ln_rows_kernel<__nv_bfloat16><<<n, kThreads, 0, s>>>(gs, gm, ys, inner, eps);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return gemm_bf16<kK, kK, __nv_bfloat16>(ys, inner, w2i, inner,

@@ -1,0 +1,578 @@
+// W8A8 int8 inference blocks: the GEGLU FFN with both products in int8, the
+// wide-only GEGLU FFN (up-projection in the activations' dtype, down-
+// projection in int8) and the int8 pre-LN MLP block.
+//
+// Replace attention_models_tpu/ops/quant.py::_ffn_q8_kernel (entry
+// fused_ffn_q8), ::_ffn_q8wide_kernel (fused_ffn_q8wide) and
+// ::_ln_mlp_q8_kernel (fused_ln_mlp_q8); x in bf16 or fp32. Quantized
+// weights come in the torch Linear layout (d_out, d_in) int8 with fp32
+// per-output-channel scales (ops/quant.py::quantize_weight): each row is
+// K-contiguous, the "col" B operand of mma.sync as it stands.
+//
+// Bound on the H100: operations. At Muse's decode shape (n = 16384 rows,
+// d 1024, inner 4096) the FFN's two products are 6*n*d*i = 412 G int8
+// operations: 0.208 ms at the int8 tensor-core peak (1979 TOPS); the wide
+// FFN's bf16 up-projection alone is 0.278 ms. Kernel 21 at the tokenizer's
+// shape (n 8192, d 512, hid 1368) is 4*n*d*hid = 23 G: 0.0116 ms.
+//
+// Design. Every activation scale is the amax of a whole row (4096 wide for
+// the FFN's y, 1368 for kernel 21's gelu output), and it must exist before
+// the next product starts; the FFN's LayerNorm also spans the whole inner
+// row. So each block runs as row passes and tile products through global
+// scratches, as csrc/ffn.cu does:
+//   row_quant:  one block a row, the row in registers: optionally the
+//               LayerNorm (float64 sums of the row and of its centred
+//               squares, rounded once to fp32), then amax, the scale and the
+//               int8 codes (round half to even, IEEE division, clip +-127);
+//   gemm_s8:    128 x 128 int32 tiles of int8 A B^T, mma.sync m16n8k32 s8,
+//               64-byte k slices copied by cp.async (three stages), an
+//               epilogue that dequantises as (float(acc) * s_row) * s_col
+//               (+ bias) and either applies gelu into an fp32 scratch or
+//               adds the residual and writes the output;
+//   the FFN's first product interleaves 8 "a" rows of W1 with their 8
+//               "gate" rows per tile (csrc/ffn.cu's layout), so each thread
+//               dequantises a and gate of one (row, column) and writes
+//               g = gate * gelu(a) to an fp32 scratch;
+//   the wide FFN's first product is csrc/ffn.cu's bf16 GEGLU tile product
+//               (amt_geglu_bf16); in fp32 an FMA tile product with float64
+//               sums, rounded once, as the plain version's float64 product.
+// Each dequantisation, bias, residual and LayerNorm step is one IEEE
+// operation in the plain version's order (__fmul_rn / __fadd_rn keep nvcc
+// from contracting them into FMAs), and the gelu is PyTorch's CUDA
+// expression, so the int8 codes equal the plain version's on the card.
+// Kernel 21's hid (1368) is not a multiple of 16 bytes: its W2 and gelu
+// codes are stored at a padded stride with zero columns. mma.sync in place
+// of wgmma and the scratches are what later PRs tune.
+#include "gemm.cuh"
+
+// csrc/ffn.cu: g = gate * gelu(a) of x W1^T, bf16 operands, fp32 g (n, inner)
+cudaError_t amt_geglu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
+                           float* g, int n, int d, int inner, cudaStream_t s);
+
+namespace {
+
+constexpr int kBK8 = 64;            // k bytes per slice: two m16n8k32 steps
+constexpr int kLd8 = kBK8 + 16;     // shared row stride (bytes) of a tile
+constexpr int kTile8 = kBM * kLd8;  // bytes of one operand tile
+constexpr size_t kSmem8 = (size_t)kStages * 2 * kTile8;
+constexpr int kRowPer = 16;  // row_quant values per thread: rows <= 4096
+
+// D (16x8, s32) += A (16x32, s8, row) B (32x8, s8, col). PTX ISA,
+// mma.m16n8k32 .s8, g = lane / 4, t = lane % 4, each register four k bytes:
+//   a[0] = A[g][4t..4t+3]    a[1] = A[g+8][4t..4t+3]
+//   a[2] = A[g][4t+16..+19]  a[3] = A[g+8][4t+16..+19]
+//   b[0] = B[4t..4t+3][g]    b[1] = B[4t+16..+19][g]
+//   d[0..1] = D[g][2t..2t+1] d[2..3] = D[g+8][2t..2t+1]
+__device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
+                                             const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// B row of tile row r: contiguous rows from n0, or csrc/ffn.cu's GEGLU
+// interleave (tile row r of inner block col0: W1 row col0 + (r/16)*8 + r%8,
+// plus inner when (r/8) is odd)
+struct Rows {
+  int n0;
+  __device__ int operator()(int r) const { return n0 + r; }
+};
+struct GegluRows {
+  int col0, inner;
+  __device__ int operator()(int r) const {
+    return col0 + (r >> 4) * 8 + (r & 7) + ((r >> 3) & 1) * inner;
+  }
+};
+
+// acc = this warp's 64 x 32 part of the 128 x 128 int32 tile of A B^T at
+// rows m0 and B rows brow(0..127): A (M, K) and B (N, K) int8, K-contiguous,
+// K and the row strides (bytes) multiples of 16; rows past M or N and k past
+// K are zero-filled. Warp w holds rows m0 + (w/4)*64 + mt*16 + g (+8) and
+// tile columns (w%4)*32 + nt*8 + 2t (+1) in acc[mt][nt][0..3].
+template <class BRow>
+__device__ void mma_tile_s8(const int8_t* A, int lda, int M, const int8_t* B,
+                            int ldb, int N, int K, int m0, BRow brow,
+                            int8_t* smem, int acc[4][4][4]) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
+  // each thread copies two 16-byte pieces of A and two of B per slice
+  const int kc = (tid & 3) * 16;
+  const int8_t* a_src[2];
+  const int8_t* b_src[2];
+  bool a_ok[2], b_ok[2];
+  int s_off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = (tid + i * kThreads) >> 2;
+    a_ok[i] = m0 + r < M;
+    a_src[i] = A + (int64_t)(a_ok[i] ? m0 + r : 0) * lda + kc;
+    const int br = brow(r);
+    b_ok[i] = br < N;
+    b_src[i] = B + (int64_t)(b_ok[i] ? br : 0) * ldb + kc;
+    s_off[i] = r * kLd8 + kc;
+  }
+  auto load = [&](int stage, int k0) {
+    int8_t* st = smem + stage * 2 * kTile8;
+    const bool kin = k0 + kc < K;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      cp_async16(st + s_off[i], a_ok[i] && kin ? a_src[i] + k0 : A, a_ok[i] && kin);
+      cp_async16(st + kTile8 + s_off[i], b_ok[i] && kin ? b_src[i] + k0 : B,
+                 b_ok[i] && kin);
+    }
+  };
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+  const int KT = (K + kBK8 - 1) / kBK8;
+  __syncthreads();  // no thread still reads an earlier tile's slices
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < KT) load(s, s * kBK8);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();  // slice kt has landed for this thread
+    __syncthreads();               // ... for every thread; slice kt-1 is done
+    const int nk = kt + kStages - 1;
+    if (nk < KT) load(nk % kStages, nk * kBK8);
+    cp_async_commit();
+    const int8_t* at = smem + (kt % kStages) * 2 * kTile8;
+    const int8_t* bt = at + kTile8;
+#pragma unroll
+    for (int kk = 0; kk < kBK8; kk += 32) {
+      uint32_t af[4][4], bf[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int8_t* p = at + (wm * 64 + mt * 16 + g) * kLd8 + kk + 4 * t;
+        af[mt][0] = ld32(p);
+        af[mt][1] = ld32(p + 8 * kLd8);
+        af[mt][2] = ld32(p + 16);
+        af[mt][3] = ld32(p + 8 * kLd8 + 16);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int8_t* p = bt + (wn * 32 + nt * 8 + g) * kLd8 + kk + 4 * t;
+        bf[nt][0] = ld32(p);
+        bf[nt][1] = ld32(p + 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8_16832(acc[mt][nt], af[mt], bf[nt]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// PyTorch's CUDA gelu (approximate="none"): x * 0.5 * (1 + erf(x * M_SQRT1_2))
+__device__ __forceinline__ float gelu_torch(float v) {
+  return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// (float(acc) * s_row) * s_col, each product rounded
+__device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
+}
+
+enum Epilogue { kGelu = 0, kOut = 1 };
+
+// kGelu: C (fp32) = gelu(dequant + bias); kOut: C = [res +] (dequant
+// [+ bias]) in OutT. N even.
+template <int E, typename OutT>
+__global__ __launch_bounds__(kThreads) void gemm_s8_kernel(
+    const int8_t* __restrict__ A, int lda, const int8_t* __restrict__ B, int ldb,
+    int M, int N, int K, const float* __restrict__ s_row,
+    const float* __restrict__ s_col, const float* __restrict__ bias,
+    const OutT* __restrict__ res, OutT* __restrict__ C, int ldc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  int acc[4][4][4];
+  mma_tile_s8(A, lda, M, B, ldb, N, K, m0, Rows{n0},
+              reinterpret_cast<int8_t*>(smem_raw), acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
+      if (row >= M) continue;
+      const float sr = s_row[row];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
+        if (col >= N) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = dequant(acc[mt][nt][2 * half + e], sr, s_col[col + e]);
+          if (bias != nullptr) v[e] = __fadd_rn(v[e], bias[col + e]);
+          if (E == kGelu) {
+            v[e] = gelu_torch(v[e]);
+          } else if (res != nullptr) {
+            v[e] = __fadd_rn(to_f32(res[(int64_t)row * ldc + col + e]), v[e]);
+          }
+        }
+        store2(C + (int64_t)row * ldc + col, v[0], v[1]);
+      }
+    }
+}
+
+// g (M, inner) fp32 = gate * gelu(a) of the dequantised [a | gate] =
+// A W1^T, A (M, K) int8 with row scales s_a, W1 (2 * inner, K) int8 with
+// column scales s_w; block column bx covers inner columns bx*64 .. +63.
+__global__ __launch_bounds__(kThreads) void gemm_s8_geglu_kernel(
+    const int8_t* __restrict__ A, const int8_t* __restrict__ W1,
+    const float* __restrict__ s_a, const float* __restrict__ s_w,
+    float* __restrict__ gout, int M, int K, int inner) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.y * kBM;
+  int acc[4][4][4];
+  mma_tile_s8(A, K, M, W1, K, 2 * inner, K, m0,
+              GegluRows{(int)blockIdx.x * 64, inner},
+              reinterpret_cast<int8_t*>(smem_raw), acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
+      if (row >= M) continue;
+      const float sr = s_a[row];
+      // tiles nt = 0, 1 (and 2, 3) hold a and gate of the same 8 columns
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int col = blockIdx.x * 64 + (wn * 2 + p) * 8 + 2 * t;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = dequant(acc[mt][2 * p][2 * half + e], sr, s_w[col + e]);
+          const float gate =
+              dequant(acc[mt][2 * p + 1][2 * half + e], sr, s_w[inner + col + e]);
+          v[e] = gate * gelu_torch(a);
+        }
+        store2(gout + (int64_t)row * inner + col, v[0], v[1]);
+      }
+    }
+}
+
+// fp32 GEGLU first product with float64 sums: exact FMA products of the
+// fp32 operands summed in double in k order and rounded once (csrc/ffn.cu's
+// fp32 tile: 64 x 64, 16-deep slices, tile columns 0..31 the "a" rows
+// bx*32 + c of W1 and 32..63 the matching "gate" rows).
+__global__ __launch_bounds__(kThreads) void gemm_geglu_f64acc_kernel(
+    const float* __restrict__ a, const float* __restrict__ b,
+    float* __restrict__ c, int M, int K, int inner) {
+  __shared__ float as[kFK][kFM + 4];
+  __shared__ float bs[kFK][kFN + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kFM;
+  const int lr = tid / 4, lk = (tid % 4) * 4;
+  const bool a_ok = m0 + lr < M;
+  const float* a_src = a + (int64_t)(a_ok ? m0 + lr : 0) * K + lk;
+  const int brow = blockIdx.x * 32 + (lr & 31) + (lr >> 5) * inner;
+  const float* b_src = b + (int64_t)brow * K + lk;
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+  for (int k0 = 0; k0 < K; k0 += kFK) {
+    const float4 av = a_ok ? *reinterpret_cast<const float4*>(a_src + k0)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 bv = *reinterpret_cast<const float4*>(b_src + k0);
+    __syncthreads();  // the previous slice is consumed
+    as[lk][lr] = av.x; as[lk + 1][lr] = av.y; as[lk + 2][lr] = av.z; as[lk + 3][lr] = av.w;
+    bs[lk][lr] = bv.x; bs[lk + 1][lr] = bv.y; bs[lk + 2][lr] = bv.z; bs[lk + 3][lr] = bv.w;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFK; ++k) {
+      double ar[4], br[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ar[i] = as[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) br[j] = bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma(ar[i], br[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      c[(int64_t)row * inner + blockIdx.x * 32 + tx + 16 * j] =
+          (float)acc[i][j + 2] * gelu_torch((float)acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ double block_sum_d(double v, double* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red may still be read by an earlier call
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  double s = 0.0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
+  return s;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float m = 0.f;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// One block a row of `width` values (row stride ld_in) held in registers:
+// with kLN the LayerNorm y = (v - mean) * rstd * gamma (+ beta) (float64
+// statistics, rounded once), then scale = max(amax, 1e-8) / 127 and
+// q = clip(rint(y / scale), -127, 127) into q (row stride ld_q >= width; the
+// columns past width are zeros).
+template <typename T, bool kLN>
+__global__ __launch_bounds__(kThreads) void row_quant_kernel(
+    const T* __restrict__ in, int ld_in, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int8_t* __restrict__ q, int ld_q,
+    float* __restrict__ scale, int width, float eps) {
+  __shared__ double redd[kThreads / 32];
+  __shared__ float redf[kThreads / 32];
+  const T* row = in + (int64_t)blockIdx.x * ld_in;
+  float v[kRowPer];
+#pragma unroll
+  for (int j = 0; j < kRowPer; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    v[j] = c < width ? to_f32(row[c]) : 0.f;
+  }
+  if (kLN) {
+    double s = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRowPer; ++j) s += (double)v[j];  // zeros past width
+    const float mean = (float)(block_sum_d(s, redd) / width);
+    double sq = 0.0;
+#pragma unroll
+    for (int j = 0; j < kRowPer; ++j) {
+      if (threadIdx.x + j * kThreads < width) {
+        v[j] = v[j] - mean;
+        sq += (double)v[j] * (double)v[j];
+      }
+    }
+    const float rstd =
+        (float)(1.0 / sqrt(block_sum_d(sq, redd) / width + (double)eps));
+#pragma unroll
+    for (int j = 0; j < kRowPer; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      if (c < width) {
+        float y = __fmul_rn(__fmul_rn(v[j], rstd), gamma[c]);
+        if (beta != nullptr) y = __fadd_rn(y, beta[c]);
+        v[j] = y;
+      }
+    }
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRowPer; ++j)
+    if (threadIdx.x + j * kThreads < width) amax = fmaxf(amax, fabsf(v[j]));
+  const float s = __fdiv_rn(fmaxf(block_max(amax, redf), 1e-8f), 127.f);
+  int8_t* out = q + (int64_t)blockIdx.x * ld_q;
+#pragma unroll
+  for (int j = 0; j < kRowPer; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < ld_q)
+      out[c] = c < width
+                   ? (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v[j], s)), -127.f), 127.f)
+                   : (int8_t)0;
+  }
+  if (threadIdx.x == 0) scale[blockIdx.x] = s;
+}
+
+cudaError_t set_smem(const void* fn) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)kSmem8);
+}
+
+// out = dequant(A B^T) [+ bias] [+ res] in T; N even
+template <typename T>
+cudaError_t gemm_s8_out(const int8_t* A, int lda, const int8_t* B, int ldb, int M,
+                        int N, int K, const float* s_row, const float* s_col,
+                        const float* bias, const T* res, T* C, int ldc,
+                        cudaStream_t s) {
+  cudaError_t err = set_smem((const void*)gemm_s8_kernel<kOut, T>);
+  if (err != cudaSuccess) return err;
+  gemm_s8_kernel<kOut, T><<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM),
+                            kThreads, kSmem8, s>>>(A, lda, B, ldb, M, N, K, s_row,
+                                                   s_col, bias, res, C, ldc);
+  return cudaGetLastError();
+}
+
+// y = the FFN's gamma-LN of g, quantized; then out = dequant(y_q W2q^T)
+template <typename T>
+cudaError_t ffn_tail(const float* gs, const float* gamma, const int8_t* w2q,
+                     const float* s2, int8_t* yq, float* sy, T* out, int n, int d,
+                     int inner, float eps, cudaStream_t s) {
+  row_quant_kernel<float, true><<<n, kThreads, 0, s>>>(gs, inner, gamma, nullptr, yq,
+                                                      inner, sy, inner, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return gemm_s8_out<T>(yq, inner, w2q, inner, n, d, inner, sy, s2, nullptr, nullptr,
+                        out, d, s);
+}
+
+template <typename T>
+cudaError_t ffn_q8(const T* x, const int8_t* w1q, const float* s1, const float* gamma,
+                   const int8_t* w2q, const float* s2, int8_t* xq, float* sx,
+                   float* gs, int8_t* yq, float* sy, T* out, int n, int d,
+                   int inner, float eps, cudaStream_t s) {
+  row_quant_kernel<T, false><<<n, kThreads, 0, s>>>(x, d, nullptr, nullptr, xq, d, sx,
+                                                   d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = set_smem((const void*)gemm_s8_geglu_kernel)) != cudaSuccess) return err;
+  gemm_s8_geglu_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kSmem8, s>>>(
+      xq, w1q, sx, s1, gs, n, d, inner);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return ffn_tail<T>(gs, gamma, w2q, s2, yq, sy, out, n, d, inner, eps, s);
+}
+
+template <typename T>
+cudaError_t ln_mlp_q8(const T* x, const float* lng, const float* lnb,
+                      const int8_t* w1q, const float* s1, const float* b1,
+                      const int8_t* w2q, const float* s2, const float* b2, int8_t* yq,
+                      float* sy, float* gs, int8_t* gq, float* sg, T* out, int n,
+                      int d, int hid, int hid_pad, float eps, cudaStream_t s) {
+  row_quant_kernel<T, true><<<n, kThreads, 0, s>>>(x, d, lng, lnb, yq, d, sy, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if ((err = set_smem((const void*)gemm_s8_kernel<kGelu, float>)) != cudaSuccess)
+    return err;
+  gemm_s8_kernel<kGelu, float>
+      <<<dim3((hid + kBN - 1) / kBN, (n + kBM - 1) / kBM), kThreads, kSmem8, s>>>(
+          yq, d, w1q, d, n, hid, d, sy, s1, b1, nullptr, gs, hid);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  row_quant_kernel<float, false><<<n, kThreads, 0, s>>>(gs, hid, nullptr, nullptr, gq,
+                                                       hid_pad, sg, hid, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return gemm_s8_out<T>(gq, hid_pad, w2q, hid_pad, n, d, hid_pad, sg, s2, b2, x, out,
+                        d, s);
+}
+
+}  // namespace
+
+// Scratch: xq (n, d) int8, sx (n), g (n, inner) fp32, yq (n, inner) int8,
+// sy (n). W1q (2 * inner, d), W2q (d, inner).
+AMT_EXPORT int amt_ffn_q8(const void* x, const void* w1q, const void* s1,
+                          const void* gamma, const void* w2q, const void* s2,
+                          void* xq, void* sx, void* g, void* yq, void* sy, void* out,
+                          int n, int d, int inner, float eps, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return cudaSuccess;
+  if (d % kBN || inner % kBN || d > kRowPer * kThreads || inner > kRowPer * kThreads)
+    return cudaErrorInvalidValue;
+  const auto* w1 = static_cast<const int8_t*>(w1q);
+  const auto* w2 = static_cast<const int8_t*>(w2q);
+  const auto* f1 = static_cast<const float*>(s1);
+  const auto* f2 = static_cast<const float*>(s2);
+  const auto* gm = static_cast<const float*>(gamma);
+  auto* xqi = static_cast<int8_t*>(xq);
+  auto* yqi = static_cast<int8_t*>(yq);
+  auto* sxf = static_cast<float*>(sx);
+  auto* syf = static_cast<float*>(sy);
+  auto* gs = static_cast<float*>(g);
+  if (dtype == AMT_BF16)
+    return ffn_q8(static_cast<const bf16*>(x), w1, f1, gm, w2, f2, xqi, sxf, gs, yqi,
+                  syf, static_cast<bf16*>(out), n, d, inner, eps, s);
+  if (dtype == AMT_F32)
+    return ffn_q8(static_cast<const float*>(x), w1, f1, gm, w2, f2, xqi, sxf, gs, yqi,
+                  syf, static_cast<float*>(out), n, d, inner, eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// Scratch: g (n, inner) fp32, yq (n, inner) int8, sy (n). W1 (2 * inner, d)
+// in x's dtype, W2q (d, inner).
+AMT_EXPORT int amt_ffn_q8wide(const void* x, const void* w1, const void* gamma,
+                              const void* w2q, const void* s2, void* g, void* yq,
+                              void* sy, void* out, int n, int d, int inner, float eps,
+                              int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return cudaSuccess;
+  if (d % kBN || inner % kBN || inner > kRowPer * kThreads) return cudaErrorInvalidValue;
+  const auto* w2 = static_cast<const int8_t*>(w2q);
+  const auto* f2 = static_cast<const float*>(s2);
+  const auto* gm = static_cast<const float*>(gamma);
+  auto* gs = static_cast<float*>(g);
+  auto* yqi = static_cast<int8_t*>(yq);
+  auto* syf = static_cast<float*>(sy);
+  cudaError_t err;
+  if (dtype == AMT_BF16) {
+    err = amt_geglu_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), gs,
+                         n, d, inner, s);
+    if (err != cudaSuccess) return err;
+    return ffn_tail(gs, gm, w2, f2, yqi, syf, static_cast<bf16*>(out), n, d, inner,
+                    eps, s);
+  }
+  if (dtype == AMT_F32) {
+    gemm_geglu_f64acc_kernel<<<dim3(inner / 32, (n + kFM - 1) / kFM), kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w1), gs, n, d, inner);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    return ffn_tail(gs, gm, w2, f2, yqi, syf, static_cast<float*>(out), n, d, inner,
+                    eps, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Scratch: yq (n, d) int8, sy (n), g (n, hid) fp32, gq (n, hid_pad) int8,
+// sg (n). W1q (hid, d); W2q (d, hid_pad), its columns past hid zeros.
+AMT_EXPORT int amt_ln_mlp_q8(const void* x, const void* lng, const void* lnb,
+                             const void* w1q, const void* s1, const void* b1,
+                             const void* w2q, const void* s2, const void* b2, void* yq,
+                             void* sy, void* g, void* gq, void* sg, void* out, int n,
+                             int d, int hid, int hid_pad, float eps, int dtype,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n == 0) return cudaSuccess;
+  if (d % kBN || d > kRowPer * kThreads || hid % 2 || hid_pad % 16 || hid_pad < hid ||
+      hid_pad > kRowPer * kThreads)
+    return cudaErrorInvalidValue;
+  const auto* lg = static_cast<const float*>(lng);
+  const auto* lb = static_cast<const float*>(lnb);
+  const auto* w1 = static_cast<const int8_t*>(w1q);
+  const auto* w2 = static_cast<const int8_t*>(w2q);
+  const auto* f1 = static_cast<const float*>(s1);
+  const auto* f2 = static_cast<const float*>(s2);
+  const auto* c1 = static_cast<const float*>(b1);
+  const auto* c2 = static_cast<const float*>(b2);
+  auto* yqi = static_cast<int8_t*>(yq);
+  auto* gqi = static_cast<int8_t*>(gq);
+  auto* syf = static_cast<float*>(sy);
+  auto* sgf = static_cast<float*>(sg);
+  auto* gs = static_cast<float*>(g);
+  if (dtype == AMT_BF16)
+    return ln_mlp_q8(static_cast<const bf16*>(x), lg, lb, w1, f1, c1, w2, f2, c2, yqi,
+                     syf, gs, gqi, sgf, static_cast<bf16*>(out), n, d, hid, hid_pad,
+                     eps, s);
+  if (dtype == AMT_F32)
+    return ln_mlp_q8(static_cast<const float*>(x), lg, lb, w1, f1, c1, w2, f2, c2, yqi,
+                     syf, gs, gqi, sgf, static_cast<float*>(out), n, d, hid, hid_pad,
+                     eps, s);
+  return cudaErrorInvalidValue;
+}

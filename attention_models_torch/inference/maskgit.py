@@ -10,8 +10,8 @@ from scratch, with it it inpaints the first ``--num-masked`` tokens and
 writes the original beside the result. Weights are seeded (seed 0) until
 ``--vq-ckpt`` (a ``VitVQGAN.pt`` or the port's VQGANTrainer checkpoint) and
 ``--ckpt`` (a ``state_dict`` of the port's ``MaskGitTransformer``) replace
-them; sampling uses seed 2. ``--quant`` (int8) is not ported yet. Pillow
-is imported only for ``--image`` and for writing the output.
+them; sampling uses seed 2. ``--quant`` picks the W8A8 decode. Pillow is
+imported only for ``--image`` and for writing the output.
 """
 
 from __future__ import annotations
@@ -46,13 +46,12 @@ def main(argv=None):
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--depth", type=int, default=6)
     ap.add_argument("--quant", default=None, choices=["int8", "int8_wide"],
-                    help="int8 decode (not ported yet)")
+                    help="W8A8 int8 decode (per-token dynamic activation "
+                         "scales)")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    if args.quant is not None:
-        raise NotImplementedError(f"--quant {args.quant} (int8) is not ported yet")
     vq_config = dict(
         vit_params=dict(dim=512, img_size=args.resolution, patch_size=8,
                         n_heads=8, d_head=64, depth=6, mlp_dim=2048,
@@ -60,7 +59,7 @@ def main(argv=None):
         codebook_params=dict(codebook_size=8192, codebook_dim=32))
     model = MaskGitTransformer(dim=args.dim, vq_config=vq_config,
                                vocab_size=8192, n_heads=8, d_head=64,
-                               dec_depth=args.depth)
+                               dec_depth=args.depth, quant=args.quant)
     model.reset_parameters(torch.Generator().manual_seed(0))
     if args.ckpt and os.path.exists(args.ckpt):
         if os.path.isdir(args.ckpt):

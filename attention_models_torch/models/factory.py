@@ -13,11 +13,16 @@ fp32 otherwise.
   ``vitvqgan.checkpoint`` loaded over its ``vq`` when the file exists,
   placed on ``device`` (None: the card, raising without CUDA; ``"cpu"``
   runs the plain path). ``model.dropout`` is the attention dropout of
-  training (the decode is deterministic); ``training.remat``,
-  ``training.scan_layers``, ``training.pipeline_microbatches`` and
-  ``model.quant`` are not ported yet and raise.
+  training (the decode is deterministic).
+- ``muse``: the text-conditioned generator (``model.decoder`` and
+  ``model.encoder`` give its decoder and CLIP widths) over the ``vitvqgan``
+  block's tokenizer, seeded, loaded and placed as ``maskgit`` is.
+  ``muse_vqgan`` (the CNN tokenizer) raises until slice 7.
 
-Other models raise until their slice is ported.
+``model.quant`` (None, "int8", "int8_wide") is the W8A8 inference mode of
+all three (``build_trainer`` refuses it); ``training.remat``,
+``training.scan_layers`` and ``training.pipeline_microbatches`` are not
+ported yet and raise. Other models raise until their slice is ported.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 import torch
 
 from attention_models_torch.models.maskgit import MaskGitTransformer
+from attention_models_torch.models.muse import MUSE
 from attention_models_torch.models.vitvqgan import ViTVQGAN
 from attention_models_torch.ops.dispatch import resolve_device
 
@@ -82,36 +88,62 @@ def _refuse_unported(cfg) -> None:
             ("training.remat", cfg.training.get("remat", False)),
             ("training.scan_layers", cfg.training.get("scan_layers", False)),
             ("training.pipeline_microbatches",
-             cfg.training.get("pipeline_microbatches") is not None),
-            ("model.quant (int8)", cfg.model.get("quant") is not None)):
+             cfg.training.get("pipeline_microbatches") is not None)):
         if on:
             raise NotImplementedError(f"{key} is not ported yet")
 
 
+def _vq_config(cfg) -> dict:
+    return dict(vit_params=_vit_params(cfg.vitvqgan.transformer, cfg),
+                codebook_params=_codebook_params(cfg))
+
+
+def _seeded_on(model, cfg, dev):
+    """Seeded from ``training.seed``, the tokenizer checkpoint loaded over
+    ``vq`` when it exists, placed on ``dev``."""
+    model.reset_parameters(
+        torch.Generator().manual_seed(int(cfg.training.get("seed", 0))))
+    vq = load_vq_checkpoint(cfg.vitvqgan.get("checkpoint"))
+    if vq is not None:
+        model.vq.load_state_dict(vq)
+    return model.to(dev)
+
+
 def build_model(cfg, device: str | torch.device | None = None):
-    """The config's model; ``device`` places the ``maskgit`` model (the
-    ``vitvqgan`` model is placed by its trainer)."""
+    """The config's model; ``device`` places the ``maskgit`` and ``muse``
+    models (the ``vitvqgan`` model is placed by its trainer)."""
     name = cfg.model.name
+    quant = cfg.model.get("quant")
     if name == "vitvqgan":
         t = cfg.model.transformer
         return ViTVQGAN(vit_params=_vit_params(t, cfg),
                         codebook_params=_codebook_params(cfg),
-                        dtype=_dtype(cfg))
+                        dtype=_dtype(cfg), quant=quant)
     if name == "maskgit":
         dev = resolve_device(device)
         _refuse_unported(cfg)
         m = cfg.model
         model = MaskGitTransformer(
-            dim=m.dim,
-            vq_config=dict(vit_params=_vit_params(cfg.vitvqgan.transformer, cfg),
-                           codebook_params=_codebook_params(cfg)),
+            dim=m.dim, vq_config=_vq_config(cfg),
             vocab_size=cfg.codebook.codebook_size, n_heads=m.n_heads,
             d_head=m.d_head, dec_depth=m.depth, mult=m.mult,
-            dropout=float(m.get("dropout", 0.0) or 0.0), dtype=_dtype(cfg))
-        model.reset_parameters(
-            torch.Generator().manual_seed(int(cfg.training.get("seed", 0))))
-        vq = load_vq_checkpoint(cfg.vitvqgan.get("checkpoint"))
-        if vq is not None:
-            model.vq.load_state_dict(vq)
-        return model.to(dev)
+            dropout=float(m.get("dropout", 0.0) or 0.0), dtype=_dtype(cfg),
+            quant=quant)
+        return _seeded_on(model, cfg, dev)
+    if name in ("muse", "muse_vqgan"):
+        if name == "muse_vqgan" or "vitvqgan" not in cfg:
+            raise NotImplementedError(
+                "Muse over the CNN VQGAN tokenizer (muse_vqgan) is not ported "
+                "yet (port slice 7)")
+        dev = resolve_device(device)
+        _refuse_unported(cfg)
+        d, e = cfg.model.decoder, cfg.model.encoder
+        model = MUSE(
+            dim=cfg.model.dim, vq_config=_vq_config(cfg),
+            max_length=e.max_length, n_heads=d.n_heads, d_head=d.d_head,
+            depth=d.depth, mult=d.mult,
+            dropout=float(d.get("dropout", 0.0) or 0.0),
+            clip_width=e.get("width", 768), clip_layers=e.get("layers", 12),
+            clip_heads=e.get("heads", 12), dtype=_dtype(cfg), quant=quant)
+        return _seeded_on(model, cfg, dev)
     raise NotImplementedError(f"model {name!r} is not ported yet")

@@ -15,6 +15,12 @@ Modules that call a kernel carry ``kernels`` (default True). With it, each
 op dispatches on its tensor's device: kernel on CUDA, plain on the CPU.
 ``ViTVQGAN.use_kernels(False)`` switches a whole model to the plain versions,
 which is how the kernels are compared with them on the card.
+
+``quant`` (None, "int8" or "int8_wide") selects the W8A8 inference paths as
+the JAX package's modules do: an "int8" ``Linear`` runs ``quant_dot``; the
+``FeedForward`` runs kernel 19 under "int8" and kernel 20 under "int8_wide";
+``ln_mlp_block`` runs kernel 21 under "int8". Their quantized weights come
+from the module's ``q8`` cache (``ops/quant.py::QuantCache``).
 """
 
 from __future__ import annotations
@@ -34,6 +40,19 @@ from attention_models_torch.ops.ffn import (
     gelu_exact,
 )
 from attention_models_torch.ops.layernorm import _ln_reference, layernorm
+from attention_models_torch.ops.quant import (
+    QuantCache,
+    _ffn_q8_reference,
+    _ffn_q8wide_reference,
+    _ln_mlp_q8_reference,
+    check_mode,
+    ffn_q8_tileable,
+    fused_ffn_q8,
+    fused_ffn_q8wide,
+    fused_ln_mlp_q8,
+    ln_mlp_q8_tileable,
+    quant_dot,
+)
 
 
 class LayerNorm(nn.Module):
@@ -54,10 +73,21 @@ class LayerNorm(nn.Module):
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` computing in its input's dtype."""
+    """``nn.Linear`` computing in its input's dtype; with ``quant="int8"``
+    the W8A8 ``quant_dot`` (output in the input's dtype), then the bias in
+    that dtype, as the JAX package's int8 projections."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 quant: str | None = None):
+        super().__init__(in_features, out_features, bias)
+        self.quant = check_mode(quant)
+        self.q8 = QuantCache()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = self.bias.to(x.dtype) if self.bias is not None else None
+        if self.quant == "int8":
+            y = quant_dot(x, self.q8.get("weight", self.weight))
+            return y + bias if bias is not None else y
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
@@ -75,11 +105,30 @@ class Mlp(nn.Sequential):
 
 
 def ln_mlp_block(x: torch.Tensor, norm: LayerNorm, mlp: Mlp, *,
-                 kernels: bool = True) -> torch.Tensor:
-    """``x + mlp(norm(x))``. In bf16 the whole block is one fused op (the
-    ln_mlp kernels on the card, given the fp32 or bf16 parameters as they
-    are); in fp32 it is the LayerNorm followed by the plain Mlp, as the JAX
-    package gates it."""
+                 kernels: bool = True, quant: str | None = None,
+                 q8: QuantCache | None = None, dropout: float = 0.0,
+                 deterministic: bool = True) -> torch.Tensor:
+    """``x + mlp(norm(x))``. Under ``quant="int8"`` (inference only: active
+    dropout is refused) the W8A8 block, kernel 21 under the JAX gate and its
+    plain version otherwise, in either dtype, its weights from ``q8``. Else
+    in bf16 the whole block is one fused op (the ln_mlp kernels on the card,
+    given the fp32 or bf16 parameters as they are); in fp32 it is the
+    LayerNorm followed by the plain Mlp, as the JAX package gates it. The
+    port's Mlp has no dropout yet: active dropout raises on every path."""
+    if dropout != 0.0 and not deterministic:
+        if quant == "int8":
+            raise ValueError(
+                f"quant='int8' is an inference-only path; it cannot apply "
+                f"active dropout (got dropout={dropout} with "
+                f"deterministic=False)")
+        raise NotImplementedError("dropout in the Mlp is not ported yet")
+    if quant == "int8":
+        q8 = q8 or QuantCache()
+        args = (x, norm.weight, norm.bias, q8.get("w1", mlp[0].weight),
+                mlp[0].bias, q8.get("w2", mlp[2].weight), mlp[2].bias)
+        if kernels and ln_mlp_q8_tileable(x.shape, norm.weight.shape[0]):
+            return fused_ln_mlp_q8(*args, eps=norm.eps)
+        return _ln_mlp_q8_reference(*args, norm.eps)
     if x.dtype == torch.bfloat16:
         args = (x, norm.weight, norm.bias, mlp[0].weight, mlp[0].bias,
                 mlp[2].weight, mlp[2].bias)
@@ -120,19 +169,34 @@ class FeedForward(nn.Module):
     -> Linear(dim, no bias), inner = int(dim * mult * 2 / 3); keys ``ff.0``,
     ``ff.2.gamma``, ``ff.3``. Under the JAX package's gate (``ffn_supported``)
     the whole block is one fused op (the ffn kernel on the card); otherwise
-    the unfused chain, its LayerNorm through the LayerNorm op."""
+    the unfused chain, its LayerNorm through the LayerNorm op. ``quant``:
+    "int8" runs the W8A8 block (kernel 19), "int8_wide" the wide-only one
+    (kernel 20), each under the JAX gate and as its plain version
+    otherwise."""
 
-    def __init__(self, dim: int, mult: float = 4):
+    def __init__(self, dim: int, mult: float = 4, quant: str | None = None):
         super().__init__()
         inner = int(dim * mult * 2 / 3)
+        self.dim = dim
         self.ff = nn.Sequential(Linear(dim, 2 * inner, bias=False), GEGLU(),
                                 GammaLayerNorm(inner),
                                 Linear(inner, dim, bias=False))
+        self.quant = check_mode(quant)
+        self.q8 = QuantCache()
         self.kernels = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w1, _, norm, w2 = self.ff
         inner = norm.gamma.shape[0]
+        if self.quant is not None:
+            fused = self.kernels and ffn_q8_tileable(x.shape, self.dim, inner)
+            q2 = self.q8.get("w2", w2.weight)
+            if self.quant == "int8":
+                fn = fused_ffn_q8 if fused else _ffn_q8_reference
+                return fn(x, self.q8.get("w1", w1.weight), norm.gamma, q2,
+                          eps=norm.eps)
+            fn = fused_ffn_q8wide if fused else _ffn_q8wide_reference
+            return fn(x, w1.weight, norm.gamma, q2, eps=norm.eps)
         if ffn_supported(x.shape, x.shape[-1], inner):
             fn = fused_ffn if self.kernels else _ffn_reference
             return fn(x, w1.weight, norm.gamma, w2.weight, eps=norm.eps)

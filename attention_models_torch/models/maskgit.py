@@ -15,6 +15,8 @@ positions) within the re-maskable set are masked; the logits are sampled
 with top-k filtered Gumbel noise at temperature ``steps_left / T``; the
 scores are the chosen classes' softmax probabilities on the masked
 positions and 1.0 elsewhere; the final ids are decoded by the tokenizer.
+``quant`` is the W8A8 inference mode of the transformer (its layers, and
+the head under "int8"), each weight quantized once per generate.
 Exact mode draws its noise from one ``torch.Generator`` per row, approx
 mode runs the fused epilogue (kernel on the card) with a Philox seed per
 row, so a row's ids never depend on the rest of the batch. ``noise``
@@ -47,6 +49,7 @@ from attention_models_torch.models.layers import (
 from attention_models_torch.models.vitvqgan import ViTVQGAN
 from attention_models_torch.models.transformer import Encoder
 from attention_models_torch.models.vq_common import build_vq, vq_num_patches
+from attention_models_torch.ops.quant import check_mode, weights_quantized_once
 from attention_models_torch.ops.sampling import (
     _sample_epilogue_reference,
     cosine_schedule,
@@ -78,22 +81,36 @@ def decode_schedule(timesteps: int, num_masked: int) -> list[tuple[int, float]]:
             for i, c in enumerate(counts)]
 
 
+def row_seeds(seeds, batch: int) -> torch.Tensor:
+    """One int64 seed per row of a decode (default 0, 1, ...)."""
+    seeds = torch.as_tensor(np.arange(batch) if seeds is None else
+                            np.asarray(seeds), dtype=torch.int64)
+    if seeds.shape != (batch,):
+        raise ValueError(f"seeds: one per row ({batch}), got "
+                         f"{tuple(seeds.shape)}")
+    return seeds
+
+
 class BiDirectionalTransformer(nn.Module):
     """Embedding(vocab + 1) + pos_enc -> gamma-LN -> Encoder -> gamma-LN ->
-    no-bias head. ``dtype`` is the compute dtype (None: the parameters')."""
+    no-bias head (W8A8 under ``quant="int8"``). ``dtype`` is the compute
+    dtype (None: the parameters')."""
 
     def __init__(self, dim: int, vocab_size: int = 8192, num_patches: int = 256,
                  n_heads: int = 8, d_head: int = 64, dec_depth: int = 6,
                  mult: float = 4, dropout: float = 0.0,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, quant: str | None = None):
         super().__init__()
         self.compute_dtype = dtype
+        self.quant = check_mode(quant)
         self.input_proj = nn.Embedding(vocab_size + 1, dim)
         self.pos_enc = nn.Parameter(torch.zeros(1, num_patches, dim))
         self.init_norm = GammaLayerNorm(dim)
-        self.decoder = Encoder(dim, n_heads, d_head, dec_depth, mult, dropout)
+        self.decoder = Encoder(dim, n_heads, d_head, dec_depth, mult, dropout,
+                               quant)
         self.final_norm = GammaLayerNorm(dim)
-        self.linear = Linear(dim, vocab_size, bias=False)
+        self.linear = Linear(dim, vocab_size, bias=False,
+                             quant="int8" if quant == "int8" else None)
         self.kernels = True  # the fused head loss
 
     @property
@@ -113,7 +130,8 @@ class BiDirectionalTransformer(nn.Module):
         if targets is None:
             return self.linear(h)
         vocab = self.linear.weight.shape[0]
-        if head_xent_supported(h.shape, h.shape[-1], vocab):
+        if self.quant is None and head_xent_supported(h.shape, h.shape[-1],
+                                                      vocab):
             fn = (fused_head_xent if self.kernels
                   else _head_xent_loss_reference)
             return fn(h, self.linear.weight, targets)
@@ -124,14 +142,14 @@ class MaskGitTransformer(nn.Module):
     def __init__(self, dim: int, vq_config: dict, vocab_size: int = 8192,
                  n_heads: int = 8, d_head: int = 64, dec_depth: int = 6,
                  mult: float = 4, dropout: float = 0.0,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, quant: str | None = None):
         super().__init__()
         self.vq = build_vq(vq_config, dtype=dtype).requires_grad_(False)
         self.mask_token_id = vocab_size
         self.num_patches = vq_num_patches(vq_config)
         self.bidirectional_transformer = BiDirectionalTransformer(
             dim, vocab_size, self.num_patches, n_heads, d_head, dec_depth,
-            mult, dropout, dtype)
+            mult, dropout, dtype, quant)
         self.kernels = True
 
     def forward(self, imgs: torch.Tensor, *, deterministic: bool = False,
@@ -224,32 +242,31 @@ class MaskGitTransformer(nn.Module):
             batch = imgs.shape[0]
             ids = self.vq.encode_imgs(imgs).long()
             base_mask = (torch.arange(n, device=dev) < num_masked).expand(batch, n)
-        seeds = torch.as_tensor(np.arange(batch) if seeds is None else
-                                np.asarray(seeds), dtype=torch.int64)
-        if seeds.shape != (batch,):
-            raise ValueError(f"seeds: one per row ({batch}), got {tuple(seeds.shape)}")
+        seeds = row_seeds(seeds, batch)
         k = num_kept(t.linear.weight.shape[0], filter_p)
         gens = ([torch.Generator(device=dev).manual_seed(int(s)) for s in seeds]
                 if not approx_topk and noise is None else None)
         scores = torch.zeros(batch, n, device=dev)
         epilogue = (sample_epilogue_fused if self.kernels
                     else _sample_epilogue_reference)
-        for step, (num_to_mask, temperature) in enumerate(
-                decode_schedule(timesteps, num_masked)):
-            mask = lowest_score_mask(scores, num_to_mask) & base_mask
-            logits = t(torch.where(mask, self.mask_token_id, ids))
-            if approx_topk and noise is None:
-                pred, new_scores = epilogue(
-                    logits, p=filter_p, temperature=temperature,
-                    seeds=seeds.to(dev), step=step)
-            else:
-                nz = noise[step] if noise is not None else torch.stack(
-                    [gumbel((n, k), g, dev) for g in gens])
-                pred, chosen = sample_topk_filtered(
-                    logits, filter_p, temperature, approx=approx_topk, noise=nz)
-                new_scores = torch.exp(
-                    chosen - torch.logsumexp(logits.float(), dim=-1))
-            ids = torch.where(mask, pred.long(), ids)
-            scores = torch.where(mask, new_scores, 1.0)
+        with weights_quantized_once(t):
+            for step, (num_to_mask, temperature) in enumerate(
+                    decode_schedule(timesteps, num_masked)):
+                mask = lowest_score_mask(scores, num_to_mask) & base_mask
+                logits = t(torch.where(mask, self.mask_token_id, ids))
+                if approx_topk and noise is None:
+                    pred, new_scores = epilogue(
+                        logits, p=filter_p, temperature=temperature,
+                        seeds=seeds.to(dev), step=step)
+                else:
+                    nz = noise[step] if noise is not None else torch.stack(
+                        [gumbel((n, k), g, dev) for g in gens])
+                    pred, chosen = sample_topk_filtered(
+                        logits, filter_p, temperature, approx=approx_topk,
+                        noise=nz)
+                    new_scores = torch.exp(
+                        chosen - torch.logsumexp(logits.float(), dim=-1))
+                ids = torch.where(mask, pred.long(), ids)
+                scores = torch.where(mask, new_scores, 1.0)
         return self.vq.decode_indices(ids)
 

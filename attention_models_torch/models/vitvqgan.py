@@ -12,6 +12,10 @@ The compute dtype is separate from the parameters' dtype, as flax's
 weight, bias and ``pos_enc`` cast at use by an autograd-tracked ``.to()``.
 ``dtype=None`` computes in the parameters' own dtype (the bf16 serving
 model). The codebook table stays fp32 and is L2-normalised in fp32.
+``quant="int8"`` is the JAX package's W8A8 inference mode: the attention
+projections through ``quant_dot`` and each block's LN + MLP through the int8
+block (kernel 21); the patch embedding, pre/post_quant, ``fc`` and the
+codebook stay as they are ("int8_wide" quantizes nothing here, as in JAX).
 
 Semantics kept from the JAX package:
   - the encoder adds ``pos_enc`` cast to the activations' dtype;
@@ -42,23 +46,28 @@ from attention_models_torch.ops.codebook import (
     nearest_codes,
 )
 from attention_models_torch.ops.dispatch import resolve_device
+from attention_models_torch.ops.quant import QuantCache, check_mode
 
 
 class ViTVQGANBlock(nn.Module):
     """Pre-LN block: x + attn(norm1(x)), then x + mlp(norm2(x))."""
 
-    def __init__(self, dim: int, n_heads: int, d_head: int, mlp_dim: int):
+    def __init__(self, dim: int, n_heads: int, d_head: int, mlp_dim: int,
+                 quant: str | None = None):
         super().__init__()
         self.norm1 = LayerNorm(dim)
-        self.self_attn = SoftmaxAttention(dim, n_heads, d_head)
+        self.self_attn = SoftmaxAttention(dim, n_heads, d_head, quant=quant)
         self.norm2 = LayerNorm(dim)
         self.feed_forward = Mlp(dim, xformers_hidden(mlp_dim))
+        self.quant = quant
+        self.q8 = QuantCache()
         self.kernels = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(self.norm1(x))
         return ln_mlp_block(x, self.norm2, self.feed_forward,
-                            kernels=self.kernels)
+                            kernels=self.kernels, quant=self.quant,
+                            q8=self.q8)
 
 
 class _Blocks(nn.Module):
@@ -77,15 +86,17 @@ def _check_dropout(dropout: float) -> None:
 
 class ViTEncoder(nn.Module):
     def __init__(self, dim: int, img_size: int, patch_size: int, n_heads: int,
-                 d_head: int, depth: int, mlp_dim: int, dropout: float = 0.0):
+                 d_head: int, depth: int, mlp_dim: int, dropout: float = 0.0,
+                 quant: str | None = None):
         super().__init__()
         _check_dropout(dropout)
         num_patches = (img_size // patch_size) ** 2
         self.to_patch_embedding = PatchEmbedding(dim, patch_size)
         self.pos_enc = nn.Parameter(torch.zeros(1, num_patches, dim))
         self.pre_norm = LayerNorm(dim)
-        self.encoder = _Blocks(ViTVQGANBlock(dim, n_heads, d_head, mlp_dim)
-                               for _ in range(depth))
+        self.encoder = _Blocks(
+            ViTVQGANBlock(dim, n_heads, d_head, mlp_dim, quant)
+            for _ in range(depth))
 
     def forward(self, imgs: torch.Tensor,
                 dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -98,15 +109,17 @@ class ViTEncoder(nn.Module):
 
 class ViTDecoder(nn.Module):
     def __init__(self, dim: int, img_size: int, patch_size: int, n_heads: int,
-                 d_head: int, depth: int, mlp_dim: int, dropout: float = 0.0):
+                 d_head: int, depth: int, mlp_dim: int, dropout: float = 0.0,
+                 quant: str | None = None):
         super().__init__()
         _check_dropout(dropout)
         self.patch_size = patch_size
         self.grid = img_size // patch_size
         self.pos_enc = nn.Parameter(torch.zeros(1, self.grid ** 2, dim))
         self.pre_norm = LayerNorm(dim)
-        self.decoder = _Blocks(ViTVQGANBlock(dim, n_heads, d_head, mlp_dim)
-                               for _ in range(depth))
+        self.decoder = _Blocks(
+            ViTVQGANBlock(dim, n_heads, d_head, mlp_dim, quant)
+            for _ in range(depth))
         self.fc = Linear(dim, patch_size ** 2 * 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,20 +167,22 @@ class Codebook(nn.Module):
 
 class ViTVQGAN(nn.Module):
     """``vit_params`` / ``codebook_params`` as the reference constructor;
-    ``dtype`` the compute dtype (None: the parameters' dtype)."""
+    ``dtype`` the compute dtype (None: the parameters' dtype); ``quant`` the
+    inference mode (None, "int8", "int8_wide")."""
 
     def __init__(self, vit_params: dict, codebook_params: dict,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, quant: str | None = None):
         super().__init__()
         self.vit_params = dict(vit_params)
         self.compute_dtype = dtype
+        self.quant = check_mode(quant)
         dim = vit_params["dim"]
         cb_dim = codebook_params["codebook_dim"]
-        self.encoder = ViTEncoder(**vit_params)
+        self.encoder = ViTEncoder(**vit_params, quant=quant)
         self.pre_quant = Linear(dim, cb_dim)
         self.codebook = Codebook(**codebook_params)
         self.post_quant = Linear(cb_dim, dim)
-        self.decoder = ViTDecoder(**vit_params)
+        self.decoder = ViTDecoder(**vit_params, quant=quant)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -220,7 +235,7 @@ class ViTVQGAN(nn.Module):
 
 def vitvqgan_base(img_size: int = 256, dtype: torch.dtype = torch.float32,
                   device: str | torch.device | None = None,
-                  seed: int = 0) -> ViTVQGAN:
+                  seed: int = 0, quant: str | None = None) -> ViTVQGAN:
     """The released-checkpoint configuration: dim 512, patch 8, depth 6,
     8 heads x 64, mlp 2048 (hidden 1368), codebook 8192 x 32. Weights are
     seeded random (initialised on the CPU from ``seed``, then moved);
@@ -230,6 +245,7 @@ def vitvqgan_base(img_size: int = 256, dtype: torch.dtype = torch.float32,
         vit_params=dict(dim=512, img_size=img_size, patch_size=8, n_heads=8,
                         d_head=64, depth=6, mlp_dim=2048, dropout=0.0),
         codebook_params=dict(codebook_size=8192, codebook_dim=32, beta=0.25),
+        quant=quant,
     )
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(device=dev, dtype=dtype).eval()

@@ -24,6 +24,10 @@ def build_vq(vq_config: dict, dtype: torch.dtype | None = None) -> ViTVQGAN:
     return ViTVQGAN(**cfg, dtype=dtype)
 
 
+def vq_codebook_size(vq_config: dict) -> int:
+    return int(vq_config["codebook_params"]["codebook_size"])
+
+
 def vq_num_patches(vq_config: dict) -> int:
     vp = vq_config["vit_params"]
     return (vp["img_size"] // vp["patch_size"]) ** 2

@@ -47,6 +47,57 @@ def _check_causal_lengths(tq: int, tk: int) -> None:
         )
 
 
+def _pick_block(t: int, pref: int) -> int:
+    """Largest block <= pref of (pref, 512, ..., 8) that divides t (the JAX
+    package's ``_pick_block``)."""
+    for cand in (pref, 512, 256, 128, 64, 32, 16, 8):
+        if cand <= pref and t % cand == 0:
+            return cand
+    raise ValueError(f"sequence length {t} has no supported block tiling")
+
+
+def _mh_pick_blocks(tq: int, tk: int, h: int, d: int, pref_bq: int,
+                    pref_bk: int, itemsize: int) -> tuple[int, int]:
+    """The JAX package's ``_mh_pick_blocks``: the TPU kernel's VMEM budget
+    (14 MiB of blocks), which decides there which shapes reach it."""
+    hd = h * d
+    for bkp in (pref_bk, 512, 256, 128):
+        if bkp > pref_bk:
+            continue
+        bk = _pick_block(tk, bkp)
+        for bqp in (pref_bq, 512, 256, 128, 64, 32, 16, 8):
+            if bqp > pref_bq:
+                continue
+            bq = _pick_block(tq, bqp)
+            used = (2 * bq * hd * itemsize + 2 * 2 * tk * hd * itemsize
+                    + 2 * (bq * hd * itemsize + bq * h * 4)
+                    + 2 * bq * bk * 4 + bq * bk * itemsize + bq * d * 4)
+            if used <= 14 * 1024 * 1024:
+                return bq, bk
+    raise ValueError(f"no VMEM-fitting blocks for mh flash at tq={tq} tk={tk} "
+                     f"h={h} d={d}")
+
+
+def flash_supported(q_shape: tuple, k_shape: tuple, itemsize: int = 2) -> bool:
+    """The JAX package's flash dispatch predicate (``flash_supported``)
+    without its backend test: q (b, h, tq, d) and k (b, h, tk, d) with tq,
+    tk >= 128 and multiples of 8, within the TPU kernels' block budget in
+    the forward's and the backward's roles. The port sends exactly these
+    shapes to the flash op, so its kernel runs where the TPU kernel runs
+    (fp32 at h 16, t 1024 does not fit that budget and takes the plain
+    attention, as it takes XLA's there)."""
+    _, h, tq, d = q_shape
+    tk = k_shape[2]
+    if tq < 128 or tk < 128 or tq % 8 or tk % 8:
+        return False
+    try:
+        _mh_pick_blocks(tq, tk, h, d, 512, 1024, itemsize)
+        _mh_pick_blocks(tk, tq, h, d, 1024, 512, itemsize)
+        return True
+    except ValueError:
+        return False
+
+
 def _heads(q: torch.Tensor, kv: torch.Tensor):
     """fp32 (b, h, t, d) views of q, k and v."""
     return (q.float().permute(0, 2, 1, 3), kv[:, :, 0].float().permute(0, 2, 1, 3),

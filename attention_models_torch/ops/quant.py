@@ -1,0 +1,390 @@
+"""W8A8 int8 inference ops: the quantizers, ``quant_dot``, and the three
+fused int8 blocks (csrc/quant.cu) with their plain versions.
+
+Counterpart of ``attention_models_tpu/ops/quant.py``, same scheme:
+  - weights: per-output-channel symmetric int8, scale = max(amax, 1e-8) / 127,
+    q = clip(round_half_even(w / scale), -127, 127), from the fp32 weights;
+  - activations: the same per row (token), computed on the fly;
+  - products: exact int32 sums, dequantised as (float(acc) * s_row) * s_col
+    (+ bias), the int32 -> fp32 conversion rounding once.
+
+A quantized weight is a ``QuantWeight``: the int8 matrix in the torch Linear
+layout (d_out, d_in) -- per output channel a row, the rows K-contiguous, the
+B operand of an int8 mma as it stands -- and its fp32 scales (d_out,).
+Callers quantize once and reuse it (``QuantCache``): a decode loop
+quantizes at its first step, as JAX hoists the quantization out of its scan.
+
+- ``quant_dot``: XLA-level in JAX (the projections and heads), plain here:
+  the integer product is ``torch._int_mm`` on the card, an exact float64
+  product on the CPU (|sum| <= K * 127^2 < 2^53).
+- ``fused_ffn_q8`` (kernel 19): the GEGLU FFN with both products in int8.
+- ``fused_ffn_q8wide`` (kernel 20): the up-projection in x's dtype, the
+  down-projection in int8.
+- ``fused_ln_mlp_q8`` (kernel 21): x + W8A8 Mlp(LayerNorm(x)), biased.
+
+The row statistics of the LayerNorms (the GEGLU's gamma-LN over the inner
+width, kernel 21's LN over d) are summed in float64 and rounded once to
+fp32, in the kernels and in the plain versions alike; the fp32 up-projection
+of kernel 20 likewise. The int8 codes are a step function of those values:
+with every other operation taken in the same order, the kernels and the
+plain versions give the same codes on the card (the TPU kernels sum in fp32,
+within an ulp of these). Inference only: no backward, as in JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from attention_models_torch.ops import _build
+from attention_models_torch.ops.dispatch import (
+    check_tensor,
+    is_kernel_path,
+    needs_grad,
+    rows_lane_tileable,
+)
+
+MAX_ROW = 4096  # widest row csrc/quant.cu's row passes hold in registers
+QUANT_MODES = (None, "int8", "int8_wide")
+
+
+class QuantWeight(NamedTuple):
+    q: torch.Tensor      # (d_out, d_in) int8
+    scale: torch.Tensor  # (d_out,) fp32
+
+
+def check_mode(quant: str | None) -> str | None:
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+    return quant
+
+
+def quantize_rows(x32: torch.Tensor):
+    """Per-row symmetric int8 of fp32 rows: (q int8, scale (..., 1) fp32),
+    JAX's ``_quantize_rows_f32`` (``torch.round`` rounds half to even, as
+    ``jnp.round`` does)."""
+    amax = x32.abs().amax(dim=-1, keepdim=True).clamp(min=1e-8)
+    # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
+    # by its reciprocal, which is not IEEE division
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_weight(w: torch.Tensor) -> QuantWeight:
+    """A torch Linear weight (d_out, d_in) per output channel: JAX's
+    ``quantize_weight`` of its (d_in, d_out) transpose, from the weight's
+    fp32 values."""
+    q, scale = quantize_rows(w.float())
+    return QuantWeight(q.contiguous(), scale[:, 0].contiguous())
+
+
+def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 of the exact int32 products a (m, k) @ w (n, k)^T of int8
+    operands (the conversion rounds once, as JAX's ``astype(float32)``)."""
+    if a.is_cuda:
+        m, k = a.shape
+        n = w.shape[0]
+        # torch._int_mm: rows > 16, k and n multiples of 8 (zero padding
+        # adds nothing to the sums)
+        pm, pk, pn = max(24, -(-m // 8) * 8) - m, -k % 8, -n % 8
+        if pm or pk:
+            a = F.pad(a, (0, pk, 0, pm))
+        if pk or pn:
+            w = F.pad(w, (0, pk, 0, pn))
+        return torch._int_mm(a, w.t())[:m, :n].float()
+    return (a.double() @ w.double().T).float()
+
+
+def quant_dot(x: torch.Tensor, w: QuantWeight,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """W8A8 ``x @ W^T``: dynamic per-row scales of x, per-channel scales of
+    the weight; x (..., d_in) -> (..., d_out) in ``out_dtype`` (x's)."""
+    shape = x.shape
+    xq, sx = quantize_rows(x.reshape(-1, shape[-1]).float())
+    y = int_dot(xq, w.q) * sx * w.scale
+    return y.reshape(*shape[:-1], w.q.shape[0]).to(out_dtype or x.dtype)
+
+
+class QuantCache:
+    """A module's quantized weights. While ``store`` is a dict (inside
+    ``weights_quantized_once``) a weight is quantized at its first use and
+    reused after; otherwise each use quantizes afresh, as an unhoisted JAX
+    call does."""
+
+    def __init__(self):
+        self.store: dict | None = None
+
+    def get(self, key: str, w: torch.Tensor) -> QuantWeight:
+        if self.store is None:
+            return quantize_weight(w)
+        if key not in self.store:
+            self.store[key] = quantize_weight(w)
+        return self.store[key]
+
+
+@contextlib.contextmanager
+def weights_quantized_once(model: torch.nn.Module):
+    """Hold every ``QuantCache`` of ``model`` (a module's ``q8``) for the
+    block: a decode quantizes each weight at its first step only."""
+    caches = [m.q8 for m in model.modules()
+              if isinstance(getattr(m, "q8", None), QuantCache)]
+    for c in caches:
+        c.store = {}
+    try:
+        yield
+    finally:
+        for c in caches:
+            c.store = None
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+def ln_rows(v32: torch.Tensor, gamma: torch.Tensor,
+            beta: torch.Tensor | None, eps: float) -> torch.Tensor:
+    """LayerNorm of fp32 rows with float64 statistics rounded once to fp32:
+    mean, c = v - mean, var = mean(c^2), rstd = 1 / sqrt(var + eps) (eps
+    as fp32), then (c * rstd) * gamma (+ beta) in fp32 -- csrc/quant.cu's
+    row pass operation for operation."""
+    mean = v32.double().mean(dim=-1, keepdim=True).float()
+    c = v32 - mean
+    var = c.double().square().mean(dim=-1, keepdim=True)
+    rstd = torch.reciprocal(torch.sqrt(var + float(np.float32(eps)))).float()
+    y = c * rstd * gamma.float()
+    return y + beta.float() if beta is not None else y
+
+
+def _keep(codes: dict | None, **named) -> None:
+    if codes is not None:
+        codes.update(named)
+
+
+def _ffn_q8_reference(x, q1: QuantWeight, gamma, q2: QuantWeight,
+                      eps: float = 1e-5, codes: dict | None = None):
+    """Plain version of kernel 19: rows of x quantized, int8 x W1^T,
+    dequantised, [a | gate] -> gate * gelu(a), gamma-LN, rows quantized,
+    int8 y W2^T, dequantised, in x's dtype. ``codes`` (a dict) receives the
+    int8 activations (xq, yq)."""
+    d, inner = x.shape[-1], q2.q.shape[1]
+    xq, sx = quantize_rows(x.reshape(-1, d).float())
+    h = int_dot(xq, q1.q) * sx * q1.scale
+    g = h[:, inner:] * gelu_exact(h[:, :inner])
+    yq, sy = quantize_rows(ln_rows(g, gamma, None, eps))
+    _keep(codes, xq=xq, yq=yq)
+    o = int_dot(yq, q2.q) * sy * q2.scale
+    return o.reshape(*x.shape[:-1], q2.q.shape[0]).to(x.dtype)
+
+
+def _ffn_q8wide_reference(x, w1, gamma, q2: QuantWeight, eps: float = 1e-5,
+                          codes: dict | None = None):
+    """Plain version of kernel 20: H = x W1^T with W1 in x's dtype (bf16:
+    fp32 sums; fp32: one rounding of the float64 product), then as
+    ``_ffn_q8_reference`` from g on. ``codes`` receives yq."""
+    dt, d, inner = x.dtype, x.shape[-1], q2.q.shape[1]
+    xf, w1c = x.reshape(-1, d), w1.to(dt)
+    if dt == torch.float32:
+        h = (xf.double() @ w1c.double().T).float()
+    else:
+        h = F.linear(xf.float(), w1c.float())
+    g = h[:, inner:] * gelu_exact(h[:, :inner])
+    yq, sy = quantize_rows(ln_rows(g, gamma, None, eps))
+    _keep(codes, yq=yq)
+    o = int_dot(yq, q2.q) * sy * q2.scale
+    return o.reshape(*x.shape[:-1], q2.q.shape[0]).to(dt)
+
+
+def _ln_mlp_q8_reference(x, lng, lnb, q1: QuantWeight, b1, q2: QuantWeight,
+                         b2, eps: float = 1e-5, codes: dict | None = None):
+    """Plain version of kernel 21: x + W8A8 Mlp(LayerNorm(x)), the biases
+    added after dequantising, exact gelu, in x's dtype. ``codes``
+    receives (yq, gq)."""
+    d = x.shape[-1]
+    x32 = x.reshape(-1, d).float()
+    yq, sy = quantize_rows(ln_rows(x32, lng, lnb, eps))
+    h = int_dot(yq, q1.q) * sy * q1.scale + b1.float()
+    gq, sg = quantize_rows(gelu_exact(h))
+    _keep(codes, yq=yq, gq=gq)
+    o = int_dot(gq, q2.q) * sg * q2.scale + b2.float()
+    return (x32 + o).reshape(x.shape).to(x.dtype)
+
+
+def ffn_q8_tileable(shape: tuple, dim: int, inner: int) -> bool:
+    """JAX's ``FeedForward`` gate of the fused quantized kernels without its
+    backend test (``models/layers.py:142-146``)."""
+    return (inner % 128 == 0 and rows_lane_tileable(shape, shape[-1])
+            and (2 * inner) % 128 == 0 and dim % 128 == 0)
+
+
+def ln_mlp_q8_tileable(shape: tuple, dim: int) -> bool:
+    """JAX's ``ln_mlp_block`` int8 gate without its backend test
+    (``models/layers.py:332-335``)."""
+    return (rows_lane_tileable(shape, shape[-1]) and dim % 128 == 0
+            and shape[-1] == dim)
+
+
+def _refuse_grad(x, name):
+    if needs_grad(x):
+        raise ValueError(f"{name} is inference-only (no backward, as in JAX)")
+
+
+def _check_q8(x, name, qw: QuantWeight, shape: tuple):
+    check_tensor(qw.q, f"{name} int8", (torch.int8,), 2, x.device)
+    check_tensor(qw.scale, f"{name} scale", (torch.float32,), 1, x.device)
+    if tuple(qw.q.shape) != shape or qw.scale.shape != (shape[0],):
+        raise ValueError(f"{name}: {tuple(qw.q.shape)} / "
+                         f"{tuple(qw.scale.shape)}, expected {shape}")
+
+
+def _vec(p, name, size, dev) -> torch.Tensor:
+    check_tensor(p, name, (torch.float32, torch.bfloat16), 1, dev)
+    if p.shape != (size,):
+        raise ValueError(f"{name} must be ({size},)")
+    return p.float().contiguous()
+
+
+def _ffn_scratch(n, inner, dev):
+    return dict(g=torch.empty(n, inner, dtype=torch.float32, device=dev),
+                yq=torch.empty(n, inner, dtype=torch.int8, device=dev),
+                sy=torch.empty(n, dtype=torch.float32, device=dev))
+
+
+def _ffn_q8_kernel(x, q1, gamma, q2, eps, codes=None):
+    check_tensor(x, "x", (torch.float32, torch.bfloat16))
+    d, inner = x.shape[-1], q2.q.shape[1]
+    _check_q8(x, "w1", q1, (2 * inner, d))
+    _check_q8(x, "w2", q2, (d, inner))
+    if d % 128 or inner % 128 or inner > MAX_ROW or d > MAX_ROW:
+        raise ValueError(f"ffn_q8 kernel: d={d} and inner={inner} must be "
+                         f"multiples of 128, at most {MAX_ROW}")
+    gam = _vec(gamma, "gamma", inner, x.device)
+    n, dev = x.numel() // d, x.device
+    s = _ffn_scratch(n, inner, dev)
+    xq = torch.empty(n, d, dtype=torch.int8, device=dev)
+    sx = torch.empty(n, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "amt_ffn_q8", x.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
+            gam.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), s["g"].data_ptr(),
+            s["yq"].data_ptr(), s["sy"].data_ptr(), out.data_ptr(), n, d,
+            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+    fused_ffn_q8.launches += 1
+    _keep(codes, xq=xq, yq=s["yq"])
+    return out
+
+
+def fused_ffn_q8(x: torch.Tensor, q1: QuantWeight, gamma: torch.Tensor,
+                 q2: QuantWeight, *, eps: float = 1e-5,
+                 codes: dict | None = None) -> torch.Tensor:
+    """The W8A8 GEGLU FFN (kernel 19) of x (..., d) with quantized W1
+    (2i, d) and W2 (d, i), gamma (i,): the kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if not is_kernel_path(x):
+        return _ffn_q8_reference(x, q1, gamma, q2, eps, codes)
+    _refuse_grad(x, "fused_ffn_q8")
+    return _ffn_q8_kernel(x.contiguous(), q1, gamma, q2, eps, codes)
+
+
+fused_ffn_q8.launches = 0
+
+
+def _ffn_q8wide_kernel(x, w1, gamma, q2, eps, codes=None):
+    check_tensor(x, "x", (torch.float32, torch.bfloat16))
+    d, inner = x.shape[-1], q2.q.shape[1]
+    w1c = w1.to(x.dtype).contiguous()
+    check_tensor(w1c, "w1", (x.dtype,), 2, x.device)
+    if w1c.shape != (2 * inner, d):
+        raise ValueError(f"ffn_q8wide kernel: w1 {tuple(w1c.shape)}")
+    _check_q8(x, "w2", q2, (d, inner))
+    if d % 128 or inner % 128 or inner > MAX_ROW:
+        raise ValueError(f"ffn_q8wide kernel: d={d} and inner={inner} must "
+                         f"be multiples of 128, inner at most {MAX_ROW}")
+    gam = _vec(gamma, "gamma", inner, x.device)
+    n, dev = x.numel() // d, x.device
+    s = _ffn_scratch(n, inner, dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "amt_ffn_q8wide", x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
+            q2.q.data_ptr(), q2.scale.data_ptr(), s["g"].data_ptr(),
+            s["yq"].data_ptr(), s["sy"].data_ptr(), out.data_ptr(), n, d,
+            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+    fused_ffn_q8wide.launches += 1
+    _keep(codes, yq=s["yq"])
+    return out
+
+
+def fused_ffn_q8wide(x: torch.Tensor, w1: torch.Tensor, gamma: torch.Tensor,
+                     q2: QuantWeight, *, eps: float = 1e-5,
+                     codes: dict | None = None) -> torch.Tensor:
+    """The wide-only FFN (kernel 20): W1 (2i, d) cast to x's dtype for the
+    up-projection, quantized W2 (d, i) for the down-projection. The kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if not is_kernel_path(x):
+        return _ffn_q8wide_reference(x, w1, gamma, q2, eps, codes)
+    _refuse_grad(x, "fused_ffn_q8wide")
+    return _ffn_q8wide_kernel(x.contiguous(), w1, gamma, q2, eps, codes)
+
+
+fused_ffn_q8wide.launches = 0
+
+
+def _ln_mlp_q8_kernel(x, lng, lnb, q1, b1, q2, b2, eps, codes=None):
+    check_tensor(x, "x", (torch.float32, torch.bfloat16))
+    d, hid = x.shape[-1], q1.q.shape[0]
+    _check_q8(x, "w1", q1, (hid, d))
+    _check_q8(x, "w2", q2, (d, hid))
+    if d % 128 or d > MAX_ROW or hid > MAX_ROW or hid % 2:
+        raise ValueError(f"ln_mlp_q8 kernel: d={d} must be a multiple of 128"
+                         f" and hid={hid} even, both at most {MAX_ROW}")
+    dev = x.device
+    lng, lnb = _vec(lng, "ln_gamma", d, dev), _vec(lnb, "ln_beta", d, dev)
+    b1, b2 = _vec(b1, "b1", hid, dev), _vec(b2, "b2", d, dev)
+    # int8 rows of hid bytes start 16-byte aligned for cp.async only at a
+    # stride that is a multiple of 16: W2 and the gelu codes are padded with
+    # zero columns, which add nothing to the sums
+    hid_pad = -(-hid // 16) * 16
+    w2p = F.pad(q2.q, (0, hid_pad - hid)).contiguous()
+    n = x.numel() // d
+    f32 = dict(dtype=torch.float32, device=dev)
+    yq = torch.empty(n, d, dtype=torch.int8, device=dev)
+    sy, sg = torch.empty(n, **f32), torch.empty(n, **f32)
+    g = torch.empty(n, hid, **f32)
+    gq = torch.empty(n, hid_pad, dtype=torch.int8, device=dev)
+    out = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "amt_ln_mlp_q8", x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+            q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
+            w2p.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(),
+            yq.data_ptr(), sy.data_ptr(), g.data_ptr(), gq.data_ptr(),
+            sg.data_ptr(), out.data_ptr(), n, d, hid, hid_pad, eps,
+            _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+    fused_ln_mlp_q8.launches += 1
+    _keep(codes, yq=yq, gq=gq[:, :hid])
+    return out
+
+
+def fused_ln_mlp_q8(x: torch.Tensor, ln_gamma: torch.Tensor,
+                    ln_beta: torch.Tensor, q1: QuantWeight, b1: torch.Tensor,
+                    q2: QuantWeight, b2: torch.Tensor, *, eps: float = 1e-5,
+                    codes: dict | None = None) -> torch.Tensor:
+    """x + W8A8 Mlp(LayerNorm(x)) (kernel 21), W1 (hid, d) and W2 (d, hid)
+    quantized: the kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if not is_kernel_path(x):
+        return _ln_mlp_q8_reference(x, ln_gamma, ln_beta, q1, b1, q2, b2,
+                                    eps, codes)
+    _refuse_grad(x, "fused_ln_mlp_q8")
+    return _ln_mlp_q8_kernel(x.contiguous(), ln_gamma, ln_beta, q1, b1, q2,
+                             b2, eps, codes)
+
+
+fused_ln_mlp_q8.launches = 0

@@ -1,7 +1,7 @@
-"""Batch programs for the tokenizer and MaskGIT services.
+"""Batch programs for the tokenizer, MaskGIT and Muse services.
 
 Counterparts of ``attention_models_tpu/serving.py``'s ``vq_encode_service``,
-``vq_recon_service`` and ``maskgit_service``: each returns
+``vq_recon_service``, ``maskgit_service`` and ``muse_service``: each returns
 ``run_batch(inputs, seeds)``. The tokenizer services take a batch of images
 (b, 3, H, W) as float32 and ignore the seeds (both are deterministic).
 Results are tensors on the model's device. The dynamic-batching engine is
@@ -56,5 +56,26 @@ def maskgit_service(model, *, timesteps: int = 18, num_masked: int = 200,
             if inpaint:
                 return model.generate(_images(model, inputs), **kw)
             return model.generate(batch=len(seeds), **kw)
+
+    return run_batch
+
+
+def muse_service(model, *, timesteps: int = 18, filter_p: float = 0.9,
+                 guidance_scale: float | None = None,
+                 approx_topk: bool = False):
+    """Muse's text-to-image decode. Inputs: text ids, one (max_length,)
+    int row per request (``models/text_encoder.py::tokenize``); one image
+    (3, H, W) per request. The batch runs as one CFG forward per step; row
+    i's noise depends on ``seeds[i]`` only, so its image does not depend on
+    the rest of the batch."""
+
+    def run_batch(text_ids, seeds):
+        seeds = np.asarray(seeds, np.int64).reshape(-1)
+        device = next(model.parameters()).device
+        ids = torch.as_tensor(np.asarray(text_ids, np.int64), device=device)
+        with torch.inference_mode():
+            return model.generate(ids, timesteps=timesteps, filter_p=filter_p,
+                                  guidance_scale=guidance_scale,
+                                  approx_topk=approx_topk, seeds=seeds)
 
     return run_batch

@@ -1,5 +1,5 @@
 """Trainer dispatch: the ViTVQGAN GAN trainer and the MaskGIT trainer;
-Muse and Parti raise until their models are ported (counterpart of
+Muse and Parti raise until their trainers are ported (counterpart of
 ``attention_models_tpu/training/build_trainer.py``)."""
 
 from __future__ import annotations
@@ -22,8 +22,7 @@ def build_trainer(cfg, model, dataloaders, device=None):
         return MaskGitTrainer(cfg, model, dataloaders, device)
     if name in ("muse", "parti"):
         raise NotImplementedError(
-            f"no trainer for model {name!r} in the port yet: it comes after "
-            f"the Muse/Parti serving slice brings the text tower, the "
-            f"cross-attention decoder and Parti")
+            f"no trainer for model {name!r} in the port yet: Muse's and "
+            f"Parti's trainers follow Parti serving (ROADMAP A.8)")
     raise NotImplementedError(f"no trainer for model {name!r} in the port "
                               f"yet")

@@ -10,6 +10,10 @@ so this module needs neither JAX nor flax:
 - ``maskgit_from_jax``: ``MaskGitTransformer`` (its ``vq`` subtree through
   ``from_jax_params``); gamma-only LayerNorms keep ``gamma`` and gain their
   zero ``beta`` buffer.
+- ``muse_from_jax``: ``MUSE``: the decoder with the keys of
+  ``torch_convert.py::convert_decoder``, the CLIP tower with those of
+  ``convert_hf_clip_text``, the tokenizer through ``from_jax_params``. A
+  quantized model takes the same weights (it quantizes them at use).
 - ``discriminator_from_jax``: ``NLayerDiscriminator`` params and
   ``batch_stats``.
 - ``lpips_from_jax``: the LPIPS VGG16 tower and its 1x1 heads.
@@ -92,19 +96,69 @@ def maskgit_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     sd[f"{p}.input_proj.weight"] = _t(bt["input_proj"]["embedding"])
     sd[f"{p}.pos_enc"] = _t(bt["pos_enc"])
     _gamma_ln(bt["init_norm"], f"{p}.init_norm", sd)
-    dec = bt["decoder"]
-    for i in range(sum(1 for name in dec if name.startswith("layers_"))):
-        blk, q = dec[f"layers_{i}"], f"{p}.decoder.layers.{i}"
+    for i, blk in enumerate(_layers(bt["decoder"])):
+        q = f"{p}.decoder.layers.{i}"
         _gamma_ln(blk["norm1"], f"{q}.norm1", sd)
-        _lin(blk["self_attn"]["wq"], f"{q}.self_attn.q.0", sd)
-        _lin(blk["self_attn"]["wkv"], f"{q}.self_attn.kv.0", sd)
-        _lin(blk["self_attn"]["wo"], f"{q}.self_attn.W_o", sd)
+        _attention(blk["self_attn"], f"{q}.self_attn", sd)
         _gamma_ln(blk["norm2"], f"{q}.norm2", sd)
-        _lin(blk["ff"]["ff_in"], f"{q}.feed_forward.ff.0", sd)
-        _gamma_ln(blk["ff"]["norm"], f"{q}.feed_forward.ff.2", sd)
-        _lin(blk["ff"]["ff_out"], f"{q}.feed_forward.ff.3", sd)
+        _feed_forward(blk["ff"], f"{q}.feed_forward", sd)
     _gamma_ln(bt["final_norm"], f"{p}.final_norm", sd)
     sd[f"{p}.linear.weight"] = _t(bt["linear"]["kernel"]).T.contiguous()
+    return sd
+
+
+def _attention(tree: Mapping, key: str, sd: dict) -> None:
+    _lin(tree["wq"], f"{key}.q.0", sd)
+    _lin(tree["wkv"], f"{key}.kv.0", sd)
+    _lin(tree["wo"], f"{key}.W_o", sd)
+
+
+def _feed_forward(tree: Mapping, key: str, sd: dict) -> None:
+    _lin(tree["ff_in"], f"{key}.ff.0", sd)
+    _gamma_ln(tree["norm"], f"{key}.ff.2", sd)
+    _lin(tree["ff_out"], f"{key}.ff.3", sd)
+
+
+def _layers(tree: Mapping) -> list:
+    return [tree[f"layers_{i}"]
+            for i in range(sum(1 for k in tree if k.startswith("layers_")))]
+
+
+def muse_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``MUSE`` params (with or without the top-level ``"params"``)
+    -> fp32 ``state_dict`` for ``models.muse.MUSE``."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd = {f"vq.{k}": v for k, v in from_jax_params(tree["vq"]).items()}
+    te = tree["text_encoder"]
+    clip, p = te["clip"], "text_encoder.clip.text_model"
+    sd[f"{p}.embeddings.token_embedding.weight"] = _t(
+        clip["token_embedding"]["embedding"])
+    sd[f"{p}.embeddings.position_embedding.weight"] = _t(
+        clip["position_embedding"])
+    for i, blk in enumerate(_layers(clip)):
+        q = f"{p}.encoder.layers.{i}"
+        _ln(blk["ln1"], f"{q}.layer_norm1", sd)
+        for name in ("q", "k", "v"):
+            _lin(blk[f"w{name}"], f"{q}.self_attn.{name}_proj", sd)
+        _lin(blk["wo"], f"{q}.self_attn.out_proj", sd)
+        _ln(blk["ln2"], f"{q}.layer_norm2", sd)
+        _lin(blk["fc1"], f"{q}.mlp.fc1", sd)
+        _lin(blk["fc2"], f"{q}.mlp.fc2", sd)
+    _ln(clip["final_ln"], f"{p}.final_layer_norm", sd)
+    _lin(te["project_embeds"], "text_encoder.project_embeds", sd)
+    dec, p = tree["decoder"], "decoder"
+    sd[f"{p}.token_emb.weight"] = _t(dec["token_emb"]["embedding"])
+    sd[f"{p}.pos_enc"] = _t(dec["pos_enc"])
+    for i, blk in enumerate(_layers(dec["decoder"])):
+        q = f"{p}.decoder.layers.{i}"
+        _attention(blk["self_attn"], f"{q}.self_attn", sd)
+        _attention(blk["cross_attn"], f"{q}.cross_attn", sd)
+        _feed_forward(blk["ff"], f"{q}.feed_forward", sd)
+        for n in ("norm1", "norm2", "norm3"):
+            _gamma_ln(blk[n], f"{q}.{n}", sd)
+    _gamma_ln(dec["final_norm"], f"{p}.final_norm", sd)
+    _lin(dec["linear"], f"{p}.linear", sd)
     return sd
 
 

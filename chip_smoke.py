@@ -61,10 +61,26 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               weights, token grid, mask draws and dropout seed; the bf16
               model's loss and global gradient on the same inputs, each
               path against the fp32 plain one
+ 11. muse     Muse CFG decode: build_model on cfg/muse.yaml (restated in
+              Python as MUSE_YAML, seeded weights) with
+              training.mixed_precision=bf16 and model.quant none, int8_wide
+              and int8, through muse_service (8 hash-tokenized prompts, 18
+              steps, approx top-k; quant none in exact mode once); exact
+              launch deltas per call (muse_step per step, the CLIP tower's
+              LayerNorms and VQ_DECODE per generate); per mode the first
+              decode step's logits and picks, kernels against plain, in bf16
+              and in fp32 (the shipped mixed_precision "no"), the bf16 logits
+              of both paths against the fp32 ones, layer 0's update in bf16;
+              ms/step, images/s, peak memory; device time by kernel over one
+              int8_wide generate
+ 12. recon_int8  the tokenizer built with quant int8 (vitvqgan_base, bf16,
+              batch 8, 256 px): 3 requests through vq_recon_service with
+              exact launch deltas (ln_mlp_q8 in place of ln_mlp), imgs/s, and
+              index agreement with the unquantized model (reported)
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
-Each kernel's "launches" there is the sum of its counts over the four
-driven paths (serving, training, maskgit, maskgit_train, each counted from
-0), listed one by one beside it.
+Each kernel's "launches" there is the sum of its counts over the six
+driven paths (serving, training, maskgit, maskgit_train, muse, recon_int8,
+each counted from 0), listed one by one beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -121,7 +137,31 @@ Tolerances (kernel against plain on the card):
     1e-5 and every trainable gradient within relative L2 1e-4 of the plain
     path (summation order only); in bf16 the loss's and the global
     gradient's errors against the fp32 plain path, kernels at most
-    FLOOR_RATIO times the plain path's.
+    FLOOR_RATIO times the plain path's;
+  - the W8A8 blocks (kernels 19-21): relative L2 1e-2 in bf16 and 1e-4 in
+    fp32 (TF32 off), the int8 activations that differ from the plain
+    version's counted and printed (the kernels take every fp32 step in the
+    plain version's order and round once where it does, so they differ
+    only where a statistic summed in another order lands an activation on
+    the other side of a rounding boundary);
+  - Muse's first decode step, per quant mode, kernels against plain.
+    int8 codes are a step function of their input: an ulp that the
+    LayerNorm, flash or FFN kernels round otherwise moves codes of the
+    quant_dot projections and the FFN, and those move the logits by more
+    than bf16 rounding does. So: bf16 logits within relative L2 2e-2 under
+    quant none and, under int8 and int8_wide, within FLOOR_RATIO times the
+    drift of the plain path itself when the position rows of 1 % of the
+    tokens move by about one bf16 ulp (the model's floor, reported beside
+    it); layer 0's update in bf16 within 1e-2, with all kernels under quant
+    none and with the FFN kernel alone under the quant modes; in fp32 (TF32
+    off) the logits within 1e-4 and the picks equal wherever the plain
+    noised top-2 gap exceeds 1e-4, with all kernels under quant none and
+    with the W8A8 FFN kernels alone under the quant modes (they equal the
+    plain version's there), the all-kernel figures reported; in every mode
+    the bf16 logits and layer 0's update against the fp32 plain path,
+    kernels at most FLOOR_RATIO times the plain path's;
+  - the int8 tokenizer's indices against the unquantized model's are
+    reported, not gated.
 """
 
 from __future__ import annotations
@@ -136,7 +176,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
-              "float32": 67e12}    # fp32 outside the tensor cores
+              "float32": 67e12,    # fp32 outside the tensor cores
+              "int8": 1979e12}     # dense tensor-core int8
 BF16_TOL, F32_TOL, MODEL_BF16_TOL = 1e-2, 1e-5, 2e-2
 FLOOR_RATIO = 1.25
 BWD_BF16_TOL = 2e-2
@@ -184,7 +225,8 @@ PER_MICRO_STEP = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                   "layernorm": 16, "nearest_codes": 1,
                   "flash_attention_bwd_kv": 12, "ln_mlp_bwd": 12,
                   "ffn": 0, "sample_epilogue": 0, "ffn_bwd": 0,
-                  "head_xent": 0, "head_xent_bwd": 0}
+                  "head_xent": 0, "head_xent_bwd": 0, "ffn_q8": 0,
+                  "ffn_q8wide": 0, "ln_mlp_q8": 0}
 
 # cfg/maskgit.yaml as PyYAML reads it; tests/test_torch_port_rules.py holds
 # the two equal
@@ -255,6 +297,74 @@ def maskgit_step(depth: int, approx: bool) -> dict:
     sampling epilogue once in approx mode."""
     return {"flash_attention_bthd_kv": depth, "ffn": depth,
             "layernorm": 2 * depth + 2, "sample_epilogue": int(approx)}
+
+
+# cfg/muse.yaml as PyYAML reads it; tests/test_torch_port_rules.py holds
+# the two equal
+MUSE_YAML = {
+    "experiment": {
+        "project_name": "muse", "exp_name": "run1",
+        "max_train_examples": 10000000000, "save_every": 1000,
+        "eval_every": 50000000000000, "sample_every": 500, "log_every": 100,
+        "log_level": "info", "resume_path_from_checkpoint": None,
+        "wandb": False},
+    "codebook": {"codebook_dim": 32, "beta": 0.25, "codebook_size": 8192},
+    "vitvqgan": MASKGIT_YAML["vitvqgan"],
+    "model": {"name": "muse", "dim": 1024,
+              "encoder": {"type": "clip",
+                          "name": "openai/clip-vit-large-patch14",
+                          "max_length": 77},
+              "decoder": {"n_heads": 16, "d_head": 64, "depth": 22,
+                          "mult": 6, "embeds_drop_prob": 0.9,
+                          "dropout": 0.0}},
+    "dataset": {
+        "name": "coco",
+        "params": {"train_path": "/datasets/coco2017", "val_path": None,
+                   "num_workers": 4, "pin_memory": True, "batch_size": 1,
+                   "persistent_workers": True, "shuffle": True,
+                   "train_test_split": 0.9},
+        "preprocessing": {"resolution": 256, "center_crop": False,
+                          "random_flip": False, "random_crop": True,
+                          "mean": None, "std": None, "scale": 1.0}},
+    "optimizer": {"name": "adamw", "params": {
+        "learning_rate": "1e-4", "beta1": 0.9, "beta2": 0.999,
+        "weight_decay": 0.01}},
+    "lr_scheduler": {"name": "constant_with_warmup", "params": {
+        "learning_rate": "${optimizer.params.learning_rate}",
+        "warmup_steps": 1000, "decay_steps": None}},
+    "training": {"gradient_accumulation_steps": 16, "mixed_precision": "no",
+                 "seed": 42, "num_epochs": 200, "max_grad_norm": None,
+                 "tensor_parallel": 1},
+}
+MUSE_PROMPTS = ["a stop sign", "two cats on a red sofa",
+                "a bowl of ramen on a wooden table", "a lighthouse at dusk",
+                "an astronaut riding a horse", "a watercolor of a fox",
+                "a city street in the rain", "a plate of fresh fruit"]
+# kernel launches per Muse generate besides its steps: the CLIP tower's
+# LayerNorms (2 a layer + the final one) and the tokenizer's decode
+CLIP_LAYERNORMS = 2 * 12 + 1
+MUSE_FFN = {None: "ffn", "int8_wide": "ffn_q8wide", "int8": "ffn_q8"}
+
+
+def muse_step(depth: int, quant: str | None, approx: bool) -> dict:
+    """Launches of one Muse decode step (one 2b-row forward): the
+    self-attention's flash and the FFN once a layer (the cross-attention
+    over 77 text tokens is the plain attention, as JAX runs XLA there), the
+    gamma LayerNorms norm1-3 a layer + final_norm, and the sampling
+    epilogue once in approx mode."""
+    return {"flash_attention_bthd_kv": depth, MUSE_FFN[quant]: depth,
+            "layernorm": 3 * depth + 1, "sample_epilogue": int(approx)}
+
+
+def muse_config(mixed_precision: str, quant: str | None):
+    """cfg/muse.yaml with training.mixed_precision and model.quant set."""
+    from attention_models_torch.utils.config import Config
+
+    cfg = Config(json.loads(json.dumps(MUSE_YAML)))
+    cfg.set_path("training.mixed_precision", mixed_precision)
+    if quant is not None:
+        cfg.set_path("model.quant", quant)
+    return cfg
 
 
 def maskgit_config(mixed_precision: str):
@@ -333,7 +443,13 @@ def main() -> int:
         _sample_epilogue_reference, gumbel_of_bits, kth_value_bisect,
         philox_bits, sample_epilogue_fused)
     from attention_models_torch.serving import (
-        maskgit_service, vq_encode_service, vq_recon_service)
+        maskgit_service, muse_service, vq_encode_service, vq_recon_service)
+    from attention_models_torch.models.layers import FeedForward
+    from attention_models_torch.models.text_encoder import tokenize
+    from attention_models_torch.ops.quant import (
+        _ffn_q8_reference, _ffn_q8wide_reference, _ln_mlp_q8_reference,
+        fused_ffn_q8, fused_ffn_q8wide, fused_ln_mlp_q8, quantize_rows,
+        quantize_weight)
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -383,11 +499,16 @@ def main() -> int:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
-    def bound(bytes_moved, flops, dtype):
+    def bound(bytes_moved, ops):
+        """ops: [(count, peak type)], each at its type's peak"""
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
+        t_ops = sum(n / PEAK_FLOPS[k] for n, k in ops) * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                      "operations")
+
+    def gate(ok, what):
+        if not ok:
+            raise AssertionError(what)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -400,8 +521,10 @@ def main() -> int:
     def record(kernel, label, dtype, tol, err, abs_err, ms, plain_ms,
                lib_ms, bytes_moved, flops, metric="rel_l2", main=False):
         """``main``: the variant at the main path's dtype and shape that the
-        kernels line reports (default: the kernel's first bf16 variant)."""
-        b_ms, b_by = bound(bytes_moved, flops, dtype)
+        kernels line reports (default: the kernel's first bf16 variant).
+        ``flops``: a count at the dtype's peak, or [(count, peak type)]."""
+        b_ms, b_by = bound(bytes_moved, flops if isinstance(flops, list)
+                           else [(flops, str(dtype).split(".")[-1])])
         v = dict(kernel=kernel, variant=label, dtype=str(dtype).split(".")[-1],
                  metric=metric, err=err, tol=tol, max_abs_err=abs_err, ms=ms,
                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
@@ -411,8 +534,7 @@ def main() -> int:
               f"max_abs {abs_err:.3e} | kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"{kernel} {label}: {metric} {err} > {tol}")
+        gate(err <= tol, f"{kernel} {label}: {metric} {err} > {tol}")
         return v
 
     n_tok, dim, patch_feat, hid = 8 * 1024, 512, 192, 1368
@@ -420,20 +542,23 @@ def main() -> int:
     mg_dim, mg_inner, mg_heads = 768, 4096, 12  # cfg/maskgit.yaml's widths
 
     # LayerNorm: the model-width rows (bf16 in the bf16 model, fp32 in the
-    # fp32 one), the patch-embed rows (fp32 images from the services) and
-    # MaskGIT's gamma-only rows (no beta)
-    for d, dtype, beta in ((dim, torch.bfloat16, True),
-                           (dim, torch.float32, True),
-                           (patch_feat, torch.float32, True),
-                           (patch_feat, torch.bfloat16, True),
-                           (mg_dim, torch.bfloat16, False),
-                           (mg_dim, torch.float32, False)):
-        x = randn(n_tok, d, dtype=dtype, scale=2.0, shift=0.5)
+    # fp32 one), the patch-embed rows (fp32 images from the services),
+    # MaskGIT's gamma-only rows (no beta), Muse's (16 x 1024 rows at d
+    # 1024, no beta) and its CLIP tower's (8 x 77 rows at d 768, beta)
+    for rows, d, dtype, beta in ((n_tok, dim, torch.bfloat16, True),
+                                 (n_tok, dim, torch.float32, True),
+                                 (n_tok, patch_feat, torch.float32, True),
+                                 (n_tok, patch_feat, torch.bfloat16, True),
+                                 (n_tok, mg_dim, torch.bfloat16, False),
+                                 (n_tok, mg_dim, torch.float32, False),
+                                 (16 * 1024, 1024, torch.bfloat16, False),
+                                 (8 * 77, 768, torch.bfloat16, True)):
+        x = randn(rows, d, dtype=dtype, scale=2.0, shift=0.5)
         g = randn(d, scale=0.1, shift=1.0)
         b = randn(d, scale=0.1) if beta else None
         got, want = layernorm(x, g, b), _ln_reference(x, g, b, 1e-5)
         gl, bl = g.to(dtype), b.to(dtype) if beta else None
-        record("layernorm", f"({n_tok},{d})" + ("" if beta else " no beta"),
+        record("layernorm", f"({rows},{d})" + ("" if beta else " no beta"),
                dtype, BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                rel_l2(got, want), max_abs(got, want),
                time_ms(lambda: layernorm(x, g, b)),
@@ -471,16 +596,18 @@ def main() -> int:
            nbytes(x, x, lng, lnb, w1, b1, w2, b2), 4 * n_tok * dim * hid)
 
     # flash attention on packed kv, both dtypes, plus causal at tq = tk;
-    # ViTVQGAN's 8 heads and MaskGIT's 12
+    # ViTVQGAN's 8 heads, MaskGIT's 12 and Muse's 16 (its 16-row CFG batch;
+    # in fp32 the JAX gate sends h 16 to the plain attention)
     b_, t_, h_, d_ = 8, 1024, 8, 64
-    for hh, dtype, causal in ((h_, torch.bfloat16, False),
-                              (h_, torch.float32, False),
-                              (h_, torch.bfloat16, True),
-                              (h_, torch.float32, True),
-                              (mg_heads, torch.bfloat16, False),
-                              (mg_heads, torch.float32, False)):
-        q = randn(b_, t_, hh, d_, dtype=dtype)
-        kv = randn(b_, t_, 2, hh, d_, dtype=dtype)
+    for bb, hh, dtype, causal in ((b_, h_, torch.bfloat16, False),
+                                  (b_, h_, torch.float32, False),
+                                  (b_, h_, torch.bfloat16, True),
+                                  (b_, h_, torch.float32, True),
+                                  (b_, mg_heads, torch.bfloat16, False),
+                                  (b_, mg_heads, torch.float32, False),
+                                  (16, 16, torch.bfloat16, False)):
+        q = randn(bb, t_, hh, d_, dtype=dtype)
+        kv = randn(bb, t_, 2, hh, d_, dtype=dtype)
         out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
         out_p, lse_p = _flash_reference(q, kv, d_ ** -0.5, causal)
         tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
@@ -503,14 +630,14 @@ def main() -> int:
         vs = kv[:, :, 1].transpose(1, 2).contiguous()
         pairs = t_ * (t_ + 1) // 2 if causal else t_ * t_
         record("flash_attention_bthd_kv",
-               f"b{b_} t{t_} h{hh} d{d_} causal={causal} (lse rel_l2 "
+               f"b{bb} t{t_} h{hh} d{d_} causal={causal} (lse rel_l2 "
                f"{lse_err:.2e}{unrounded})", dtype, tol,
                rel_l2(out, out_p), max_abs(out, out_p),
                time_ms(lambda: flash_attention_bthd_kv(q, kv, causal=causal)),
                time_ms(lambda: _flash_reference(q, kv, d_ ** -0.5, causal)),
                time_ms(lambda: F.scaled_dot_product_attention(
                    qs, ks, vs, is_causal=causal)),
-               nbytes(q, kv, out, lse), 4 * b_ * hh * d_ * pairs)
+               nbytes(q, kv, out, lse), 4 * bb * hh * d_ * pairs)
 
     def plain_distances(z, codes):
         zf, cf = z.float(), codes.float()
@@ -665,6 +792,27 @@ def main() -> int:
                time_ms(ffn_library_fwd_bwd), nbytes(x, w1, gam, w2, dy, *got),
                16 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
         del got, want, leaves
+
+    # the GEGLU FFN forward at Muse's decode shape (16 x 1024 rows, d 1024,
+    # inner 4096), bf16 (quant none)
+    x = randn(16 * 1024, 1024, dtype=torch.bfloat16)
+    w1 = randn(2 * 4096, 1024, dtype=torch.bfloat16, scale=1024 ** -0.5)
+    gam = randn(4096, scale=0.1, shift=1.0)
+    w2 = randn(1024, 4096, dtype=torch.bfloat16, scale=4096 ** -0.5)
+    got, want = fused_ffn(x, w1, gam, w2), _ffn_reference(x, w1, gam, w2, 1e-5)
+    gam_c = gam.to(torch.bfloat16)
+
+    def ffn_library_muse():
+        a, gate_ = F.linear(x, w1).chunk(2, dim=-1)
+        return F.linear(F.layer_norm(gate_ * F.gelu(a), (4096,), gam_c), w2)
+
+    record("ffn", "(16384,1024) inner 4096", torch.bfloat16, BF16_TOL,
+           rel_l2(got, want), max_abs(got, want),
+           time_ms(lambda: fused_ffn(x, w1, gam, w2)),
+           time_ms(lambda: _ffn_reference(x, w1, gam, w2, 1e-5)),
+           time_ms(ffn_library_muse), nbytes(x, w1, gam, w2, got),
+           6 * 16 * 1024 * 1024 * 4096)
+    del x, w1, w2, got, want
 
     # the fused head cross-entropy (kernels 13 and 14) at MaskGIT's training
     # shape: 8 x 1024 rows, d 768, vocab 8192, ~36 % of the targets ignored
@@ -846,6 +994,108 @@ def main() -> int:
         raise AssertionError("sample_epilogue Philox criteria failed")
     del cond, null, ext, bits, x32, logits, flat
 
+    # the W8A8 blocks (kernels 19-21) at their main paths' shapes: Muse's FFN
+    # (16 x 1024 rows of the CFG forward, d 1024, inner 4096) and the int8
+    # tokenizer's LN + MLP (8 x 1024 rows, d 512, hid 1368), bf16 and fp32
+    # (TF32 off), on weights quantized from fp32 as the models do; the
+    # library chain quantizes with the plain helpers, multiplies with
+    # torch._int_mm and takes the rest from F.linear / F.gelu /
+    # F.layer_norm. Each against its plain version on the same inputs, with
+    # the int8 activations that differ between the two
+    mu_rows, mu_dim, mu_inner = 16 * 1024, 1024, 4096
+    q8_ops = 6 * mu_rows * mu_dim * mu_inner
+
+    def int_mm(a, qw):
+        return torch._int_mm(a, qw.q.t()).float()
+
+    def code_flips(got, want):
+        return {k: int((got[k] != want[k]).sum()) for k in got}
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(mu_rows, mu_dim, dtype=dtype)
+        w1 = randn(2 * mu_inner, mu_dim, scale=mu_dim ** -0.5)
+        gam = randn(mu_inner, scale=0.1, shift=1.0)
+        w2 = randn(mu_dim, mu_inner, scale=mu_inner ** -0.5)
+        q1, q2 = quantize_weight(w1), quantize_weight(w2)
+        w1c = w1.to(dtype)
+        tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+        weights = nbytes(q1.q, q1.scale, q2.q, q2.scale, gam)
+
+        def ffn_q8_library():
+            xq, sx = quantize_rows(x.float())
+            a, gate_ = (int_mm(xq, q1) * sx * q1.scale).chunk(2, dim=-1)
+            y = F.layer_norm(gate_ * F.gelu(a), (mu_inner,), gam)
+            yq, sy = quantize_rows(y)
+            return (int_mm(yq, q2) * sy * q2.scale).to(dtype)
+
+        ck, cp = {}, {}
+        got = fused_ffn_q8(x, q1, gam, q2, codes=ck)
+        want = _ffn_q8_reference(x, q1, gam, q2, 1e-5, cp)
+        flips = code_flips(ck, cp)
+        record("ffn_q8", f"({mu_rows},{mu_dim}) inner {mu_inner} (int8 "
+               f"codes differing: x {flips['xq']}, y {flips['yq']} of "
+               f"{mu_rows * mu_inner})", dtype, tol, rel_l2(got, want),
+               max_abs(got, want),
+               time_ms(lambda: fused_ffn_q8(x, q1, gam, q2)),
+               time_ms(lambda: _ffn_q8_reference(x, q1, gam, q2, 1e-5)),
+               time_ms(ffn_q8_library), nbytes(x, got) + weights,
+               [(q8_ops, "int8")], main=dtype == torch.bfloat16)
+
+        def ffn_q8wide_library():
+            a, gate_ = F.linear(x, w1c).float().chunk(2, dim=-1)
+            y = F.layer_norm(gate_ * F.gelu(a), (mu_inner,), gam)
+            yq, sy = quantize_rows(y)
+            return (int_mm(yq, q2) * sy * q2.scale).to(dtype)
+
+        ck, cp = {}, {}
+        got = fused_ffn_q8wide(x, w1, gam, q2, codes=ck)
+        want = _ffn_q8wide_reference(x, w1, gam, q2, 1e-5, cp)
+        flips = code_flips(ck, cp)
+        up = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        record("ffn_q8wide", f"({mu_rows},{mu_dim}) inner {mu_inner} (int8 "
+               f"codes differing: y {flips['yq']} of {mu_rows * mu_inner})",
+               dtype, tol, rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: fused_ffn_q8wide(x, w1, gam, q2)),
+               time_ms(lambda: _ffn_q8wide_reference(x, w1, gam, q2, 1e-5)),
+               time_ms(ffn_q8wide_library),
+               nbytes(x, got, w1c, gam, q2.q, q2.scale),
+               [(q8_ops * 2 // 3, up), (q8_ops // 3, "int8")],
+               main=dtype == torch.bfloat16)
+        del x, w1, w1c, w2, q1, q2, got, want, ck, cp
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(n_tok, dim, dtype=dtype)
+        lng, lnb = randn(dim, scale=0.1, shift=1.0), randn(dim, scale=0.1)
+        q1 = quantize_weight(randn(hid, dim, scale=dim ** -0.5))
+        q2 = quantize_weight(randn(dim, hid, scale=hid ** -0.5))
+        b1, b2 = randn(hid, scale=0.1), randn(dim, scale=0.1)
+        args8 = (x, lng, lnb, q1, b1, q2, b2)
+        tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+
+        def ln_mlp_q8_library():
+            xq, sx = quantize_rows(F.layer_norm(x.float(), (dim,), lng, lnb))
+            gq, sg = quantize_rows(F.gelu(int_mm(xq, q1) * sx * q1.scale + b1))
+            return (x.float() + int_mm(gq, q2) * sg * q2.scale + b2).to(dtype)
+
+        ck, cp = {}, {}
+        got = fused_ln_mlp_q8(*args8, codes=ck)
+        want = _ln_mlp_q8_reference(*args8, 1e-5, cp)
+        flips = code_flips(ck, cp)
+        # the MLP part alone, out - x, beside the residual sum
+        mlp_err = rel_l2(got.float() - x.float(), want.float() - x.float())
+        record("ln_mlp_q8", f"({n_tok},{dim}) hid {hid} (MLP part rel_l2 "
+               f"{mlp_err:.2e}; int8 codes differing: y {flips['yq']} of "
+               f"{n_tok * dim}, gelu {flips['gq']} of {n_tok * hid})", dtype,
+               tol, rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: fused_ln_mlp_q8(*args8)),
+               time_ms(lambda: _ln_mlp_q8_reference(*args8, 1e-5)),
+               time_ms(ln_mlp_q8_library),
+               nbytes(x, got, lng, lnb, q1.q, q1.scale, b1, q2.q, q2.scale,
+                      b2), [(4 * n_tok * dim * hid, "int8")],
+               main=dtype == torch.bfloat16)
+        gate(mlp_err <= 2 * tol, f"ln_mlp_q8 {dtype} MLP part: {mlp_err}")
+        del x, q1, q2, got, want, args8
+
     # ---------------------------------------------------------- 4 and 5 --
     wrappers = {"flash_attention_bthd_kv": flash_attention_bthd_kv,
                 "ln_mlp": fused_ln_mlp, "layernorm": layernorm,
@@ -854,7 +1104,8 @@ def main() -> int:
                 "ln_mlp_bwd": fused_ln_mlp_backward, "ffn": fused_ffn,
                 "sample_epilogue": sample_epilogue_fused,
                 "ffn_bwd": fused_ffn_backward, "head_xent": fused_head_xent,
-                "head_xent_bwd": head_xent_backward}
+                "head_xent_bwd": head_xent_backward, "ffn_q8": fused_ffn_q8,
+                "ffn_q8wide": fused_ffn_q8wide, "ln_mlp_q8": fused_ln_mlp_q8}
     per_forward = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                    "layernorm": 16, "nearest_codes": 1}
     per_encode = {"flash_attention_bthd_kv": 6, "ln_mlp": 6,
@@ -1471,8 +1722,272 @@ def main() -> int:
         if not ratio["kernels"][what] <= FLOOR_RATIO * ratio["plain"][what]:
             raise AssertionError(f"maskgit bf16 {what} against fp32: {ratio}")
     del m16, g32_flat
+    torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 11 --
+    # Muse's CFG decode at cfg/muse.yaml's widths, bf16 compute over fp32
+    # parameters (training.mixed_precision=bf16), seeded weights, in each
+    # quant mode; the shipped "no" (fp32) in the first-step check
+    text_ids = tokenize(MUSE_PROMPTS)
+    mu_seeds = list(range(8))
+    mu_depth = MUSE_YAML["model"]["decoder"]["depth"]
+    muse_launches = {k: 0 for k in wrappers}
+    muse = {}
+
+    def use_kernels(model, kernels, ffn_only=False):
+        """All kernels, none, or (``ffn_only``) the FFN kernels alone on the
+        plain path's other ops."""
+        model.use_kernels(kernels and not ffn_only)
+        for m in model.modules():
+            if ffn_only and isinstance(m, FeedForward):
+                m.kernels = True
+
+    def muse_first_step(model, kernels, ffn_only=False):
+        """The first decode step of the 8 prompts (all 1024 positions
+        masked; the text and the null context in one 16-row forward):
+        logits and the epilogue's picks."""
+        use_kernels(model, kernels, ffn_only)
+        with torch.inference_mode():
+            text = model.encode_texts(torch.as_tensor(text_ids, device=dev))
+            ids0 = torch.full((16, 1024), model.mask_token_id, device=dev)
+            lg = model.decoder(ids0, torch.cat([text, torch.zeros_like(text)]))
+            epi = (sample_epilogue_fused if kernels and not ffn_only
+                   else _sample_epilogue_reference)
+            picks = epi(*lg.chunk(2), guidance_scale=gs, p=p_keep,
+                        temperature=temp0, seeds=seeds_dev, step=0)
+        model.use_kernels(True)
+        return lg, picks
+
+    def muse_layer0(model):
+        """Layer 0's update (out - h) on the first step's hidden state and
+        context: all kernels, the FFN kernel alone and plain in the model's
+        dtype; plain in fp32."""
+        dec = model.decoder
+        layer0, dt = dec.decoder.layers[0], dec.dtype
+        upd = {}
+        with torch.inference_mode():
+            model.use_kernels(False)
+            text = model.encode_texts(torch.as_tensor(text_ids, device=dev))
+            ctx = torch.cat([text, torch.zeros_like(text)])
+            ids0 = torch.full((16, 1024), model.mask_token_id, device=dev)
+            h0 = (F.embedding(ids0, dec.token_emb.weight).to(dt)
+                  + dec.pos_enc.to(dt))
+            upd["fp32"] = layer0(h0.float(), ctx.float()) - h0.float()
+            for way, kw in (("plain", dict(kernels=False)),
+                            ("ffn", dict(kernels=False, ffn_only=True)),
+                            ("kernels", dict(kernels=True))):
+                use_kernels(model, **kw)
+                upd[way] = layer0(h0, ctx).float() - h0.float()
+        model.use_kernels(True)
+        return upd
+
+    def muse_nudged(model):
+        """The plain path's first-step logits with the position rows of
+        every 97th token scaled by 1 + 2^-7 (about one bf16 ulp): the
+        model's own bf16 sensitivity."""
+        pe = model.decoder.pos_enc
+        saved = pe.detach().clone()
+        with torch.no_grad():
+            pe[:, ::97] *= 1 + 2 ** -7
+        lg, _ = muse_first_step(model, False)
+        with torch.no_grad():
+            pe.copy_(saved)
+        return lg
+
+    def muse_expected(quant, approx):
+        want = {k: v * 18 for k, v in muse_step(mu_depth, quant,
+                                                  approx).items()}
+        want["layernorm"] += CLIP_LAYERNORMS
+        for k, v in VQ_DECODE.items():
+            want[k] = want.get(k, 0) + v
+        return want
+
+    for label, quant in (("none", None), ("int8_wide", "int8_wide"),
+                         ("int8", "int8")):
+        t0 = time.perf_counter()
+        mm = build_model(muse_config("bf16", quant), device=dev).eval()
+        row = dict(build_s=time.perf_counter() - t0)
+        svcs = {approx: muse_service(mm, timesteps=18, approx_topk=approx)
+                for approx in ((True, False) if quant is None else (True,))}
+        for approx, svc in svcs.items():
+            torch.cuda.synchronize()
+            c = zero_counts()
+            out = svc(text_ids, mu_seeds)
+            torch.cuda.synchronize()
+            expect_delta(c, muse_expected(quant, approx),
+                         f"muse {label} approx={approx}")
+            for k, v in counts().items():
+                muse_launches[k] += v
+            finite = bool(torch.isfinite(out).all())
+            gate(out.shape == (8, 3, 256, 256) and finite,
+                 f"muse {label}: {tuple(out.shape)}, finite {finite}")
+        print(f"[muse] {label}: build_model(cfg/muse.yaml, bf16) "
+              f"{row['build_s']:.1f} s, "
+              f"{sum(p.numel() for p in mm.parameters()) / 1e6:.1f} M "
+              f"parameters; launches per generate "
+              f"{muse_expected(quant, True)} (per step "
+              f"{muse_step(mu_depth, quant, True)})", flush=True)
+
+        # bf16, kernels against plain. Under a quant mode an ulp rounded
+        # otherwise anywhere moves int8 codes, and the model's bf16 floor
+        # (the nudged plain path) rises to 5-7e-2: the logits are held to
+        # FLOOR_RATIO x that floor there, to 2e-2 under quant none; layer
+        # 0's update with the FFN kernel alone to 1e-2 (all kernels under
+        # quant none); the ratio gates against fp32 below in every mode
+        lg_k, picks_k = muse_first_step(mm, True)
+        lg_p, picks_p = muse_first_step(mm, False)
+        lg_f, _ = muse_first_step(mm, False, ffn_only=True)
+        row["first_step_logits_rel_l2_bf16"] = rel_l2(lg_k, lg_p)
+        row["first_step_logits_rel_l2_bf16_ffn_kernels"] = rel_l2(lg_f, lg_p)
+        row["first_step_pick_agreement_bf16"] = float(
+            (picks_k[0] == picks_p[0]).float().mean())
+        row["nudged_rel_l2_bf16"] = rel_l2(muse_nudged(mm), lg_p)
+        lg_tol = (MODEL_BF16_TOL if quant is None
+                  else FLOOR_RATIO * row["nudged_rel_l2_bf16"])
+        print(f"[muse] {label} first decode step, bf16: logits rel_l2 all "
+              f"kernels {row['first_step_logits_rel_l2_bf16']:.3e} (tol "
+              f"{lg_tol:.3e}{'' if quant is None else ' = 1.25 x nudged'}), "
+              f"the FFN kernel alone "
+              f"{row['first_step_logits_rel_l2_bf16_ffn_kernels']:.3e}; "
+              f"plain path with 1 % of the position rows nudged by about one "
+              f"bf16 ulp {row['nudged_rel_l2_bf16']:.3e}; pick agreement "
+              f"{row['first_step_pick_agreement_bf16']:.6f} (reported)",
+              flush=True)
+        gate(row["first_step_logits_rel_l2_bf16"] <= lg_tol,
+             f"muse {label} bf16 first-step logits: "
+             f"{row['first_step_logits_rel_l2_bf16']} > {lg_tol}")
+        del lg_f
+        upd = muse_layer0(mm)
+        l0 = row["layer0_update_rel_l2_bf16"] = dict(
+            kernels_vs_plain=rel_l2(upd["kernels"], upd["plain"]),
+            ffn_kernel_vs_plain=rel_l2(upd["ffn"], upd["plain"]),
+            kernels_vs_fp32=rel_l2(upd["kernels"], upd["fp32"]),
+            plain_vs_fp32=rel_l2(upd["plain"], upd["fp32"]))
+        l0_gated = l0["kernels_vs_plain" if quant is None
+                      else "ffn_kernel_vs_plain"]
+        print(f"[muse] {label} layer 0 update, bf16: rel_l2 all kernels vs "
+              f"plain {l0['kernels_vs_plain']:.3e}, the FFN kernel alone "
+              f"{l0['ffn_kernel_vs_plain']:.3e} (tol {BF16_TOL:g} on the "
+              f"{'first' if quant is None else 'second'}); against fp32 "
+              f"kernels {l0['kernels_vs_fp32']:.3e}, plain "
+              f"{l0['plain_vs_fp32']:.3e} (tol kernels <= {FLOOR_RATIO:g} x "
+              f"plain)", flush=True)
+        gate(l0_gated <= BF16_TOL, f"muse {label} layer 0: {l0_gated}")
+        gate(l0["kernels_vs_fp32"] <= FLOOR_RATIO * l0["plain_vs_fp32"],
+             f"muse {label} layer 0 against fp32: {l0}")
+        del upd
+
+        def muse_generate_s(svc=svcs[True]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            svc(text_ids, mu_seeds)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        muse_generate_s()
+        row["generate_s"] = [muse_generate_s() for _ in range(5)]
+        gen_s = float(np.median(row["generate_s"]))
+        torch.cuda.reset_peak_memory_stats()
+        muse_generate_s()
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        row["ms_per_step"], row["images_per_s"] = gen_s / 18 * 1e3, 8 / gen_s
+        exact = ""
+        if False in svcs:
+            row["exact_generate_s"] = muse_generate_s(svcs[False])
+            exact = (f"; exact mode {row['exact_generate_s'] * 1e3:.2f} ms "
+                     f"(1 run)")
+        print(f"[muse] {label} generate, batch 8, 18 steps, bf16, approx: "
+              f"{gen_s * 1e3:.2f} ms ({row['ms_per_step']:.3f} ms/step, "
+              f"{row['images_per_s']:.3f} images/s; median of 5, "
+              f"{min(row['generate_s']) * 1e3:.2f}-"
+              f"{max(row['generate_s']) * 1e3:.2f} ms){exact}; peak memory "
+              f"{row['peak_gib']:.3f} GiB | {smi}", flush=True)
+        if quant == "int8_wide":
+            row["profile"] = profile(
+                torch, lambda: svcs[True](text_ids, mu_seeds),
+                lambda: svcs[True](text_ids, mu_seeds),
+                "1 Muse int8_wide generate (batch 8, 18 steps)")
+        del mm, svcs
+        torch.cuda.empty_cache()
+
+        # the shipped fp32 ("no"), TF32 off: kernels against plain on the
+        # same weights (the same seed); under a quant mode the W8A8 FFN
+        # kernels alone carry the gate, the all-kernel figure is reported
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+            raise AssertionError("TF32 must be off for the fp32 Muse check")
+        m32 = build_model(muse_config("no", quant), device=dev).eval()
+        lg32_k, picks32_k = muse_first_step(m32, True)
+        lg32_p, picks32_p = muse_first_step(m32, False)
+        row["first_step_logits_rel_l2_fp32"] = rel_l2(lg32_k, lg32_p)
+        if quant is not None:
+            lg32_k, picks32_k = muse_first_step(m32, True, ffn_only=True)
+            row["first_step_logits_rel_l2_fp32_ffn_kernels"] = rel_l2(
+                lg32_k, lg32_p)
+        gated = rel_l2(lg32_k, lg32_p)
+        row["bf16_logits_vs_fp32"] = dict(kernels=rel_l2(lg_k, lg32_p),
+                                          plain=rel_l2(lg_p, lg32_p))
+        r16 = row["bf16_logits_vs_fp32"]
+        print(f"[muse] {label} first decode step, fp32 (TF32 off): logits "
+              f"rel_l2, all kernels "
+              f"{row['first_step_logits_rel_l2_fp32']:.3e}"
+              + ("" if quant is None else
+                 f" (reported), the W8A8 FFN kernels alone {gated:.3e}")
+              + f" (tol 1e-4); bf16 logits against them: kernels "
+              f"{r16['kernels']:.3e}, plain {r16['plain']:.3e} (tol kernels "
+              f"<= {FLOOR_RATIO:g} x plain)", flush=True)
+        gate(gated <= 1e-4, f"muse {label} fp32 first-step logits: {gated}")
+        gate(r16["kernels"] <= FLOOR_RATIO * r16["plain"],
+             f"muse {label} bf16 logits against fp32: {r16}")
+        cond32 = [t.reshape(-1, n_cls) for t in lg32_p.chunk(2)]
+        cond32_k = [t.reshape(-1, n_cls) for t in lg32_k.chunk(2)]
+        epilogue_check(f"muse {label} fp32 first step", guided(*cond32),
+                       step_bits, temp0, picks32_k, picks32_p, 1e-4,
+                       relative=False, x32_got=guided(*cond32_k))
+        muse[label] = row
+        del m32, lg32_k, lg32_p, lg_k, lg_p, cond32, cond32_k
+        torch.cuda.empty_cache()
+    print(f"[muse] launches over the four generates: {muse_launches}",
+          flush=True)
+
+    # --------------------------------------------------------------- 12 --
+    # the tokenizer under model.quant int8 (bf16, batch 8, 256 px) on the
+    # serving path, against the unquantized model of the same seed
+    model_q = vitvqgan_base(img_size=256, dtype=torch.bfloat16, device=dev,
+                            quant="int8")
+    recon_q = vq_recon_service(model_q)
+    per_recon_q = {"flash_attention_bthd_kv": 12, "ln_mlp_q8": 12,
+                   "layernorm": 16, "nearest_codes": 1}
+    torch.cuda.synchronize()
+    c = zero_counts()
+    recs_q = []
+    for r in requests:
+        recs_q.append(recon_q(r, None))
+        c = expect_delta(c, per_recon_q, "int8 recon request")
+    torch.cuda.synchronize()
+    recon_int8_launches = counts()
+    finite = all(bool(torch.isfinite(t).all()) for t in recs_q)
+    gate(recs_q[0].shape == (8, 3, 256, 256) and finite,
+         f"int8 recon: {tuple(recs_q[0].shape)}, finite {finite}")
+    recon_q(requests[0], None)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(10):
+        recon_q(requests[i % 3], None)
+    torch.cuda.synchronize()
+    q_ips = 80 / (time.perf_counter() - t)
+    model_b = vitvqgan_base(img_size=256, dtype=torch.bfloat16, device=dev)
+    idx_q = vq_encode_service(model_q)(requests[0], None)
+    idx_b = vq_encode_service(model_b)(requests[0], None)
+    q_agree = float((idx_q == idx_b).float().mean())
+    print(f"[recon_int8] launches over 3 recon requests: "
+          f"{recon_int8_launches} (per request {per_recon_q}); recon "
+          f"{q_ips:.2f} imgs/s, batch 8, 256 px, bf16; index agreement with "
+          f"the unquantized model {q_agree:.4f} (reported) | {smi}",
+          flush=True)
+    del model_q, model_b, recs_q
+
+    # --------------------------------------------------------------- 13 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -1487,10 +2002,14 @@ def main() -> int:
         "ffn_bwd": ("ffn_bwd.cu", "attention_models_tpu/ops/ffn.py:171"),
         "head_xent": ("xent.cu", "attention_models_tpu/ops/xent.py:42"),
         "head_xent_bwd": ("xent.cu", "attention_models_tpu/ops/xent.py:69"),
+        "ffn_q8": ("quant.cu", "attention_models_tpu/ops/quant.py:90"),
+        "ffn_q8wide": ("quant.cu", "attention_models_tpu/ops/quant.py:221"),
+        "ln_mlp_q8": ("quant.cu", "attention_models_tpu/ops/quant.py:339"),
     }
     path_launches = {"serving": serving_launches, "training": launches,
                      "maskgit": maskgit_launches,
-                     "maskgit_train": mtrain_launches}
+                     "maskgit_train": mtrain_launches, "muse": muse_launches,
+                     "recon_int8": recon_int8_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
@@ -1543,7 +2062,11 @@ def main() -> int:
                                profile=mtrain_profile,
                                fp32_loss_rel=loss32_err,
                                fp32_grad_rel_l2=grad32_errs,
-                               bf16_vs_fp32=ratio)), f, indent=1)
+                               bf16_vs_fp32=ratio),
+                           muse=muse,
+                           recon_int8=dict(imgs_per_s=q_ips,
+                                           index_agreement=q_agree)),
+                      f, indent=1)
     amt.sync()
     print(f"[nvidia-smi] {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -313,7 +313,7 @@ def test_build_model_maskgit_from_config(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("key, value", [
     ("training.remat", True), ("training.scan_layers", True),
-    ("training.pipeline_microbatches", 4), ("model.quant", "int8")])
+    ("training.pipeline_microbatches", 4)])
 def test_build_model_maskgit_refuses_unported_options(key, value):
     from attention_models_torch.models.factory import build_model
     from attention_models_torch.utils.config import load_config
@@ -322,6 +322,43 @@ def test_build_model_maskgit_refuses_unported_options(key, value):
     cfg.set_path(key, value)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_wide"])
+def test_build_model_maskgit_takes_quant(tmp_path, quant):
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.utils.config import load_config
+
+    cfg = load_config("cfg/maskgit.yaml")
+    for k, v in {"model.dim": 128, "model.depth": 1, "model.n_heads": 2,
+                 "vitvqgan.transformer.depth": 1,
+                 "dataset.preprocessing.resolution": 32,
+                 "codebook.codebook_size": 64, "model.quant": quant,
+                 "vitvqgan.checkpoint": str(tmp_path / "none.pt")}.items():
+        cfg.set_path(k, v)
+    m = build_model(cfg, device="cpu")
+    bt = m.bidirectional_transformer
+    assert bt.quant == quant and m.vq.quant is None
+    assert bt.decoder.layers[0].feed_forward.quant == quant
+    assert bt.linear.quant == ("int8" if quant == "int8" else None)
+    out = maskgit_service(m, timesteps=2, num_masked=N_TOK)({}, [0, 1])
+    assert out.shape == (2, 3, 32, 32) and bool(torch.isfinite(out).all())
+
+
+def test_quantized_head_loss_takes_the_logits():
+    """Under int8 the head loss is cross-entropy over the quant_dot logits
+    (JAX's eval loss of a quantized model), not the fused head loss."""
+    from attention_models_torch.ops.sampling import cross_entropy_ignore_index
+
+    bt = tmg.BiDirectionalTransformer(128, 64, N_TOK, 2, 64, 1, 3,
+                                      quant="int8").eval()
+    ids = torch.randint(0, 65, (2, N_TOK),
+                        generator=torch.Generator().manual_seed(0))
+    tgt = torch.where(ids % 3 == 0, ids % 64, -1)
+    with torch.no_grad():
+        loss = bt(ids, targets=tgt)
+        logits = bt(ids)
+    assert torch.allclose(loss, cross_entropy_ignore_index(logits, tgt))
 
 
 def test_load_vq_checkpoint_kinds(tmp_path, caplog):
@@ -359,6 +396,8 @@ def test_inference_cli_runs_on_cpu(tmp_path, capsys):
                 str(tmp_path / "in.png"), "--num-masked", "4",
                 "--output", str(tmp_path / "inpaint.jpg")])
     assert out.shape == (1, 3, 32, 32) and (tmp_path / "inpaint.jpg").exists()
+    out = main(["--device", "cpu", "--resolution", "32", "--dim", "128",
+                "--depth", "1", "--timesteps", "2", "--quant", "int8",
+                "--output", str(tmp_path / "q8.jpg")])
+    assert out.shape == (1, 3, 32, 32) and bool(np.isfinite(out).all())
     assert "wrote" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="int8"):
-        main(["--device", "cpu", "--quant", "int8"])

@@ -10,7 +10,10 @@
 - on the kernel path a tensor that needs a gradient goes through the op's
   ``torch.autograd.Function`` (kernel forward, kernel or plain backward), so
   the graph is never cut; without one the forward kernel runs directly;
-- chip_smoke.py's MaskGIT config restates cfg/maskgit.yaml.
+- chip_smoke.py's MaskGIT and Muse configs restate cfg/maskgit.yaml and
+  cfg/muse.yaml;
+- no ``except`` in the port or chip_smoke.py wraps a kernel launch or the
+  kernels' build.
 """
 
 import ast
@@ -27,7 +30,7 @@ from attention_models_torch.entry import entry
 from attention_models_torch.models.vitvqgan import vitvqgan_base
 from attention_models_torch.ops import codebook, dispatch, ffn, flash_attention
 from attention_models_torch.ops import layernorm as ln_ops
-from attention_models_torch.ops import sampling, xent
+from attention_models_torch.ops import quant, sampling, xent
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -102,6 +105,19 @@ def _maskgit_build_model():
     build_model(load_config(str(ROOT / "cfg" / "maskgit.yaml")))
 
 
+def _muse_build_model():
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.utils.config import load_config
+
+    build_model(load_config(str(ROOT / "cfg" / "muse.yaml")))
+
+
+def _muse_cli():
+    from attention_models_torch.inference.muse import main
+
+    main(["--resolution", "32", "--dim", "128", "--depth", "1"])
+
+
 def _maskgit_trainer():
     from attention_models_torch.data.loaders import build_loader
     from attention_models_torch.models.factory import build_model
@@ -121,6 +137,9 @@ def _maskgit_trainer():
     _maskgit_cli,
     _maskgit_build_model,
     _maskgit_trainer,
+    _muse_build_model,
+    _muse_cli,
+    lambda: vitvqgan_base(device=None, img_size=32, quant="int8"),
 ])
 def test_card_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -158,6 +177,7 @@ def test_seeded_init_is_deterministic():
 def _wrapper_cases():
     rs = np.random.RandomState(0)
     t = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))  # noqa: E731
+    q8 = quant.quantize_weight
     q, kv, g = t(1, 16, 2, 64), t(1, 16, 2, 2, 64), t(1, 16, 2, 64)
     o, lse = flash_attention._flash_reference(q, kv, 0.125, False)
     return [
@@ -193,6 +213,13 @@ def _wrapper_cases():
          xent._head_xent_backward_reference,
          (t(8, 128), t(256, 128), torch.tensor([1, -1, 3, 4, -1, 6, 7, 8]),
           t(8), t(8)), ()),
+        (quant.fused_ffn_q8, quant._ffn_q8_reference,
+         (t(8, 128), q8(t(512, 128)), t(256), q8(t(128, 256))), (1e-5,)),
+        (quant.fused_ffn_q8wide, quant._ffn_q8wide_reference,
+         (t(8, 128), t(512, 128), t(256), q8(t(128, 256))), (1e-5,)),
+        (quant.fused_ln_mlp_q8, quant._ln_mlp_q8_reference,
+         (t(8, 128), t(128), t(128), q8(t(184, 128)), t(184),
+          q8(t(128, 184)), t(128)), (1e-5,)),
     ]
 
 
@@ -201,10 +228,12 @@ LAUNCH_COUNTERS = [ln_ops.layernorm, codebook.nearest_codes,
                    flash_attention.flash_attention_bwd_kv,
                    ffn.fused_ln_mlp_backward, ffn.fused_ffn,
                    sampling.sample_epilogue_fused, ffn.fused_ffn_backward,
-                   xent.fused_head_xent, xent.head_xent_backward]
+                   xent.fused_head_xent, xent.head_xent_backward,
+                   quant.fused_ffn_q8, quant.fused_ffn_q8wide,
+                   quant.fused_ln_mlp_q8]
 
 
-@pytest.mark.parametrize("case", range(11))
+@pytest.mark.parametrize("case", range(14))
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     wrapper, plain, args, extra = _wrapper_cases()[case]
     before = [c.launches for c in LAUNCH_COUNTERS]
@@ -368,3 +397,42 @@ def test_chip_smoke_maskgit_config_restates_maskgit_yaml():
         want.set_path(k, v)
     want.set_path("experiment.output_dir", "OUT")
     assert mod.maskgit_train_config("OUT").to_dict() == want.to_dict()
+
+
+def test_chip_smoke_muse_config_restates_muse_yaml():
+    import importlib.util
+
+    from attention_models_torch.utils.config import Config, load_config
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert (Config(mod.MUSE_YAML).to_dict()
+            == load_config(str(ROOT / "cfg" / "muse.yaml")).to_dict())
+
+
+def test_no_except_wraps_a_kernel_launch():
+    """The port's except clauses (the flash gate's block probe, the optional
+    Hugging Face tokenizer, the config reader) and none in chip_smoke.py;
+    no try block around a launch, a fused op or the build."""
+    kernel_calls = {"launch", "build", "library"}
+    files = set()
+    for path in [*sorted((ROOT / "attention_models_torch").rglob("*.py")),
+                 ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not (isinstance(node, ast.Try) and node.handlers):
+                continue
+            files.add(path.relative_to(ROOT).as_posix())
+            called = {c.func.attr if isinstance(c.func, ast.Attribute)
+                      else getattr(c.func, "id", "")
+                      for stmt in node.body for c in ast.walk(stmt)
+                      if isinstance(c, ast.Call)}
+            assert not called & kernel_calls, (path, called)
+            assert not any(n.startswith(("fused_", "flash_attention",
+                                         "sample_epilogue", "nearest_codes",
+                                         "layernorm")) for n in called), (
+                path, called)
+    assert files == {"attention_models_torch/ops/flash_attention.py",
+                     "attention_models_torch/models/text_encoder.py",
+                     "attention_models_torch/utils/config.py"}
