@@ -22,12 +22,21 @@
 // torch.argmin and the TPU kernel do. bf16 operands are widened to fp32 on
 // load: a bf16 x bf16 product is exact in fp32, so this is "bf16 operands,
 // fp32 accumulation"; fp32 operands give exact fp32 dots.
+//
+// Widths. The token-in-registers kernel is instantiated for code widths 8,
+// 16, 32 and 64 (at 64 its static shared buffer is 33 KB of the 48 KB
+// limit). Any other width, as the JAX package computes every width, runs
+// nearest_codes_any_kernel: the same blocks, slices and tie rule, with the
+// width taken in 32-wide steps through shared memory (a 128 x 32 token
+// slice and 32 codes at a time), each thread keeping 32 running dots in
+// registers; every dot still sums its products in ascending width order.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kTokens = 128;
 constexpr int kCodes = 128;
+constexpr int kSlice = 32;  // width step and codes per step of the any-width kernel
 
 template <typename T, int D>
 __global__ __launch_bounds__(kTokens) void nearest_codes_kernel(
@@ -117,14 +126,94 @@ __global__ void combine_kernel(const float* __restrict__ part_d,
 }
 
 template <typename T>
+__global__ __launch_bounds__(kTokens) void nearest_codes_any_kernel(
+    const T* __restrict__ z, const T* __restrict__ codes,
+    float* __restrict__ part_d, int* __restrict__ part_i, int n, int k, int d,
+    int split) {
+  __shared__ float zs[kTokens][kSlice + 1];  // padded against bank conflicts
+  __shared__ float cs[kSlice][kSlice];       // read as a broadcast
+  __shared__ float esq[kSlice];
+  const int tid = threadIdx.x;
+  const int tok0 = blockIdx.x * kTokens;
+  const int c_end = min(k, (blockIdx.y + 1) * split);
+  float best = INFINITY;
+  int best_idx = blockIdx.y * split;
+  for (int c0 = blockIdx.y * split; c0 < c_end; c0 += kSlice) {
+    const int m = min(kSlice, c_end - c0);
+    float dot[kSlice];
+#pragma unroll
+    for (int j = 0; j < kSlice; ++j) dot[j] = 0.f;
+    float e2 = 0.f;
+    for (int d0 = 0; d0 < d; d0 += kSlice) {
+      __syncthreads();  // the previous slices are no longer read
+      for (int i = tid; i < kTokens * kSlice; i += kTokens) {
+        const int r = i / kSlice, c = i % kSlice;
+        zs[r][c] = tok0 + r < n && d0 + c < d
+                       ? to_f32<T>(z[(int64_t)(tok0 + r) * d + d0 + c]) : 0.f;
+      }
+      for (int i = tid; i < kSlice * kSlice; i += kTokens) {
+        const int j = i / kSlice, c = i % kSlice;
+        cs[j][c] = j < m && d0 + c < d
+                       ? to_f32<T>(codes[(int64_t)(c0 + j) * d + d0 + c]) : 0.f;
+      }
+      __syncthreads();
+      if (tid < kSlice) {
+#pragma unroll
+        for (int c = 0; c < kSlice; ++c) e2 = fmaf(cs[tid][c], cs[tid][c], e2);
+      }
+      float zr[kSlice];
+#pragma unroll
+      for (int c = 0; c < kSlice; ++c) zr[c] = zs[tid][c];
+#pragma unroll
+      for (int j = 0; j < kSlice; ++j)
+#pragma unroll
+        for (int c = 0; c < kSlice; ++c) dot[j] = fmaf(zr[c], cs[j][c], dot[j]);
+    }
+    if (tid < kSlice) esq[tid] = e2;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSlice; ++j) {
+      const float dist = esq[j] - 2.f * dot[j];
+      if (j < m && dist < best) {
+        best = dist;
+        best_idx = c0 + j;
+      }
+    }
+  }
+  if (tok0 + tid < n) {
+    part_d[(int64_t)(tok0 + tid) * gridDim.y + blockIdx.y] = best;
+    part_i[(int64_t)(tok0 + tid) * gridDim.y + blockIdx.y] = best_idx;
+  }
+}
+
+template <typename T>
 cudaError_t launch(const T* z, const T* codes, float* part_d, int* part_i,
                    int* out, int n, int k, int d, int split,
                    cudaStream_t stream) {
   const int slices = (k + split - 1) / split;
   const dim3 grid((n + kTokens - 1) / kTokens, slices);
-  if (d != 32) return cudaErrorInvalidValue;  // the main path's code width
-  nearest_codes_kernel<T, 32><<<grid, kTokens, 0, stream>>>(
-      z, codes, part_d, part_i, n, k, split);
+  if (d <= 0) return cudaErrorInvalidValue;
+  switch (d) {
+    case 8:
+      nearest_codes_kernel<T, 8><<<grid, kTokens, 0, stream>>>(z, codes, part_d, part_i, n,
+                                                               k, split);
+      break;
+    case 16:
+      nearest_codes_kernel<T, 16><<<grid, kTokens, 0, stream>>>(z, codes, part_d, part_i, n,
+                                                                k, split);
+      break;
+    case 32:
+      nearest_codes_kernel<T, 32><<<grid, kTokens, 0, stream>>>(z, codes, part_d, part_i, n,
+                                                                k, split);
+      break;
+    case 64:
+      nearest_codes_kernel<T, 64><<<grid, kTokens, 0, stream>>>(z, codes, part_d, part_i, n,
+                                                                k, split);
+      break;
+    default:
+      nearest_codes_any_kernel<T><<<grid, kTokens, 0, stream>>>(z, codes, part_d, part_i, n,
+                                                                k, d, split);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   combine_kernel<<<(n + 255) / 256, 256, 0, stream>>>(part_d, part_i, out, n,

@@ -12,9 +12,14 @@
 // vector width) into registers; mean and the biased variance are two fp32
 // passes over those registers, so x is read from device memory exactly once.
 // gamma and beta are fp32; beta may be null. Any d up to 32 * VEC * NCHUNK
-// (4096 for the vector path, 1024 for the scalar one) is taken, including
-// the patch-embed norm1 at d = 192 that the TPU kernel could not tile.
-#include "common.cuh"
+// (4096 for the vector path, 1024 for the scalar one) is taken this way,
+// including the patch-embed norm1 at d = 192 that the TPU kernel could not
+// tile. A wider row (or one past 1024 that is not 16-byte aligned) goes to
+// layernorm_rows_kernel: one block of 256 threads a row, looping over the
+// row in 256-wide steps for each of the three passes (sum, centred squares,
+// output), so every width is taken; the row is read three times, the last
+// two mostly from L1/L2.
+#include "gemm.cuh"  // block_sum
 
 namespace {
 
@@ -125,6 +130,37 @@ cudaError_t launch(const T* x, const float* gamma, const float* beta, T* y,
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+__global__ __launch_bounds__(kThreads) void layernorm_rows_kernel(
+    const T* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ beta, T* __restrict__ y, int d, float eps) {
+  __shared__ float red[kThreads / 32];
+  const T* xr = x + (int64_t)blockIdx.x * d;
+  T* yr = y + (int64_t)blockIdx.x * d;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < d; i += kThreads) s += to_f32<T>(xr[i]);
+  const float mean = block_sum(s, red) / d;
+  float q = 0.f;
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    const float t = to_f32<T>(xr[i]) - mean;
+    q += t * t;
+  }
+  const float rstd = rsqrtf(block_sum(q, red) / d + eps);
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    float t = (to_f32<T>(xr[i]) - mean) * rstd * gamma[i];
+    if (beta != nullptr) t += beta[i];
+    yr[i] = from_f32<T>(t);
+  }
+}
+
+template <typename T>
+cudaError_t launch_rows(const T* x, const float* gamma, const float* beta, T* y,
+                        int64_t n, int d, float eps, cudaStream_t stream) {
+  layernorm_rows_kernel<T><<<(unsigned)n, kThreads, 0, stream>>>(x, gamma, beta, y, d,
+                                                                    eps);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
@@ -140,14 +176,17 @@ AMT_EXPORT int amt_layernorm(const void* x, const void* gamma, const void* beta,
   if (dtype == AMT_BF16) {
     const auto* xi = static_cast<const __nv_bfloat16*>(x);
     auto* yo = static_cast<__nv_bfloat16*>(y);
-    if (vec_ok && d % 8 == 0) return launch<__nv_bfloat16, 8>(xi, g, b, yo, n, d, eps, s);
-    return launch<__nv_bfloat16, 1>(xi, g, b, yo, n, d, eps, s);
+    if (vec_ok && d % 8 == 0 && d <= 4096)
+      return launch<__nv_bfloat16, 8>(xi, g, b, yo, n, d, eps, s);
+    if (d <= 1024) return launch<__nv_bfloat16, 1>(xi, g, b, yo, n, d, eps, s);
+    return launch_rows<__nv_bfloat16>(xi, g, b, yo, n, d, eps, s);
   }
   if (dtype == AMT_F32) {
     const auto* xi = static_cast<const float*>(x);
     auto* yo = static_cast<float*>(y);
-    if (vec_ok && d % 4 == 0) return launch<float, 4>(xi, g, b, yo, n, d, eps, s);
-    return launch<float, 1>(xi, g, b, yo, n, d, eps, s);
+    if (vec_ok && d % 4 == 0 && d <= 4096) return launch<float, 4>(xi, g, b, yo, n, d, eps, s);
+    if (d <= 1024) return launch<float, 1>(xi, g, b, yo, n, d, eps, s);
+    return launch_rows<float>(xi, g, b, yo, n, d, eps, s);
   }
   return cudaErrorInvalidValue;
 }

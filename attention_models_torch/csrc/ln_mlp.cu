@@ -23,7 +23,22 @@
 // every block through cp.async, each overlapping the other product (there is
 // no room for a second buffer of either at d 512). One block per SM and
 // mma.sync in place of wgmma are what later PRs tune.
+//
+// Widths. The single pass is instantiated for d 128, 256, 384 and 512 (its
+// shared memory grows with d: 216 KB at 512, and 318 KB at d 768 would not
+// fit the H100's 227 KB per block). Every wider d % 128 == 0 that the JAX
+// gate sends to its kernel runs in three launches: the LayerNorm kernel
+// (csrc/layernorm.cu, bf16 yc with fp32 statistics, the rounding the single
+// pass makes) into a (n, d) scratch, then kernel 7's two tile products
+// (csrc/mlp.cu) with the residual x added in the second epilogue.
 #include "common.cuh"
+
+extern "C" int amt_layernorm(const void* x, const void* gamma, const void* beta, void* y,
+                             int64_t n, int d, float eps, int dtype, void* stream);
+cudaError_t amt_mlp_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1, const float* b1,
+                         const __nv_bfloat16* w2, const float* b2, const __nv_bfloat16* res,
+                         __nv_bfloat16* g_scratch, __nv_bfloat16* out, int n, int d, int hid,
+                         cudaStream_t s);
 
 namespace {
 
@@ -84,7 +99,8 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_kernel(
   load_w2(0);
 
   // LN: each warp normalises 8 rows, 8 bf16 per lane per 16-byte load
-  constexpr int VPL = D / 256;
+  // (at D 128 and 384 the last load slot of some lanes lies past the row)
+  constexpr int VPL = (D / 8 + 31) / 32;
   for (int rr = 0; rr < kRows / 8; ++rr) {
     const int r = warp * (kRows / 8) + rr;
     const int gr = row0 + r;
@@ -93,8 +109,9 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_kernel(
 #pragma unroll
     for (int c = 0; c < VPL; ++c) {
       const int col = (lane + c * 32) * 8;
-      const uint4 raw = gr < n ? *reinterpret_cast<const uint4*>(x + (int64_t)gr * D + col)
-                               : zero;
+      const uint4 raw = gr < n && col < D
+                            ? *reinterpret_cast<const uint4*>(x + (int64_t)gr * D + col)
+                            : zero;
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -106,12 +123,14 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_kernel(
     float sq = 0.f;
 #pragma unroll
     for (int c = 0; c < VPL; ++c)
+      if ((lane + c * 32) * 8 < D)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sq += (v[c][j] - mean) * (v[c][j] - mean);
+        for (int j = 0; j < 8; ++j) sq += (v[c][j] - mean) * (v[c][j] - mean);
     const float rstd = rsqrtf(warp_sum(sq) / D + eps);
 #pragma unroll
     for (int c = 0; c < VPL; ++c) {
       const int col = (lane + c * 32) * 8;
+      if (col >= D) continue;
       uint4 packed;
       uint32_t* p = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
@@ -242,13 +261,16 @@ cudaError_t launch(const __nv_bfloat16* x, const float* lng, const float* lnb,
 
 }  // namespace
 
+// yc_scratch (n, d) and g_scratch (n, hid), bf16: used (and needed) only
+// above d 512.
 AMT_EXPORT int amt_ln_mlp(const void* x, const void* lng, const void* lnb,
                           const void* w1, const void* b1, const void* w2,
-                          const void* b2, void* out, int n, int d, int hid,
-                          float eps, void* stream) {
+                          const void* b2, void* out, void* yc_scratch,
+                          void* g_scratch, int n, int d, int hid, float eps,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (hid % 8 != 0) return cudaErrorInvalidValue;
+  if (hid % 8 != 0 || d % 128 != 0) return cudaErrorInvalidValue;
   const auto* xi = static_cast<const __nv_bfloat16*>(x);
   const auto* w1i = static_cast<const __nv_bfloat16*>(w1);
   const auto* w2i = static_cast<const __nv_bfloat16*>(w2);
@@ -257,6 +279,16 @@ AMT_EXPORT int amt_ln_mlp(const void* x, const void* lng, const void* lnb,
   const auto* bb1 = static_cast<const float*>(b1);
   const auto* bb2 = static_cast<const float*>(b2);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (d != 512) return cudaErrorInvalidValue;  // the main path's width
-  return launch<512>(xi, g, bt, w1i, bb1, w2i, bb2, o, n, hid, eps, s);
+  switch (d) {
+    case 128: return launch<128>(xi, g, bt, w1i, bb1, w2i, bb2, o, n, hid, eps, s);
+    case 256: return launch<256>(xi, g, bt, w1i, bb1, w2i, bb2, o, n, hid, eps, s);
+    case 384: return launch<384>(xi, g, bt, w1i, bb1, w2i, bb2, o, n, hid, eps, s);
+    case 512: return launch<512>(xi, g, bt, w1i, bb1, w2i, bb2, o, n, hid, eps, s);
+  }
+  auto* yc = static_cast<__nv_bfloat16*>(yc_scratch);
+  if (yc == nullptr || g_scratch == nullptr) return cudaErrorInvalidValue;
+  const int err = amt_layernorm(x, lng, lnb, yc, n, d, eps, AMT_BF16, stream);
+  if (err != cudaSuccess) return err;
+  return amt_mlp_bf16(yc, w1i, bb1, w2i, bb2, xi, static_cast<__nv_bfloat16*>(g_scratch), o,
+                      n, d, hid, s);
 }

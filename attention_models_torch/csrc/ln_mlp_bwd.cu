@@ -36,7 +36,23 @@
 // mma.sync in place of wgmma and the untuned tiling are what later PRs
 // improve; the scratch (yc, G, dH: 52 MB at the main path) is the price of
 // a deterministic reduction.
-#include "common.cuh"
+//
+// Widths. Pass 1 is instantiated for d 128, 256, 384 and 512 (its shared
+// memory, 213 KB at d 512, grows with d). Every wider d % 128 == 0 runs the
+// forward's LayerNorm into the yc scratch, kernel 8's passes
+// (csrc/mlp_bwd.cu) on yc with dy_ln = dH W1 kept in fp32, then a row pass
+// of the LN backward (ln_bwd_rows_kernel) with the same formulas as pass 1's
+// epilogue and the same per-block partials of dlng and dlnb.
+#include "gemm.cuh"
+
+extern "C" int amt_layernorm(const void* x, const void* gamma, const void* beta, void* y,
+                             int64_t n, int d, float eps, int dtype, void* stream);
+cudaError_t amt_mlp_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
+                             const float* b1, const __nv_bfloat16* w2,
+                             const __nv_bfloat16* dy, __nv_bfloat16* gs, __nv_bfloat16* dhs,
+                             float* dhpart, float* dypart, __nv_bfloat16* dx16, float* dx32,
+                             float* dw1, float* db1, float* dw2, float* db2, int n, int d,
+                             int hid, cudaStream_t s);
 
 namespace {
 
@@ -93,8 +109,9 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_bwd_rows_kernel(
   }
   cp_async_commit();
 
-  // LN: each warp normalises 4 rows, 8 bf16 per lane per 16-byte load
-  constexpr int VPL = D / 256;
+  // LN: each warp normalises 4 rows, 8 bf16 per lane per 16-byte load (at D
+  // 128 and 384 the last load slot of some lanes lies past the row)
+  constexpr int VPL = (D / 8 + 31) / 32;
   for (int rr = 0; rr < kRows / 8; ++rr) {
     const int r = warp * (kRows / 8) + rr;
     const int gr = row0 + r;
@@ -103,7 +120,9 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_bwd_rows_kernel(
 #pragma unroll
     for (int c = 0; c < VPL; ++c) {
       const int col = (lane + c * 32) * 8;
-      const uint4 raw = gr < n ? *reinterpret_cast<const uint4*>(x + (int64_t)gr * D + col) : zero;
+      const uint4 raw = gr < n && col < D
+                            ? *reinterpret_cast<const uint4*>(x + (int64_t)gr * D + col)
+                            : zero;
       const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -115,8 +134,9 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_bwd_rows_kernel(
     float sq = 0.f;
 #pragma unroll
     for (int c = 0; c < VPL; ++c)
+      if ((lane + c * 32) * 8 < D)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sq += (v[c][j] - mean) * (v[c][j] - mean);
+        for (int j = 0; j < 8; ++j) sq += (v[c][j] - mean) * (v[c][j] - mean);
     const float rstd = rsqrtf(warp_sum(sq) / D + eps);
     if (lane == 0) {
       mean_s[r] = mean;
@@ -125,6 +145,7 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_bwd_rows_kernel(
 #pragma unroll
     for (int c = 0; c < VPL; ++c) {
       const int col = (lane + c * 32) * 8;
+      if (col >= D) continue;
       uint4 packed;
       uint32_t* p = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
@@ -346,24 +367,6 @@ __global__ __launch_bounds__(256, 1) void ln_mlp_bwd_rows_kernel(
   }
 }
 
-// out[c] = sum of part[r][c] over the rows r of pass 1's partials, in order
-__global__ void ln_mlp_bwd_colsum_kernel(const float* __restrict__ part,
-                                         float* __restrict__ out, int rows,
-                                         int cols) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  float s = 0.f;
-  for (int r = 0; r < rows; ++r) s += part[(int64_t)r * cols + c];
-  out[c] = s;
-}
-
-cudaError_t sum_partials(const float* part, float* out, int rows, int cols,
-                         cudaStream_t s) {
-  ln_mlp_bwd_colsum_kernel<<<(cols + 255) / 256, 256, 0, s>>>(part, out, rows,
-                                                              cols);
-  return cudaGetLastError();
-}
-
 // C (M x N, fp32) = A^T B for A (rows x M) and B (rows x N) in bf16, M and N
 // multiples of 8. A block owns a 64 x 64 tile of C and reduces over all rows
 // in order; the blocks of the first column of tiles also write the column
@@ -435,50 +438,145 @@ cudaError_t atb(const bf16* A, const bf16* B, float* C, float* colsum,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-AMT_EXPORT int amt_ln_mlp_bwd(const void* x, const void* lng, const void* lnb,
-                              const void* w1, const void* b1, const void* w2,
-                              const void* dy, void* dx, void* yc, void* g,
-                              void* dh, void* part, void* dhpart, void* dlng,
-                              void* dlnb, void* dw1, void* db1, void* dw2,
-                              void* db2,
-                              int n, int d, int hid, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || hid % 8 != 0 || d != 512) return cudaErrorInvalidValue;
-  constexpr int D = 512;
+// Passes 1 and 2 at a width the single pass takes.
+template <int D>
+cudaError_t fused_bwd(const bf16* x, const float* lng, const float* lnb, const bf16* w1,
+                      const float* b1, const bf16* w2, const bf16* dy, bf16* dx, bf16* yc,
+                      bf16* g, bf16* dh, float* part, float* dhpart, float* dlng,
+                      float* dlnb, float* dw1, float* db1, float* dw2, float* db2, int n,
+                      int hid, float eps, cudaStream_t s) {
   constexpr size_t bytes = rows_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       ln_mlp_bwd_rows_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
   const int blocks = (n + kRows - 1) / kRows;
-  const auto* xi = static_cast<const bf16*>(x);
-  const auto* dyi = static_cast<const bf16*>(dy);
-  auto* yci = static_cast<bf16*>(yc);
-  auto* gi = static_cast<bf16*>(g);
-  auto* dhi = static_cast<bf16*>(dh);
-  auto* parti = static_cast<float*>(part);
-  auto* dhparti = static_cast<float*>(dhpart);
   ln_mlp_bwd_rows_kernel<D><<<blocks, 256, bytes, s>>>(
-      xi, static_cast<const float*>(lng), static_cast<const float*>(lnb),
-      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), dyi, static_cast<bf16*>(dx), yci, gi, dhi,
-      parti, dhparti, n, hid, eps);
+      x, lng, lnb, w1, b1, w2, dy, dx, yc, g, dh, part, dhpart, n, hid, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // dlng, dlnb and db1 (over the fp32 dH, as the TPU kernel sums it)
-  if ((err = sum_partials(parti, static_cast<float*>(dlng), blocks, d, s)) !=
+  if ((err = colsum(part, dlng, blocks, D, s)) != cudaSuccess ||
+      (err = colsum(part + (int64_t)blocks * D, dlnb, blocks, D, s)) !=
           cudaSuccess ||
-      (err = sum_partials(parti + (int64_t)blocks * d,
-                          static_cast<float*>(dlnb), blocks, d, s)) !=
-          cudaSuccess ||
-      (err = sum_partials(dhparti, static_cast<float*>(db1), 2 * blocks, hid,
-                          s)) != cudaSuccess)
+      (err = colsum(dhpart, db1, 2 * blocks, hid, s)) != cudaSuccess)
     return err;
   // dW1 (hid, d) = dH^T yc; dW2 (d, hid) = dy^T G with db2 = colsum(dy)
-  if ((err = atb(dhi, yci, static_cast<float*>(dw1), nullptr, n, hid, d, s)) !=
-      cudaSuccess)
+  if ((err = atb(dh, yc, dw1, nullptr, n, hid, D, s)) != cudaSuccess) return err;
+  return atb(dy, g, dw2, db2, n, D, hid, s);
+}
+
+// The wide path's LN backward: a block of 256 threads walks kRows rows; per
+// row the two-pass fp32 statistics of x, then dx = dy + rstd (dxhat -
+// mean(dxhat) - xhat mean(dxhat xhat)) with dxhat = dy_ln * lng. Thread j
+// owns columns j, j + 256, ...: its running sums of dy_ln * xhat and dy_ln
+// over the block's rows sit in shared memory and end in part (2,
+// gridDim.x, d), pass 1's layout.
+__global__ __launch_bounds__(kThreads) void ln_bwd_rows_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ lng,
+    const float* __restrict__ dyln, const bf16* __restrict__ dy,
+    bf16* __restrict__ dx, float* __restrict__ part, int n, int d, float eps) {
+  extern __shared__ float cols[];  // [2][d]
+  __shared__ float red[kThreads / 32];
+  for (int c = threadIdx.x; c < 2 * d; c += kThreads) cols[c] = 0.f;
+  __syncthreads();
+  const int row0 = blockIdx.x * kRows, rend = min(row0 + kRows, n);
+  for (int r = row0; r < rend; ++r) {
+    const bf16* xr = x + (int64_t)r * d;
+    const float* gr = dyln + (int64_t)r * d;
+    float s = 0.f;
+    for (int c = threadIdx.x; c < d; c += kThreads) s += __bfloat162float(xr[c]);
+    const float mean = block_sum(s, red) / d;
+    float q = 0.f;
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      const float v = __bfloat162float(xr[c]) - mean;
+      q += v * v;
+    }
+    const float rstd = rsqrtf(block_sum(q, red) / d + eps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      const float xh = (__bfloat162float(xr[c]) - mean) * rstd;
+      const float dxh = gr[c] * lng[c];
+      s1 += dxh;
+      s2 += dxh * xh;
+      cols[c] += gr[c] * xh;
+      cols[d + c] += gr[c];
+    }
+    const float m1 = block_sum(s1, red) / d;
+    const float m2 = block_sum(s2, red) / d;
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      const float xh = (__bfloat162float(xr[c]) - mean) * rstd;
+      const float dxh = gr[c] * lng[c];
+      dx[(int64_t)r * d + c] = __float2bfloat16(
+          __bfloat162float(dy[(int64_t)r * d + c]) + rstd * (dxh - m1 - xh * m2));
+    }
+  }
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    part[(int64_t)blockIdx.x * d + c] = cols[c];
+    part[((int64_t)gridDim.x + blockIdx.x) * d + c] = cols[d + c];
+  }
+}
+
+}  // namespace
+
+// dyln (n, d) fp32 and dypart (ceil(n / 64), d) fp32: scratch used (and
+// needed) only above d 512, where dhpart holds ceil(n / 128) rows of it.
+AMT_EXPORT int amt_ln_mlp_bwd(const void* x, const void* lng, const void* lnb,
+                              const void* w1, const void* b1, const void* w2,
+                              const void* dy, void* dx, void* yc, void* g,
+                              void* dh, void* part, void* dhpart, void* dyln,
+                              void* dypart, void* dlng, void* dlnb, void* dw1,
+                              void* db1, void* dw2, void* db2, int n, int d,
+                              int hid, float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || hid % 8 != 0 || d % 128 != 0) return cudaErrorInvalidValue;
+  const auto* xi = static_cast<const bf16*>(x);
+  const auto* gi = static_cast<const float*>(lng);
+  const auto* bi = static_cast<const float*>(lnb);
+  const auto* w1i = static_cast<const bf16*>(w1);
+  const auto* b1i = static_cast<const float*>(b1);
+  const auto* w2i = static_cast<const bf16*>(w2);
+  const auto* dyi = static_cast<const bf16*>(dy);
+  auto* dxo = static_cast<bf16*>(dx);
+  auto* yci = static_cast<bf16*>(yc);
+  auto* gs = static_cast<bf16*>(g);
+  auto* dhs = static_cast<bf16*>(dh);
+  auto* parti = static_cast<float*>(part);
+  auto* dhparti = static_cast<float*>(dhpart);
+  auto* dlngo = static_cast<float*>(dlng);
+  auto* dlnbo = static_cast<float*>(dlnb);
+  auto* dw1o = static_cast<float*>(dw1);
+  auto* db1o = static_cast<float*>(db1);
+  auto* dw2o = static_cast<float*>(dw2);
+  auto* db2o = static_cast<float*>(db2);
+#define AMT_FUSED_BWD(D)                                                                 \
+  case D:                                                                                \
+    return fused_bwd<D>(xi, gi, bi, w1i, b1i, w2i, dyi, dxo, yci, gs, dhs, parti, dhparti, \
+                        dlngo, dlnbo, dw1o, db1o, dw2o, db2o, n, hid, eps, s);
+  switch (d) {
+    AMT_FUSED_BWD(128)
+    AMT_FUSED_BWD(256)
+    AMT_FUSED_BWD(384)
+    AMT_FUSED_BWD(512)
+  }
+#undef AMT_FUSED_BWD
+  auto* dyl = static_cast<float*>(dyln);
+  auto* dyp = static_cast<float*>(dypart);
+  if (dyl == nullptr || dyp == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = static_cast<cudaError_t>(
+      amt_layernorm(x, lng, lnb, yc, n, d, eps, AMT_BF16, stream));
+  if (err != cudaSuccess) return err;
+  if ((err = amt_mlp_bwd_bf16(yci, w1i, b1i, w2i, dyi, gs, dhs, dhparti, dyp, nullptr, dyl,
+                              dw1o, db1o, dw2o, db2o, n, d, hid, s)) != cudaSuccess)
     return err;
-  return atb(dyi, gi, static_cast<float*>(dw2), static_cast<float*>(db2), n, d,
-             hid, s);
+  const int blocks = (n + kRows - 1) / kRows;
+  const size_t bytes = sizeof(float) * 2 * (size_t)d;
+  if ((err = cudaFuncSetAttribute(ln_bwd_rows_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)bytes)) != cudaSuccess)
+    return err;
+  ln_bwd_rows_kernel<<<blocks, kThreads, bytes, s>>>(xi, gi, dyl, dyi, dxo, parti, n, d, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = colsum(parti, dlngo, blocks, d, s)) != cudaSuccess)
+    return err;
+  return colsum(parti + (int64_t)blocks * d, dlnbo, blocks, d, s);
 }

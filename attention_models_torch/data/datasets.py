@@ -1,8 +1,10 @@
-"""Datasets: COCO captions (plain JSON reader) and seeded synthetic images.
+"""Datasets: COCO captions (plain JSON reader), ImageFolder and seeded
+synthetic images.
 
 The port's copies of ``attention_models_tpu/data/datasets.py``'s
-``CocoCaptions`` and ``SyntheticImages``: each item is (image CHW float32,
-caption str). Per-item randomness (caption choice, crops, flips) is keyed on
+``CocoCaptions``, ``ImageFolder`` and ``SyntheticImages``: each item is
+(image CHW float32, caption str) or, for the classifier, (image, class
+index). Per-item randomness (caption choice, crops, flips) is keyed on
 (seed, epoch, idx), so a resumed run replays the same draws. Pillow is
 imported only when an image is read.
 """
@@ -61,14 +63,50 @@ class CocoCaptions:
         return self.transform(Image.open(path), rng), caption
 
 
+class ImageFolder:
+    """torchvision ``ImageFolder``: ``root/<class>/<image>``, classes in
+    sorted order, items (image, class index)."""
+
+    EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+    def __init__(self, root: str, transform: Transform, seed: int = 0):
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: list[tuple[str, int]] = [
+            (os.path.join(root, c, fn), self.class_to_idx[c])
+            for c in classes for fn in sorted(os.listdir(os.path.join(root, c)))
+            if fn.lower().endswith(self.EXTS)]
+        self.transform = transform
+        self.seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        from PIL import Image
+
+        path, label = self.samples[idx]
+        rng = np.random.default_rng((self.seed, self._epoch, int(idx)))
+        return self.transform(Image.open(path), rng), label
+
+
 class SyntheticImages:
-    """Deterministic random images with captions, for tests and the card."""
+    """Deterministic random images with captions or, without
+    ``with_captions``, class labels ``idx % num_classes``, for tests and the
+    card."""
 
     _CAPTIONS = ["a photo of a cat", "a red stop sign", "two dogs playing",
                  "a mountain at sunset"]
 
-    def __init__(self, n: int, resolution: int, seed: int = 0):
+    def __init__(self, n: int, resolution: int, with_captions: bool = True,
+                 num_classes: int = 10, seed: int = 0):
         self.n, self.resolution, self.seed = n, resolution, seed
+        self.with_captions, self.num_classes = with_captions, num_classes
 
     def __len__(self):
         return self.n
@@ -76,7 +114,9 @@ class SyntheticImages:
     def __getitem__(self, idx):
         rs = np.random.RandomState(self.seed + idx)
         img = rs.rand(3, self.resolution, self.resolution).astype(np.float32)
-        return img, self._CAPTIONS[idx % len(self._CAPTIONS)]
+        if self.with_captions:
+            return img, self._CAPTIONS[idx % len(self._CAPTIONS)]
+        return img, idx % self.num_classes
 
 
 class Subset:

@@ -16,9 +16,12 @@ import numpy as np
 
 
 def _collate(items):
-    """(images (b, 3, H, W), captions)."""
+    """(images (b, 3, H, W), captions as a list or labels as int32 (b,))."""
     imgs = np.stack([it[0] for it in items])
-    return imgs, [it[1] for it in items]
+    seconds = [it[1] for it in items]
+    if isinstance(seconds[0], (int, np.integer)):
+        return imgs, np.asarray(seconds, np.int32)
+    return imgs, seconds
 
 
 class DataLoader:
@@ -67,12 +70,17 @@ class DataLoader:
 
 
 def build_loader(cfg):
-    """(train_dl, val_dl) for the ``synthetic`` and ``coco`` datasets."""
+    """(train_dl, val_dl) for the ``synthetic``, ``coco`` and ``imagenet``
+    (an ImageFolder, split by ``train_test_split``) datasets; synthetic items
+    carry captions unless ``dataset.params.with_captions`` is false, then
+    labels of 10 classes, as in JAX."""
     from attention_models_torch.data.datasets import (
         CocoCaptions,
+        ImageFolder,
         SyntheticImages,
         random_split,
     )
+    from attention_models_torch.data.transforms import Transform
 
     params = cfg.dataset.params
     name = cfg.dataset.name
@@ -87,13 +95,19 @@ def build_loader(cfg):
                 seed=int(cfg.training.get("seed", 0) or 0))
         else:
             val_ds = CocoCaptions(cfg, "val2017", is_train=False)
+    elif name == "imagenet":
+        seed = int(cfg.training.get("seed", 0) or 0)
+        ds = ImageFolder(params.train_path, Transform(cfg, True), seed=seed)
+        if not params.get("train_test_split"):
+            raise ValueError("train_test_split required for imagenet")
+        train_ds, val_ds = random_split(ds, float(params.train_test_split),
+                                        seed=seed)
     elif name == "synthetic":
         res = int(cfg.dataset.preprocessing.resolution)
         n = min(int(cfg.experiment.max_train_examples), 64)
-        train_ds = SyntheticImages(n, res)
-        val_ds = SyntheticImages(max(n // 4, 2), res, seed=10_000)
-    elif name == "imagenet":
-        raise NotImplementedError("the imagenet dataset is not ported yet")
+        captions = bool(params.get("with_captions", True))
+        train_ds = SyntheticImages(n, res, captions)
+        val_ds = SyntheticImages(max(n // 4, 2), res, captions, seed=10_000)
     else:
         raise ValueError(f"unknown dataset {name!r}")
     bs = int(params.batch_size)

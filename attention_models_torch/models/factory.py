@@ -14,6 +14,10 @@ fp32 otherwise.
   placed on ``device`` (None: the card, raising without CUDA; ``"cpu"``
   runs the plain path). ``model.dropout`` is the attention dropout of
   training (the decode is deterministic).
+- ``vit``: the ViT classifier, ``model.transformer`` giving its widths and
+  ``dataset.preprocessing.resolution`` its image size, seeded from
+  ``training.seed`` and placed on ``device`` as ``maskgit`` is.
+  ``vit_moe`` raises until its slice (after slice 10a) is ported.
 - ``muse``: the text-conditioned generator (``model.decoder`` and
   ``model.encoder`` give its decoder and CLIP widths) over the ``vitvqgan``
   block's tokenizer, seeded, loaded and placed as ``maskgit`` is.
@@ -34,6 +38,7 @@ import torch
 
 from attention_models_torch.models.maskgit import MaskGitTransformer
 from attention_models_torch.models.muse import MUSE
+from attention_models_torch.models.vit import ViT
 from attention_models_torch.models.vitvqgan import ViTVQGAN
 from attention_models_torch.ops.dispatch import resolve_device
 
@@ -98,11 +103,15 @@ def _vq_config(cfg) -> dict:
                 codebook_params=_codebook_params(cfg))
 
 
+def _seeded(model, cfg):
+    return model.reset_parameters(
+        torch.Generator().manual_seed(int(cfg.training.get("seed", 0))))
+
+
 def _seeded_on(model, cfg, dev):
     """Seeded from ``training.seed``, the tokenizer checkpoint loaded over
     ``vq`` when it exists, placed on ``dev``."""
-    model.reset_parameters(
-        torch.Generator().manual_seed(int(cfg.training.get("seed", 0))))
+    _seeded(model, cfg)
     vq = load_vq_checkpoint(cfg.vitvqgan.get("checkpoint"))
     if vq is not None:
         model.vq.load_state_dict(vq)
@@ -110,8 +119,8 @@ def _seeded_on(model, cfg, dev):
 
 
 def build_model(cfg, device: str | torch.device | None = None):
-    """The config's model; ``device`` places the ``maskgit`` and ``muse``
-    models (the ``vitvqgan`` model is placed by its trainer)."""
+    """The config's model; ``device`` places the ``maskgit``, ``muse`` and
+    ``vit`` models (the ``vitvqgan`` model is placed by its trainer)."""
     name = cfg.model.name
     quant = cfg.model.get("quant")
     if name == "vitvqgan":
@@ -130,6 +139,20 @@ def build_model(cfg, device: str | torch.device | None = None):
             dropout=float(m.get("dropout", 0.0) or 0.0), dtype=_dtype(cfg),
             quant=quant)
         return _seeded_on(model, cfg, dev)
+    if name == "vit":
+        dev = resolve_device(device)
+        _refuse_unported(cfg)
+        t = cfg.model.transformer
+        model = ViT(dim=t.dim, image_size=cfg.dataset.preprocessing.resolution,
+                    patch_size=t.patch_size, n_heads=t.n_heads,
+                    d_head=t.get("d_head", 64), depth=t.depth,
+                    mlp_dim=t.mlp_dim, dropout=float(t.dropout),
+                    num_classes=t.num_classes, dtype=_dtype(cfg))
+        return _seeded(model, cfg).to(dev)
+    if name == "vit_moe":
+        raise NotImplementedError(
+            "ViT-MoE is not ported yet: it needs SwitchHeadAttention and the "
+            "MoE layer (port slice 8, after slice 10a)")
     if name in ("muse", "muse_vqgan"):
         if name == "muse_vqgan" or "vitvqgan" not in cfg:
             raise NotImplementedError(

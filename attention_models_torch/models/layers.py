@@ -1,4 +1,4 @@
-"""Layers of the ViTVQGAN and MaskGIT paths: LayerNorm, Mlp, the fused
+"""Layers of the ViTVQGAN, ViT and MaskGIT paths: LayerNorm, Mlp, the fused
 pre-LN MLP block; the gamma-only LayerNorm, the GEGLU FeedForward and
 Dropout.
 
@@ -33,11 +33,14 @@ from torch import nn
 
 from attention_models_torch.ops.ffn import (
     _ffn_reference,
+    _fused_mlp_reference,
     _ln_mlp_reference,
     ffn_supported,
     fused_ffn,
     fused_ln_mlp,
+    fused_mlp,
     gelu_exact,
+    mlp_supported,
 )
 from attention_models_torch.ops.layernorm import _ln_reference, layernorm
 from attention_models_torch.ops.quant import (
@@ -96,46 +99,84 @@ def xformers_hidden(hidden_features: int) -> int:
     return (int(hidden_features * 2 / 3) + 7) // 8 * 8
 
 
-class Mlp(nn.Sequential):
-    """Linear -> exact GELU -> Linear, biased (the repaired reference FFN)."""
+def mlp_fusable(x: torch.Tensor, dim: int, dropout: float,
+                deterministic: bool) -> bool:
+    """The JAX package's gate of the fused MLP and of the fused pre-LN block
+    (``Mlp.fusable``, ``ln_mlp_block``'s ``fusable``) without its backend
+    test: dropout inactive, bf16 activations (the port computes in its
+    input's dtype), ``mlp_supported`` and a lane-aligned ``dim`` that is
+    x's width."""
+    return ((dropout == 0.0 or deterministic) and x.dtype == torch.bfloat16
+            and mlp_supported(x.shape, x.shape[-1]) and dim % 128 == 0
+            and x.shape[-1] == dim)
 
-    def __init__(self, dim: int, hidden_dim: int):
+
+def _mlp_chain(mlp: "Mlp", x: torch.Tensor, p: float, deterministic: bool,
+               generator: torch.Generator | None, keeps) -> torch.Tensor:
+    """Linear -> exact gelu -> dropout -> Linear -> dropout in x's dtype
+    (flax's Mlp composition); ``keeps`` gives the two keep masks (tests)."""
+    k1, k2 = keeps if keeps is not None else (None, None)
+    h = dropout(gelu_exact(mlp[0](x)), p, deterministic, generator, k1)
+    return dropout(mlp[2](h), p, deterministic, generator, k2)
+
+
+class Mlp(nn.Sequential):
+    """Linear -> exact GELU -> Linear, biased (the repaired reference FFN),
+    keys ``0.*`` and ``2.*``, with flax's dropout after the gelu and after
+    the second Linear when the forward is not ``deterministic``. Under the
+    JAX package's gate (``mlp_fusable``) one fused op: kernels 7 and 8 on the
+    card (``kernels``, the caller's switch), given the fp32 or bf16
+    parameters as they are."""
+
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__(Linear(dim, hidden_dim), nn.GELU(),
                          Linear(hidden_dim, dim))
+        self.p = check_rate(dropout)
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None, keeps=None,
+                kernels: bool = True) -> torch.Tensor:
+        w1, _, w2 = self
+        if mlp_fusable(x, w2.out_features, self.p, deterministic):
+            fn = fused_mlp if kernels else _fused_mlp_reference
+            return fn(x, w1.weight, w1.bias, w2.weight, w2.bias)
+        return _mlp_chain(self, x, self.p, deterministic, generator, keeps)
 
 
 def ln_mlp_block(x: torch.Tensor, norm: LayerNorm, mlp: Mlp, *,
                  kernels: bool = True, quant: str | None = None,
                  q8: QuantCache | None = None, dropout: float = 0.0,
-                 deterministic: bool = True) -> torch.Tensor:
-    """``x + mlp(norm(x))``. Under ``quant="int8"`` (inference only: active
-    dropout is refused) the W8A8 block, kernel 21 under the JAX gate and its
-    plain version otherwise, in either dtype, its weights from ``q8``. Else
-    in bf16 the whole block is one fused op (the ln_mlp kernels on the card,
-    given the fp32 or bf16 parameters as they are); in fp32 it is the
-    LayerNorm followed by the plain Mlp, as the JAX package gates it. The
-    port's Mlp has no dropout yet: active dropout raises on every path."""
-    if dropout != 0.0 and not deterministic:
-        if quant == "int8":
+                 deterministic: bool = True,
+                 generator: torch.Generator | None = None,
+                 keeps=None) -> torch.Tensor:
+    """``x + mlp(norm(x))`` with ``dropout`` in the MLP. Under
+    ``quant="int8"`` (inference only: active dropout is refused) the W8A8
+    block, kernel 21 under the JAX gate and its plain version otherwise, in
+    either dtype, its weights from ``q8``. Else, under the JAX package's gate
+    (``mlp_fusable``), the whole block is one fused op (the ln_mlp kernels
+    on the card, given the fp32 or bf16 parameters as they are); otherwise
+    the module composition: the LayerNorm, then the MLP chain with its
+    dropout drawn from ``generator`` (or the given ``keeps``)."""
+    if quant == "int8":
+        if dropout != 0.0 and not deterministic:
             raise ValueError(
                 f"quant='int8' is an inference-only path; it cannot apply "
                 f"active dropout (got dropout={dropout} with "
                 f"deterministic=False)")
-        raise NotImplementedError("dropout in the Mlp is not ported yet")
-    if quant == "int8":
         q8 = q8 or QuantCache()
         args = (x, norm.weight, norm.bias, q8.get("w1", mlp[0].weight),
                 mlp[0].bias, q8.get("w2", mlp[2].weight), mlp[2].bias)
         if kernels and ln_mlp_q8_tileable(x.shape, norm.weight.shape[0]):
             return fused_ln_mlp_q8(*args, eps=norm.eps)
         return _ln_mlp_q8_reference(*args, norm.eps)
-    if x.dtype == torch.bfloat16:
+    if mlp_fusable(x, norm.weight.shape[0], dropout, deterministic):
         args = (x, norm.weight, norm.bias, mlp[0].weight, mlp[0].bias,
                 mlp[2].weight, mlp[2].bias)
         if kernels:
             return fused_ln_mlp(*args, eps=norm.eps)
         return _ln_mlp_reference(*args, norm.eps)
-    return x + mlp(norm(x))
+    return x + _mlp_chain(mlp, norm(x), dropout, deterministic, generator,
+                          keeps)
 
 
 class GammaLayerNorm(nn.Module):
@@ -203,28 +244,39 @@ class FeedForward(nn.Module):
         return self.ff(x)
 
 
-class Dropout(nn.Module):
+def check_rate(p: float) -> float:
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+    return float(p)
+
+
+def dropout(x: torch.Tensor, p: float, deterministic: bool = True,
+            generator: torch.Generator | None = None,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
     """flax ``nn.Dropout(p)``: keep ~ bernoulli(1 - p), then
     ``where(keep, x / (1 - p), 0)`` in x's dtype. The draw comes from the
     ``torch.Generator`` the caller passes (on x's device; the trainer owns
     it) or is a given ``keep`` mask (tests). The identity when
     ``deterministic`` or p = 0. No kernel: plain tensor code, as in JAX."""
+    if deterministic or p == 0.0:
+        return x
+    if keep is None:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """``dropout`` at a fixed rate, as a module."""
 
     def __init__(self, p: float):
         super().__init__()
-        if not 0.0 <= p < 1.0:
-            raise ValueError(f"dropout rate must be in [0, 1), got {p}")
-        self.p = float(p)
+        self.p = check_rate(p)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None,
                 keep: torch.Tensor | None = None) -> torch.Tensor:
-        if deterministic or self.p == 0.0:
-            return x
-        if keep is None:
-            keep = torch.rand(x.shape, generator=generator,
-                              device=x.device) < 1.0 - self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return dropout(x, self.p, deterministic, generator, keep)
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

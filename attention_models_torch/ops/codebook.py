@@ -4,7 +4,9 @@ Counterpart of ``attention_models_tpu/ops/codebook.py``. Distances
 ``|e|^2 - 2 z.e`` (the per-token ``|z|^2`` is dropped, argmin-invariant) are
 accumulated in fp32 and ties go to the first (lowest) index, as
 ``torch.argmin`` does. Indices come back as int32 ``(n,)``; callers widen to
-int64 only for the embedding gather.
+int64 only for the embedding gather. The kernel takes every code width, as
+the JAX package computes every width: 8, 16, 32 and 64 with each token in
+registers, any other in 32-wide steps through shared memory.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import torch
 from attention_models_torch.ops import _build
 from attention_models_torch.ops.dispatch import check_tensor, is_kernel_path
 
-KERNEL_DIMS = (32,)  # code widths csrc/codebook.cu instantiates
 CODES_PER_BLOCK = 512  # codebook slice of one block (a multiple of 128)
 
 
@@ -43,9 +44,9 @@ def nearest_codes(z: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     check_tensor(z, "z", (torch.float32, torch.bfloat16), 2)
     check_tensor(codes, "codes", (z.dtype,), 2, z.device)
     n, d = z.shape
-    if codes.shape[1] != d or d not in KERNEL_DIMS:
+    if codes.shape[1] != d or d == 0:
         raise ValueError(f"nearest_codes kernel: code width {d} with codes "
-                         f"{tuple(codes.shape)}; widths {KERNEL_DIMS}")
+                         f"{tuple(codes.shape)}")
     k = codes.shape[0]
     slices = -(-k // CODES_PER_BLOCK)
     # per-slice (min, argmin) scratch, combined by the kernel's second pass

@@ -2,9 +2,12 @@
 
 Counterpart of ``attention_models_tpu/ops/layernorm.py``: fp32 statistics,
 biased variance (torch ``F.layer_norm`` semantics), optional beta, output in
-the input's dtype. The kernel takes any last dim up to 4096 (1024 when it is
-not a multiple of the 16-byte vector width), so the patch-embed LayerNorm at
-d = 192 runs on it too.
+the input's dtype. The kernel takes every last dim: a warp a row in
+registers up to 4096 (1024 when it is not a multiple of the 16-byte vector
+width), so the patch-embed LayerNorm at d = 192 runs on it too, and a block
+a row looping over wider rows. The JAX package's gate (d % 128 and rows % 8)
+sends a subset of these to its kernel and the rest to XLA; here none raises
+and none runs the plain version on the card.
 
 On the card the kernel is the forward of ``_LayerNormFn``; its backward is
 the plain vjp of ``_ln_reference``, as the JAX package's ``_ln_b_bwd`` /
@@ -42,9 +45,6 @@ def _layernorm_kernel(x: torch.Tensor, gamma: torch.Tensor,
     """Checks, then one launch of the kernel; counts the launch."""
     check_tensor(x, "x", (torch.float32, torch.bfloat16))
     d = x.shape[-1]
-    vec = 16 // x.element_size()
-    if d > (4096 if d % vec == 0 else 1024):
-        raise ValueError(f"layernorm kernel: d={d} too wide")
     for name, p in (("gamma", gamma), ("beta", beta)):
         if p is not None:
             check_tensor(p, name, (torch.float32, torch.bfloat16), 1, x.device)

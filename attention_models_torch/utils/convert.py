@@ -10,6 +10,9 @@ so this module needs neither JAX nor flax:
 - ``maskgit_from_jax``: ``MaskGitTransformer`` (its ``vq`` subtree through
   ``from_jax_params``); gamma-only LayerNorms keep ``gamma`` and gain their
   zero ``beta`` buffer.
+- ``vit_from_jax``: the ViT classifier (``models.vit.ViT``); the JAX
+  package has no torch converter for it (the reference ViT is broken,
+  SURVEY §2.9#3), so the keys are the port's own.
 - ``muse_from_jax``: ``MUSE``: the decoder with the keys of
   ``torch_convert.py::convert_decoder``, the CLIP tower with those of
   ``convert_hf_clip_text``, the tokenizer through ``from_jax_params``. A
@@ -104,6 +107,29 @@ def maskgit_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         _feed_forward(blk["ff"], f"{q}.feed_forward", sd)
     _gamma_ln(bt["final_norm"], f"{p}.final_norm", sd)
     sd[f"{p}.linear.weight"] = _t(bt["linear"]["kernel"]).T.contiguous()
+    return sd
+
+
+def vit_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``ViT`` params (with or without the top-level ``"params"``) ->
+    fp32 ``state_dict`` for ``models.vit.ViT``."""
+    if "params" in tree:
+        tree = tree["params"]
+    pe, p = tree["patch_embed"], "to_patch_embedding"
+    sd: dict[str, torch.Tensor] = {}
+    _ln(pe["norm1"], f"{p}.1", sd)
+    _lin(pe["proj"], f"{p}.2", sd)
+    _ln(pe["norm2"], f"{p}.3", sd)
+    sd["class_token"] = _t(tree["class_token"])
+    sd["pos_enc"] = _t(tree["pos_enc"])
+    for i, blk in enumerate(_layers(tree)):
+        q = f"layers.{i}"
+        _gamma_ln(blk["norm1"], f"{q}.norm1", sd)
+        _attention(blk["self_attn"], f"{q}.self_attn", sd)
+        _gamma_ln(blk["norm2"], f"{q}.norm2", sd)
+        _lin(blk["mlp"]["mlp_in"], f"{q}.mlp.0", sd)
+        _lin(blk["mlp"]["mlp_out"], f"{q}.mlp.2", sd)
+    _lin(tree["final_fc"], "final_fc", sd)
     return sd
 
 

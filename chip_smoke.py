@@ -8,7 +8,10 @@ Needs one Hopper card. Phases, one line each (any failure raises):
   3. kernels  each kernel at the main path's shapes against its plain
               version on the card, in each dtype it takes, with kernel,
               plain and library (one PyTorch call; for a backward kernel
-              its forward + backward) times and the bound
+              its forward + backward) times and the bound; the repaired
+              widths too (ln_mlp forward and backward at d 768 and 1024,
+              nearest codes at widths 8 and 64, LayerNorm at d 8192); the
+              fused GELU MLP (kernels 7 and 8) at ViT's shape
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -77,10 +80,24 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               batch 8, 256 px): 3 requests through vq_recon_service with
               exact launch deltas (ln_mlp_q8 in place of ln_mlp), imgs/s, and
               index agreement with the unquantized model (reported)
+ 13. vit      one bf16 micro-step of cfg_exp/vitvqgan_overfit.yaml (the
+              repaired widths on a training path: dim 64, code width 8,
+              exact launches); then ViT: build_model + build_trainer on
+              cfg/vit.yaml (restated in Python as VIT_YAML; VIT_OVERRIDES:
+              synthetic labelled images, batch 64, 256 px): the eval
+              forward's exact launch deltas (VIT_FORWARD: 14 LayerNorms, 6
+              x kernel 7, no flash at 65 tokens), bf16 logits kernels vs
+              plain and against the fp32 plain logits, eval imgs/s; 4
+              training micro-steps at the shipped dropout 0.1 (no kernel
+              7/8) and 4 at dropout 0 (6 x kernel 7 and 6 x kernel 8 each):
+              exact launches, ms, imgs/s, peak memory; device time by kernel
+              over 2 eval forwards and 2 training micro-steps; evaluate() on
+              the ragged validation batch; one fp32 step (TF32 off), kernels
+              vs plain
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
-Each kernel's "launches" there is the sum of its counts over the six
+Each kernel's "launches" there is the sum of its counts over the seven
 driven paths (serving, training, maskgit, maskgit_train, muse, recon_int8,
-each counted from 0), listed one by one beside it.
+vit, each counted from 0), listed one by one beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -161,7 +178,17 @@ Tolerances (kernel against plain on the card):
     the bf16 logits and layer 0's update against the fp32 plain path,
     kernels at most FLOOR_RATIO times the plain path's;
   - the int8 tokenizer's indices against the unquantized model's are
-    reported, not gated.
+    reported, not gated;
+  - the fused GELU MLP: relative L2 1e-2 (kernel 7) and 2e-2 on dx and
+    every weight and bias gradient (kernel 8: g and dh are rounded to bf16
+    before the products that take them, as in the TPU kernels), bf16;
+  - nearest codes at widths 8 and 64 (fp32, TF32 off): every index equal
+    to the plain version's;
+  - ViT (bf16, batch 64): the logits within relative L2 2e-2 of the plain
+    path, and against the fp32 plain logits kernels at most FLOOR_RATIO
+    times the plain path's; one fp32 step (TF32 off): the loss within
+    relative 1e-5 and every gradient within relative L2 1e-4 of the plain
+    path (summation order only).
 """
 
 from __future__ import annotations
@@ -226,7 +253,7 @@ PER_MICRO_STEP = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                   "flash_attention_bwd_kv": 12, "ln_mlp_bwd": 12,
                   "ffn": 0, "sample_epilogue": 0, "ffn_bwd": 0,
                   "head_xent": 0, "head_xent_bwd": 0, "ffn_q8": 0,
-                  "ffn_q8wide": 0, "ln_mlp_q8": 0}
+                  "ffn_q8wide": 0, "ln_mlp_q8": 0, "mlp": 0, "mlp_bwd": 0}
 
 # cfg/maskgit.yaml as PyYAML reads it; tests/test_torch_port_rules.py holds
 # the two equal
@@ -289,6 +316,102 @@ MASKGIT_TRAIN_STEP = {"flash_attention_bthd_kv": 16 + 6, "ln_mlp": 6,
                       "ffn_bwd": 16, "flash_attention_bwd_kv": 16,
                       "head_xent": 1, "head_xent_bwd": 1, "ln_mlp_bwd": 0,
                       "sample_epilogue": 0}
+
+
+# cfg/vit.yaml as PyYAML reads it; tests/test_torch_vit.py holds the two
+# equal
+VIT_YAML = {
+    "experiment": {
+        "project_name": "vit", "exp_name": "run1",
+        "max_train_examples": 100000000, "save_every": 1000,
+        "eval_every": 1000, "sample_every": 100000000, "log_every": 100,
+        "log_level": "info", "resume_path_from_checkpoint": None,
+        "wandb": False},
+    "model": {"name": "vit", "transformer": {
+        "dim": 1024, "patch_size": 32, "n_heads": 16, "d_head": 64,
+        "depth": 6, "mlp_dim": 2048, "dropout": 0.1, "num_classes": 1000}},
+    "dataset": {
+        "name": "imagenet",
+        "params": {"train_path": "/datasets/imagenet/train", "val_path": None,
+                   "num_workers": 4, "pin_memory": True, "batch_size": 64,
+                   "persistent_workers": True, "shuffle": True,
+                   "train_test_split": 0.95},
+        "preprocessing": {"resolution": 256, "center_crop": False,
+                          "random_flip": True, "random_crop": True,
+                          "mean": None, "std": None, "scale": 0.85}},
+    "optimizer": {"name": "adamw", "params": {
+        "learning_rate": "3e-4", "beta1": 0.9, "beta2": 0.999,
+        "weight_decay": 0.05}},
+    "lr_scheduler": {"name": "cosine_with_warmup", "params": {
+        "learning_rate": "${optimizer.params.learning_rate}",
+        "warmup_steps": 10000, "decay_steps": None}},
+    "training": {"gradient_accumulation_steps": 1, "mixed_precision": "bf16",
+                 "seed": 42, "num_epochs": 300, "max_grad_norm": 1.0,
+                 "tensor_parallel": 1},
+}
+# ViT on cfg/vit.yaml, cut in scale only: synthetic labelled images (64 a
+# set, so one batch of 64 an epoch; the 16 validation images are one ragged
+# batch; labels of 10 of the 1000 classes, as the JAX loader gives them),
+# 4 epochs = 4 micro-steps
+VIT_OVERRIDES = {"dataset.name": "synthetic",
+                 "dataset.params.with_captions": False,
+                 "training.num_epochs": 4}
+# kernel launches per ViT forward (bf16): the 2 patch-embed LayerNorms and 2
+# gamma-LayerNorms a block; kernel 7 once a block under the JAX gate; the
+# 65-token attention takes the plain attention (no flash). A training
+# micro-step adds kernel 8 once a block when dropout is 0 (the LayerNorms'
+# backward is the plain vjp, as in JAX)
+VIT_FORWARD = {"layernorm": 2 + 2 * 6, "mlp": 6}
+
+# cfg_exp/vitvqgan_overfit.yaml as PyYAML reads it; tests/test_torch_vit.py
+# holds the two equal
+VQGAN_OVERFIT_YAML = {
+    "experiment": {
+        "project_name": "vitvqgan_overfit", "exp_name": "test",
+        "max_train_examples": 2, "save_every": 1000000, "eval_every": 4,
+        "sample_every": 4, "log_every": 1, "log_level": "info",
+        "resume_path_from_checkpoint": None, "wandb": False},
+    "codebook": {"codebook_dim": 8, "beta": 0.25, "codebook_size": 64},
+    "model": {"name": "vitvqgan", "transformer": {
+        "dim": 64, "patch_size": 8, "n_heads": 2, "d_head": 32, "depth": 1,
+        "dropout": 0.0, "mlp_dim": 128}},
+    "dataset": {
+        "name": "synthetic",
+        "params": {"train_path": None, "val_path": None, "num_workers": 0,
+                   "pin_memory": False, "batch_size": 2,
+                   "persistent_workers": False, "shuffle": True,
+                   "train_test_split": None},
+        "preprocessing": {"resolution": 32, "center_crop": False,
+                          "random_flip": False, "random_crop": False,
+                          "mean": None, "std": None, "scale": 1.0}},
+    "optimizer": {"name": "adam", "params": {
+        "learning_rate": 0.001, "beta1": 0.9, "beta2": 0.999,
+        "weight_decay": 0.0, "epsilon": "1e-8"}},
+    "lr_scheduler": {"name": "timm_cosine", "params": {
+        "learning_rate": "${optimizer.params.learning_rate}",
+        "warmup_steps": 2, "decay_steps": 100}},
+    "losses": {"per_loss_weight": 0.1, "adv_loss_weight": 0.1,
+               "logit_laplace_weight": 1},
+    "training": {"gradient_accumulation_steps": 1, "mixed_precision": "no",
+                 "seed": 42, "num_epochs": 3, "max_grad_norm": 1.0,
+                 "tensor_parallel": 1},
+}
+
+
+def vit_config(dropout: float | None, output_dir: str,
+               mixed_precision: str = "bf16"):
+    """cfg/vit.yaml with VIT_OVERRIDES, ``model.transformer.dropout``
+    (None: the shipped 0.1) and ``training.mixed_precision``."""
+    from attention_models_torch.utils.config import Config
+
+    cfg = Config(json.loads(json.dumps(VIT_YAML)))
+    for k, v in VIT_OVERRIDES.items():
+        cfg.set_path(k, v)
+    if dropout is not None:
+        cfg.set_path("model.transformer.dropout", dropout)
+    cfg.set_path("training.mixed_precision", mixed_precision)
+    cfg.set_path("experiment.output_dir", output_dir)
+    return cfg
 
 
 def maskgit_step(depth: int, approx: bool) -> dict:
@@ -427,9 +550,10 @@ def main() -> int:
     from attention_models_torch.models.transformer import EncoderLayer
     from attention_models_torch.models.vitvqgan import ViTVQGANBlock
     from attention_models_torch.ops.ffn import (
-        _ffn_backward_reference, _ffn_reference, _ln_mlp_backward_reference,
-        _ln_mlp_reference, fused_ffn, fused_ffn_backward, fused_ln_mlp,
-        fused_ln_mlp_backward)
+        _ffn_backward_reference, _ffn_reference, _fused_mlp_backward_reference,
+        _fused_mlp_reference, _ln_mlp_backward_reference, _ln_mlp_reference,
+        fused_ffn, fused_ffn_backward, fused_ln_mlp, fused_ln_mlp_backward,
+        fused_mlp, fused_mlp_backward)
     from attention_models_torch.ops.xent import (
         _head_xent_backward_reference, _head_xent_fwd_kernel,
         _head_xent_loss_reference, _head_xent_reference, fused_head_xent,
@@ -673,6 +797,37 @@ def main() -> int:
                nbytes(z, codes, idx), 2 * n_tok * 8192 * 32,
                metric="chosen-distance excess")
 
+    # nearest codes at the other widths the repaired kernel takes (8: the
+    # overfit configs' codebooks; 64: the largest in registers), fp32 with
+    # TF32 off: every index equal to the plain version's
+    for width in (8, 64):
+        z = l2_normalize(randn(n_tok, width))
+        codes = l2_normalize(randn(8192, width))
+        idx, idx_p = nearest_codes(z, codes), _nearest_codes_reference(z, codes)
+        agree, worst_gap, excess = index_report(idx, idx_p,
+                                                plain_distances(z, codes))
+        gate(agree == 1.0 and excess <= 1e-5,
+             f"nearest_codes width {width}: index agreement {agree}")
+        record("nearest_codes", f"z ({n_tok},{width}) codes (8192,{width}) "
+               f"(index agreement {agree:.6f})", torch.float32, 1e-5, excess,
+               excess, time_ms(lambda: nearest_codes(z, codes)),
+               time_ms(lambda: _nearest_codes_reference(z, codes)),
+               time_ms(lambda: torch.cdist(z, codes).argmin(dim=1)),
+               nbytes(z, codes, idx), 2 * n_tok * 8192 * width,
+               metric="chosen-distance excess")
+
+    # a LayerNorm row past the register path (d 8192: the block-a-row loop)
+    xw = randn(1024, 8192, dtype=torch.bfloat16, scale=2.0, shift=0.5)
+    gw = randn(8192, scale=0.1, shift=1.0)
+    got, want = layernorm(xw, gw), _ln_reference(xw, gw, None, 1e-5)
+    record("layernorm", "(1024,8192) no beta, row loop", torch.bfloat16,
+           BF16_TOL, rel_l2(got, want), max_abs(got, want),
+           time_ms(lambda: layernorm(xw, gw)),
+           time_ms(lambda: _ln_reference(xw, gw, None, 1e-5)),
+           time_ms(lambda: F.layer_norm(xw, (8192,), gw.to(torch.bfloat16))),
+           nbytes(xw, xw, gw), 8 * xw.numel())
+    del xw, got, want
+
     # backward kernels, bf16 and fp32, causal and not, at the main path's
     # shapes; the library call is SDPA's forward + backward
     scale = d_ ** -0.5
@@ -740,6 +895,101 @@ def main() -> int:
            time_ms(lambda: _ln_mlp_backward_reference(*bwd_args, 1e-5)),
            time_ms(ln_mlp_library_fwd_bwd),
            nbytes(x, lng, lnb, w1, b1, w2, dy, *got), 10 * n_tok * dim * hid)
+
+    # the fused LN + MLP at the widths past the single pass (repair of the
+    # width dispatch): d 768 and 1024 with the ViTVQGAN hidden width of a
+    # 4x MLP (2048, 2728), 8 x 1024 rows, forward and backward, bf16; the
+    # library chains as above
+    for wd, wh in ((768, 2048), (1024, 2728)):
+        x = randn(n_tok, wd, dtype=torch.bfloat16)
+        lg_, lb_ = randn(wd, scale=0.1, shift=1.0), randn(wd, scale=0.1)
+        w1 = randn(wh, wd, dtype=torch.bfloat16, scale=wd ** -0.5)
+        b1 = randn(wh, scale=0.1)
+        w2 = randn(wd, wh, dtype=torch.bfloat16, scale=wh ** -0.5)
+        b2 = randn(wd, scale=0.1)
+        wargs = (x, lg_, lb_, w1, b1, w2, b2)
+        got, want = fused_ln_mlp(*wargs), _ln_mlp_reference(*wargs, 1e-5)
+        mlp_err = rel_l2(got.float() - x.float(), want.float() - x.float())
+        lgb, lbb, b1b, b2b = (t.to(torch.bfloat16) for t in (lg_, lb_, b1, b2))
+
+        def wide_library():
+            h = F.linear(F.layer_norm(x, (wd,), lgb, lbb), w1, b1b)
+            return x + F.linear(F.gelu(h), w2, b2b)
+
+        record("ln_mlp", f"({n_tok},{wd}) hid {wh} wide path (MLP part "
+               f"rel_l2 {mlp_err:.2e})", torch.bfloat16, BF16_TOL,
+               rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: fused_ln_mlp(*wargs)),
+               time_ms(lambda: _ln_mlp_reference(*wargs, 1e-5)),
+               time_ms(wide_library), nbytes(x, x, lg_, lb_, w1, b1, w2, b2),
+               4 * n_tok * wd * wh)
+        gate(mlp_err <= 2e-2, f"ln_mlp d {wd} MLP part: {mlp_err}")
+        dy = randn(n_tok, wd, dtype=torch.bfloat16)
+        wbwd = (x, lg_, lb_, w1, b1, w2, dy)
+        got = fused_ln_mlp_backward(*wbwd)
+        want = _ln_mlp_backward_reference(*wbwd, 1e-5)
+        errs = {k: rel_l2(a, b) for k, a, b in zip(names, got, want)}
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, lgb, lbb, w1, b1b, w2, b2b)]
+
+        def wide_library_fwd_bwd():
+            xl, gl, bl, w1l, b1l, w2l, b2l = leaves
+            h = F.linear(F.layer_norm(xl, (wd,), gl, bl), w1l, b1l)
+            y = xl + F.linear(F.gelu(h), w2l, b2l)
+            return torch.autograd.grad(y, leaves, dy)
+
+        record("ln_mlp_bwd", f"({n_tok},{wd}) hid {wh} wide path (" + ", ".join(
+                   f"{k} {v:.2e}" for k, v in errs.items()) + ")",
+               torch.bfloat16, BWD_BF16_TOL, max(errs.values()),
+               max(max_abs(a, b) for a, b in zip(got, want)),
+               time_ms(lambda: fused_ln_mlp_backward(*wbwd)),
+               time_ms(lambda: _ln_mlp_backward_reference(*wbwd, 1e-5)),
+               time_ms(wide_library_fwd_bwd),
+               nbytes(x, lg_, lb_, w1, b1, w2, dy, *got), 10 * n_tok * wd * wh)
+        del x, w1, w2, got, want, leaves
+
+    # the fused GELU MLP (kernels 7 and 8) at ViT's shape: 64 images x 65
+    # tokens, d 1024, hidden 2048, bf16 (the kernel path is bf16 only, as
+    # JAX's gate); the library chain is F.linear -> F.gelu -> F.linear
+    # (forward + backward for kernel 8)
+    vn, vd, vh = 64 * 65, 1024, 2048
+    x = randn(vn, vd, dtype=torch.bfloat16)
+    w1 = randn(vh, vd, dtype=torch.bfloat16, scale=vd ** -0.5)
+    b1 = randn(vh, scale=0.1)
+    w2 = randn(vd, vh, dtype=torch.bfloat16, scale=vh ** -0.5)
+    b2 = randn(vd, scale=0.1)
+    margs = (x, w1, b1, w2, b2)
+    got, want = fused_mlp(*margs), _fused_mlp_reference(*margs)
+    b1b, b2b = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    record("mlp", f"({vn},{vd}) hid {vh}", torch.bfloat16, BF16_TOL,
+           rel_l2(got, want), max_abs(got, want),
+           time_ms(lambda: fused_mlp(*margs)),
+           time_ms(lambda: _fused_mlp_reference(*margs)),
+           time_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1b)), w2, b2b)),
+           nbytes(x, w1, b1, w2, b2, got), 4 * vn * vd * vh, main=True)
+    dy = randn(vn, vd, dtype=torch.bfloat16)
+    mbwd = (x, w1, b1, w2, dy)
+    got = fused_mlp_backward(*mbwd)
+    want = _fused_mlp_backward_reference(*mbwd)
+    errs = {k: rel_l2(a, b) for k, a, b in zip(
+        ("dx", "dw1", "db1", "dw2", "db2"), got, want)}
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (x, w1, b1b, w2, b2b)]
+
+    def mlp_library_fwd_bwd():
+        xl, w1l, b1l, w2l, b2l = leaves
+        y = F.linear(F.gelu(F.linear(xl, w1l, b1l)), w2l, b2l)
+        return torch.autograd.grad(y, leaves, dy)
+
+    record("mlp_bwd", f"({vn},{vd}) hid {vh} (" + ", ".join(
+               f"{k} {v:.2e}" for k, v in errs.items()) + ")",
+           torch.bfloat16, BWD_BF16_TOL, max(errs.values()),
+           max(max_abs(a, b) for a, b in zip(got, want)),
+           time_ms(lambda: fused_mlp_backward(*mbwd)),
+           time_ms(lambda: _fused_mlp_backward_reference(*mbwd)),
+           time_ms(mlp_library_fwd_bwd), nbytes(x, w1, b1, w2, dy, *got),
+           10 * vn * vd * vh, main=True)
+    del x, w1, w2, got, want, leaves
 
     # the GEGLU FFN at MaskGIT's decode shape (8 x 1024 rows, d 768, inner
     # 4096), bf16 and fp32 (TF32 off); the library chain is F.linear ->
@@ -1105,7 +1355,8 @@ def main() -> int:
                 "sample_epilogue": sample_epilogue_fused,
                 "ffn_bwd": fused_ffn_backward, "head_xent": fused_head_xent,
                 "head_xent_bwd": head_xent_backward, "ffn_q8": fused_ffn_q8,
-                "ffn_q8wide": fused_ffn_q8wide, "ln_mlp_q8": fused_ln_mlp_q8}
+                "ffn_q8wide": fused_ffn_q8wide, "ln_mlp_q8": fused_ln_mlp_q8,
+                "mlp": fused_mlp, "mlp_bwd": fused_mlp_backward}
     per_forward = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                    "layernorm": 16, "nearest_codes": 1}
     per_encode = {"flash_attention_bthd_kv": 6, "ln_mlp": 6,
@@ -1988,6 +2239,198 @@ def main() -> int:
     del model_q, model_b, recs_q
 
     # --------------------------------------------------------------- 13 --
+    # the width repairs on a training path: one bf16 micro-step of
+    # cfg_exp/vitvqgan_overfit.yaml (dim 64: every block's LayerNorm + MLP
+    # composition; code width 8). LayerNorms: the patch norms, both
+    # pre_norms, norm1 and norm2 of the one block of each tower
+    from attention_models_torch.utils.config import Config
+
+    ocfg = Config(json.loads(json.dumps(VQGAN_OVERFIT_YAML)))
+    ocfg.set_path("training.mixed_precision", "bf16")
+    ocfg.set_path("experiment.output_dir", os.path.abspath(os.path.join(
+        "chiprun_out", "chip_smoke_overfit")))
+    otr = build_trainer(ocfg, build_model(ocfg), build_loader(ocfg), dev)
+    oimg = otr.to_device(next(iter(otr.train_dl))[0])
+    c = counts()
+    om = otr.train_step(oimg)
+    torch.cuda.synchronize()
+    expect_delta(c, {"layernorm": 8, "nearest_codes": 1},
+                 "vitvqgan_overfit bf16 micro-step")
+    gate(all(math.isfinite(float(v)) for v in om.values()),
+         f"vitvqgan_overfit bf16 micro-step: {om}")
+    print(f"[repairs] cfg_exp/vitvqgan_overfit.yaml bf16 micro-step (dim 64, "
+          f"code width 8): " + ", ".join(f"{k} {float(v):.4f}"
+                                         for k, v in om.items()), flush=True)
+    del otr, oimg
+
+    # ViT on cfg/vit.yaml (VIT_YAML, cut in scale only: synthetic labelled
+    # images, batch 64, 256 px): eval forward, then 4 training micro-steps
+    # at the shipped dropout 0.1 and 4 at dropout 0
+    vit_out = os.path.abspath(os.path.join("chiprun_out", "chip_smoke_vit"))
+    vcfg = vit_config(None, vit_out)
+    t0 = time.perf_counter()
+    vit = build_model(vcfg, device=dev).eval()
+    vdl = build_loader(vcfg)
+    vimg_np, vtgt_np = next(iter(vdl[0]))
+    vimg = torch.as_tensor(vimg_np, device=dev)
+    print(f"[vit] build_model(cfg/vit.yaml, {VIT_OVERRIDES}) in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in vit.parameters()) / 1e6:.1f} M parameters",
+          flush=True)
+    torch.cuda.synchronize()
+    c = zero_counts()
+    with torch.no_grad():
+        lg_k = vit(vimg)
+        c = expect_delta(c, VIT_FORWARD, "ViT eval forward")
+        vit.use_kernels(False)
+        lg_p = vit(vimg)
+        vit.use_kernels(True)
+    vit_err = rel_l2(lg_k, lg_p)
+    gate(lg_k.shape == (64, 1000) and bool(torch.isfinite(lg_k).all()),
+         f"ViT logits {tuple(lg_k.shape)}")
+    # the fp32 model of the same seed (the plain path, TF32 off)
+    vit32 = build_model(vit_config(None, vit_out, "no"), device=dev).eval()
+    with torch.no_grad():
+        lg32 = vit32.use_kernels(False)(vimg)
+    vit_k32, vit_p32 = rel_l2(lg_k, lg32), rel_l2(lg_p, lg32)
+    print(f"[vit] eval forward (batch 64, bf16): launches {VIT_FORWARD}; "
+          f"logits kernels vs plain rel_l2 {vit_err:.3e} (tol "
+          f"{MODEL_BF16_TOL:g}); against the fp32 plain logits kernels "
+          f"{vit_k32:.3e}, plain {vit_p32:.3e} (tol kernels <= "
+          f"{FLOOR_RATIO:g} x plain)", flush=True)
+    gate(vit_err <= MODEL_BF16_TOL, f"ViT bf16 logits: {vit_err}")
+    gate(vit_k32 <= FLOOR_RATIO * vit_p32,
+         f"ViT bf16 logits against fp32: {vit_k32} vs {vit_p32}")
+
+    def vit_eval_ips(iters=10):
+        with torch.no_grad():
+            vit(vimg)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                vit(vimg)
+            torch.cuda.synchronize()
+        return 64 * iters / (time.perf_counter() - t)
+
+    vit_ips = vit_eval_ips()
+    vit.use_kernels(False)
+    vit_plain_ips = vit_eval_ips()
+    vit.use_kernels(True)
+    expect_delta(c, {k: 11 * v for k, v in VIT_FORWARD.items()},
+                 "ViT eval throughput (11 forwards)")
+    print(f"[vit] eval throughput, batch 64, 256 px, bf16: kernels "
+          f"{vit_ips:.2f} imgs/s, plain {vit_plain_ips:.2f} imgs/s | {smi}",
+          flush=True)
+    del vit, vit32, lg_k, lg_p, lg32
+    torch.cuda.empty_cache()
+
+    def vit_train(dropout):
+        """4 micro-steps of VitTrainer.train() on cfg/vit.yaml with
+        VIT_OVERRIDES and the dropout; exact launch deltas per micro-step,
+        finite losses; ms, imgs/s, peak memory."""
+        cfg = vit_config(dropout, vit_out)
+        cfg.set_path("experiment.eval_every", 3)  # after the last micro-step
+        dropout = float(cfg.model.transformer.dropout)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() / 2 ** 30  # by earlier phases
+        tr = build_trainer(cfg, build_model(cfg, device=dev),
+                           build_loader(cfg), dev)
+        fn, rows, accs = tr.train_step, [], []
+        evaluate = tr.evaluate
+        tr.evaluate = lambda: accs.append(evaluate())
+        want = {k: v for k, v in VIT_FORWARD.items()
+                if k != "mlp" or dropout == 0.0}
+        if dropout == 0.0:
+            want["mlp_bwd"] = VIT_FORWARD["mlp"]
+
+        def traced(img, tgt):
+            torch.cuda.synchronize()
+            before = counts()
+            t = time.perf_counter()
+            m = fn(img, tgt)
+            torch.cuda.synchronize()
+            rows.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                             loss=float(m["loss"]), acc=float(m["acc"]),
+                             launches={k: v - before[k]
+                                       for k, v in counts().items()}))
+            return m
+
+        tr.train_step = traced
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.train()
+        torch.cuda.synchronize()
+        tr.train_step = fn
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, st in enumerate(rows):
+            print(f"[vit_train] dropout {dropout:g} micro-step {i}: "
+                  f"{st['ms']:.2f} ms, loss {st['loss']:.4f}, acc "
+                  f"{st['acc']:.4f}", flush=True)
+            gate(st["launches"] == {k: want.get(k, 0) for k in wrappers},
+                 f"ViT micro-step {i} (dropout {dropout}): launches "
+                 f"{st['launches']}, expected {want}")
+            gate(math.isfinite(st["loss"]), f"ViT micro-step {i}: loss")
+        gate(len(rows) == 4 and tr.opt.count == 4 and len(accs) == 1,
+             f"{len(rows)} ViT micro-steps, {tr.opt.count} optimizer steps, "
+             f"{len(accs)} evaluations")
+        ms = float(np.mean([st["ms"] for st in rows[2:]]))
+        print(f"[vit_train] dropout {dropout:g}: launches per micro-step "
+              f"{want}; micro-step {ms:.2f} ms (mean of steps 2-3; steps 0-1 "
+              f"{rows[0]['ms']:.2f}, {rows[1]['ms']:.2f} ms), "
+              f"{64 / ms * 1e3:.2f} imgs/s, peak memory {peak:.3f} GiB "
+              f"({held:.3f} GiB of it held by earlier phases); "
+              f"evaluate() after step 3: val_acc {accs[0]:.4f} over "
+              f"{len(tr.val_dl.dataset)} images (one ragged batch) | {smi}",
+              flush=True)
+        return tr, dict(steps=rows, step_ms=ms, imgs_per_s=64 / ms * 1e3,
+                        peak_gib=peak, held_gib=held, val_acc=accs[0])
+
+    tr, vit_train_drop = vit_train(None)
+    del tr
+    tr, vit_train_nodrop = vit_train(0.0)
+    vit_launches = counts()
+    vtgt = tr.labels(vtgt_np)
+    tr.model.eval()
+    with torch.no_grad():
+        eval_profile = profile(
+            torch, lambda: [tr.model(vimg) for _ in range(2)],
+            lambda: tr.model(vimg), "2 ViT eval forwards")
+    tr.model.train()
+    vit_train_profile = profile(
+        torch, lambda: [tr.train_step(vimg, vtgt) for _ in range(2)],
+        lambda: tr.train_step(vimg, vtgt), "2 ViT training micro-steps "
+        "(dropout 0)")
+    del tr
+    torch.cuda.empty_cache()
+
+    # one fp32 step's loss and gradients (TF32 off), kernels against plain,
+    # at dropout 0.1 from one generator seed on both paths
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the fp32 ViT step")
+    m32 = build_model(vit_config(None, vit_out, "no"), device=dev)
+
+    def vit_loss_grads(kernels):
+        m32.use_kernels(kernels)
+        drop = torch.Generator(device=dev).manual_seed(21)
+        loss = F.cross_entropy(m32(vimg, deterministic=False, generator=drop)
+                               .float(), vtgt)
+        grads = torch.autograd.grad(loss, list(m32.parameters()))
+        m32.use_kernels(True)
+        return loss.detach().double(), grads
+
+    vl_k, vg_k = vit_loss_grads(True)
+    vl_p, vg_p = vit_loss_grads(False)
+    vit32_loss = float((vl_k - vl_p).abs() / vl_p.abs())
+    vit32_grads = [rel_l2(a, b) for a, b in zip(vg_k, vg_p)]
+    print(f"[vit] fp32 step (TF32 off), kernels vs plain: loss relative "
+          f"{vit32_loss:.3e} (tol 1e-5); worst of {len(vit32_grads)} "
+          f"gradients rel_l2 {max(vit32_grads):.3e} (tol 1e-4)", flush=True)
+    gate(vit32_loss <= 1e-5 and max(vit32_grads) <= 1e-4,
+         f"ViT fp32 step: loss {vit32_loss}, gradients {max(vit32_grads)}")
+    del m32, vg_k, vg_p
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 14 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -2005,11 +2448,13 @@ def main() -> int:
         "ffn_q8": ("quant.cu", "attention_models_tpu/ops/quant.py:90"),
         "ffn_q8wide": ("quant.cu", "attention_models_tpu/ops/quant.py:221"),
         "ln_mlp_q8": ("quant.cu", "attention_models_tpu/ops/quant.py:339"),
+        "mlp": ("mlp.cu", "attention_models_tpu/ops/ffn.py:331"),
+        "mlp_bwd": ("mlp_bwd.cu", "attention_models_tpu/ops/ffn.py:414"),
     }
     path_launches = {"serving": serving_launches, "training": launches,
                      "maskgit": maskgit_launches,
                      "maskgit_train": mtrain_launches, "muse": muse_launches,
-                     "recon_int8": recon_int8_launches}
+                     "recon_int8": recon_int8_launches, "vit": vit_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
@@ -2065,7 +2510,19 @@ def main() -> int:
                                bf16_vs_fp32=ratio),
                            muse=muse,
                            recon_int8=dict(imgs_per_s=q_ips,
-                                           index_agreement=q_agree)),
+                                           index_agreement=q_agree),
+                           vit=dict(
+                               logits_rel_l2_bf16=vit_err,
+                               bf16_logits_vs_fp32=dict(kernels=vit_k32,
+                                                        plain=vit_p32),
+                               eval_imgs_per_s=vit_ips,
+                               plain_eval_imgs_per_s=vit_plain_ips,
+                               eval_profile=eval_profile,
+                               train_dropout_0_1=vit_train_drop,
+                               train_dropout_0=vit_train_nodrop,
+                               train_profile=vit_train_profile,
+                               fp32_loss_rel=vit32_loss,
+                               fp32_grad_rel_l2=vit32_grads)),
                       f, indent=1)
     amt.sync()
     print(f"[nvidia-smi] {smi}")

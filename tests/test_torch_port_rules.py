@@ -3,8 +3,8 @@
 - it imports neither JAX nor the JAX package, and chip_smoke.py neither;
   importing it needs neither Pillow nor PyYAML;
 - entry points (the inference entry and CLIs, the training CLI, the
-  trainer) default to the card and raise without CUDA; device="cpu" runs
-  the plain path;
+  trainers, ``build_model`` of the placed models) default to the card and
+  raise without CUDA; device="cpu" runs the plain path;
 - a kernel wrapper given CPU tensors runs its plain version and leaves its
   launch counter alone;
 - on the kernel path a tensor that needs a gradient goes through the op's
@@ -118,6 +118,32 @@ def _muse_cli():
     main(["--resolution", "32", "--dim", "128", "--depth", "1"])
 
 
+VIT_OVERFIT = str(ROOT / "cfg_exp" / "vit_overfit.yaml")
+
+
+def _vit_build_model():
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.utils.config import load_config
+
+    build_model(load_config(str(ROOT / "cfg" / "vit.yaml")))
+
+
+def _vit_trainer():
+    from attention_models_torch.data.loaders import build_loader
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.training.build_trainer import build_trainer
+    from attention_models_torch.utils.config import load_config
+
+    cfg = load_config(VIT_OVERFIT)
+    build_trainer(cfg, build_model(cfg, "cpu"), build_loader(cfg))
+
+
+def _vit_cli():
+    from attention_models_torch.main import main
+
+    main([f"--config={VIT_OVERFIT}"])
+
+
 def _maskgit_trainer():
     from attention_models_torch.data.loaders import build_loader
     from attention_models_torch.models.factory import build_model
@@ -140,6 +166,9 @@ def _maskgit_trainer():
     _muse_build_model,
     _muse_cli,
     lambda: vitvqgan_base(device=None, img_size=32, quant="int8"),
+    _vit_build_model,
+    _vit_trainer,
+    _vit_cli,
 ])
 def test_card_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -220,6 +249,10 @@ def _wrapper_cases():
         (quant.fused_ln_mlp_q8, quant._ln_mlp_q8_reference,
          (t(8, 128), t(128), t(128), q8(t(184, 128)), t(184),
           q8(t(128, 184)), t(128)), (1e-5,)),
+        (ffn.fused_mlp, ffn._fused_mlp_reference,
+         (t(8, 128), t(96, 128), t(96), t(128, 96), t(128)), ()),
+        (ffn.fused_mlp_backward, ffn._fused_mlp_backward_reference,
+         (t(8, 128), t(96, 128), t(96), t(128, 96), t(8, 128)), ()),
     ]
 
 
@@ -230,10 +263,11 @@ LAUNCH_COUNTERS = [ln_ops.layernorm, codebook.nearest_codes,
                    sampling.sample_epilogue_fused, ffn.fused_ffn_backward,
                    xent.fused_head_xent, xent.head_xent_backward,
                    quant.fused_ffn_q8, quant.fused_ffn_q8wide,
-                   quant.fused_ln_mlp_q8]
+                   quant.fused_ln_mlp_q8, ffn.fused_mlp,
+                   ffn.fused_mlp_backward]
 
 
-@pytest.mark.parametrize("case", range(14))
+@pytest.mark.parametrize("case", range(16))
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     wrapper, plain, args, extra = _wrapper_cases()[case]
     before = [c.launches for c in LAUNCH_COUNTERS]
@@ -300,6 +334,11 @@ def _fake_kernel_path(monkeypatch):
     monkeypatch.setattr(
         ffn, "fused_ffn_backward",
         fake("ffn_bwd", lambda *a, eps: ffn._ffn_backward_reference(*a, eps)))
+    monkeypatch.setattr(ffn, "_mlp_fwd_kernel",
+                        fake("mlp", ffn._fused_mlp_reference))
+    monkeypatch.setattr(
+        ffn, "fused_mlp_backward",
+        fake("mlp_bwd", ffn._fused_mlp_backward_reference))
     monkeypatch.setattr(
         xent, "_head_xent_fwd_kernel",
         fake("head_xent", lambda h, w, b, tg: xent._head_xent_reference(
@@ -328,6 +367,9 @@ def _grad_cases():
         "ffn": (ffn.fused_ffn, ffn._ffn_reference,
                 [t(8, 128), t(512, 128) * 0.1, t(256), t(128, 256) * 0.1],
                 (1e-5,), "_Ffn"),
+        "mlp": (ffn.fused_mlp, ffn._fused_mlp_reference,
+                [t(8, 128), t(96, 128) * 0.1, t(96), t(128, 96) * 0.1,
+                 t(128)], (), "_MlpFn"),
         "head_xent": (lambda h, w, b: xent.fused_head_xent(h, w, tg, bias=b),
                       lambda h, w, b: xent._head_xent_loss_reference(
                           h, w, tg, bias=b),
@@ -339,6 +381,7 @@ def _grad_cases():
 tg = torch.tensor([1, -1, 3, 4, -1, 6, 7, 8])
 GRAD_OPS = {"layernorm": ("layernorm", []), "flash": ("flash", ["flash_bwd"]),
             "ln_mlp": ("ln_mlp", ["ln_mlp_bwd"]), "ffn": ("ffn", ["ffn_bwd"]),
+            "mlp": ("mlp", ["mlp_bwd"]),
             "head_xent": ("head_xent", ["head_xent_bwd"])}
 
 
