@@ -13,6 +13,12 @@
 
 #define AMT_EXPORT extern "C" __attribute__((visibility("default")))
 
+// Element strides of a (batch, head, row) indexed operand whose last
+// dimension is contiguous; 64-bit, so b*h*t*d past 2^31 never overflows.
+struct Strides3 {
+  int64_t b, h, r;
+};
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
 template <>

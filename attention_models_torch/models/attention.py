@@ -12,8 +12,9 @@ a mask and where ``flash_supported`` holds, the flash op on the packed kv
 (dk, dv) cotangent, so the split never happens in either direction);
 otherwise the plain ``multihead_attention`` with the masks, as JAX runs XLA
 there (Muse's cross-attention over 77 text tokens, the shapes below 128
-tokens). A flash-sized kv batch unlike q's needs the separate-k/v kernel,
-which is not ported yet, and raises.
+tokens). A flash-sized kv batch unlike q's raises a ValueError: the JAX
+package's separate-k/v kernel, the only one there that takes separate k and
+v, reads k and v at q's batch index, so it defines no result for that shape.
 ``dropout`` drops q, the packed kv and the output, as the JAX module does,
 when the forward is not ``deterministic``. ``quant="int8"`` runs the three
 projections through ``quant_dot`` (JAX's ``_proj``); "int8_wide" leaves
@@ -63,10 +64,11 @@ class SoftmaxAttention(nn.Module):
                 (b, h, t, d), (kv.shape[0], h, kv.shape[1], d),
                 q.element_size()):
             if kv.shape[0] != b:
-                raise NotImplementedError(
-                    "flash attention over a kv batch unlike q's takes the "
-                    "separate-k/v kernel (the JAX package's "
-                    "_flash_kernel_mh), not ported yet (port slice 10)")
+                raise ValueError(
+                    f"flash attention over a kv batch ({kv.shape[0]}) unlike "
+                    f"q's ({b}) has no defined result: the JAX package's "
+                    f"separate-k/v kernel (_flash_kernel_mh, grid over q's "
+                    f"batch) reads k and v at q's batch index")
             if self.kernels:
                 out, _ = flash_attention_bthd_kv(q, kv, scale=scale)
             else:

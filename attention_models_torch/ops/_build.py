@@ -35,12 +35,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.POINTER(ctypes.c_int64)  # an int64 array of element strides
 _SIGNATURES = {
     "amt_layernorm": [_P, _P, _P, _P, ctypes.c_int64, _I, _F, _I, _P],
     "amt_nearest_codes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "amt_flash_fwd_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "amt_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _P],
     "amt_flash_bwd_kv": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_fwd": [_P] * 5 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_bwd_dkv": [_P] * 8 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_bwd_dq": [_P] * 7 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp_bwd": [_P] * 21 + [_I, _I, _I, _F, _P],
     "amt_ffn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_bwd": [_P] * 14 + [_I, _I, _I, _F, _I, _P],

@@ -1,39 +1,52 @@
-"""Flash attention on packed kv, forward and backward: kernels
+"""Flash attention, forward and backward, on three layouts: kernels
 (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu) and plain versions.
 
-Counterpart of ``attention_models_tpu/ops/flash_attention.py``'s
-``flash_attention_bthd_kv``: q is (b, tq, h, d) and kv is (b, tk, 2, h, d),
-the fused kv projection's output viewed in place, so k and v are never split
-into copies. The forward returns ``(out, lse)``: out in q's dtype and the
-natural-log logsumexp (b, tq, h) in fp32. The causal mask is bottom-right
-aligned; tq > tk with ``causal=True`` raises. The kernels take bf16
-(tensor-core products, exp2 softmax) and fp32 (exact FMA products and
-``expf``), head dim 64 only.
+Counterparts of ``attention_models_tpu/ops/flash_attention.py``:
 
-On the card ``_FlashKV`` wires the two kernels into autograd: its forward
-saves ``(q, kv, out, lse)`` as ``_flash_bthd_kv_fwd`` does, and its backward
-takes ``delta = rowsum(o * do)`` (``flash_delta``, plain) and launches the
-backward kernel for ``(dq, dkv)``. Without a gradient to record (serving,
-``no_grad``) the wrapper launches the forward kernel directly
-(``needs_grad``).
+- packed kv (kernels 1 and 5): ``flash_attention_bthd_kv`` takes q
+  (b, tq, h, d) and kv (b, tk, 2, h, d), the fused kv projection's output
+  viewed in place, so k and v are never split into copies;
+  ``flash_attention_bwd_kv`` is its backward;
+- separate k and v (kernels 9 and 10): ``flash_attention_bthd`` takes q, k, v
+  (b, t, h, d); ``flash_attention_bwd_bthd`` returns separate dk and dv;
+- per head (kernels 16, 17 and 18), the long-context and ring-attention
+  building blocks: ``flash_attention`` on (b, h, t, d), differentiable;
+  ``flash_forward`` (out and lse (b, h, tq)); ``flash_bwd_dkv`` and
+  ``flash_bwd_dq``, each from a given (global) lse and
+  ``delta = flash_delta(o, g)``, so the ring reuses them chunk by chunk;
+  ``_flash_backward`` runs dkv, then dq.
+
+The three layouts are three sets of strides into one forward template and
+one dkv/dq pair of kernels; a kernel takes any view whose last dimension is
+contiguous and whose rows are 16-byte aligned (k and v may be views of one
+packed kv). The forwards return out in q's dtype and the natural-log
+logsumexp in fp32. The causal mask is bottom-right aligned; tq > tk with
+``causal=True`` raises. The kernels take bf16 (tensor-core products, exp2
+softmax) and fp32 (exact FMA products and ``expf``), head width 32 or 64.
+
+On the card each differentiable entry goes through its autograd Function
+(kernel forward, kernel backward) when a gradient is recorded and launches
+the forward kernel directly otherwise (``needs_grad``). A CPU tensor takes
+the plain version; a CUDA tensor a kernel cannot take raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from attention_models_torch.ops import _build
-from attention_models_torch.ops.attention import make_causal_mask
 from attention_models_torch.ops.dispatch import (
     check_tensor,
     is_kernel_path,
     needs_grad,
 )
 
-HEAD_DIM = 64  # the head width the flash kernels are written for
+HEAD_DIMS = (32, 64)  # the head widths the flash kernels are built for
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+MAX_BH = 65535  # b * h rides the grid's y dimension
 
 
 def _check_causal_lengths(tq: int, tk: int) -> None:
@@ -98,65 +111,264 @@ def flash_supported(q_shape: tuple, k_shape: tuple, itemsize: int = 2) -> bool:
         return False
 
 
-def _heads(q: torch.Tensor, kv: torch.Tensor):
-    """fp32 (b, h, t, d) views of q, k and v."""
-    return (q.float().permute(0, 2, 1, 3), kv[:, :, 0].float().permute(0, 2, 1, 3),
-            kv[:, :, 1].float().permute(0, 2, 1, 3))
+# -- plain versions ----------------------------------------------------------
+
+def _row_chunks(tq: int, chunk: int | None) -> list[tuple[int, int]]:
+    step = tq if chunk is None else chunk
+    return [(r, min(step, tq - r)) for r in range(0, tq, step)]
 
 
-def _scores(qh, kh, scale: float, causal: bool) -> torch.Tensor:
+def _scores(qh, kh, scale: float, causal: bool, row0: int = 0,
+            tq: int | None = None) -> torch.Tensor:
+    """(q rows row0.. of a tq-row q) K^T * scale, the causal mask's hidden
+    entries at -inf."""
     s = (qh @ kh.transpose(-1, -2)) * scale
     if causal:
-        tq, tk = s.shape[-2:]
-        s = s.masked_fill(make_causal_mask(tq, tk, s.device), float("-inf"))
+        rows, tk = s.shape[-2:]
+        tq = rows if tq is None else tq
+        i = torch.arange(row0, row0 + rows, device=s.device)[:, None]
+        j = torch.arange(tk, device=s.device)[None, :]
+        s = s.masked_fill(j > i + (tk - tq), float("-inf"))
     return s
+
+
+def _attend(qh, kh, vh, scale: float, causal: bool, bf16: bool, row0: int,
+            tq: int):
+    """fp32 (b, h, rows, d) query rows row0.. against all of k and v:
+    (out fp32, lse (b, h, rows)). In bf16 with the kernels' rounding points
+    (the TPU kernel's and csrc/flash_attention.cu's): q scaled by
+    scale * log2(e) and rounded to bf16, the softmax in exp2, P rounded to
+    bf16 for the PV product while its row sum stays fp32."""
+    if bf16:
+        q2 = (qh * (scale * LOG2E)).to(torch.bfloat16).float()
+        s2 = _scores(q2, kh, 1.0, causal, row0, tq)            # log2 domain
+        m = s2.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s2 - m)
+        lsum = p.sum(dim=-1, keepdim=True)
+        out = (p.to(torch.bfloat16).float() @ vh) / lsum
+        lse = ((m + torch.log2(lsum)) * LN2)[..., 0]
+    else:
+        s = _scores(qh, kh, scale, causal, row0, tq)
+        lse = torch.logsumexp(s, dim=-1)
+        out = torch.exp(s - lse[..., None]) @ vh
+    return out, lse
+
+
+def _flash_forward_reference(q, k, v, scale: float, causal: bool,
+                             chunk: int | None = None):
+    """Plain version of kernel 16: q, k, v (b, h, t, d) -> (out like q, lse
+    (b, h, tq) fp32), ``chunk`` query rows at a time (the arithmetic of a row
+    is unchanged), so a long sequence never holds the whole (t, t) score
+    matrix."""
+    bf16 = q.dtype == torch.bfloat16
+    tq = q.shape[2]
+    kh, vh = k.float(), v.float()
+    outs, lses = [], []
+    for r0, n in _row_chunks(tq, chunk):
+        out, lse = _attend(q[:, :, r0:r0 + n].float(), kh, vh, scale, causal,
+                           bf16, r0, tq)
+        outs.append(out.to(q.dtype))
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def _flash_bthd_reference(q, k, v, scale: float, causal: bool):
+    """Plain version of kernel 9: q, k, v (b, t, h, d) -> (out like q, lse
+    (b, tq, h) fp32)."""
+    out, lse = _flash_forward_reference(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), scale, causal)
+    return (out.transpose(1, 2).contiguous(),
+            lse.transpose(1, 2).contiguous())
 
 
 def _flash_reference(q: torch.Tensor, kv: torch.Tensor, scale: float,
                      causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: the full fp32 score matrix, its logsumexp and the
-    normalised product with v. In bf16 with the kernels' rounding points
-    (the TPU kernel's and csrc/flash_attention.cu's): q scaled by
-    scale * log2(e) and rounded to bf16, the softmax in exp2, P rounded to
-    bf16 for the PV product while its row sum stays fp32."""
-    qh, kh, vh = _heads(q, kv)
-    if q.dtype == torch.bfloat16:
-        q2 = (qh * (scale * LOG2E)).to(q.dtype).float()
-        s2 = _scores(q2, kh, 1.0, causal)            # log2 domain
-        m = s2.amax(dim=-1, keepdim=True)
-        p = torch.exp2(s2 - m)
-        lsum = p.sum(dim=-1, keepdim=True)
-        out = (p.to(q.dtype).float() @ vh) / lsum
-        lse = ((m + torch.log2(lsum)) * LN2)[..., 0]
-    else:
-        s = _scores(qh, kh, scale, causal)
-        lse = torch.logsumexp(s, dim=-1)            # (b, h, tq)
-        out = torch.exp(s - lse[..., None]) @ vh
-    return (out.permute(0, 2, 1, 3).to(q.dtype),
-            lse.permute(0, 2, 1).contiguous())
+    """Plain version of kernel 1: q (b, tq, h, d) over packed kv
+    (b, tk, 2, h, d) -> (out like q, lse (b, tq, h) fp32)."""
+    return _flash_bthd_reference(q, kv[:, :, 0], kv[:, :, 1], scale, causal)
 
 
 def flash_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """delta = rowsum(dO * O) over the head dim, fp32 (b, tq, h)."""
+    """delta = rowsum(dO * O) over the head dim, fp32: (b, tq, h) for the
+    (b, t, h, d) layouts, (b, h, tq) for the per-head one."""
     return torch.sum(g.float() * o.float(), dim=-1)
 
 
-def _flash_backward_reference(q, kv, o, lse, g, scale: float, causal: bool):
-    """Plain version of the backward, all in fp32: P = exp(S - lse),
-    dV = P^T dO, dS = P * (dO V^T - delta), dQ = dS K * scale,
-    dK = dS^T Q * scale. Returns (dq like q, dkv like kv)."""
-    qh, kh, vh = _heads(q, kv)
-    gh = g.float().permute(0, 2, 1, 3)
-    delta = flash_delta(o, g).permute(0, 2, 1)[..., None]   # (b, h, tq, 1)
-    p = torch.exp(_scores(qh, kh, scale, causal) - lse.permute(0, 2, 1)[..., None])
-    dv = p.transpose(-1, -2) @ gh
-    ds = p * (gh @ vh.transpose(-1, -2) - delta)
-    dq = (ds @ kh) * scale
-    dk = (ds.transpose(-1, -2) @ qh) * scale
-    dkv = torch.stack([dk, dv], dim=1).permute(0, 3, 1, 2, 4)  # (b, tk, 2, h, d)
-    return (dq.permute(0, 2, 1, 3).to(q.dtype),
-            dkv.to(kv.dtype).contiguous())
+def _backward_heads(q, k, v, g, lse, delta, scale: float, causal: bool,
+                    chunk: int | None = None, dq: bool = True,
+                    dkv: bool = True):
+    """The backward's arithmetic on (b, h, t, d) operands with lse and delta
+    (b, h, tq), ``chunk`` query rows at a time (dk and dv summed over the
+    chunks): P = exp(S - lse), dV = P^T dO, dS = P * (dO V^T - delta),
+    dQ = dS K * scale, dK = dS^T Q * scale. fp32 results (dq None unless
+    asked; dk, dv None unless asked). In bf16 with the kernels' rounding
+    points: S from q scaled by scale * log2(e) and rounded to bf16, P in
+    exp2, P and dS rounded to bf16 before the products that take them."""
+    bf16 = q.dtype == torch.bfloat16
+    tq = q.shape[2]
+    kh, vh = k.float(), v.float()
+    dqs, dk, dv = [], None, None
+    for r0, n in _row_chunks(tq, chunk):
+        rows = slice(r0, r0 + n)
+        qh, gh = q[:, :, rows].float(), g[:, :, rows].float()
+        lse_r, delta_r = lse[:, :, rows, None], delta[:, :, rows, None]
+        if bf16:
+            q2 = (qh * (scale * LOG2E)).to(torch.bfloat16).float()
+            p = torch.exp2(_scores(q2, kh, 1.0, causal, r0, tq)
+                           - lse_r * LOG2E)
+        else:
+            p = torch.exp(_scores(qh, kh, scale, causal, r0, tq) - lse_r)
+        ds = p * (gh @ vh.transpose(-1, -2) - delta_r)
+        if bf16:
+            p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+        if dkv:
+            dv_r = p.transpose(-1, -2) @ gh
+            dk_r = (ds.transpose(-1, -2) @ qh) * scale
+            dv = dv_r if dv is None else dv + dv_r
+            dk = dk_r if dk is None else dk + dk_r
+        if dq:
+            dqs.append((ds @ kh) * scale)
+    return (torch.cat(dqs, dim=2) if dq else None), dk, dv
 
+
+def _flash_bwd_dkv_reference(q, g, lse, delta, k, v, scale: float,
+                             causal: bool, chunk: int | None = None):
+    """Plain version of kernel 17: (dk, dv) of one k/v chunk in k's and v's
+    dtypes, from the given lse and delta."""
+    _, dk, dv = _backward_heads(q, k, v, g, lse, delta, scale, causal, chunk,
+                                dq=False)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_bwd_dq_reference(k, v, q, g, lse, delta, scale: float,
+                            causal: bool, chunk: int | None = None):
+    """Plain version of kernel 18: dq against one k/v chunk in q's dtype,
+    from the given lse and delta."""
+    dq, _, _ = _backward_heads(q, k, v, g, lse, delta, scale, causal, chunk,
+                               dkv=False)
+    return dq.to(q.dtype)
+
+
+def _flash_backward_heads_reference(q, k, v, o, lse, g, scale: float,
+                                    causal: bool, chunk: int | None = None):
+    """Plain version of ``_flash_backward`` (kernels 17 and 18) on
+    (b, h, t, d): (dq, dk, dv) in q's, k's and v's dtypes."""
+    dq, dk, dv = _backward_heads(q, k, v, g, lse, flash_delta(o, g), scale,
+                                 causal, chunk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _flash_backward_bthd_reference(q, k, v, o, lse, g, scale: float,
+                                   causal: bool):
+    """Plain version of kernel 10: q, k, v, o, g (b, t, h, d), lse
+    (b, tq, h) -> (dq, dk, dv) (b, t, h, d)."""
+    heads = [t.transpose(1, 2) for t in (q, k, v, o, lse, g)]
+    return tuple(t.transpose(1, 2).contiguous() for t in
+                 _flash_backward_heads_reference(*heads, scale, causal))
+
+
+def _flash_backward_reference(q, kv, o, lse, g, scale: float, causal: bool):
+    """Plain version of kernel 5: (dq like q, dkv like kv)."""
+    dq, dk, dv = _flash_backward_bthd_reference(q, kv[:, :, 0], kv[:, :, 1],
+                                                o, lse, g, scale, causal)
+    return dq, torch.stack([dk, dv], dim=2).contiguous()
+
+
+# -- kernel launches -----------------------------------------------------------
+
+def _check_head_dim(d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim {d}; the kernels take "
+                         f"{HEAD_DIMS}")
+
+
+def _check_views(q: torch.Tensor, *named: tuple[str, torch.Tensor]) -> None:
+    """Kernel operands as (b, h, t, d) views of q's dtype (lse and delta:
+    fp32 (b, h, t)) on q's device: the last dimension contiguous, rows
+    16-byte aligned; b * h within the grid."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash kernel: dtype {q.dtype} not in (float32, "
+                        f"bfloat16)")
+    _check_head_dim(q.shape[-1])
+    if q.shape[0] * q.shape[1] > MAX_BH:
+        raise ValueError(f"flash kernel: b*h {q.shape[0] * q.shape[1]} > "
+                         f"{MAX_BH}")
+    for name, t in named:
+        if t.device != q.device:
+            raise ValueError(f"{name}: on {t.device}, expected {q.device}")
+        if t.dim() == 3:
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: dtype {t.dtype}, needs float32")
+            continue
+        if t.dtype != q.dtype or t.shape[-1] != q.shape[-1]:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does not "
+                             f"match q's {q.dtype} head dim {q.shape[-1]}")
+        item = t.element_size()
+        if (t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(s * item % 16 for s, n in zip(t.stride()[:3], t.shape)
+                       if n > 1)):
+            raise ValueError(f"flash kernel: {name} needs a contiguous last "
+                             f"dimension and 16-byte aligned rows (strides "
+                             f"{t.stride()})")
+
+
+def _strides(*views: torch.Tensor | None):
+    """The (batch, head, row) element strides of each view, as the C int64
+    array the kernels take (zeros for an absent operand)."""
+    vals = []
+    for t in views:
+        vals += [0, 0, 0] if t is None else list(t.stride()[:3])
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _launch_fwd(q, k, v, out, lse, scale: float, causal: bool) -> None:
+    """The forward template on (b, h, t, d) views of q, k, v and out and a
+    (b, h, tq) view of lse."""
+    _check_views(q, ("q", q), ("k", k), ("v", v), ("out", out), ("lse", lse))
+    b, h, tq, d = q.shape
+    with torch.cuda.device(q.device):
+        _build.launch(
+            "amt_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out, lse), b,
+            h, tq, k.shape[2], d, scale, int(causal),
+            _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+        )
+
+
+def _launch_bwd(q, k, v, g, lse, delta, scale: float, causal: bool, *,
+                dq=None, dk=None, dv=None) -> None:
+    """The dkv kernel (when dk and dv are given), then the dq kernel (when dq
+    is given), on (b, h, t, d) views; lse and delta (b, h, tq) views."""
+    outs = [(n, t) for n, t in (("dq", dq), ("dk", dk), ("dv", dv))
+            if t is not None]
+    _check_views(q, ("q", q), ("k", k), ("v", v), ("g", g), ("lse", lse),
+                 ("delta", delta), *outs)
+    b, h, tq, d = q.shape
+    strides = _strides(q, k, v, g, lse, delta, dq, dk, dv)
+    tail = (b, h, tq, k.shape[2], d, scale, int(causal),
+            _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+           lse.data_ptr(), delta.data_ptr())
+    with torch.cuda.device(q.device):
+        if dk is not None:
+            _build.launch("amt_flash_bwd_dkv", *ins, dk.data_ptr(),
+                          dv.data_ptr(), strides, *tail)
+        if dq is not None:
+            _build.launch("amt_flash_bwd_dq", *ins, dq.data_ptr(), strides,
+                          *tail)
+
+
+def _empty(t: torch.Tensor) -> torch.Tensor:
+    """A new contiguous tensor of t's shape, dtype and device."""
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+
+
+def _heads(t: torch.Tensor) -> torch.Tensor:
+    """(b, t, h, ...) -> the (b, h, t, ...) view."""
+    return t.transpose(1, 2)
+
+
+# -- packed kv: kernels 1 and 5 --------------------------------------------------
 
 def _check_shapes(q: torch.Tensor, kv: torch.Tensor, causal: bool) -> None:
     if q.dim() != 4 or kv.dim() != 5 or kv.shape[2] != 2:
@@ -176,9 +388,10 @@ def _check_kernel_operands(q: torch.Tensor, kv: torch.Tensor,
     check_tensor(kv, "kv", (q.dtype,), 5, q.device)
     for name, t in more:
         check_tensor(t, name, (t.dtype,), None, q.device)
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash kernel: head dim {q.shape[-1]}, needs "
-                         f"{HEAD_DIM}")
+    _check_head_dim(q.shape[-1])
+    if q.shape[0] * q.shape[2] > MAX_BH:
+        raise ValueError(f"flash kernel: b*h {q.shape[0] * q.shape[2]} > "
+                         f"{MAX_BH}")
     if any(t.data_ptr() % 16 for t in (q, kv, *(t for _, t in more))):
         raise ValueError("flash kernel: operands must be 16-byte aligned")
 
@@ -264,3 +477,199 @@ def flash_attention_bthd_kv(
 
 
 flash_attention_bthd_kv.launches = 0
+
+
+# -- separate k and v on (b, t, h, d): kernels 9 and 10 --------------------------
+
+def _check_bthd(q, k, v, causal: bool) -> None:
+    """q (b, tq, h, d), k and v (b, tk, h, d). k and v are read at q's
+    batch index, as the JAX package's kernel reads them."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q, k, v (b,t,h,d), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, tq, h, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if causal:
+        _check_causal_lengths(tq, k.shape[1])
+
+
+def _flash_bthd_kernel(q, k, v, scale: float, causal: bool):
+    b, tq, h, _ = q.shape
+    out = _empty(q)
+    lse = torch.empty(b, tq, h, dtype=torch.float32, device=q.device)
+    _launch_fwd(*map(_heads, (q, k, v, out, lse)), scale, causal)
+    flash_attention_bthd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_bthd(q, k, v, o, lse, g, *, scale: float,
+                             causal: bool = False):
+    """(dq, dk, dv) of ``flash_attention_bthd`` for the cotangent ``g`` of
+    ``o`` (kernel 10: the dkv kernel, then the dq kernel); the plain version
+    for CPU tensors."""
+    _check_bthd(q, k, v, causal)
+    if not is_kernel_path(q):
+        return _flash_backward_bthd_reference(q, k, v, o, lse, g, scale,
+                                              causal)
+    delta = flash_delta(o, g)
+    dq, dk, dv = _empty(q), _empty(k), _empty(v)
+    _launch_bwd(*map(_heads, (q, k, v, g, lse, delta)), scale, causal,
+                dq=_heads(dq), dk=_heads(dk), dv=_heads(dv))
+    flash_attention_bwd_bthd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_bthd.launches = 0
+
+
+class _FlashBthd(torch.autograd.Function):
+    """Kernel 9 forward, kernel 10 backward; lse has no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = _flash_bthd_kernel(q, k, v, scale, causal)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_bthd(
+            q, k, v, out, lse, g.contiguous(), scale=ctx.scale,
+            causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bthd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    scale: float | None = None, causal: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable attention over q (b, tq, h, d) and separate k, v
+    (b, tk, h, d), the JAX package's ``flash_attention_bthd``; returns
+    (out (b, tq, h, d), lse (b, tq, h) fp32). k and v may be strided views
+    (``kv[:, :, 0]``), read in place."""
+    _check_bthd(q, k, v, causal)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not is_kernel_path(q):
+        return _flash_bthd_reference(q, k, v, scale, causal)
+    if needs_grad(q, k, v):
+        return _FlashBthd.apply(q, k, v, scale, causal)
+    return _flash_bthd_kernel(q, k, v, scale, causal)
+
+
+flash_attention_bthd.launches = 0
+
+
+# -- per head (b, h, t, d): kernels 16, 17 and 18 --------------------------------
+
+def _check_heads_shapes(q, k, v, causal: bool) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q, k, v (b,h,t,d), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if (k.shape[0], k.shape[1], k.shape[3]) != (q.shape[0], q.shape[1],
+                                                q.shape[3]):
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if causal:
+        _check_causal_lengths(q.shape[2], k.shape[2])
+
+
+def flash_forward(q, k, v, *, scale: float, causal: bool = False):
+    """Kernel 16 (the JAX package's ``_flash_forward``): q, k, v
+    (b, h, t, d) -> (out like q, natural-log lse (b, h, tq) fp32); the plain
+    version for CPU tensors."""
+    _check_heads_shapes(q, k, v, causal)
+    if not is_kernel_path(q):
+        return _flash_forward_reference(q, k, v, scale, causal)
+    b, h, tq, _ = q.shape
+    out = _empty(q)
+    lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
+    _launch_fwd(q, k, v, out, lse, scale, causal)
+    flash_forward.launches += 1
+    return out, lse
+
+
+flash_forward.launches = 0
+
+
+def flash_bwd_dkv(q, g, lse, delta, k, v, *, scale: float,
+                  causal: bool = False):
+    """Kernel 17 (the JAX package's ``flash_bwd_dkv``): the partial dk, dv
+    of the k/v chunk from the GLOBAL lse and delta (b, h, tq), in k's and
+    v's dtypes."""
+    _check_heads_shapes(q, k, v, causal)
+    if not is_kernel_path(q):
+        return _flash_bwd_dkv_reference(q, g, lse, delta, k, v, scale, causal)
+    dk, dv = _empty(k), _empty(v)
+    _launch_bwd(q, k, v, g, lse, delta, scale, causal, dk=dk, dv=dv)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq(k, v, q, g, lse, delta, *, scale: float,
+                 causal: bool = False):
+    """Kernel 18 (the JAX package's ``flash_bwd_dq``): the partial dq
+    against the k/v chunk from the GLOBAL lse and delta, in q's dtype."""
+    _check_heads_shapes(q, k, v, causal)
+    if not is_kernel_path(q):
+        return _flash_bwd_dq_reference(k, v, q, g, lse, delta, scale, causal)
+    dq = _empty(q)
+    _launch_bwd(q, k, v, g, lse, delta, scale, causal, dq=dq)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def _flash_backward(q, k, v, o, lse, g, *, scale: float,
+                    causal: bool = False):
+    """(dq, dk, dv) of ``flash_attention``: delta, then kernel 17, then
+    kernel 18, as the JAX package's ``_flash_backward``."""
+    delta = flash_delta(o, g)
+    dk, dv = flash_bwd_dkv(q, g, lse, delta, k, v, scale=scale, causal=causal)
+    dq = flash_bwd_dq(k, v, q, g, lse, delta, scale=scale, causal=causal)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Kernel 16 forward; kernels 17 and 18 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        out, lse = flash_forward(q, k, v, scale=scale, causal=causal)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, g.contiguous(),
+                                     scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    scale: float | None = None, causal: bool = False,
+) -> torch.Tensor:
+    """Differentiable flash attention over (b, h, t, d) tensors, the JAX
+    package's ``flash_attention``: out in q's dtype. Its memory is O(t) at
+    any length (no (t, t) score matrix on the card)."""
+    _check_heads_shapes(q, k, v, causal)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not is_kernel_path(q):
+        return _flash_forward_reference(q, k, v, scale, causal)[0]
+    if needs_grad(q, k, v):
+        return _Flash.apply(q, k, v, scale, causal)
+    return flash_forward(q, k, v, scale=scale, causal=causal)[0]

@@ -11,7 +11,14 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               its forward + backward) times and the bound; the repaired
               widths too (ln_mlp forward and backward at d 768 and 1024,
               nearest codes at widths 8 and 64, LayerNorm at d 8192); the
-              fused GELU MLP (kernels 7 and 8) at ViT's shape
+              fused GELU MLP (kernels 7 and 8) at ViT's shape; the
+              separate-k/v flash pair (kernels 9 and 10) at the recon shape
+              and at h 12, the per-head flash kernels (16, 17 and 18) at
+              b 1, h 8, t 4096: bf16 and fp32, causal and not, tq != tk
+              once, head width 64 and 32; and bit for bit, kernel 9 on the
+              views kv[:, :, 0], kv[:, :, 1] against kernel 1 on the packed
+              kv, kernel 10 against kernel 5, kernel 16 on the (b, h, t, d)
+              transposes against kernel 9, kernels 17 + 18 against 10
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -94,10 +101,31 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               over 2 eval forwards and 2 training micro-steps; evaluate() on
               the ragged validation batch; one fp32 step (TF32 off), kernels
               vs plain
+ 14. longcontext  attention_models_torch.longcontext.longcontext(): causal
+              flash attention, b 1, h 8, d 64, bf16, at t 4096, 8192 and
+              16384, forward and forward + backward of out.float().sum()
+              (kernel 16, then 17 and 18): exact launch deltas, ms per
+              call beside SDPA's and the bound, peak memory above the
+              inputs (< 1 GiB at t 16384: O(t), no (t, t) matrix); at
+              t 16384 the output and gradients against the plain version
+              taken 1024 query rows at a time
+ 15. ring     ring_flash_attention over 4 virtual shards, b 1, h 8,
+              t 16384 (4096 a shard), d 64, bf16, non-causal and causal,
+              forward and backward: exactly 16 launches of kernel 16 a
+              forward and of kernels 17 and 18 a backward; output and
+              gradients against the full-length kernels, every output
+              finite, ms; then fp32 at t 4096 against the plain
+              full-length attention
+ 16. flash_bthd  the separate-k/v API flash_attention_bthd (no model calls
+              it in this slice) at the recon shape, bf16: forward +
+              backward through its autograd Function (one launch each of
+              kernels 9 and 10) and one no-grad forward, against the fp32
+              plain attention
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
-Each kernel's "launches" there is the sum of its counts over the seven
+Each kernel's "launches" there is the sum of its counts over the ten
 driven paths (serving, training, maskgit, maskgit_train, muse, recon_int8,
-vit, each counted from 0), listed one by one beside it.
+vit, longcontext, ring, flash_bthd, each counted from 0), listed one by one
+beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -184,6 +212,15 @@ Tolerances (kernel against plain on the card):
     before the products that take them, as in the TPU kernels), bf16;
   - nearest codes at widths 8 and 64 (fp32, TF32 off): every index equal
     to the plain version's;
+  - the flash kernels 9, 10 and 16-18 against their plain versions: forward
+    bf16 1e-2, backward bf16 2e-2, fp32 1e-5 (the plain versions round
+    where the kernels do); the layout gates exactly (one template, the same
+    arithmetic in the same order); long context at t 16384, against the
+    chunked plain version, output 1e-2 and gradients 2e-2; the ring against
+    the full-length kernels, output 1e-2 and gradients 2e-2 in bf16 (its
+    merge of four chunks in fp32 is the only difference), against the plain
+    full-length attention 1e-5 in fp32; flash_attention_bthd through
+    autograd against the fp32 plain attention, 1e-2 and 2e-2;
   - ViT (bf16, batch 64): the logits within relative L2 2e-2 of the plain
     path, and against the fp32 plain logits kernels at most FLOOR_RATIO
     times the plain path's; one fp32 step (TF32 off): the loss within
@@ -558,9 +595,18 @@ def main() -> int:
         _head_xent_backward_reference, _head_xent_fwd_kernel,
         _head_xent_loss_reference, _head_xent_reference, fused_head_xent,
         head_xent_backward)
+    from attention_models_torch.ops.attention import make_causal_mask
     from attention_models_torch.ops.flash_attention import (
-        _flash_backward_reference, _flash_reference, flash_attention_bthd_kv,
-        flash_attention_bwd_kv)
+        _flash_backward_bthd_reference, _flash_backward_heads_reference,
+        _flash_backward_reference, _flash_bthd_reference,
+        _flash_bwd_dkv_reference, _flash_bwd_dq_reference,
+        _flash_forward_reference, _flash_reference, flash_attention,
+        flash_attention_bthd, flash_attention_bthd_kv,
+        flash_attention_bwd_bthd, flash_attention_bwd_kv, flash_bwd_dkv,
+        flash_bwd_dq, flash_delta, flash_forward)
+    from attention_models_torch.ops.ring_attention import (
+        ring_flash_attention)
+    from attention_models_torch.longcontext import longcontext, make_inputs
     from attention_models_torch.training.build_trainer import build_trainer
     from attention_models_torch.ops.layernorm import _ln_reference, layernorm
     from attention_models_torch.ops.sampling import (
@@ -869,6 +915,179 @@ def main() -> int:
                time_ms(sdpa_fwd_bwd),
                nbytes(q, kv, out, lse, g, dq, dkv),
                10 * b_ * hh * d_ * n_pairs)
+
+    # kernels 9 and 10: separate k and v on (b, t, h, d) at the recon shape
+    # (b 8, t 1024, h 8) and at h 12, bf16 and fp32, causal and not, tq != tk
+    # once, head width 64 and 32; kernels 16, 17 and 18 on (b, h, t, d) at
+    # the long-context shape (b 1, h 8, t 4096), the same variants. The
+    # library call is SDPA (forward for 9 and 16, forward + backward for 10
+    # and for 17 + 18); its causal mask is top-left, so at tq != tk it takes
+    # the bottom-right mask explicitly
+    def pairs_of(tq, tk, causal):
+        """the (query, key) pairs a causal bottom-right mask leaves visible"""
+        return tq * (tk - tq) + tq * (tq + 1) // 2 if causal else tq * tk
+
+    def sdpa(qh, kh, vh, causal):
+        tq, tk = qh.shape[2], kh.shape[2]
+        if causal and tq != tk:
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=~make_causal_mask(tq, tk, dev))
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    def sdpa_fwd_bwd_of(qh, kh, vh, gh, causal):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (qh, kh, vh)]
+
+        def run():
+            return torch.autograd.grad(sdpa(*leaves, causal), leaves, gh)
+        return run
+
+    def tol_of(dtype, backward=False):
+        if dtype == torch.float32:
+            return F32_TOL
+        return BWD_BF16_TOL if backward else BF16_TOL
+
+    def heads(t):
+        return t.transpose(1, 2)
+
+    for bb, tq, tk, hh, dd, dtype, causal in (
+            (b_, t_, t_, h_, d_, torch.bfloat16, False),
+            (b_, t_, t_, h_, d_, torch.float32, False),
+            (b_, t_, t_, h_, d_, torch.bfloat16, True),
+            (b_, t_, t_, h_, d_, torch.float32, True),
+            (b_, t_, t_, mg_heads, d_, torch.bfloat16, False),
+            (b_, t_, t_, mg_heads, d_, torch.float32, False),
+            (b_, t_ // 2, t_, h_, d_, torch.bfloat16, True),
+            (b_, t_, t_, h_, 32, torch.bfloat16, False),
+            (b_, t_, t_, h_, 32, torch.float32, True)):
+        sc = dd ** -0.5
+        q, k, v, g = (randn(bb, t, hh, dd, dtype=dtype)
+                      for t in (tq, tk, tk, tq))
+        out, lse = flash_attention_bthd(q, k, v, causal=causal)
+        out_p, lse_p = _flash_bthd_reference(q, k, v, sc, causal)
+        tol = tol_of(dtype)
+        lse_err = rel_l2(lse, lse_p)
+        gate(lse_err <= tol, f"flash_attention_bthd lse rel_l2 {lse_err}")
+        qs, ks, vs, gs = (heads(t).contiguous() for t in (q, k, v, g))
+        npairs = pairs_of(tq, tk, causal)
+        label = f"b{bb} tq{tq} tk{tk} h{hh} d{dd} causal={causal}"
+        record("flash_attention_bthd", f"{label} (lse rel_l2 {lse_err:.2e})",
+               dtype, tol, rel_l2(out, out_p), max_abs(out, out_p),
+               time_ms(lambda: flash_attention_bthd(q, k, v, causal=causal)),
+               time_ms(lambda: _flash_bthd_reference(q, k, v, sc, causal)),
+               time_ms(lambda: sdpa(qs, ks, vs, causal)),
+               nbytes(q, k, v, out, lse), 4 * bb * hh * dd * npairs)
+        grads = flash_attention_bwd_bthd(q, k, v, out, lse, g, scale=sc,
+                                         causal=causal)
+        grads_p = _flash_backward_bthd_reference(q, k, v, out, lse, g, sc,
+                                                 causal)
+        errs = [rel_l2(a, b) for a, b in zip(grads, grads_p)]
+        record("flash_attention_bwd_bthd",
+               f"{label} (dq, dk, dv rel_l2 {errs[0]:.2e}, {errs[1]:.2e}, "
+               f"{errs[2]:.2e})", dtype, tol_of(dtype, True), max(errs),
+               max(max_abs(a, b) for a, b in zip(grads, grads_p)),
+               time_ms(lambda: flash_attention_bwd_bthd(
+                   q, k, v, out, lse, g, scale=sc, causal=causal)),
+               time_ms(lambda: _flash_backward_bthd_reference(
+                   q, k, v, out, lse, g, sc, causal), iters=5),
+               time_ms(sdpa_fwd_bwd_of(qs, ks, vs, gs, causal)),
+               nbytes(q, k, v, out, lse, g, *grads),
+               10 * bb * hh * dd * npairs)
+        del q, k, v, g, out, lse, grads, grads_p, qs, ks, vs, gs
+
+    lt = 4096
+    for tq, tk, dd, dtype, causal in ((lt, lt, d_, torch.bfloat16, True),
+                                      (lt, lt, d_, torch.bfloat16, False),
+                                      (lt, lt, d_, torch.float32, True),
+                                      (lt, lt, d_, torch.float32, False),
+                                      (lt // 2, lt, d_, torch.bfloat16, True),
+                                      (lt, lt, 32, torch.bfloat16, True),
+                                      (lt, lt, 32, torch.float32, True)):
+        sc = dd ** -0.5
+        q, k, v, g = (randn(1, h_, t, dd, dtype=dtype)
+                      for t in (tq, tk, tk, tq))
+        main = (tq, dd, dtype, causal) == (lt, d_, torch.bfloat16, True)
+        out, lse = flash_forward(q, k, v, scale=sc, causal=causal)
+        out_p, lse_p = _flash_forward_reference(q, k, v, sc, causal)
+        tol = tol_of(dtype)
+        lse_err = rel_l2(lse, lse_p)
+        gate(lse_err <= tol, f"flash_forward lse rel_l2 {lse_err}")
+        npairs = pairs_of(tq, tk, causal)
+        label = f"b1 tq{tq} tk{tk} h{h_} d{dd} causal={causal}"
+        record("flash_forward", f"{label} (lse rel_l2 {lse_err:.2e})", dtype,
+               tol, rel_l2(out, out_p), max_abs(out, out_p),
+               time_ms(lambda: flash_forward(q, k, v, scale=sc,
+                                             causal=causal)),
+               time_ms(lambda: _flash_forward_reference(q, k, v, sc, causal),
+                       iters=5),
+               time_ms(lambda: sdpa(q, k, v, causal)),
+               nbytes(q, k, v, out, lse), 4 * h_ * dd * npairs, main=main)
+        delta = flash_delta(out, g)
+        dk, dv = flash_bwd_dkv(q, g, lse, delta, k, v, scale=sc,
+                               causal=causal)
+        dq = flash_bwd_dq(k, v, q, g, lse, delta, scale=sc, causal=causal)
+        dk_p, dv_p = _flash_bwd_dkv_reference(q, g, lse, delta, k, v, sc,
+                                              causal)
+        dq_p = _flash_bwd_dq_reference(k, v, q, g, lse, delta, sc, causal)
+        lib_ms = time_ms(sdpa_fwd_bwd_of(q, k, v, g, causal))
+        errs = [rel_l2(dk, dk_p), rel_l2(dv, dv_p)]
+        record("flash_bwd_dkv",
+               f"{label} (dk, dv rel_l2 {errs[0]:.2e}, {errs[1]:.2e})",
+               dtype, tol_of(dtype, True), max(errs),
+               max(max_abs(dk, dk_p), max_abs(dv, dv_p)),
+               time_ms(lambda: flash_bwd_dkv(q, g, lse, delta, k, v,
+                                             scale=sc, causal=causal)),
+               time_ms(lambda: _flash_bwd_dkv_reference(
+                   q, g, lse, delta, k, v, sc, causal), iters=5),
+               lib_ms, nbytes(q, k, v, g, lse, delta, dk, dv),
+               8 * h_ * dd * npairs, main=main)
+        record("flash_bwd_dq", label, dtype, tol_of(dtype, True),
+               rel_l2(dq, dq_p), max_abs(dq, dq_p),
+               time_ms(lambda: flash_bwd_dq(k, v, q, g, lse, delta,
+                                            scale=sc, causal=causal)),
+               time_ms(lambda: _flash_bwd_dq_reference(
+                   k, v, q, g, lse, delta, sc, causal), iters=5),
+               lib_ms, nbytes(q, k, v, g, lse, delta, dq),
+               6 * h_ * dd * npairs, main=main)
+        del q, k, v, g, out, lse, delta, dk, dv, dq, dk_p, dv_p, dq_p
+
+    # one template, three layouts: bit for bit, kernel 9 on the views
+    # kv[:, :, 0], kv[:, :, 1] is kernel 1 on the packed kv and kernel 10 is
+    # kernel 5; kernel 16 on the (b, h, t, d) transposes is kernel 9, and
+    # kernels 17 and 18 there are kernel 10
+    for dtype, causal in ((torch.bfloat16, False), (torch.float32, True)):
+        q = randn(b_, t_, h_, d_, dtype=dtype)
+        kv = randn(b_, t_, 2, h_, d_, dtype=dtype)
+        g = randn(b_, t_, h_, d_, dtype=dtype)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        o1, l1 = flash_attention_bthd_kv(q, kv, causal=causal)
+        o9, l9 = flash_attention_bthd(q, k, v, causal=causal)
+        dq5, dkv5 = flash_attention_bwd_kv(q, kv, o1, l1, g, scale=scale,
+                                           causal=causal)
+        dq10, dk10, dv10 = flash_attention_bwd_bthd(
+            q, k, v, o9, l9, g, scale=scale, causal=causal)
+        o16, l16 = flash_forward(heads(q), heads(k), heads(v), scale=scale,
+                                 causal=causal)
+        delta = flash_delta(o16, heads(g))
+        dk17, dv17 = flash_bwd_dkv(heads(q), heads(g), l16, delta, heads(k),
+                                   heads(v), scale=scale, causal=causal)
+        dq18 = flash_bwd_dq(heads(k), heads(v), heads(q), heads(g), l16,
+                            delta, scale=scale, causal=causal)
+        same = {
+            "9 = 1": torch.equal(o9, o1) and torch.equal(l9, l1),
+            "10 = 5": (torch.equal(dq10, dq5)
+                       and torch.equal(dk10, dkv5[:, :, 0])
+                       and torch.equal(dv10, dkv5[:, :, 1])),
+            "16 = 9": (torch.equal(heads(o16), o9)
+                       and torch.equal(heads(l16), l9)),
+            "17 + 18 = 10": (torch.equal(heads(dq18), dq10)
+                             and torch.equal(heads(dk17), dk10)
+                             and torch.equal(heads(dv17), dv10))}
+        print(f"[kernel] flash layouts, {str(dtype)[6:]} causal={causal}, "
+              f"bit for bit: {same}", flush=True)
+        gate(all(same.values()), f"flash layouts differ: {same}")
+        del q, kv, g, k, v, o1, l1, o9, l9, dq5, dkv5, dq10, dk10, dv10
+        del o16, l16, delta, dk17, dv17, dq18
 
     # fused LN + MLP backward, bf16; the library call is layer_norm ->
     # linear -> gelu -> linear forward + backward
@@ -1356,7 +1575,11 @@ def main() -> int:
                 "ffn_bwd": fused_ffn_backward, "head_xent": fused_head_xent,
                 "head_xent_bwd": head_xent_backward, "ffn_q8": fused_ffn_q8,
                 "ffn_q8wide": fused_ffn_q8wide, "ln_mlp_q8": fused_ln_mlp_q8,
-                "mlp": fused_mlp, "mlp_bwd": fused_mlp_backward}
+                "mlp": fused_mlp, "mlp_bwd": fused_mlp_backward,
+                "flash_attention_bthd": flash_attention_bthd,
+                "flash_attention_bwd_bthd": flash_attention_bwd_bthd,
+                "flash_forward": flash_forward,
+                "flash_bwd_dkv": flash_bwd_dkv, "flash_bwd_dq": flash_bwd_dq}
     per_forward = {"flash_attention_bthd_kv": 12, "ln_mlp": 12,
                    "layernorm": 16, "nearest_codes": 1}
     per_encode = {"flash_attention_bthd_kv": 6, "ln_mlp": 6,
@@ -1624,7 +1847,8 @@ def main() -> int:
               f"{st['g_changed']}, D changed {st['d_changed']}, losses "
               + ", ".join(f"{k} {v:.4f}" for k, v in st["losses"].items()),
               flush=True)
-        if st["launches"] != PER_MICRO_STEP:
+        if st["launches"] != {k: PER_MICRO_STEP.get(k, 0)
+                              for k in st["launches"]}:
             raise AssertionError(f"micro-step {i}: launches "
                                  f"{st['launches']}, expected "
                                  f"{PER_MICRO_STEP}")
@@ -2431,6 +2655,170 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 14 --
+    # the long-context workload (bench.py's long-context proof on the
+    # port): causal flash attention, b 1, h 8, d 64, bf16, t 4096 / 8192 /
+    # 16384, forward and forward + backward through flash_attention
+    torch.cuda.synchronize()
+    c = zero_counts()
+    lc_rows = longcontext()
+    calls_f = sum(r["fwd_calls"] + r["fwd_bwd_calls"] for r in lc_rows)
+    calls_b = sum(r["fwd_bwd_calls"] for r in lc_rows)
+    c = expect_delta(c, {"flash_forward": calls_f, "flash_bwd_dkv": calls_b,
+                         "flash_bwd_dq": calls_b}, "long context")
+    longcontext_launches = counts()
+    for r in lc_rows:
+        t = r["t"]
+        q, k, v = make_inputs(t, device=dev)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            return torch.autograd.grad(o.float().sum(), leaves)
+
+        r["sdpa_fwd_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10)
+        r["sdpa_fwd_bwd_ms"] = time_ms(lib_fwd_bwd, iters=5)
+        pairs = 8 * t * (t + 1) // 2
+        r["fwd_bound_ms"] = 4 * pairs * 64 / PEAK_FLOPS["bfloat16"] * 1e3
+        r["fwd_bwd_bound_ms"] = 14 * pairs * 64 / PEAK_FLOPS["bfloat16"] * 1e3
+        print(f"[longcontext] t {t}: forward {r['fwd_ms']:.4f} ms (SDPA "
+              f"{r['sdpa_fwd_ms']:.4f}, bound {r['fwd_bound_ms']:.4f}), "
+              f"forward + backward {r['fwd_bwd_ms']:.4f} ms (SDPA "
+              f"{r['sdpa_fwd_bwd_ms']:.4f}, bound {r['fwd_bwd_bound_ms']:.4f}"
+              f" as the split computes it), peak above the inputs "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB | {smi}", flush=True)
+    gate(lc_rows[-1]["t"] == 16384
+         and lc_rows[-1]["peak_bytes"] < 2 ** 30,
+         f"long context: peak {lc_rows[-1]['peak_bytes']} B at t 16384")
+    # t 16384 against the plain version, 1024 query rows at a time (the
+    # whole (t, t) fp32 score matrix would take 8 GiB a product)
+    out = flash_attention(*leaves, causal=True)
+    lc_grads = torch.autograd.grad(out.float().sum(), leaves)
+    out = out.detach()
+    out_p, lse_p = _flash_forward_reference(q, k, v, 0.125, True, chunk=1024)
+    ones = torch.ones_like(out)
+    grads_p = _flash_backward_heads_reference(q, k, v, out_p, lse_p, ones,
+                                              0.125, True, chunk=1024)
+    lc_err = dict(out=rel_l2(out, out_p),
+                  **{f"d{n}": rel_l2(a, b) for n, a, b in zip(
+                      "qkv", lc_grads, grads_p)})
+    print(f"[longcontext] t 16384 kernels vs the chunked plain version: "
+          f"{lc_err} (tol forward {BF16_TOL:g}, gradients "
+          f"{BWD_BF16_TOL:g})", flush=True)
+    gate(lc_err["out"] <= BF16_TOL
+         and all(lc_err[f"d{n}"] <= BWD_BF16_TOL for n in "qkv")
+         and all(bool(torch.isfinite(x).all()) for x in (out, *lc_grads)),
+         f"long context t 16384: {lc_err}")
+    del q, k, v, leaves, out, out_p, lse_p, ones, grads_p, lc_grads
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 15 --
+    # ring attention over 4 virtual shards: b 1, h 8, t 16384 (4096 a
+    # shard), d 64, bf16, non-causal and causal, forward and backward;
+    # against the full-length kernels 16/17/18, then in fp32 at t 4096
+    # against the plain full-length attention
+    n_ring, rt = 4, 16384
+    c = zero_counts()
+    ring_runs = {}
+    for causal in (False, True):
+        q, k, v, g = (randn(1, h_, rt, d_, dtype=torch.bfloat16)
+                      for _ in range(4))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = ring_flash_attention(*leaves, n_ring, causal=causal)
+        c = expect_delta(c, {"flash_forward": n_ring ** 2},
+                         f"ring forward causal={causal}")
+        grads = torch.autograd.grad(out, leaves, g)
+        c = expect_delta(c, {"flash_bwd_dkv": n_ring ** 2,
+                             "flash_bwd_dq": n_ring ** 2},
+                         f"ring backward causal={causal}")
+        ring_runs[causal] = (q, k, v, g, out.detach(), grads)
+    ring_launches = counts()
+    ring = {}
+    for causal, (q, k, v, g, out, grads) in ring_runs.items():
+        full = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out_f = flash_attention(*full, causal=causal)
+        grads_f = torch.autograd.grad(out_f, full, g)
+        errs = dict(out=rel_l2(out, out_f),
+                    **{f"d{n}": rel_l2(a, b)
+                       for n, a, b in zip("qkv", grads, grads_f)})
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        fwd_ms = time_ms(lambda: ring_flash_attention(
+            q, k, v, n_ring, causal=causal), iters=5)
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            ring_flash_attention(*leaves, n_ring, causal=causal), leaves, g),
+            iters=3)
+        full_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                          iters=5)
+        ring[f"causal={causal}"] = dict(rel_l2=errs, finite=finite,
+                                        fwd_ms=fwd_ms, fwd_bwd_ms=fwd_bwd_ms,
+                                        full_fwd_ms=full_ms)
+        print(f"[ring] n {n_ring}, b1 h{h_} t{rt} d{d_} bf16 causal={causal}"
+              f" against the full-length kernels: {errs} (tol forward "
+              f"{BF16_TOL:g}, gradients {BWD_BF16_TOL:g}), finite {finite}; "
+              f"ring forward {fwd_ms:.4f} ms (full-length kernel 16 "
+              f"{full_ms:.4f}), forward + backward {fwd_bwd_ms:.4f} ms | "
+              f"{smi}", flush=True)
+        gate(finite and errs["out"] <= BF16_TOL
+             and all(errs[f"d{n}"] <= BWD_BF16_TOL for n in "qkv"),
+             f"ring causal={causal}: {errs}, finite {finite}")
+    del ring_runs, q, k, v, g, out, grads, full, out_f, grads_f, leaves
+    torch.cuda.empty_cache()
+    for causal in (False, True):
+        q, k, v, g = (randn(1, h_, 4096, d_) for _ in range(4))
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = ring_flash_attention(*leaves, n_ring, causal=causal)
+        grads = torch.autograd.grad(out, leaves, g)
+        out_p, lse_p = _flash_forward_reference(q, k, v, 0.125, causal)
+        grads_p = _flash_backward_heads_reference(q, k, v, out_p, lse_p, g,
+                                                  0.125, causal)
+        errs = dict(out=rel_l2(out, out_p),
+                    **{f"d{n}": rel_l2(a, b)
+                       for n, a, b in zip("qkv", grads, grads_p)})
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+        ring[f"fp32 causal={causal}"] = dict(rel_l2=errs, finite=finite)
+        print(f"[ring] n {n_ring}, b1 h{h_} t4096 d{d_} fp32 causal={causal}"
+              f" against the plain full-length attention: {errs} (tol "
+              f"{F32_TOL:g}), finite {finite}", flush=True)
+        gate(finite and max(errs.values()) <= F32_TOL,
+             f"ring fp32 causal={causal}: {errs}")
+    del q, k, v, g, leaves, out, grads, out_p, lse_p, grads_p
+
+    # --------------------------------------------------------------- 16 --
+    # the separate-k/v API (kernels 9 and 10; no model calls it in this
+    # slice): flash_attention_bthd at the recon shape, bf16, forward +
+    # backward through its autograd Function, then one no-grad forward
+    c = zero_counts()
+    q, k, v, g = (randn(b_, t_, h_, d_, dtype=torch.bfloat16)
+                  for _ in range(4))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out, _ = flash_attention_bthd(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    c = expect_delta(c, {"flash_attention_bthd": 1,
+                         "flash_attention_bwd_bthd": 1},
+                     "flash_attention_bthd forward + backward")
+    with torch.no_grad():
+        out_d, _ = flash_attention_bthd(q, k, v)
+    c = expect_delta(c, {"flash_attention_bthd": 1},
+                     "flash_attention_bthd no-grad forward")
+    bthd_launches = counts()
+    plain = [x.detach().float().requires_grad_(True) for x in (q, k, v)]
+    out_p, _ = _flash_bthd_reference(*plain, scale, False)
+    grads_p = torch.autograd.grad(out_p, plain, g.float())
+    bthd_errs = dict(out=rel_l2(out, out_p), direct=rel_l2(out_d, out_p),
+                     **{f"d{n}": rel_l2(a, b)
+                        for n, a, b in zip("qkv", grads, grads_p)})
+    print(f"[bthd] flash_attention_bthd b{b_} t{t_} h{h_} d{d_} bf16 "
+          f"through autograd against the fp32 plain attention: {bthd_errs} "
+          f"(tol forward {BF16_TOL:g}, gradients {BWD_BF16_TOL:g})",
+          flush=True)
+    gate(bthd_errs["out"] <= BF16_TOL and bthd_errs["direct"] <= BF16_TOL
+         and all(bthd_errs[f"d{n}"] <= BWD_BF16_TOL for n in "qkv"),
+         f"flash_attention_bthd: {bthd_errs}")
+    del q, k, v, g, leaves, out, grads, out_d, plain, out_p, grads_p
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 17 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -2450,11 +2838,23 @@ def main() -> int:
         "ln_mlp_q8": ("quant.cu", "attention_models_tpu/ops/quant.py:339"),
         "mlp": ("mlp.cu", "attention_models_tpu/ops/ffn.py:331"),
         "mlp_bwd": ("mlp_bwd.cu", "attention_models_tpu/ops/ffn.py:414"),
+        "flash_attention_bthd": ("flash_attention.cu",
+                                 "attention_models_tpu/ops/flash_attention.py:167"),
+        "flash_attention_bwd_bthd": ("flash_attention_bwd.cu",
+                                     "attention_models_tpu/ops/flash_attention.py:452"),
+        "flash_forward": ("flash_attention.cu",
+                          "attention_models_tpu/ops/flash_attention.py:46"),
+        "flash_bwd_dkv": ("flash_attention_bwd.cu",
+                          "attention_models_tpu/ops/flash_attention.py:341"),
+        "flash_bwd_dq": ("flash_attention_bwd.cu",
+                         "attention_models_tpu/ops/flash_attention.py:629"),
     }
     path_launches = {"serving": serving_launches, "training": launches,
                      "maskgit": maskgit_launches,
                      "maskgit_train": mtrain_launches, "muse": muse_launches,
-                     "recon_int8": recon_int8_launches, "vit": vit_launches}
+                     "recon_int8": recon_int8_launches, "vit": vit_launches,
+                     "longcontext": longcontext_launches,
+                     "ring": ring_launches, "flash_bthd": bthd_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
@@ -2522,7 +2922,9 @@ def main() -> int:
                                train_dropout_0=vit_train_nodrop,
                                train_profile=vit_train_profile,
                                fp32_loss_rel=vit32_loss,
-                               fp32_grad_rel_l2=vit32_grads)),
+                               fp32_grad_rel_l2=vit32_grads),
+                           longcontext=dict(rows=lc_rows, t16384_rel_l2=lc_err),
+                           ring=ring, flash_bthd_rel_l2=bthd_errs),
                       f, indent=1)
     amt.sync()
     print(f"[nvidia-smi] {smi}")

@@ -27,6 +27,7 @@ import torch
 
 import attention_models_torch
 from attention_models_torch.entry import entry
+from attention_models_torch.longcontext import longcontext, make_inputs
 from attention_models_torch.models.vitvqgan import vitvqgan_base
 from attention_models_torch.ops import codebook, dispatch, ffn, flash_attention
 from attention_models_torch.ops import layernorm as ln_ops
@@ -43,6 +44,7 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'attention_models_tpu', 'yaml', 'PIL')]\n"
         "assert len(mods) >= 30, mods\n"
+        "assert {'attention_models_torch.ops.ring_attention', 'attention_models_torch.longcontext'} <= set(mods)\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -169,6 +171,8 @@ def _maskgit_trainer():
     _vit_build_model,
     _vit_trainer,
     _vit_cli,
+    lambda: longcontext((128,)),
+    lambda: make_inputs(128),
 ])
 def test_card_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -209,6 +213,10 @@ def _wrapper_cases():
     q8 = quant.quantize_weight
     q, kv, g = t(1, 16, 2, 64), t(1, 16, 2, 2, 64), t(1, 16, 2, 64)
     o, lse = flash_attention._flash_reference(q, kv, 0.125, False)
+    qh, kh, vh, gh = (x.transpose(1, 2) for x in (q, kv[:, :, 0],
+                                                  kv[:, :, 1], g))
+    lse_h = lse.transpose(1, 2)
+    delta_h = flash_attention.flash_delta(o.transpose(1, 2), gh)
     return [
         (ln_ops.layernorm, ln_ops._ln_reference,
          (t(8, 192), t(192), t(192)), (1e-5,)),
@@ -253,6 +261,22 @@ def _wrapper_cases():
          (t(8, 128), t(96, 128), t(96), t(128, 96), t(128)), ()),
         (ffn.fused_mlp_backward, ffn._fused_mlp_backward_reference,
          (t(8, 128), t(96, 128), t(96), t(128, 96), t(8, 128)), ()),
+        (flash_attention.flash_attention_bthd,
+         lambda q, k, v: flash_attention._flash_bthd_reference(
+             q, k, v, 0.125, False), (q, kv[:, :, 0], kv[:, :, 1]), ()),
+        (lambda *a: flash_attention.flash_attention_bwd_bthd(
+            *a, scale=0.125, causal=False),
+         flash_attention._flash_backward_bthd_reference,
+         (q, kv[:, :, 0], kv[:, :, 1], o, lse, g), (0.125, False)),
+        (lambda *a: flash_attention.flash_forward(*a, scale=0.125),
+         flash_attention._flash_forward_reference, (qh, kh, vh),
+         (0.125, False)),
+        (lambda *a: flash_attention.flash_bwd_dkv(*a, scale=0.125),
+         flash_attention._flash_bwd_dkv_reference,
+         (qh, gh, lse_h, delta_h, kh, vh), (0.125, False)),
+        (lambda *a: flash_attention.flash_bwd_dq(*a, scale=0.125),
+         flash_attention._flash_bwd_dq_reference,
+         (kh, vh, qh, gh, lse_h, delta_h), (0.125, False)),
     ]
 
 
@@ -264,10 +288,13 @@ LAUNCH_COUNTERS = [ln_ops.layernorm, codebook.nearest_codes,
                    xent.fused_head_xent, xent.head_xent_backward,
                    quant.fused_ffn_q8, quant.fused_ffn_q8wide,
                    quant.fused_ln_mlp_q8, ffn.fused_mlp,
-                   ffn.fused_mlp_backward]
+                   ffn.fused_mlp_backward, flash_attention.flash_attention_bthd,
+                   flash_attention.flash_attention_bwd_bthd,
+                   flash_attention.flash_forward, flash_attention.flash_bwd_dkv,
+                   flash_attention.flash_bwd_dq]
 
 
-@pytest.mark.parametrize("case", range(16))
+@pytest.mark.parametrize("case", range(21))
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing(case):
     wrapper, plain, args, extra = _wrapper_cases()[case]
     before = [c.launches for c in LAUNCH_COUNTERS]
@@ -323,6 +350,25 @@ def _fake_kernel_path(monkeypatch):
         flash_attention, "flash_attention_bwd_kv",
         fake("flash_bwd", lambda *a, scale, causal:
              flash_attention._flash_backward_reference(*a, scale, causal)))
+    monkeypatch.setattr(flash_attention, "_flash_bthd_kernel",
+                        fake("flash_bthd", flash_attention._flash_bthd_reference))
+    monkeypatch.setattr(
+        flash_attention, "flash_attention_bwd_bthd",
+        fake("flash_bthd_bwd", lambda *a, scale, causal:
+             flash_attention._flash_backward_bthd_reference(*a, scale,
+                                                            causal)))
+    monkeypatch.setattr(
+        flash_attention, "flash_forward",
+        fake("flash16", lambda *a, scale, causal:
+             flash_attention._flash_forward_reference(*a, scale, causal)))
+    monkeypatch.setattr(
+        flash_attention, "flash_bwd_dkv",
+        fake("flash17", lambda *a, scale, causal:
+             flash_attention._flash_bwd_dkv_reference(*a, scale, causal)))
+    monkeypatch.setattr(
+        flash_attention, "flash_bwd_dq",
+        fake("flash18", lambda *a, scale, causal:
+             flash_attention._flash_bwd_dq_reference(*a, scale, causal)))
     monkeypatch.setattr(ffn, "_ln_mlp_fwd_kernel",
                         fake("ln_mlp", ffn._ln_mlp_reference))
     monkeypatch.setattr(
@@ -361,6 +407,18 @@ def _grad_cases():
                   lambda q, kv: flash_attention._flash_reference(
                       q, kv, 0.125, False)[0],
                   [t(1, 16, 2, 64), t(1, 16, 2, 2, 64)], (), "_FlashKV"),
+        "flash_bthd": (lambda q, k, v: flash_attention.flash_attention_bthd(
+                           q, k, v, scale=0.125)[0],
+                       lambda q, k, v: flash_attention._flash_bthd_reference(
+                           q, k, v, 0.125, False)[0],
+                       [t(1, 16, 2, 64), t(1, 16, 2, 64), t(1, 16, 2, 64)],
+                       (), "_FlashBthd"),
+        "flash_heads": (lambda q, k, v: flash_attention.flash_attention(
+                            q, k, v, scale=0.125),
+                        lambda q, k, v: flash_attention._flash_forward_reference(
+                            q, k, v, 0.125, False)[0],
+                        [t(1, 2, 16, 64), t(1, 2, 16, 64), t(1, 2, 16, 64)],
+                        (), "_Flash"),
         "ln_mlp": (ffn.fused_ln_mlp, ffn._ln_mlp_reference,
                    [t(8, 64), t(64), t(64), t(96, 64), t(96), t(64, 96),
                     t(64)], (1e-5,), "_LnMlp"),
@@ -380,6 +438,8 @@ def _grad_cases():
 
 tg = torch.tensor([1, -1, 3, 4, -1, 6, 7, 8])
 GRAD_OPS = {"layernorm": ("layernorm", []), "flash": ("flash", ["flash_bwd"]),
+            "flash_bthd": ("flash_bthd", ["flash_bthd_bwd"]),
+            "flash_heads": ("flash16", ["flash17", "flash18"]),
             "ln_mlp": ("ln_mlp", ["ln_mlp_bwd"]), "ffn": ("ffn", ["ffn_bwd"]),
             "mlp": ("mlp", ["mlp_bwd"]),
             "head_xent": ("head_xent", ["head_xent_bwd"])}
