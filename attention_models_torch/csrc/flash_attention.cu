@@ -1,4 +1,4 @@
-// Flash attention forward, one template for every layout.
+// Flash attention forward, one kernel for every layout.
 //
 // Replaces three TPU kernels of attention_models_tpu/ops/flash_attention.py,
 // which compute the same arithmetic on different layouts:
@@ -8,14 +8,11 @@
 //   - _flash_kernel_mh (entry _flash_forward_bthd): q, k, v (b, t, h, d);
 //   - _flash_kernel (entry _flash_forward): q, k, v (b, h, t, d), the
 //     long-context and ring-attention building block.
-// The kernels take element strides (batch, head, row) for q, k, v, out and
-// lse, so the three layouts are three sets of strides (amt_flash_fwd_kv
-// computes the packed set itself). The last dimension is contiguous and
-// every row is 16-byte aligned (the wrapper checks both). Outputs: out in
-// q's dtype and the natural-log logsumexp lse in fp32, which the backward
-// needs. The optional causal mask is bottom-right aligned: query row r sees
-// keys c <= r + (tk - tq); the Python wrapper rejects tq > tk. Head width
-// d is a template parameter: 32 or 64.
+// Outputs: out in q's dtype and the natural-log logsumexp lse in fp32, which
+// the backward needs, through (batch, head, row) element strides. The
+// optional causal mask is bottom-right aligned: query row r sees keys
+// c <= r + (tk - tq); the Python wrapper rejects tq > tk. Head width d is a
+// template parameter: 32 or 64.
 //
 // Bound on the H100: operations. The two products are 4*b*h*tq*tk*d flops
 // (causal: only the visible pairs) against q, k, v and out read or written
@@ -23,30 +20,85 @@
 // 50 MB, about 17 us at the bf16 tensor-core peak; at the long-context
 // shape (b 1, h 8, t 16384, causal) 275 GFLOP, 0.28 ms.
 //
-// bf16 design: the grid runs over (q tiles of 64 rows, b*h); a block of four
-// warps takes one q tile, each warp 16 query rows. k and v stream through
-// shared memory in tiles of 64 keys, double-buffered with cp.async so the
-// next tile loads while this one is computed: memory is O(t), never a
-// (t, t) score matrix. S = Q K^T and O += P V are mma.sync m16n8k16 with
-// fp32 accumulation; q is scaled by scale*log2(e) in fp32 and rounded to
-// bf16 once, so the online softmax runs in exp2 with no per-score multiply,
-// as the TPU kernel does. P is rounded to bf16 for the PV product straight
-// from the S accumulators (the m16n8 C layout is the A layout of the next
-// product), and the row sum l stays fp32. Causal q tiles stop at their last
-// visible key tile, so the work follows the visible pairs.
+// bf16 design (flash_fwd_bf16_kernel), built from hopper.cuh:
+//   - a block takes 128 query rows of one (batch, head): a producer
+//     warpgroup, of which one thread issues TMA loads, and two consumer
+//     warpgroups of 64 rows each; setmaxnreg gives the producer 40
+//     registers and the consumers 232 at run time (ptxas still allots each
+//     thread the launch's 168);
+//   - q, k and v are read through rank-4 tensor maps (d, t, h, b) whose byte
+//     strides come from the views, so the three layouts (and packed kv's k
+//     and v views) are three sets of maps to one kernel; TMA zero-fills rows
+//     past t, so a ragged length needs no padded copy. Tiles are swizzled
+//     128 bytes at d 64 and 64 bytes at d 32 (one row of the tile);
+//   - k and v tiles of 128 keys stream through a ring of kFwdStages stages
+//     in shared memory with full (TMA bytes) and empty (eight consumer
+//     warps) mbarriers; k and v have separate full barriers, so S starts
+//     before v has landed;
+//   - S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//     memory (SS): each consumer scales its 64 q rows of the TMA tile by
+//     scale*log2(e) in fp32 and rounds them to bf16 in place once (the
+//     rounding point of the plain versions and of the backward). Q in
+//     shared memory, not registers, keeps a consumer thread within those
+//     168 registers, with no spill and no serialised wgmma;
+//   - the online softmax runs in exp2 with fp32 m and l on the S
+//     accumulators; P is rounded to bf16 and packed straight into the A
+//     registers of O += P V (wgmma m64nDk16, RS): the m64nN accumulator
+//     layout is the A-register layout. v is the MN-major B operand, read
+//     through wgmma's transpose bit, never transposed in memory;
+//   - a warpgroup takes one tile at a time (S, softmax, P V); the two
+//     warpgroups' products and softmaxes interleave on the SM;
+//   - the mask runs only where it can hide a key: a warpgroup's tiles below
+//     its first row's diagonal are computed unmasked, the diagonal tiles
+//     and the ragged last tile masked, and tiles past its last row's
+//     diagonal are skipped (still released to the producer);
+//   - causal q tiles launch heaviest first (the plan reverses the grid's y
+//     index; b*h rides x, so every head's heaviest tile is in the first
+//     wave);
+//   - the epilogue divides O by l, writes it through the warpgroup's half
+//     of the q tile (swizzled, no bank conflicts) and stores 16-byte rows
+//     below tq; lse from one thread per row.
+// No atomics, and every sum runs in one fixed order that does not depend on
+// the strides, so the three layouts give the same bits. What the host
+// decides (maps, grid, shared memory) comes from ops/flash_attention.py's
+// FwdPlan; this file encodes the maps and launches.
+//
+// It replaces an Ampere-style body with these limits, each answered above:
+// (1) mma.sync m16n8k16, which cannot reach Hopper's bf16 rate: now wgmma;
+// (2) k fragments from 32-bit shared loads and v fragments from four 16-bit
+// loads each: wgmma reads both B operands from swizzled shared memory;
+// (3) cp.async copies issued by every thread, two stages: one TMA thread and
+// an mbarrier ring; (4) 64-row q tiles: 128; (5) the mask on every score:
+// masked tiles only; (6) ascending causal order: heaviest first; (7) q by
+// scalar 16-bit global loads: one TMA tile, scaled in shared memory.
+//
+// Measured and left out (one H100, one call each, same bits): tile j's S in
+// flight during tile j - 1's softmax and P V in one warpgroup (6-30 %
+// slower within the 168 registers ptxas allots a thread), the two
+// warpgroups taking turns to issue S with named barriers (0-5 % slower),
+// and a third ring stage (from 2 % faster to 6 % slower by shape).
 //
 // fp32 design (the exact path the golden index check runs): one thread per
 // query row, 64 rows a block, q row and output accumulator in registers,
 // k/v tiles in shared memory read as broadcasts, fp32 FMA dots, exact expf.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
+constexpr int kBlockQ = 64;  // the fp32 kernel's tiles
 constexpr int kBlockK = 64;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The bf16 kernel's shape (ops/flash_attention.py mirrors these numbers in
+// FWD_ROWS, FWD_KEYS, FWD_STAGES and FWD_THREADS).
+constexpr int kFwdRows = 128;     // query rows a block
+constexpr int kFwdKeys = 128;     // keys a k or v tile
+constexpr int kFwdStages = 2;     // depth of the k/v ring
+constexpr int kFwdThreads = 384;  // producer + two consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
 struct FwdArgs {
   const void* q;
@@ -58,156 +110,259 @@ struct FwdArgs {
   int h, tq, tk;
   float scale;
   int causal;
+  int heaviest_first;  // bf16: run the q tiles in descending order
 };
 
+// Shared memory of the bf16 kernel; every tile starts on a 1024-byte
+// boundary (the swizzle atom), the base is aligned by hand.
 template <int D>
-__global__ __launch_bounds__(128) void flash_fwd_bf16_kernel(FwdArgs a) {
-  constexpr int kS = D + 8;  // bf16 smem row stride: conflict-free fragments
-  constexpr int kKS = D / 16;  // k-steps of a product over the head dim
-  constexpr int kNT = D / 8;   // n-tiles of the output
-  __shared__ __align__(16) __nv_bfloat16 ks[2][kBlockK][kS];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kBlockK][kS];
+struct FwdTiles {
+  __nv_bfloat16 q[kFwdRows * D];
+  __nv_bfloat16 k[kFwdStages][kFwdKeys * D];
+  __nv_bfloat16 v[kFwdStages][kFwdKeys * D];
+  uint64_t q_full, k_full[kFwdStages], v_full[kFwdStages], empty[kFwdStages];
+};
 
-  const int bi = blockIdx.y / a.h, hi = blockIdx.y % a.h;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int tq = a.tq, tk = a.tk;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
-  const int off = tk - tq;
-  const float scale_log2 = a.scale * kLog2e;
+// 2^x on the SFU, denormal results flushed to zero (they are below any
+// bf16 P and any fp32 row sum the softmax keeps).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // Q fragments (A operand), pre-scaled into the log2 domain
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(a.q) +
-                            bi * a.sq.b + hi * a.sq.h;
-  uint32_t qa[kKS][4];
+// S = Q K^T of one k tile (q: this warpgroup's 64 rows), issued and
+// committed (not waited).
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[64],
+                                        const __nv_bfloat16* qs,
+                                        const __nv_bfloat16* ks) {
+  using namespace hopper;
+  const uint64_t qdesc = wgmma_desc<D * 2>(qs, 8 * D * 2);
+  const uint64_t kdesc = wgmma_desc<D * 2>(ks, 8 * D * 2);
+  wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_m64n128k16(s, desc_advance(qdesc, kk * 32),
+                        desc_advance(kdesc, kk * 32), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V of one v tile, issued and committed (not waited).
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pa)[8][4],
+                                         const __nv_bfloat16* vs) {
+  using namespace hopper;
+  const uint64_t desc = wgmma_desc<D * 2>(vs, 8 * D * 2);
+  wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = (i & 1) ? r1 : r0;
-      const int col = kk * 16 + 2 * t + ((i & 2) ? 8 : 0);
-      float x0 = 0.f, x1 = 0.f;
-      if (row < tq) {
-        x0 = __bfloat162float(qb[row * a.sq.r + col]);
-        x1 = __bfloat162float(qb[row * a.sq.r + col + 1]);
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint64_t dv = desc_advance(desc, kk * 16 * D * 2);
+    if constexpr (D == 64)
+      wgmma_rs_m64n64k16<1>(o, pa[kk], dv, 1);
+    else
+      wgmma_rs_m64n32k16<1>(o, pa[kk], dv, 1);
+  }
+  wgmma_commit();
+}
+
+// The online softmax of one S tile (k0: its first key), in place: masked
+// when kMasked, then s = exp2(S - m) with m the new running row max; alpha
+// rescales O and l, ps is this thread's partial row sum of the tile. Every
+// row sees key 0 and tile 0 comes first, so m is finite from the first tile
+// on and exp2(kNegInf - m) is 0.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float& m0,
+                                             float& m1, float& alpha0,
+                                             float& alpha1, float& ps0,
+                                             float& ps1, int k0, int r0,
+                                             int r1, int tk, int off,
+                                             bool causal) {
+  const int t = threadIdx.x % 4;
+  if (kMasked) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * i + 2 * t + (e & 1);
+        const int row = e < 2 ? r0 : r1;
+        if (col >= tk || (causal && col > row + off)) s[4 * i + e] = kNegInf;
       }
-      qa[kk][i] = pack_bf16x2(x0 * scale_log2, x1 * scale_log2);
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+#pragma unroll
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+  }
+  alpha0 = exp2_ftz(m0 - mx0);
+  alpha1 = exp2_ftz(m1 - mx1);
+  m0 = mx0;
+  m1 = mx1;
+  ps0 = 0.f;
+  ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    s[4 * i] = exp2_ftz(s[4 * i] - m0);
+    s[4 * i + 1] = exp2_ftz(s[4 * i + 1] - m0);
+    s[4 * i + 2] = exp2_ftz(s[4 * i + 2] - m1);
+    s[4 * i + 3] = exp2_ftz(s[4 * i + 3] - m1);
+    ps0 += s[4 * i] + s[4 * i + 1];
+    ps1 += s[4 * i + 2] + s[4 * i + 3];
+  }
+}
+
+// P (fp32 in s) rounded to bf16 straight into the A registers of P V.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
+                                       const float (&s)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+template <int D>
+__global__ __launch_bounds__(kFwdThreads, 1) void flash_fwd_bf16_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, FwdArgs a) {
+  using namespace hopper;
+  constexpr int kRowBytes = D * 2;
+  constexpr int kSwizzle = kRowBytes;
+  constexpr uint32_t kTileBytes = kFwdKeys * kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  FwdTiles<D>& sm = *reinterpret_cast<FwdTiles<D>*>(
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+
+  const int bi = blockIdx.x / a.h, hi = blockIdx.x % a.h;
+  const int qt = a.heaviest_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kFwdRows;
+  const int tq = a.tq, tk = a.tk, off = tk - tq;
+  const int kend = a.causal ? min(tk, q0 + kFwdRows + off) : tk;
+  const int ntiles = (kend + kFwdKeys - 1) / kFwdKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(&sm.k_full[st], 1);
+      mbar_init(&sm.v_full[st], 1);
+      mbar_init(&sm.empty[st], 8);  // one arrival per consumer warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread keeps the ring full
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&qmap);
+      prefetch_tensor_map(&kmap);
+      prefetch_tensor_map(&vmap);
+      mbar_expect_tx(&sm.q_full, kFwdRows * kRowBytes);
+      tma_load_4d(sm.q, &qmap, &sm.q_full, 0, q0, hi, bi);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % kFwdStages;
+        mbar_wait(&sm.empty[st], ((j / kFwdStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.k_full[st], kTileBytes);
+        tma_load_4d(sm.k[st], &kmap, &sm.k_full[st], 0, j * kFwdKeys, hi, bi);
+        mbar_expect_tx(&sm.v_full[st], kTileBytes);
+        tma_load_4d(sm.v[st], &vmap, &sm.v_full[st], 0, j * kFwdKeys, hi, bi);
+      }
+    }
+    return;
   }
 
-  float o[kNT][4];
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg - 1;  // consumer warpgroup: rows 64c.. of the block
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * c;  // this warpgroup's first row
+  const int r0 = row0 + 16 * warp + g, r1 = r0 + 8;
+  const float scale_log2 = a.scale * kLog2e;
+
+  // this warpgroup's q rows, pre-scaled into the log2 domain and rounded to
+  // bf16 once, in place (elementwise, so the swizzle does not matter); then
+  // visible to wgmma, which reads them from shared memory
+  mbar_wait(&sm.q_full, 0);
+  const __nv_bfloat16* qw = sm.q + c * 64 * D;
+  {
+    uint4* qc = reinterpret_cast<uint4*>(sm.q + c * 64 * D);
 #pragma unroll
-  for (int n = 0; n < kNT; ++n)
+    for (int idx = tid; idx < 64 * D / 8; idx += 128) {
+      uint4 x = qc[idx];
+      uint32_t* w = reinterpret_cast<uint32_t*>(&x);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+        w[e] = pack_bf16x2(f.x * scale_log2, f.y * scale_log2);
+      }
+      qc[idx] = x;
+    }
+    fence_proxy_async();
+    named_barrier_sync(1 + c, 128);
+  }
+
+  // tiles [0, nfull) hide no key from any row of this warpgroup, tiles
+  // [nfull, nneed) need the mask, tiles [nneed, ntiles) hold no key any of
+  // its rows sees
+  int nneed = ntiles, nfull = tk / kFwdKeys;
+  if (a.causal) {
+    nneed = (min(tk, row0 + 64 + off) + kFwdKeys - 1) / kFwdKeys;
+    nfull = min(tk, row0 + off + 1) / kFwdKeys;
+  }
+  nfull = min(nfull, nneed);
+
+  // One tile at a time: S, the softmax, P V (the overlapped loop measured
+  // slower; see the note at the top).
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[64];
+  uint32_t pa[8][4];
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(a.k) +
-                            bi * a.sk.b + hi * a.sk.h;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(a.v) +
-                            bi * a.sv.b + hi * a.sv.h;
-  const int kend = a.causal ? min(tk, q0 + kBlockQ + off) : tk;
-  const int ntiles = (kend + kBlockK - 1) / kBlockK;
-
-  // k/v tiles are double-buffered: tile it+1 is in flight (cp.async, rows
-  // past tk zero-filled) while tile it is computed on
-  auto load_tile = [&](int k0, int buf) {
-    for (int i = threadIdx.x; i < kBlockK * (D / 8); i += blockDim.x) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const bool ok = k0 + r < tk;
-      const int64_t row = ok ? k0 + r : 0;
-      cp_async16(&ks[buf][r][c], kb + row * a.sk.r + c, ok);
-      cp_async16(&vs[buf][r][c], vb + row * a.sv.r + c, ok);
-    }
-    cp_async_commit();
-  };
-  load_tile(0, 0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * kBlockK, buf = it & 1;
-    if (it + 1 < ntiles) {
-      load_tile(k0 + kBlockK, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T: 8 tiles of 8 keys, each over D/16 steps of 16 dims
-    float s[8][4];
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j % kFwdStages;
+    const uint32_t parity = (j / kFwdStages) & 1;
+    if (j < nneed) {
+      mbar_wait(&sm.k_full[st], parity);
+      issue_s<D>(s, qw, sm.k[st]);
+      wgmma_wait<0>();
+      fence_regs(s);
+      float alpha0, alpha1, ps0, ps1;
+      if (j < nfull)
+        softmax_tile<false>(s, m0, m1, alpha0, alpha1, ps0, ps1, j * kFwdKeys,
+                            r0, r1, tk, off, a.causal);
+      else
+        softmax_tile<true>(s, m0, m1, alpha0, alpha1, ps0, ps1, j * kFwdKeys,
+                           r0, r1, tk, off, a.causal);
+      l0 = l0 * alpha0 + ps0;  // partial over this thread's columns
+      l1 = l1 * alpha1 + ps1;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKS; ++kk) {
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(&ks[buf][j * 8 + g][kk * 16 + 2 * t]);
-        b[1] = *reinterpret_cast<const uint32_t*>(&ks[buf][j * 8 + g][kk * 16 + 2 * t + 8]);
-        mma_bf16_16816(s[j], qa[kk], b);
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha0;
+        o[4 * i + 1] *= alpha0;
+        o[4 * i + 2] *= alpha1;
+        o[4 * i + 3] *= alpha1;
       }
+      pack_p(pa, s);
+      mbar_wait(&sm.v_full[st], parity);
+      issue_pv<D>(o, pa, sm.v[st]);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
     }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        if (col >= tk || (a.causal && col > row + off)) s[j][e] = kNegInf;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float m = e < 2 ? m0 : m1;
-        s[j][e] = s[j][e] == kNegInf ? 0.f : exp2f(s[j][e] - m);
-      }
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * alpha0 + ps0;  // partial over this thread's columns
-    l1 = l1 * alpha1 + ps1;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      o[n][0] *= alpha0;
-      o[n][1] *= alpha0;
-      o[n][2] *= alpha1;
-      o[n][3] *= alpha1;
-    }
-
-    // O += P V: 4 steps of 16 keys, D/8 tiles of 8 output dims
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int kr = kk * 16 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const int c = n * 8 + g;
-        uint32_t b[2];
-        b[0] = pack_bf16x2_raw(vs[buf][kr][c], vs[buf][kr + 1][c]);
-        b[1] = pack_bf16x2_raw(vs[buf][kr + 8][c], vs[buf][kr + 9][c]);
-        mma_bf16_16816(o[n], pa, b);
-      }
-    }
-    __syncthreads();  // buf is refilled by the next iteration's load
+    // tiles past this warpgroup's last row's diagonal are released unread
+    if (lane == 0) mbar_arrive(&sm.empty[st]);
   }
 
 #pragma unroll
@@ -215,18 +370,33 @@ __global__ __launch_bounds__(128) void flash_fwd_bf16_kernel(FwdArgs a) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+
+  // O / l (a division, as the plain version normalises) through this
+  // warpgroup's half of the q tile (its own q rows, whose last reader, the
+  // last S product, has completed), then 16-byte rows below tq to global
+  named_barrier_sync(1 + c, 128);
+  uint8_t* os = reinterpret_cast<uint8_t*>(sm.q) + c * 64 * kRowBytes;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int row = 16 * warp + g, col = 8 * i + 2 * t;
+    *reinterpret_cast<uint32_t*>(os + swizzle<kSwizzle>(row * kRowBytes +
+                                                        col * 2)) =
+        pack_bf16x2(o[4 * i] / l0, o[4 * i + 1] / l0);
+    *reinterpret_cast<uint32_t*>(os + swizzle<kSwizzle>((row + 8) * kRowBytes +
+                                                        col * 2)) =
+        pack_bf16x2(o[4 * i + 2] / l1, o[4 * i + 3] / l1);
+  }
+  named_barrier_sync(1 + c, 128);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) + bi * a.so.b +
                       hi * a.so.h;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
 #pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (r0 < tq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * a.so.r + col) =
-          pack_bf16x2(o[n][0] * inv0, o[n][1] * inv0);
-    if (r1 < tq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * a.so.r + col) =
-          pack_bf16x2(o[n][2] * inv1, o[n][3] * inv1);
+  for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+    const int row = idx / kChunks, ch = idx % kChunks;
+    if (row0 + row < tq)
+      *reinterpret_cast<uint4*>(ob + (row0 + row) * a.so.r + ch * 8) =
+          *reinterpret_cast<const uint4*>(
+              os + swizzle<kSwizzle>(row * kRowBytes + ch * 16));
   }
   if (t == 0) {
     float* lb = a.lse + bi * a.sl.b + hi * a.sl.h;
@@ -338,18 +508,46 @@ __global__ __launch_bounds__(kBlockQ) void flash_fwd_f32_kernel(FwdArgs a) {
   }
 }
 
+// The bf16 kernel from a host plan (ops/flash_attention.py's FwdPlan, 33
+// int64 values): for q, k and v in turn their map's dims (d, t, h, b), byte
+// strides (t, h, b) and box (d, rows); then the swizzle bytes, the grid
+// (b*h, q tiles), the threads, the dynamic shared-memory bytes and whether
+// the q tiles run heaviest first.
 template <int D>
-cudaError_t launch_fwd(const FwdArgs& a, int b, int dtype, cudaStream_t s) {
+cudaError_t launch_bf16(FwdArgs a, const int64_t* plan, cudaStream_t s) {
+  const int64_t swz = plan[27], threads = plan[30], smem = plan[31];
+  if (threads != kFwdThreads || swz != 2 * D ||
+      smem < (int64_t)sizeof(FwdTiles<D>) + 1024 || smem > 232448)
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* bases[3] = {a.q, a.k, a.v};
+  for (int i = 0; i < 3; ++i) {
+    const int64_t* p = plan + 9 * i;
+    if (p[7] != D || p[8] != kFwdKeys ||
+        !hopper::encode_bf16_map_4d(&maps[i], bases[i], p, p + 4, (int)p[7],
+                                    (int)p[8], (int)swz))
+      return cudaErrorInvalidValue;
+  }
+  static int64_t smem_set = 0;  // the attribute, set once per size
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const dim3 grid((unsigned)plan[28], (unsigned)plan[29]);
+  a.heaviest_first = (int)plan[32];
+  flash_fwd_bf16_kernel<D><<<grid, kFwdThreads, (size_t)smem, s>>>(
+      maps[0], maps[1], maps[2], a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const FwdArgs& a, int b, cudaStream_t s) {
   const dim3 grid((a.tq + kBlockQ - 1) / kBlockQ, b * a.h);
-  if (dtype == AMT_BF16) {
-    flash_fwd_bf16_kernel<D><<<grid, 128, 0, s>>>(a);
-    return cudaGetLastError();
-  }
-  if (dtype == AMT_F32) {
-    flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, s>>>(a);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
+  flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 Strides3 strides_at(const int64_t* s, int i) {
@@ -359,11 +557,13 @@ Strides3 strides_at(const int64_t* s, int i) {
 }  // namespace
 
 // General entry: strides holds (batch, head, row) element strides of q, k,
-// v, out and lse, in that order (15 values).
+// v, out and lse, in that order (15 values); plan is the bf16 kernel's host
+// plan (33 values; unused, and may be null, in fp32).
 AMT_EXPORT int amt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, const int64_t* strides,
-                             int b, int h, int tq, int tk, int d, float scale,
-                             int causal, int dtype, void* stream) {
+                             const int64_t* plan, int b, int h, int tq,
+                             int tk, int d, float scale, int causal,
+                             int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tq < 0 || tk <= 0 || h <= 0 || (int64_t)b * h > 65535)
     return cudaErrorInvalidValue;
@@ -371,18 +571,26 @@ AMT_EXPORT int amt_flash_fwd(const void* q, const void* k, const void* v,
   FwdArgs a{q, k, v, out, static_cast<float*>(lse),
             strides_at(strides, 0), strides_at(strides, 1),
             strides_at(strides, 2), strides_at(strides, 3),
-            strides_at(strides, 4), h, tq, tk, scale, causal};
-  if (d == 64) return launch_fwd<64>(a, b, dtype, s);
-  if (d == 32) return launch_fwd<32>(a, b, dtype, s);
+            strides_at(strides, 4), h, tq, tk, scale, causal, 0};
+  if (dtype == AMT_BF16) {
+    if (plan == nullptr) return cudaErrorInvalidValue;
+    if (d == 64) return launch_bf16<64>(a, plan, s);
+    if (d == 32) return launch_bf16<32>(a, plan, s);
+  } else if (dtype == AMT_F32) {
+    if (d == 64) return launch_f32<64>(a, b, s);
+    if (d == 32) return launch_f32<32>(a, b, s);
+  }
   return cudaErrorInvalidValue;
 }
 
 // Packed kv (kernel 1's layout): q (b, tq, h, d), kv (b, tk, 2, h, d), out
-// like q, lse (b, tq, h), all contiguous.
+// like q, lse (b, tq, h), all contiguous; v is the view kv + h*d elements.
+// plan (bf16) holds the maps of q and of the views kv[:, :, 0] and
+// kv[:, :, 1].
 AMT_EXPORT int amt_flash_fwd_kv(const void* q, const void* kv, void* out,
-                                void* lse, int b, int tq, int tk, int h, int d,
-                                float scale, int causal, int dtype,
-                                void* stream) {
+                                void* lse, const int64_t* plan, int b, int tq,
+                                int tk, int h, int d, float scale, int causal,
+                                int dtype, void* stream) {
   const int64_t hd = (int64_t)h * d;
   const int64_t st[15] = {tq * hd,          d, hd,      // q
                           2 * tk * hd,      d, 2 * hd,  // k = kv[:, :, 0]
@@ -391,6 +599,6 @@ AMT_EXPORT int amt_flash_fwd_kv(const void* q, const void* kv, void* out,
                           (int64_t)tq * h,  1, h};      // lse
   const size_t item = dtype == AMT_BF16 ? 2 : 4;
   const void* v = static_cast<const char*>(kv) + hd * item;
-  return amt_flash_fwd(q, kv, v, out, lse, st, b, h, tq, tk, d, scale, causal,
-                       dtype, stream);
+  return amt_flash_fwd(q, kv, v, out, lse, st, plan, b, h, tq, tk, d, scale,
+                       causal, dtype, stream);
 }

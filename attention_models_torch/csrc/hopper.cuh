@@ -1,0 +1,338 @@
+// Hopper (sm_90a) building blocks in raw PTX, shared by the port's kernels
+// that load tiles by TMA and multiply them with wgmma:
+//   - TMA tile loads into shared memory, completed on an mbarrier;
+//   - mbarrier init, arrive, expect-tx and parity wait;
+//   - wgmma shared-memory descriptors, fence / commit / wait, the bf16
+//     products with A in registers (RS) at n 64 and 32, and with both
+//     operands in shared memory (SS) at n 128;
+//   - setmaxnreg, named barriers, and the address swizzle TMA applies, so
+//     that a thread can read or write a swizzled tile itself;
+//   - on the host, cuTensorMapEncodeTiled reached through the runtime's
+//     driver entry point (no -lcuda on the link line).
+// Raw PTX keeps the build at seconds (no CUTLASS or PyTorch headers).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers -----------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Makes this thread's generic writes to shared memory visible to the async
+// proxy (wgmma operands, TMA), as a tile rewritten in place must be.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// One arrival that also announces `bytes` of TMA transactions to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Spin until the phase of parity `parity` has completed. A new barrier is in
+// phase 0, so a wait on parity 1 passes at once (a producer's first pass over
+// an empty ring). A wait that lasts 2^35 clocks (some 20 s) traps: a
+// pipeline fault becomes a launch error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity))
+    if (clock64() - start > (1ll << 35)) __trap();
+}
+
+// -- TMA -----------------------------------------------------------------------
+
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+// The box of a rank-4 tensor map at coordinates (c0, c1, c2, c3), innermost
+// first, into shared memory; completion is counted on `bar` in bytes. Rows
+// past the tensor's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Byte offset inside a tile (whose base is aligned to the swizzle atom, 1024
+// bytes) that TMA's kSwizzle-byte swizzle gives the linear offset `off`: the
+// 16-byte chunk index (bits 4..) is XORed with the row bits 7.. (128: three
+// bits, 64: two, 32: one).
+template <int kSwizzle>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  constexpr uint32_t mask = (kSwizzle / 16 - 1) << 4;
+  return off ^ ((off >> 3) & mask);
+}
+
+// -- wgmma -----------------------------------------------------------------------
+
+// Layout-type field of a wgmma shared-memory descriptor for a swizzle width.
+template <int kSwizzle>
+__host__ __device__ constexpr int desc_layout() {
+  return kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+}
+// Descriptor of a tile in shared memory stored with kSwizzle-byte swizzle
+// (the layout TMA writes). `group` is the byte stride between groups of 8
+// rows of the tile; it goes into both offset fields: for a K-major operand
+// the stride field is the one read (the leading one is unused when swizzled),
+// and for an MN-major operand whose n fits one swizzle atom, as here, the
+// leading field is never read.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile,
+                                               uint32_t group) {
+  uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((group >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((group >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(desc_layout<kSwizzle>()) << 62;
+  return d;
+}
+// The descriptor moved by `bytes` (a multiple of 16) inside its tile.
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc,
+                                                 uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// An accumulator is written by wgmma asynchronously: this makes the compiler
+// treat every register of `d` as written here (after wgmma_wait), so no read
+// of it is moved above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A registers (RS): wgmma reads them asynchronously, so they
+// must stay live, unchanged, until its wgmma_wait; fencing them there keeps
+// the compiler from reusing their registers while the product runs.
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Accumulator layout of every m64nNk16 product below, per warpgroup thread
+// (w = warp in the warpgroup, g = lane / 4, t = lane % 4):
+//   d[4i + e] = D[16w + g + 8 * (e / 2)][8i + 2t + (e % 2)].
+// The A registers follow mma.m16n8k16's A fragment on the warp's 16 rows:
+//   a[0] = A[16w + g][2t, 2t+1]      a[1] = A[16w + g + 8][2t, 2t+1]
+//   a[2] = A[16w + g][2t+8, 2t+9]    a[3] = A[16w + g + 8][2t+8, 2t+9],
+// so d[8kk .. 8kk+7] packed to bf16 pairs is the A operand of k-step kk of a
+// product that takes D as its left operand.
+
+// D(64 x 64) (+)= A(64 x 16, registers) * B(16 x 64, shared memory), bf16
+// operands, fp32 accumulators (d: 32 a thread). kTransB = 1 reads B
+// MN-major (n contiguous), 0 K-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// D(64 x 32) (+)= A(64 x 16, registers) * B(16 x 32, shared memory), bf16
+// operands, fp32 accumulators (d: 16 a thread). kTransB = 1 reads B
+// MN-major (n contiguous), 0 K-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(kTransB));
+}
+
+
+// D(64 x 128) (+)= A(64 x 16) * B(16 x 128), both K-major in shared memory
+// (SS), bf16 operands, fp32 accumulators (d: 64 a thread).
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// -- warp specialisation ------------------------------------------------------
+
+// Give back registers (a producer warpgroup) or take them (consumers); every
+// warp of the warpgroup executes it.
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- host: tensor maps ----------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A rank-4 bf16 tensor map over `base`: dims innermost first (elements),
+// byte strides of dims 1..3, a box of box0 x box1 x 1 x 1, zero fill past
+// the extent. False if the driver refuses it.
+inline bool encode_bf16_map_4d(CUtensorMap* map, const void* base,
+                               const int64_t dims[4], const int64_t strides[3],
+                               int box0, int box1, int swizzle_bytes) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t gdim[4] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                              (cuuint64_t)dims[2], (cuuint64_t)dims[3]};
+  const cuuint64_t gstride[3] = {(cuuint64_t)strides[0],
+                                 (cuuint64_t)strides[1],
+                                 (cuuint64_t)strides[2]};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            gdim, gstride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

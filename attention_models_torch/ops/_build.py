@@ -3,10 +3,12 @@
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``, and the objects are linked into one shared library
 with a plain C interface under ``build/attention_models_torch/`` in the
-checkout. The library's name carries a hash of the sources and flags, so an
-edit rebuilds and an unchanged tree reuses the last build. The build runs at
-the first kernel launch of a process (or from ``build()``); nothing here runs
-at import.
+checkout. Each compile runs ptxas verbose and keeps its output beside the
+object (``ptxas_report`` reads a kernel's registers, shared memory and
+spill bytes from it). The library's name carries a hash of the sources and
+flags, so an edit rebuilds and an unchanged tree reuses the last build. The
+build runs at the first kernel launch of a process (or from ``build()``);
+nothing here runs at import.
 
 Each C entry point takes pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; ``launch`` raises on a
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,20 +32,20 @@ from attention_models_torch.ops.dispatch import require_hopper
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "attention_models_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_S = ctypes.POINTER(ctypes.c_int64)  # an int64 array of element strides
+_S = ctypes.POINTER(ctypes.c_int64)  # an int64 array: strides, a host plan
 _SIGNATURES = {
     "amt_layernorm": [_P, _P, _P, _P, ctypes.c_int64, _I, _F, _I, _P],
     "amt_nearest_codes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "amt_flash_fwd_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "amt_flash_fwd_kv": [_P] * 4 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _P],
     "amt_flash_bwd_kv": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
-    "amt_flash_fwd": [_P] * 5 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_fwd": [_P] * 5 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_bwd_dkv": [_P] * 8 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_bwd_dq": [_P] * 7 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp_bwd": [_P] * 21 + [_I, _I, _I, _F, _P],
@@ -98,8 +101,9 @@ def build() -> Path:
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, obj, proc))
     failed = []
-    for src, _, proc in jobs:
+    for src, obj, proc in jobs:
         log, _ = proc.communicate()
+        obj.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{log}")
     if failed:
@@ -113,6 +117,34 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(source: str, kernel: str) -> list[dict]:
+    """ptxas's figures for each instantiation of ``kernel`` in
+    ``csrc/<source>.cu`` from the last build's log: name (mangled),
+    registers, shared memory (static bytes), spill stores and loads."""
+    tag = build().name.split("_")[-1].split(".")[0]
+    log = (BUILD_DIR / f"{source}_{tag}.log").read_text()
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(name=m.group(1)) if kernel in m.group(1) else None
+            if cur is not None:
+                rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return rows
 
 
 def library() -> ctypes.CDLL:

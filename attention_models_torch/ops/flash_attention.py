@@ -16,13 +16,17 @@ Counterparts of ``attention_models_tpu/ops/flash_attention.py``:
   ``delta = flash_delta(o, g)``, so the ring reuses them chunk by chunk;
   ``_flash_backward`` runs dkv, then dq.
 
-The three layouts are three sets of strides into one forward template and
-one dkv/dq pair of kernels; a kernel takes any view whose last dimension is
+The three layouts are three sets of strides into one forward kernel and one
+dkv/dq pair of kernels; a kernel takes any view whose last dimension is
 contiguous and whose rows are 16-byte aligned (k and v may be views of one
-packed kv). The forwards return out in q's dtype and the natural-log
-logsumexp in fp32. The causal mask is bottom-right aligned; tq > tk with
-``causal=True`` raises. The kernels take bf16 (tensor-core products, exp2
-softmax) and fp32 (exact FMA products and ``expf``), head width 32 or 64.
+packed kv). The bf16 forward reads q, k and v by TMA: ``fwd_plan`` computes
+on the host everything its launch needs (each operand's tensor map, the
+grid, the shared memory) and refuses a view TMA cannot take; the C side
+encodes the maps and launches. The forwards return out in q's dtype and the
+natural-log logsumexp in fp32. The causal mask is bottom-right aligned;
+tq > tk with ``causal=True`` raises. The kernels take bf16 (tensor-core
+products, exp2 softmax) and fp32 (exact FMA products and ``expf``), head
+width 32 or 64.
 
 On the card each differentiable entry goes through its autograd Function
 (kernel forward, kernel backward) when a gradient is recorded and launches
@@ -33,7 +37,9 @@ the plain version; a CUDA tensor a kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass, field
 
 import torch
 
@@ -46,7 +52,11 @@ from attention_models_torch.ops.dispatch import (
 
 HEAD_DIMS = (32, 64)  # the head widths the flash kernels are built for
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
-MAX_BH = 65535  # b * h rides the grid's y dimension
+MAX_BH = 65535  # b * h rides the grid's y dimension (fp32 and backward)
+
+# the bf16 forward's shape (csrc/flash_attention.cu: kFwdRows, kFwdKeys,
+# kFwdStages, kFwdThreads)
+FWD_ROWS, FWD_KEYS, FWD_STAGES, FWD_THREADS = 128, 128, 2, 384
 
 
 def _check_causal_lengths(tq: int, tk: int) -> None:
@@ -274,6 +284,102 @@ def _flash_backward_reference(q, kv, o, lse, g, scale: float, causal: bool):
     return dq, torch.stack([dk, dv], dim=2).contiguous()
 
 
+# -- the bf16 forward's host plan --------------------------------------------
+
+@dataclass(frozen=True)
+class TileMap:
+    """A rank-4 TMA tensor map over one operand viewed as (b, h, t, d):
+    ``dims`` (d, t, h, b) in elements, innermost first; ``strides`` the byte
+    steps of t, h and b; ``box`` (d, rows), the tile one load brings."""
+    dims: tuple[int, int, int, int]
+    strides: tuple[int, int, int]
+    box: tuple[int, int]
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """Every host decision of a bf16 forward launch: the maps of q, k and v,
+    the swizzle (bytes: one tile row, 128 at d 64, 64 at d 32), the grid
+    (b*h, q tiles of FWD_ROWS), the threads, the dynamic shared memory
+    (q tile, FWD_STAGES k and v tiles, mbarriers, 1024 bytes to align) and
+    the q tiles' order: causal tiles run heaviest (most keys) first."""
+    q: TileMap
+    k: TileMap
+    v: TileMap
+    swizzle: int
+    grid: tuple[int, int]
+    threads: int
+    smem: int
+    heaviest_first: bool
+    _c: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        vals = []
+        for m in (self.q, self.k, self.v):
+            vals += [*m.dims, *m.strides, *m.box]
+        vals += [self.swizzle, *self.grid, self.threads, self.smem,
+                 int(self.heaviest_first)]
+        object.__setattr__(self, "_c", (ctypes.c_int64 * len(vals))(*vals))
+
+    def c_array(self):
+        """The 33 int64 values ``amt_flash_fwd`` reads (built once)."""
+        return self._c
+
+
+def fwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of the bf16 forward at head width d (the
+    struct FwdTiles<d> plus 1024 bytes of alignment slack)."""
+    tile = FWD_ROWS * d * 2
+    return (1 + 2 * FWD_STAGES) * tile + 8 * (1 + 3 * FWD_STAGES) + 1024
+
+
+def _tile_map(name: str, shape: tuple, stride: tuple, item: int,
+              ptr: int) -> TileMap:
+    """The map of a (b, h, t, d) view given its shape, element strides,
+    item size and address; a view TMA cannot take raises, naming why."""
+    b, h, t, d = shape
+    if ptr % 16:
+        raise ValueError(f"flash kernel: {name} starts at an address that is "
+                         f"not 16-byte aligned, which TMA cannot load")
+    if stride[3] != 1:
+        raise ValueError(f"flash kernel: {name} needs a contiguous last "
+                         f"dimension for TMA (strides {stride})")
+    steps = []
+    for axis, n, s in (("t", t, stride[2]), ("h", h, stride[1]),
+                       ("b", b, stride[0])):
+        nbytes = s * item
+        if n == 1:  # never stepped: any value TMA accepts
+            nbytes = 16
+        elif nbytes <= 0 or nbytes % 16:
+            raise ValueError(f"flash kernel: {name}'s {axis} stride of "
+                             f"{nbytes} bytes is not a positive multiple of "
+                             f"16, which TMA cannot take")
+        steps.append(nbytes)
+    return TileMap((d, t, h, b), tuple(steps), (d, FWD_KEYS))
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(metas: tuple, causal: bool) -> FwdPlan:
+    (q, k, v) = (_tile_map(*m) for m in metas)
+    d, tq, h, b = q.dims
+    return FwdPlan(q, k, v, swizzle=2 * d, grid=(b * h, -(-tq // FWD_ROWS)),
+                   threads=FWD_THREADS, smem=fwd_smem_bytes(d),
+                   heaviest_first=causal)
+
+
+def _meta(name: str, t: torch.Tensor) -> tuple:
+    return (name, tuple(t.shape), tuple(t.stride()), t.element_size(),
+            t.data_ptr() % 16)
+
+
+def fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> FwdPlan:
+    """The bf16 forward's plan for (b, h, t, d) views q, k and v, cached by
+    the views' shapes, strides and 16-byte alignment, so a serving loop
+    pays for it once; the C side encodes the maps at every call."""
+    return _fwd_plan((_meta("q", q), _meta("k", k), _meta("v", v)), causal)
+
+
 # -- kernel launches -----------------------------------------------------------
 
 def _check_head_dim(d: int) -> None:
@@ -321,17 +427,24 @@ def _strides(*views: torch.Tensor | None):
     return (ctypes.c_int64 * len(vals))(*vals)
 
 
+def _plan_array(q, k, v, causal: bool):
+    """The bf16 forward's plan as the C array, None in fp32."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return fwd_plan(q, k, v, causal).c_array()
+
+
 def _launch_fwd(q, k, v, out, lse, scale: float, causal: bool) -> None:
-    """The forward template on (b, h, t, d) views of q, k, v and out and a
+    """The forward kernel on (b, h, t, d) views of q, k, v and out and a
     (b, h, tq) view of lse."""
     _check_views(q, ("q", q), ("k", k), ("v", v), ("out", out), ("lse", lse))
     b, h, tq, d = q.shape
     with torch.cuda.device(q.device):
         _build.launch(
             "amt_flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out, lse), b,
-            h, tq, k.shape[2], d, scale, int(causal),
-            _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+            out.data_ptr(), lse.data_ptr(), _strides(q, k, v, out, lse),
+            _plan_array(q, k, v, causal), b, h, tq, k.shape[2], d, scale,
+            int(causal), _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
 
 
@@ -401,11 +514,12 @@ def _flash_fwd_kernel(q, kv, scale: float, causal: bool):
     b, tq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, tq, h, dtype=torch.float32, device=q.device)
+    plan = _plan_array(*map(_heads, (q, kv[:, :, 0], kv[:, :, 1])), causal)
     with torch.cuda.device(q.device):
         _build.launch(
             "amt_flash_fwd_kv", q.data_ptr(), kv.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, tq, kv.shape[1], h, d, scale, int(causal),
-            _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+            lse.data_ptr(), plan, b, tq, kv.shape[1], h, d, scale,
+            int(causal), _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
     flash_attention_bthd_kv.launches += 1
     return out, lse

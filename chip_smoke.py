@@ -4,7 +4,10 @@
 
 Needs one Hopper card. Phases, one line each (any failure raises):
   1. device   the card's name, nvidia-smi's name and power limit
-  2. build    nvcc of attention_models_torch/csrc/*.cu (one process a file)
+  2. build    nvcc of attention_models_torch/csrc/*.cu (one process a file);
+              ptxas's line for the bf16 flash forward (flash_fwd_bf16_kernel,
+              the wgmma/TMA kernel of kernels 1, 9 and 16) at d 64 and 32:
+              registers, static shared memory, spill bytes (a spill fails)
   3. kernels  each kernel at the main path's shapes against its plain
               version on the card, in each dtype it takes, with kernel,
               plain and library (one PyTorch call; for a backward kernel
@@ -18,7 +21,14 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               once, head width 64 and 32; and bit for bit, kernel 9 on the
               views kv[:, :, 0], kv[:, :, 1] against kernel 1 on the packed
               kv, kernel 10 against kernel 5, kernel 16 on the (b, h, t, d)
-              transposes against kernel 9, kernels 17 + 18 against 10
+              transposes against kernel 9, kernels 17 + 18 against 10;
+              the bf16 forward at a ragged length (b 2, h 8, t 1096, d 64,
+              causal and not) through kernels 16 and 1 and at d 32 on the
+              recon shape through kernel 1, against the plain versions; the
+              bf16 forward against SDPA in turns (kernel, SDPA, SDPA,
+              kernel) at the seven shapes of PERF.md's table, beside the
+              ratio of the mma.sync kernel it replaced; the host cost of
+              one forward call at Muse's shape
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -638,11 +648,29 @@ def main() -> int:
           f"nvidia-smi: {smi}", flush=True)
 
     # ---------------------------------------------------------------- 2 --
+    def gate(ok, what):
+        if not ok:
+            raise AssertionError(what)
+
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.1f} s -> {lib_path.name}",
           flush=True)
+    # the bf16 flash forward (wgmma/TMA) at both head widths: registers,
+    # static shared memory and spills as ptxas reports them; a spill fails
+    ptxas = {}
+    for r in _build.ptxas_report("flash_attention", "flash_fwd_bf16_kernel"):
+        d = 64 if "ILi64E" in r["name"] else 32
+        ptxas[f"d{d}"] = r
+        print(f"[ptxas] flash_fwd_bf16_kernel<{d}>: {r['registers']} "
+              f"registers, {r['smem']} bytes smem, {r['spill_stores']} bytes "
+              f"spill stores, {r['spill_loads']} bytes spill loads",
+              flush=True)
+    gate(sorted(ptxas) == ["d32", "d64"]
+         and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                 for r in ptxas.values()),
+         f"flash forward ptxas: {ptxas}")
 
     # ---------------------------------------------------------------- 3 --
     def time_ms(fn, iters=20):
@@ -651,6 +679,23 @@ def main() -> int:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def device_ms(fn, iters=20):
+        """time_ms with the launches queued behind a sleep on the card, so
+        the events bracket device time only: no gap where the card waits
+        for the host to enqueue the next call"""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e6 + 2e5 * iters))  # cycles, > the enqueue
         start.record()
         for _ in range(iters):
             fn()
@@ -675,10 +720,6 @@ def main() -> int:
         t_ops = sum(n / PEAK_FLOPS[k] for n, k in ops) * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                      "operations")
-
-    def gate(ok, what):
-        if not ok:
-            raise AssertionError(what)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1088,6 +1129,116 @@ def main() -> int:
         gate(all(same.values()), f"flash layouts differ: {same}")
         del q, kv, g, k, v, o1, l1, o9, l9, dq5, dkv5, dq10, dk10, dv10
         del o16, l16, delta, dk17, dv17, dq18
+
+    # the bf16 forward at a ragged length (b 2, h 8, t 1096: the last q and
+    # k/v tiles partly past t, zero-filled by TMA and never stored) through
+    # kernels 16 and 1, and at head width 32 on the recon shape through
+    # kernel 1, causal and not, against the plain versions
+    for kernel, bb, tt, dd, causal in (
+            ("flash_forward", 2, 1096, d_, False),
+            ("flash_forward", 2, 1096, d_, True),
+            ("flash_attention_bthd_kv", 2, 1096, d_, False),
+            ("flash_attention_bthd_kv", 2, 1096, d_, True),
+            ("flash_attention_bthd_kv", b_, t_, 32, False),
+            ("flash_attention_bthd_kv", b_, t_, 32, True)):
+        sc = dd ** -0.5
+        if kernel == "flash_forward":
+            q, k, v = (randn(bb, h_, tt, dd, dtype=torch.bfloat16)
+                       for _ in range(3))
+            out, lse = flash_forward(q, k, v, scale=sc, causal=causal)
+            out_p, lse_p = _flash_forward_reference(q, k, v, sc, causal)
+            run = lambda: flash_forward(q, k, v, scale=sc,  # noqa: E731
+                                        causal=causal)
+            plain = lambda: _flash_forward_reference(  # noqa: E731
+                q, k, v, sc, causal)
+            qs, ks, vs = q, k, v
+            moved = nbytes(q, k, v, out, lse)
+        else:
+            q = randn(bb, tt, h_, dd, dtype=torch.bfloat16)
+            kv = randn(bb, tt, 2, h_, dd, dtype=torch.bfloat16)
+            out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
+            out_p, lse_p = _flash_reference(q, kv, sc, causal)
+            run = lambda: flash_attention_bthd_kv(  # noqa: E731
+                q, kv, causal=causal)
+            plain = lambda: _flash_reference(q, kv, sc, causal)  # noqa: E731
+            qs, ks, vs = (heads(t).contiguous()
+                          for t in (q, kv[:, :, 0], kv[:, :, 1]))
+            moved = nbytes(q, kv, out, lse)
+        lse_err = rel_l2(lse, lse_p)
+        gate(lse_err <= BF16_TOL, f"{kernel} t {tt} d {dd} lse rel_l2 "
+             f"{lse_err}")
+        gate(bool(torch.isfinite(out).all()), f"{kernel} t {tt}: non-finite")
+        record(kernel, f"b{bb} t{tt} h{h_} d{dd} causal={causal} "
+               f"(lse rel_l2 {lse_err:.2e})", torch.bfloat16, BF16_TOL,
+               rel_l2(out, out_p), max_abs(out, out_p), time_ms(run),
+               time_ms(plain, iters=5), time_ms(lambda: sdpa(qs, ks, vs,
+                                                             causal)),
+               moved, 4 * bb * h_ * dd * pairs_of(tt, tt, causal))
+    q = k = v = kv = out = lse = out_p = lse_p = qs = ks = vs = None
+
+    # the bf16 forward against SDPA in turns (kernel, SDPA, SDPA, kernel) at
+    # the shapes of the kernels' table, beside the ratio of the mma.sync
+    # kernel it replaced (same shapes, same card type): device time
+    # (launches queued behind a sleep), then back to back as a caller
+    # enqueues them (host time included where it exceeds the card's)
+    fwd_vs_sdpa = []
+    for row, bb, hh, tt, causal, before in (
+            (1, b_, h_, t_, False, 2.65), (1, b_, mg_heads, t_, False, 2.86),
+            (1, 16, 16, t_, False, 2.98), (9, b_, h_, t_, False, 2.81),
+            (16, 1, h_, 4096, True, 3.40), (16, 1, h_, 4096, False, 2.91),
+            (16, 1, h_, 16384, True, 3.17)):
+        if row == 16:
+            q, k, v = (randn(bb, hh, tt, d_, dtype=torch.bfloat16)
+                       for _ in range(3))
+            qs, ks, vs = q, k, v
+            run = lambda: flash_forward(q, k, v, scale=scale,  # noqa: E731
+                                        causal=causal)
+        else:
+            q = randn(bb, tt, hh, d_, dtype=torch.bfloat16)
+            kv = randn(bb, tt, 2, hh, d_, dtype=torch.bfloat16)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+            qs, ks, vs = (heads(t).contiguous() for t in (q, k, v))
+            run = ((lambda: flash_attention_bthd_kv(q, kv, causal=causal))
+                   if row == 1 else
+                   (lambda: flash_attention_bthd(q, k, v, causal=causal)))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, is_causal=causal)
+        k1, s1, s2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
+                          device_ms(run))
+        bk1, bs1, bs2, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
+                              time_ms(run))
+        ratio = (k1 + k2) / (s1 + s2)
+        b_ms = bound(0, [(4 * bb * hh * d_ * pairs_of(tt, tt, causal),
+                          "bfloat16")])[0]
+        r = dict(row=row, b=bb, h=hh, t=tt, causal=causal,
+                 kernel_ms=(k1 + k2) / 2, sdpa_ms=(s1 + s2) / 2, ratio=ratio,
+                 back_to_back_kernel_ms=(bk1 + bk2) / 2,
+                 back_to_back_sdpa_ms=(bs1 + bs2) / 2,
+                 back_to_back_ratio=(bk1 + bk2) / (bs1 + bs2),
+                 mma_sync_ratio=before, bound_ms=b_ms)
+        fwd_vs_sdpa.append(r)
+        print(f"[turns] kernel {row} b{bb} h{hh} t{tt} causal={causal}: "
+              f"device kernel {k1:.4f} / {k2:.4f} ms, SDPA {s1:.4f} / "
+              f"{s2:.4f} ms, kernel/SDPA {ratio:.3f} (mma.sync kernel "
+              f"{before}); back to back {bk1:.4f} / {bk2:.4f} against "
+              f"{bs1:.4f} / {bs2:.4f}, "
+              f"{r['back_to_back_ratio']:.3f}; bound {b_ms:.4f} ms "
+              f"({100 * b_ms / r['kernel_ms']:.1f} % of it)", flush=True)
+    q = k = v = kv = qs = ks = vs = None
+    # host cost of one forward call at Muse's shape (plan lookup, three
+    # tensor maps encoded, the launch): enqueue time of 200 calls
+    q = randn(16, t_, 16, d_, dtype=torch.bfloat16)
+    kv = randn(16, t_, 2, 16, d_, dtype=torch.bfloat16)
+    flash_attention_bthd_kv(q, kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        flash_attention_bthd_kv(q, kv)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"[host] flash_attention_bthd_kv b16 t{t_} h16: {host_us:.1f} us "
+          f"a call on the host (enqueue)", flush=True)
+    del q, kv
 
     # fused LN + MLP backward, bf16; the library call is layer_norm ->
     # linear -> gelu -> linear forward + backward
@@ -2924,7 +3075,10 @@ def main() -> int:
                                fp32_loss_rel=vit32_loss,
                                fp32_grad_rel_l2=vit32_grads),
                            longcontext=dict(rows=lc_rows, t16384_rel_l2=lc_err),
-                           ring=ring, flash_bthd_rel_l2=bthd_errs),
+                           ring=ring, flash_bthd_rel_l2=bthd_errs,
+                           flash_fwd_ptxas=ptxas,
+                           flash_fwd_vs_sdpa=fwd_vs_sdpa,
+                           flash_fwd_host_us=host_us),
                       f, indent=1)
     amt.sync()
     print(f"[nvidia-smi] {smi}")

@@ -199,7 +199,7 @@ def _kernel_calls(d, dtype):
 
 
 # where each C entry takes the head width (ops/_build.py's signatures)
-D_ARG = {"amt_flash_fwd_kv": 8, "amt_flash_bwd_kv": 11, "amt_flash_fwd": 10,
+D_ARG = {"amt_flash_fwd_kv": 9, "amt_flash_bwd_kv": 11, "amt_flash_fwd": 11,
          "amt_flash_bwd_dkv": 13, "amt_flash_bwd_dq": 12}
 
 
