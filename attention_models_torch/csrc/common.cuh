@@ -92,17 +92,6 @@ __device__ __forceinline__ void load_b_frag(uint32_t b[2],
   b[1] = pack_bf16x2_raw(p[(2 * t + 8) * sk + g * sn],
                          p[(2 * t + 9) * sk + g * sn]);
 }
-// The A fragment of a product whose left operand is the fp32 accumulator of
-// an earlier one: the m16n8 C tiles 2kk and 2kk+1 (columns 16kk..16kk+15)
-// are exactly the A fragment of k-step kk, rounded to bf16.
-__device__ __forceinline__ void acc_to_a_frag(uint32_t a[4], const float c0[4],
-                                              const float c1[4]) {
-  a[0] = pack_bf16x2(c0[0], c0[1]);
-  a[1] = pack_bf16x2(c0[2], c0[3]);
-  a[2] = pack_bf16x2(c1[0], c1[1]);
-  a[3] = pack_bf16x2(c1[2], c1[3]);
-}
-
 // 16-byte asynchronous copy global -> shared (cp.async, sm_80+); with
 // valid == false nothing is read and the 16 shared bytes are zero-filled.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -44,10 +44,10 @@ _SIGNATURES = {
     "amt_nearest_codes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "amt_flash_fwd_kv": [_P] * 4 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp": [_P] * 10 + [_I, _I, _I, _F, _P],
-    "amt_flash_bwd_kv": [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_bwd_kv": [_P] * 7 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_fwd": [_P] * 5 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
-    "amt_flash_bwd_dkv": [_P] * 8 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
-    "amt_flash_bwd_dq": [_P] * 7 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_bwd_dkv": [_P] * 8 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
+    "amt_flash_bwd_dq": [_P] * 7 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp_bwd": [_P] * 21 + [_I, _I, _I, _F, _P],
     "amt_ffn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_bwd": [_P] * 14 + [_I, _I, _I, _F, _I, _P],

@@ -19,10 +19,11 @@ Counterparts of ``attention_models_tpu/ops/flash_attention.py``:
 The three layouts are three sets of strides into one forward kernel and one
 dkv/dq pair of kernels; a kernel takes any view whose last dimension is
 contiguous and whose rows are 16-byte aligned (k and v may be views of one
-packed kv). The bf16 forward reads q, k and v by TMA: ``fwd_plan`` computes
-on the host everything its launch needs (each operand's tensor map, the
-grid, the shared memory) and refuses a view TMA cannot take; the C side
-encodes the maps and launches. The forwards return out in q's dtype and the
+packed kv). The bf16 kernels read q, k, v (and the backward's dout) by TMA:
+``fwd_plan`` and ``bwd_plan`` compute on the host everything a launch needs
+(each operand's tensor map, the grids, the shared memory, the tile order)
+and refuse a view TMA cannot take; the C side encodes the maps and
+launches. The forwards return out in q's dtype and the
 natural-log logsumexp in fp32. The causal mask is bottom-right aligned;
 tq > tk with ``causal=True`` raises. The kernels take bf16 (tensor-core
 products, exp2 softmax) and fp32 (exact FMA products and ``expf``), head
@@ -52,11 +53,16 @@ from attention_models_torch.ops.dispatch import (
 
 HEAD_DIMS = (32, 64)  # the head widths the flash kernels are built for
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
-MAX_BH = 65535  # b * h rides the grid's y dimension (fp32 and backward)
+MAX_BH = 65535  # b * h: the fp32 forward's grid y (the kernels refuse more)
 
 # the bf16 forward's shape (csrc/flash_attention.cu: kFwdRows, kFwdKeys,
 # kFwdStages, kFwdThreads)
 FWD_ROWS, FWD_KEYS, FWD_STAGES, FWD_THREADS = 128, 128, 2, 384
+# the bf16 backward's (csrc/flash_attention_bwd.cu: kBwdRows, kDkvStages,
+# kDqStages, kBwdThreads): a block of one warpgroup owns 64 keys (dkv) or 64
+# query rows (dq); tiles of 64 rows stream through a 3-stage (dkv) or
+# 2-stage (dq) ring
+BWD_ROWS, BWD_DKV_STAGES, BWD_DQ_STAGES, BWD_THREADS = 64, 3, 2, 128
 
 
 def _check_causal_lengths(tq: int, tk: int) -> None:
@@ -334,9 +340,10 @@ def fwd_smem_bytes(d: int) -> int:
 
 
 def _tile_map(name: str, shape: tuple, stride: tuple, item: int,
-              ptr: int) -> TileMap:
+              ptr: int, rows: int = FWD_KEYS) -> TileMap:
     """The map of a (b, h, t, d) view given its shape, element strides,
-    item size and address; a view TMA cannot take raises, naming why."""
+    item size and address, in tiles of ``rows`` rows; a view TMA cannot
+    take raises, naming why."""
     b, h, t, d = shape
     if ptr % 16:
         raise ValueError(f"flash kernel: {name} starts at an address that is "
@@ -355,7 +362,7 @@ def _tile_map(name: str, shape: tuple, stride: tuple, item: int,
                              f"{nbytes} bytes is not a positive multiple of "
                              f"16, which TMA cannot take")
         steps.append(nbytes)
-    return TileMap((d, t, h, b), tuple(steps), (d, FWD_KEYS))
+    return TileMap((d, t, h, b), tuple(steps), (d, rows))
 
 
 @functools.lru_cache(maxsize=256)
@@ -378,6 +385,78 @@ def fwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the views' shapes, strides and 16-byte alignment, so a serving loop
     pays for it once; the C side encodes the maps at every call."""
     return _fwd_plan((_meta("q", q), _meta("k", k), _meta("v", v)), causal)
+
+
+# -- the bf16 backward's host plan -------------------------------------------
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """Every host decision of a bf16 backward launch (the dkv kernel, the dq
+    kernel or both): the maps of q, k, v and dout in tiles of BWD_ROWS rows,
+    the swizzle (one tile row), the dkv grid (b*h, k tiles), the dq grid
+    (b*h, q tiles), the threads, each kernel's dynamic shared memory and the
+    dq tiles' order: causal tiles run heaviest (most keys, the last) first.
+    The dkv grid's natural order already is heaviest first."""
+    q: TileMap
+    k: TileMap
+    v: TileMap
+    dout: TileMap
+    swizzle: int
+    dkv_grid: tuple[int, int]
+    dq_grid: tuple[int, int]
+    threads: int
+    dkv_smem: int
+    dq_smem: int
+    dq_heaviest_first: bool
+    _c: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        vals = []
+        for m in (self.q, self.k, self.v, self.dout):
+            vals += [*m.dims, *m.strides, *m.box]
+        vals += [self.swizzle, *self.dkv_grid, *self.dq_grid, self.threads,
+                 self.dkv_smem, self.dq_smem, int(self.dq_heaviest_first)]
+        object.__setattr__(self, "_c", (ctypes.c_int64 * len(vals))(*vals))
+
+    def c_array(self):
+        """The 45 int64 values ``amt_flash_bwd_*`` read (built once)."""
+        return self._c
+
+
+def bwd_smem_bytes(d: int) -> tuple[int, int]:
+    """Dynamic shared memory of the bf16 dkv and dq kernels at head width d:
+    dkv the struct DkvTiles<d> (k and v tiles, BWD_DKV_STAGES stages of q,
+    its scaled copy and dout, two buffers of lse and delta rows, mbarriers),
+    dq DqTiles<d> (q and dout tiles, BWD_DQ_STAGES stages of k and v,
+    mbarriers), each plus 1024 bytes of alignment slack."""
+    tile = BWD_ROWS * d * 2
+    dkv = (2 + 3 * BWD_DKV_STAGES) * tile + 2 * 2 * BWD_ROWS * 4
+    dq = (2 + 2 * BWD_DQ_STAGES) * tile
+    return (dkv + 8 * (1 + BWD_DKV_STAGES) + 1024,
+            dq + 8 * (1 + 2 * BWD_DQ_STAGES) + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plan(metas: tuple, causal: bool) -> BwdPlan:
+    (q, k, v, dout) = (_tile_map(*m, rows=BWD_ROWS) for m in metas)
+    d, tq, h, b = q.dims
+    tk = k.dims[1]
+    dkv_smem, dq_smem = bwd_smem_bytes(d)
+    return BwdPlan(q, k, v, dout, swizzle=2 * d,
+                   dkv_grid=(b * h, -(-tk // BWD_ROWS)),
+                   dq_grid=(b * h, -(-tq // BWD_ROWS)), threads=BWD_THREADS,
+                   dkv_smem=dkv_smem, dq_smem=dq_smem,
+                   dq_heaviest_first=causal)
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             dout: torch.Tensor, causal: bool) -> BwdPlan:
+    """The bf16 backward's plan for (b, h, t, d) views q, k, v and dout,
+    cached by the views' shapes, strides and 16-byte alignment; a view TMA
+    cannot take (a stride-0 broadcast, an unaligned base or row) raises a
+    ValueError naming it."""
+    return _bwd_plan((_meta("q", q), _meta("k", k), _meta("v", v),
+                      _meta("dout", dout)), causal)
 
 
 # -- kernel launches -----------------------------------------------------------
@@ -448,6 +527,13 @@ def _launch_fwd(q, k, v, out, lse, scale: float, causal: bool) -> None:
         )
 
 
+def _bwd_plan_array(q, k, v, g, causal: bool):
+    """The bf16 backward's plan as the C array, None in fp32."""
+    if q.dtype != torch.bfloat16:
+        return None
+    return bwd_plan(q, k, v, g, causal).c_array()
+
+
 def _launch_bwd(q, k, v, g, lse, delta, scale: float, causal: bool, *,
                 dq=None, dk=None, dv=None) -> None:
     """The dkv kernel (when dk and dv are given), then the dq kernel (when dq
@@ -458,6 +544,7 @@ def _launch_bwd(q, k, v, g, lse, delta, scale: float, causal: bool, *,
                  ("delta", delta), *outs)
     b, h, tq, d = q.shape
     strides = _strides(q, k, v, g, lse, delta, dq, dk, dv)
+    plan = _bwd_plan_array(q, k, v, g, causal)
     tail = (b, h, tq, k.shape[2], d, scale, int(causal),
             _build.DTYPE_CODES[q.dtype], _build.stream_of(q))
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -465,10 +552,10 @@ def _launch_bwd(q, k, v, g, lse, delta, scale: float, causal: bool, *,
     with torch.cuda.device(q.device):
         if dk is not None:
             _build.launch("amt_flash_bwd_dkv", *ins, dk.data_ptr(),
-                          dv.data_ptr(), strides, *tail)
+                          dv.data_ptr(), strides, plan, *tail)
         if dq is not None:
             _build.launch("amt_flash_bwd_dq", *ins, dq.data_ptr(), strides,
-                          *tail)
+                          plan, *tail)
 
 
 def _empty(t: torch.Tensor) -> torch.Tensor:
@@ -540,11 +627,13 @@ def flash_attention_bwd_kv(q, kv, o, lse, g, *, scale: float,
     b, tq, h, d = q.shape
     dq = torch.empty_like(q)
     dkv = torch.empty_like(kv)
+    plan = _bwd_plan_array(*map(_heads, (q, kv[:, :, 0], kv[:, :, 1], g)),
+                           causal)
     with torch.cuda.device(q.device):
         _build.launch(
             "amt_flash_bwd_kv", q.data_ptr(), kv.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dkv.data_ptr(),
-            b, tq, kv.shape[1], h, d, scale, int(causal),
+            plan, b, tq, kv.shape[1], h, d, scale, int(causal),
             _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
         )
     flash_attention_bwd_kv.launches += 1
@@ -622,11 +711,13 @@ def flash_attention_bwd_bthd(q, k, v, o, lse, g, *, scale: float,
                              causal: bool = False):
     """(dq, dk, dv) of ``flash_attention_bthd`` for the cotangent ``g`` of
     ``o`` (kernel 10: the dkv kernel, then the dq kernel); the plain version
-    for CPU tensors."""
+    for CPU tensors. g is made contiguous first: a broadcast cotangent has
+    stride 0, which TMA cannot take."""
     _check_bthd(q, k, v, causal)
     if not is_kernel_path(q):
         return _flash_backward_bthd_reference(q, k, v, o, lse, g, scale,
                                               causal)
+    g = g.contiguous()
     delta = flash_delta(o, g)
     dq, dk, dv = _empty(q), _empty(k), _empty(v)
     _launch_bwd(*map(_heads, (q, k, v, g, lse, delta)), scale, causal,

@@ -6,7 +6,9 @@ Needs one Hopper card. Phases, one line each (any failure raises):
   1. device   the card's name, nvidia-smi's name and power limit
   2. build    nvcc of attention_models_torch/csrc/*.cu (one process a file);
               ptxas's line for the bf16 flash forward (flash_fwd_bf16_kernel,
-              the wgmma/TMA kernel of kernels 1, 9 and 16) at d 64 and 32:
+              the wgmma/TMA kernel of kernels 1, 9 and 16) at d 64 and 32,
+              and for the backward's dkv and dq kernels (bf16 wgmma/TMA and
+              fp32 register tiles, kernels 5, 10, 17 and 18) at d 64 and 32:
               registers, static shared memory, spill bytes (a spill fails)
   3. kernels  each kernel at the main path's shapes against its plain
               version on the card, in each dtype it takes, with kernel,
@@ -28,7 +30,13 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               bf16 forward against SDPA in turns (kernel, SDPA, SDPA,
               kernel) at the seven shapes of PERF.md's table, beside the
               ratio of the mma.sync kernel it replaced; the host cost of
-              one forward call at Muse's shape
+              one forward call at Muse's shape; the bf16 backward at the
+              ragged length through kernels 17 + 18 and 5 and at d 32
+              through kernel 5, against the plain versions; the backward
+              (delta, dkv, dq) against SDPA's forward + backward in turns at
+              the ten shapes of PERF.md's backward rows (kernels 5, 10 and
+              17 + 18, bf16 and fp32), beside the ratios of the kernels it
+              replaced, 17 and 18 also alone
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -80,7 +88,10 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               model in fp32 (TF32 off), kernels against plain, on the same
               weights, token grid, mask draws and dropout seed; the bf16
               model's loss and global gradient on the same inputs, each
-              path against the fp32 plain one
+              path against the fp32 plain one; then one micro-step of the
+              shipped fp32 trainer (cfg/maskgit.yaml, mixed_precision no,
+              TF32 off): ms of two micro-steps after a warm-up, 16 launches
+              of kernel 5 in each, device time by kernel
  11. muse     Muse CFG decode: build_model on cfg/muse.yaml (restated in
               Python as MUSE_YAML, seeded weights) with
               training.mixed_precision=bf16 and model.quant none, int8_wide
@@ -671,6 +682,22 @@ def main() -> int:
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in ptxas.values()),
          f"flash forward ptxas: {ptxas}")
+    # the flash backward's dkv and dq kernels (bf16 wgmma/TMA and fp32
+    # register tiles) at both head widths: registers, static shared memory
+    # (the kernels take dynamic shared memory) and spills; a spill fails
+    bwd_ptxas = {}
+    for kern in ("flash_bwd_dkv_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel"):
+        for r in _build.ptxas_report("flash_attention_bwd", kern):
+            d = 64 if "ILi64E" in r["name"] else 32
+            bwd_ptxas[f"{kern}<{d}>"] = r
+            print(f"[ptxas] {kern}<{d}>: {r['registers']} registers, "
+                  f"{r['smem']} bytes smem, {r['spill_stores']} bytes spill "
+                  f"stores, {r['spill_loads']} bytes spill loads", flush=True)
+    gate(len(bwd_ptxas) == 8
+         and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                 for r in bwd_ptxas.values()),
+         f"flash backward ptxas: {bwd_ptxas}")
 
     # ---------------------------------------------------------------- 3 --
     def time_ms(fn, iters=20):
@@ -695,7 +722,9 @@ def main() -> int:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(2e6 + 2e5 * iters))  # cycles, > the enqueue
+        # cycles (about 1.2 ms an iteration at 1.75 GHz): longer than the
+        # host takes to enqueue an iteration, autograd's included
+        torch.cuda._sleep(int(2e6 + 2e6 * iters))
         start.record()
         for _ in range(iters):
             fn()
@@ -1176,6 +1205,82 @@ def main() -> int:
                moved, 4 * bb * h_ * dd * pairs_of(tt, tt, causal))
     q = k = v = kv = out = lse = out_p = lse_p = qs = ks = vs = None
 
+    # the bf16 backward at the ragged length (b 2, h 8, t 1096: the last q
+    # and k/v tiles of 64 partly past t, zero-filled by TMA; rows past tq
+    # read lse = +inf) through kernels 17 + 18 and 5, and at head width 32
+    # on the recon shape through kernel 5, causal and not, against the plain
+    # versions (2e-2), every output finite
+    for kernel, bb, tt, dd, causal in (
+            ("flash_bwd", 2, 1096, d_, False),
+            ("flash_bwd", 2, 1096, d_, True),
+            ("flash_attention_bwd_kv", 2, 1096, d_, False),
+            ("flash_attention_bwd_kv", 2, 1096, d_, True),
+            ("flash_attention_bwd_kv", b_, t_, 32, False),
+            ("flash_attention_bwd_kv", b_, t_, 32, True)):
+        sc = dd ** -0.5
+        label = f"b{bb} t{tt} h{h_} d{dd} causal={causal}"
+        npairs = pairs_of(tt, tt, causal)
+        if kernel == "flash_bwd":
+            q, k, v, g = (randn(bb, h_, tt, dd, dtype=torch.bfloat16)
+                          for _ in range(4))
+            out, lse = flash_forward(q, k, v, scale=sc, causal=causal)
+            delta = flash_delta(out, g)
+            dk, dv = flash_bwd_dkv(q, g, lse, delta, k, v, scale=sc,
+                                   causal=causal)
+            dq = flash_bwd_dq(k, v, q, g, lse, delta, scale=sc,
+                              causal=causal)
+            dk_p, dv_p = _flash_bwd_dkv_reference(q, g, lse, delta, k, v, sc,
+                                                  causal)
+            dq_p = _flash_bwd_dq_reference(k, v, q, g, lse, delta, sc,
+                                           causal)
+            lib_ms = time_ms(sdpa_fwd_bwd_of(q, k, v, g, causal))
+            errs = [rel_l2(dk, dk_p), rel_l2(dv, dv_p)]
+            gate(all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv)),
+                 f"flash backward {label}: non-finite")
+            record("flash_bwd_dkv", f"{label} (dk, dv rel_l2 {errs[0]:.2e}, "
+                   f"{errs[1]:.2e})", torch.bfloat16, BWD_BF16_TOL,
+                   max(errs), max(max_abs(dk, dk_p), max_abs(dv, dv_p)),
+                   time_ms(lambda: flash_bwd_dkv(q, g, lse, delta, k, v,
+                                                 scale=sc, causal=causal)),
+                   time_ms(lambda: _flash_bwd_dkv_reference(
+                       q, g, lse, delta, k, v, sc, causal), iters=5),
+                   lib_ms, nbytes(q, k, v, g, lse, delta, dk, dv),
+                   8 * bb * h_ * dd * npairs)
+            record("flash_bwd_dq", label, torch.bfloat16, BWD_BF16_TOL,
+                   rel_l2(dq, dq_p), max_abs(dq, dq_p),
+                   time_ms(lambda: flash_bwd_dq(k, v, q, g, lse, delta,
+                                                scale=sc, causal=causal)),
+                   time_ms(lambda: _flash_bwd_dq_reference(
+                       k, v, q, g, lse, delta, sc, causal), iters=5),
+                   lib_ms, nbytes(q, k, v, g, lse, delta, dq),
+                   6 * bb * h_ * dd * npairs)
+            del q, k, v, g, out, lse, delta, dk, dv, dq, dk_p, dv_p, dq_p
+            continue
+        q = randn(bb, tt, h_, dd, dtype=torch.bfloat16)
+        kv = randn(bb, tt, 2, h_, dd, dtype=torch.bfloat16)
+        g = randn(bb, tt, h_, dd, dtype=torch.bfloat16)
+        out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
+        dq, dkv = flash_attention_bwd_kv(q, kv, out, lse, g, scale=sc,
+                                         causal=causal)
+        dq_p, dkv_p = _flash_backward_reference(q, kv, out, lse, g, sc,
+                                                causal)
+        errs = [rel_l2(dq, dq_p), rel_l2(dkv[:, :, 0], dkv_p[:, :, 0]),
+                rel_l2(dkv[:, :, 1], dkv_p[:, :, 1])]
+        gate(all(bool(torch.isfinite(x).all()) for x in (dq, dkv)),
+             f"flash_attention_bwd_kv {label}: non-finite")
+        record("flash_attention_bwd_kv", f"{label} (dq, dk, dv rel_l2 "
+               f"{errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e})",
+               torch.bfloat16, BWD_BF16_TOL, max(errs),
+               max(max_abs(dq, dq_p), max_abs(dkv, dkv_p)),
+               time_ms(lambda: flash_attention_bwd_kv(
+                   q, kv, out, lse, g, scale=sc, causal=causal)),
+               time_ms(lambda: _flash_backward_reference(
+                   q, kv, out, lse, g, sc, causal), iters=5),
+               time_ms(sdpa_fwd_bwd_of(*(heads(t).contiguous() for t in (
+                   q, kv[:, :, 0], kv[:, :, 1], g)), causal)),
+               nbytes(q, kv, out, lse, g, dq, dkv), 10 * bb * h_ * dd * npairs)
+        del q, kv, g, out, lse, dq, dkv, dq_p, dkv_p
+
     # the bf16 forward against SDPA in turns (kernel, SDPA, SDPA, kernel) at
     # the shapes of the kernels' table, beside the ratio of the mma.sync
     # kernel it replaced (same shapes, same card type): device time
@@ -1239,6 +1344,80 @@ def main() -> int:
     print(f"[host] flash_attention_bthd_kv b16 t{t_} h16: {host_us:.1f} us "
           f"a call on the host (enqueue)", flush=True)
     del q, kv
+
+    # the backward (dkv + dq, and delta = rowsum(o * dout) before them)
+    # against SDPA's forward + backward in turns (kernel, SDPA, SDPA,
+    # kernel) at the shapes of the kernels' table, bf16 and fp32, beside
+    # the ratio of the kernels it replaced (PERF.md, same shapes, same card
+    # type): device time, then back to back; kernels 17 and 18 also alone.
+    # The bound counts the split's 14 flops a visible pair (10 for the
+    # fused TPU kernel's five products beside it)
+    bwd_vs_sdpa = []
+    for row, bb, hh, tt, dtype, causal, before in (
+            (5, b_, h_, t_, torch.bfloat16, False, 2.17),
+            (5, b_, mg_heads, t_, torch.bfloat16, False, 2.42),
+            (5, b_, h_, t_, torch.float32, False, 3.85),
+            (5, b_, mg_heads, t_, torch.float32, False, 3.84),
+            (10, b_, h_, t_, torch.bfloat16, False, 2.63),
+            (10, b_, h_, t_, torch.float32, False, 3.90),
+            (17, 1, h_, 4096, torch.bfloat16, True, 1.72),
+            (17, 1, h_, 4096, torch.bfloat16, False, 3.03),
+            (17, 1, h_, 4096, torch.float32, True, 6.39),
+            (17, 1, h_, 16384, torch.bfloat16, True, 3.87)):
+        if row == 17:
+            q, k, v, g = (randn(bb, hh, tt, d_, dtype=dtype)
+                          for _ in range(4))
+            out, lse = flash_forward(q, k, v, scale=scale, causal=causal)
+            qs, ks, vs, gs = q, k, v, g
+            run = lambda: flash_mod._flash_backward(  # noqa: E731
+                q, k, v, out, lse, g, scale=scale, causal=causal)
+            delta = flash_delta(out, g)
+            parts = dict(
+                dkv=device_ms(lambda: flash_bwd_dkv(
+                    q, g, lse, delta, k, v, scale=scale, causal=causal)),
+                dq=device_ms(lambda: flash_bwd_dq(
+                    k, v, q, g, lse, delta, scale=scale, causal=causal)))
+        else:
+            q, g = (randn(bb, tt, hh, d_, dtype=dtype) for _ in range(2))
+            kv = randn(bb, tt, 2, hh, d_, dtype=dtype)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+            out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
+            qs, ks, vs, gs = (heads(t).contiguous() for t in (q, k, v, g))
+            run = ((lambda: flash_attention_bwd_kv(
+                q, kv, out, lse, g, scale=scale, causal=causal))
+                if row == 5 else
+                (lambda: flash_attention_bwd_bthd(
+                    q, k, v, out, lse, g, scale=scale, causal=causal)))
+            parts = {}
+        lib = sdpa_fwd_bwd_of(qs, ks, vs, gs, causal)
+        k1, s1, s2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
+                          device_ms(run))
+        bk1, bs1, bs2, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
+                              time_ms(run))
+        ratio = (k1 + k2) / (s1 + s2)
+        npairs = bb * hh * d_ * pairs_of(tt, tt, causal)
+        peak = str(dtype).split(".")[-1]
+        b14 = bound(0, [(14 * npairs, peak)])[0]
+        b10 = bound(0, [(10 * npairs, peak)])[0]
+        r = dict(row=row, b=bb, h=hh, t=tt, dtype=peak, causal=causal,
+                 kernel_ms=(k1 + k2) / 2, sdpa_ms=(s1 + s2) / 2, ratio=ratio,
+                 back_to_back_kernel_ms=(bk1 + bk2) / 2,
+                 back_to_back_sdpa_ms=(bs1 + bs2) / 2,
+                 back_to_back_ratio=(bk1 + bk2) / (bs1 + bs2),
+                 before_ratio=before, bound_ms=b14, bound10_ms=b10,
+                 **{f"{n}_ms": t for n, t in parts.items()})
+        bwd_vs_sdpa.append(r)
+        alone = "".join(f", {n} alone {t:.4f} ms" for n, t in parts.items())
+        print(f"[turns] backward {row if row != 17 else '17 + 18'} b{bb} "
+              f"h{hh} t{tt} {peak} causal={causal}: device kernel "
+              f"{k1:.4f} / {k2:.4f} ms, SDPA fwd+bwd {s1:.4f} / {s2:.4f} ms, "
+              f"kernel/SDPA {ratio:.3f} (before {before}){alone}; back to "
+              f"back {bk1:.4f} / {bk2:.4f} against {bs1:.4f} / {bs2:.4f}, "
+              f"{r['back_to_back_ratio']:.3f}; bound {b14:.4f} ms, 14 flops "
+              f"a pair ({100 * b14 / r['kernel_ms']:.1f} % of it; 10 flops "
+              f"{b10:.4f})", flush=True)
+        del q, k, v, g, out, lse, qs, ks, vs, gs, run, lib
+    del kv, delta
 
     # fused LN + MLP backward, bf16; the library call is layer_norm ->
     # linear -> gelu -> linear forward + backward
@@ -2350,6 +2529,41 @@ def main() -> int:
     del m16, g32_flat
     torch.cuda.empty_cache()
 
+    # one micro-step of the shipped fp32 trainer (cfg/maskgit.yaml's
+    # mixed_precision "no", TF32 off): what its users pay a micro-step, the
+    # fp32 flash backward (kernel 5 at h 12) 16 times in it
+    fcfg = maskgit_config("no")
+    for key_, val in MASKGIT_TRAIN_OVERRIDES.items():
+        fcfg.set_path(key_, val)
+    fcfg.set_path("experiment.output_dir", os.path.abspath(os.path.join(
+        "chiprun_out", "chip_smoke_maskgit_train_fp32")))
+    ftrainer = build_trainer(fcfg, build_model(fcfg, device=dev),
+                             build_loader(fcfg), dev)
+    img = ftrainer.to_device(next(iter(ftrainer.train_dl))[0])
+    ftrainer.train_step(img)  # warm-up
+    torch.cuda.synchronize()
+    fp32_step_ms = []
+    for _ in range(2):
+        c = counts()
+        t = time.perf_counter()
+        m = ftrainer.train_step(img)
+        torch.cuda.synchronize()
+        fp32_step_ms.append((time.perf_counter() - t) * 1e3)
+        now = counts()
+        fp32_launches = {k: now[k] - c[k] for k in now if now[k] != c[k]}
+        gate(fp32_launches.get("flash_attention_bwd_kv") == 16
+             and np.isfinite(float(m["loss"])),
+             f"maskgit fp32 micro-step: launches {fp32_launches}, loss "
+             f"{float(m['loss'])}")
+    print(f"[maskgit_train] fp32 (shipped mixed_precision no, TF32 off): "
+          f"micro-step {fp32_step_ms[0]:.2f} / {fp32_step_ms[1]:.2f} ms, "
+          f"launches a micro-step {fp32_launches} | {smi}", flush=True)
+    fp32_profile = profile(torch, lambda: ftrainer.train_step(img),
+                           lambda: ftrainer.train_step(img),
+                           "1 fp32 MaskGIT training micro-step")
+    del ftrainer, img, m
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------------------- 11 --
     # Muse's CFG decode at cfg/muse.yaml's widths, bf16 compute over fp32
     # parameters (training.mixed_precision=bf16), seeded weights, in each
@@ -3058,7 +3272,10 @@ def main() -> int:
                                profile=mtrain_profile,
                                fp32_loss_rel=loss32_err,
                                fp32_grad_rel_l2=grad32_errs,
-                               bf16_vs_fp32=ratio),
+                               bf16_vs_fp32=ratio,
+                               fp32_step_ms=fp32_step_ms,
+                               fp32_launches=fp32_launches,
+                               fp32_profile=fp32_profile),
                            muse=muse,
                            recon_int8=dict(imgs_per_s=q_ips,
                                            index_agreement=q_agree),
@@ -3077,6 +3294,8 @@ def main() -> int:
                            longcontext=dict(rows=lc_rows, t16384_rel_l2=lc_err),
                            ring=ring, flash_bthd_rel_l2=bthd_errs,
                            flash_fwd_ptxas=ptxas,
+                           flash_bwd_ptxas=bwd_ptxas,
+                           flash_bwd_vs_sdpa=bwd_vs_sdpa,
                            flash_fwd_vs_sdpa=fwd_vs_sdpa,
                            flash_fwd_host_us=host_us),
                       f, indent=1)

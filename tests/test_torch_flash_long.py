@@ -199,8 +199,8 @@ def _kernel_calls(d, dtype):
 
 
 # where each C entry takes the head width (ops/_build.py's signatures)
-D_ARG = {"amt_flash_fwd_kv": 9, "amt_flash_bwd_kv": 11, "amt_flash_fwd": 11,
-         "amt_flash_bwd_dkv": 13, "amt_flash_bwd_dq": 12}
+D_ARG = {"amt_flash_fwd_kv": 9, "amt_flash_bwd_kv": 12, "amt_flash_fwd": 11,
+         "amt_flash_bwd_dkv": 14, "amt_flash_bwd_dq": 13}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
