@@ -3,12 +3,21 @@
 - ``fused_mlp``: the biased GELU MLP gelu(x W1^T + b1) W2^T + b2, forward
   and backward (kernels 7 and 8: csrc/mlp.cu, csrc/mlp_bwd.cu).
 - ``fused_ln_mlp``: the pre-LN MLP block x + Mlp(LayerNorm(x)), forward and
-  backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu): one pass at d 128, 256,
-  384 and 512, the LayerNorm kernel and kernel 7's / 8's tiles at every
-  wider d % 128 == 0.
+  backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu). The forward at every
+  d % 128 == 0 is the LayerNorm kernel writing Y and kernel 7's two
+  products on it, the second adding x; the backward runs one pass at
+  d 128, 256, 384 and 512 and the LayerNorm kernel and kernel 8's tiles at
+  every wider d % 128 == 0.
 - ``fused_ffn``: the GEGLU FFN LN_gamma(gate * gelu(a)) W2 with
   [a | gate] = x W1, no biases, forward and backward (csrc/ffn.cu,
   csrc/ffn_bwd.cu).
+
+The forwards of kernels 7 and 2 run csrc/gemm_sm90.cuh's TMA/wgmma tile
+product twice. ``mlp_plan`` computes on the host what those launches need
+(each operand's rank-2 tensor map, the tile width of each product, the
+grids and the shared memory), cached by the operands' shapes, strides and
+alignment, and refuses by name a view TMA cannot take; the C side encodes
+the maps and launches.
 
 Counterparts of ``attention_models_tpu/ops/ffn.py``'s ``fused_mlp`` and
 ``fused_ln_mlp`` (bf16 only on the kernel path, as there) and ``fused_ffn``
@@ -30,7 +39,10 @@ directly (``needs_grad``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -44,11 +56,18 @@ from attention_models_torch.ops.dispatch import (
 )
 from attention_models_torch.ops.layernorm import _ln_reference
 
-FUSED_DIMS = (128, 256, 384, 512)  # widths of csrc/ln_mlp*.cu's single pass
+FUSED_DIMS = (128, 256, 384, 512)  # widths of csrc/ln_mlp_bwd.cu's single pass
 BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's row passes
 FFN_BWD_ROWS = 16     # rows per block of csrc/ffn_bwd.cu's row pass
 TILE_ROWS = 128       # rows of csrc/gemm.cuh's tiles (kernel 8's db1 partials)
 COL_ROWS = 64         # rows per partial of kernel 8's db2 column sums
+# csrc/gemm_sm90.cuh's tile product (kBM, kBK, kThreads, kSwizzle, and each
+# tile width's ring depth, Config<BN>::kStages): 128 rows of C a block, K
+# slices of 64 bf16 (one 128-byte swizzle row), two consumer warpgroups and
+# a producer warp
+GEMM_ROWS, GEMM_K, GEMM_THREADS, GEMM_SWIZZLE = 128, 64, 288, 128
+GEMM_STAGES = {128: 3, 256: 4}
+ROW_ALIGN = 32        # elements: g's and W2's rows start 64-byte aligned
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -123,9 +142,196 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_kernel_operands(x, w1, w2, vecs) -> list[torch.Tensor]:
+# -- the tile products' host plan ---------------------------------------------
+
+@dataclass(frozen=True)
+class RowMap:
+    """A rank-2 TMA tensor map over a row-major (rows, K) bf16 matrix:
+    ``dims`` (K, rows) in elements, innermost first; ``stride`` the bytes
+    between rows; ``box`` (GEMM_K, tile rows), the tile one load brings."""
+    dims: tuple[int, int]
+    stride: int
+    box: tuple[int, int]
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One tile product C (M, N) = epilogue(A B^T + bias): the maps of A
+    (M, K) and B (N, K), the swizzle (bytes), the grid (N tiles of ``bn``,
+    M tiles of GEMM_ROWS), the threads, the dynamic shared memory, the tile
+    width ``bn`` and C's row stride ``ldc`` (elements)."""
+    a: RowMap
+    b: RowMap
+    swizzle: int
+    grid: tuple[int, int]
+    threads: int
+    smem: int
+    bn: int
+    ldc: int
+
+    def values(self) -> list[int]:
+        """The 17 int64 values csrc/gemm_sm90.cuh's gemm_from_plan reads."""
+        return [*self.a.dims, self.a.stride, *self.a.box, *self.b.dims,
+                self.b.stride, *self.b.box, self.swizzle, *self.grid,
+                self.threads, self.smem, self.bn, self.ldc]
+
+
+@dataclass(frozen=True)
+class MlpPlan:
+    """The two products of kernels 7 and 2: ``up`` g = gelu(x W1^T + b1)
+    (M n, N hid, K d; kernel 2's x is its LayerNorm's output) into the bf16
+    scratch g, whose rows are ``up.ldc`` elements apart, and ``down``
+    g W2^T (M n, N d, K hid)."""
+    up: GemmPlan
+    down: GemmPlan
+    _c: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        vals = self.up.values() + self.down.values()
+        object.__setattr__(self, "_c", (ctypes.c_int64 * len(vals))(*vals))
+
+    def c_array(self):
+        """The 34 int64 values ``amt_mlp`` and ``amt_ln_mlp`` read (built
+        once)."""
+        return self._c
+
+
+def gemm_smem_bytes(bn: int) -> int:
+    """Dynamic shared memory of the tile product at tile width ``bn``: the
+    struct Tiles<bn> (GEMM_STAGES[bn] stages of an A and a B tile, a full
+    and an empty mbarrier each) plus 1024 bytes of alignment slack."""
+    stages = GEMM_STAGES[bn]
+    return stages * (GEMM_ROWS + bn) * GEMM_K * 2 + 16 * stages + 1024
+
+
+def pick_bn(n: int, gelu: bool) -> int:
+    """The tile width of a product with N columns: 128 for the GELU product
+    (two blocks an SM, so one block's erff epilogue runs under the other's
+    products), 256 for the residual product (one block an SM, a quarter
+    fewer operand bytes from L2 a flop) unless N fits one 128-wide tile
+    (chosen in turns on the H100, PERF.md section 6)."""
+    return 128 if gelu or n <= 128 else 256
+
+
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """A (rows, k) matrix as a view whose rows start 64-byte aligned (every
+    ROW_ALIGN elements): ``t`` itself, or a zero-padded copy whose extra
+    columns TMA never reads (they lie past the map's K). The copy is held
+    on ``t`` and made again only when t's version or storage changes, so a
+    serving loop pads each weight once instead of at every call (the pad
+    dominated the wrapper's host time, ``bench_mlp.py paths``); an
+    inference-mode tensor, which has no version, is padded afresh."""
+    k = t.shape[1]
+    pad = -k % ROW_ALIGN
+    if not pad:
+        return t
+    if t.is_inference():
+        return F.pad(t, (0, pad))[:, :k]
+    key = (t._version, t.data_ptr())
+    held = getattr(t, "_aligned_rows", None)
+    if held is None or held[0] != key:
+        with torch.no_grad():
+            held = (key, F.pad(t, (0, pad))[:, :k])
+        t._aligned_rows = held
+    return held[1]
+
+
+def _row_map(name: str, shape: tuple, stride: tuple, item: int,
+             misalign: int, rows_box: int) -> RowMap:
+    """The map of a (rows, K) view given its shape, element strides, item
+    size and address modulo 16; a view TMA cannot take raises, naming
+    why."""
+    rows, k = shape
+    if misalign:
+        raise ValueError(f"mlp kernel: {name} starts at an address that is "
+                         f"not 16-byte aligned, which TMA cannot load")
+    if stride[1] != 1:
+        raise ValueError(f"mlp kernel: {name} needs a contiguous last "
+                         f"dimension for TMA (strides {stride})")
+    row_bytes = stride[0] * item
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"mlp kernel: {name}'s row stride of {row_bytes} "
+                         f"bytes is not a positive multiple of 16, which TMA "
+                         f"cannot take")
+    return RowMap((k, rows), row_bytes, (GEMM_K, rows_box))
+
+
+def _gemm_plan(a: tuple, b: tuple, bn: int, ldc: int) -> GemmPlan:
+    m, n = a[1][0], b[1][0]
+    return GemmPlan(_row_map(*a, GEMM_ROWS), _row_map(*b, bn),
+                    swizzle=GEMM_SWIZZLE,
+                    grid=(-(-n // bn), -(-m // GEMM_ROWS)),
+                    threads=GEMM_THREADS, smem=gemm_smem_bytes(bn), bn=bn,
+                    ldc=ldc)
+
+
+def _g_meta(n: int, hid: int) -> tuple:
+    """The wrapper's g scratch: (n, hid) at a pitch of whole ROW_ALIGNs."""
+    return ("g", (n, hid), (-(-hid // ROW_ALIGN) * ROW_ALIGN, 1), 2, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _mlp_plan(x: tuple, w1: tuple, w2: tuple) -> MlpPlan:
+    (n, d), hid = x[1], w1[1][0]
+    g = _g_meta(n, hid)
+    return MlpPlan(_gemm_plan(x, w1, pick_bn(hid, gelu=True), g[2][0]),
+                   _gemm_plan(g, w2, pick_bn(d, gelu=False), d))
+
+
+def _meta(name: str, t: torch.Tensor) -> tuple:
+    return (name, tuple(t.shape), tuple(t.stride()), t.element_size(),
+            t.data_ptr() % 16)
+
+
+def mlp_plan(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> MlpPlan:
+    """The plan of kernel 7's (or kernel 2's) two products for x (n, d),
+    w1 (hid, d) and w2 (d, hid) in bf16 (w2 as ``aligned_rows`` gives it),
+    cached by their shapes, strides and 16-byte alignment, so a serving
+    loop pays for it once; a view TMA cannot take raises a ValueError
+    naming it. The g scratch is allocated with ``up.ldc`` elements a
+    row."""
+    return _mlp_plan(_meta("x", x), _meta("w1", w1), _meta("w2", w2))
+
+
+def _launch_mlp(entry: str, x, w1, b1f, w2, b2f, *pre) -> torch.Tensor:
+    """Kernel 7's products on bf16 x (..., d) and padded weights in the
+    kernels' layout (or kernel 2's, with ``pre`` = (ln_gamma, ln_beta, eps):
+    its LayerNorm writes a Y scratch the products read, and x is the
+    residual): the plan, the scratches, one call of ``entry``."""
+    d, hid = x.shape[-1], w1.shape[0]
+    n = x.numel() // d
+    w2 = aligned_rows(w2)
+    plan = mlp_plan(x.view(n, d), w1, w2)  # kernel 2's Y is laid out as x
+    # one scratch: kernel 2's Y (n, d), then g (n, plan.up.ldc)
+    ny = n * d if pre else 0
+    scratch = torch.empty(ny + n * plan.up.ldc, dtype=x.dtype,
+                          device=x.device)
+    out = torch.empty_like(x)
+    bias = _build.DTYPE_CODES[b1f.dtype]
+    stream = _build.stream_of(x)
+    with torch.cuda.device(x.device):
+        if pre:
+            lng, lnb, eps = pre
+            _build.launch(
+                entry, x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+                w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(),
+                scratch.data_ptr() + ny * scratch.element_size(),
+                plan.c_array(), n, d, hid, eps, bias, stream)
+        else:
+            _build.launch(
+                entry, x.data_ptr(), w1.data_ptr(), b1f.data_ptr(),
+                w2.data_ptr(), b2f.data_ptr(), None, scratch.data_ptr(),
+                out.data_ptr(), plan.c_array(), n, d, hid, bias, stream)
+    return out
+
+
+def _check_kernel_operands(x, w1, w2, vecs,
+                           biases_as_is: bool = False) -> list[torch.Tensor]:
     """Shape/dtype/alignment checks shared by the MLP and ln_mlp kernels;
-    returns the 1-D parameters as contiguous fp32."""
+    returns the 1-D parameters contiguous and 16-byte aligned, as fp32 or,
+    with ``biases_as_is`` and both biases bf16, the biases as bf16 (the
+    forwards' epilogues read either)."""
     check_tensor(x, "x", (torch.bfloat16,))
     d = x.shape[-1]
     hid = w1.shape[0]
@@ -137,15 +343,21 @@ def _check_kernel_operands(x, w1, w2, vecs) -> list[torch.Tensor]:
     if hid % 8:
         raise ValueError(f"mlp kernel: hidden width {hid} not a multiple "
                          f"of 8")
-    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
-        raise ValueError("mlp kernel: x, w1, w2 must be 16-byte aligned")
+    for name, t in (("x", x), ("w1", w1), ("w2", w2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"mlp kernel: {name} starts at an address that "
+                             f"is not 16-byte aligned")
     out = []
     sizes = {"ln_gamma": d, "ln_beta": d, "b1": hid, "b2": d}
+    keep = biases_as_is and all(p.dtype == torch.bfloat16 for name, p in vecs
+                                if name in ("b1", "b2"))
     for name, p in vecs:
         check_tensor(p, name, (torch.float32, torch.bfloat16), 1, x.device)
         if p.shape != (sizes[name],):
             raise ValueError(f"mlp kernel: {name} must be ({sizes[name]},)")
-        out.append(p.float().contiguous())
+        p = (p if keep and name in ("b1", "b2") else p.float()).contiguous()
+        # the kernels read them by 8- and 16-byte loads
+        out.append(p.clone() if p.data_ptr() % 16 else p)
     return out
 
 
@@ -153,22 +365,8 @@ def _ln_mlp_fwd_kernel(x, lng, lnb, w1, b1, w2, b2, eps):
     w1, b1, w2 = _pad_hidden(w1, b1, w2)
     lng, lnb, b1f, b2f = _check_kernel_operands(
         x, w1, w2, (("ln_gamma", lng), ("ln_beta", lnb), ("b1", b1),
-                    ("b2", b2)))
-    d, hid = x.shape[-1], w1.shape[0]
-    n = x.numel() // d
-    out = torch.empty_like(x)
-    # above the single pass's widths: the LN output and g go through
-    # scratches between the LayerNorm kernel and kernel 7's tiles
-    wide = d not in FUSED_DIMS
-    yc = torch.empty(n, d, dtype=x.dtype, device=x.device) if wide else None
-    gs = torch.empty(n, hid, dtype=x.dtype, device=x.device) if wide else None
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "amt_ln_mlp", x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
-            w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-            out.data_ptr(), _ptr(yc), _ptr(gs), n, d, hid, eps,
-            _build.stream_of(x),
-        )
+                    ("b2", b2)), biases_as_is=True)
+    out = _launch_mlp("amt_ln_mlp", x, w1, b1f, w2, b2f, lng, lnb, eps)
     fused_ln_mlp.launches += 1
     return out
 
@@ -308,17 +506,9 @@ def _fused_mlp_backward_reference(x, w1, b1, w2, dy):
 def _mlp_fwd_kernel(x, w1c, b1, w2c, b2):
     """One launch of kernel 7 on weights in x's dtype."""
     w1c, b1, w2c = _pad_hidden(w1c, b1, w2c)
-    b1f, b2f = _check_kernel_operands(x, w1c, w2c, (("b1", b1), ("b2", b2)))
-    d, hid = x.shape[-1], w1c.shape[0]
-    n = x.numel() // d
-    gs = torch.empty(n, hid, dtype=x.dtype, device=x.device)  # g scratch
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.launch(
-            "amt_mlp", x.data_ptr(), w1c.data_ptr(), b1f.data_ptr(),
-            w2c.data_ptr(), b2f.data_ptr(), gs.data_ptr(), out.data_ptr(), n,
-            d, hid, _build.stream_of(x),
-        )
+    b1f, b2f = _check_kernel_operands(x, w1c, w2c, (("b1", b1), ("b2", b2)),
+                                      biases_as_is=True)
+    out = _launch_mlp("amt_mlp", x, w1c, b1f, w2c, b2f)
     fused_mlp.launches += 1
     return out
 

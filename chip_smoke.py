@@ -8,15 +8,23 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               ptxas's line for the bf16 flash forward (flash_fwd_bf16_kernel,
               the wgmma/TMA kernel of kernels 1, 9 and 16) at d 64 and 32,
               and for the backward's dkv and dq kernels (bf16 wgmma/TMA and
-              fp32 register tiles, kernels 5, 10, 17 and 18) at d 64 and 32:
-              registers, static shared memory, spill bytes (a spill fails)
+              fp32 register tiles, kernels 5, 10, 17 and 18) at d 64 and 32,
+              and for the GELU-MLP forwards' tile product (gemm_kernel of
+              csrc/gemm_sm90.cuh in csrc/mlp.cu, kernels 7 and 2: BN 128
+              and 256, GELU and residual epilogues): registers, static
+              shared memory, spill bytes (a spill fails)
   3. kernels  each kernel at the main path's shapes against its plain
               version on the card, in each dtype it takes, with kernel,
               plain and library (one PyTorch call; for a backward kernel
               its forward + backward) times and the bound; the repaired
               widths too (ln_mlp forward and backward at d 768 and 1024,
               nearest codes at widths 8 and 64, LayerNorm at d 8192); the
-              fused GELU MLP (kernels 7 and 8) at ViT's shape; the
+              fused GELU MLP (kernels 7 and 8) at ViT's shape; kernels 7
+              and 2 at ragged rows (n 520: kernel 7 at ViT's widths, kernel
+              2 at d 128, 256 and 384, hidden 1368) and both against their
+              library chains in turns (kernel, library, library, kernel) at
+              ViT's and the main path's shapes, beside the mma.sync kernels'
+              times they replace; the
               separate-k/v flash pair (kernels 9 and 10) at the recon shape
               and at h 12, the per-head flash kernels (16, 17 and 18) at
               b 1, h 8, t 4096: bf16 and fp32, causal and not, tq != tk
@@ -51,7 +59,8 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               plain path on the card; recon imgs/s; recon imgs/s with the
               wrappers' direct no-grad launch against their autograd
               Functions (10 alternating pairs); device time by kernel
-              over 3 traced recon requests (torch.profiler)
+              over 3 traced recon requests (torch.profiler), and the
+              ln_mlp products' (gemm_kernel) device time a request
   6. golden   fp32 encode_imgs, kernels against plain, TF32 off
   7. train    the training path: VQGANTrainer.train() on cfg/vitvqgan.yaml
               (restated in Python, TRAIN_OVERRIDES: synthetic data, 16
@@ -698,6 +707,21 @@ def main() -> int:
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in bwd_ptxas.values()),
          f"flash backward ptxas: {bwd_ptxas}")
+    # the GELU-MLP forwards' tile product (kernels 7 and 2): BN 128 (two
+    # blocks an SM: at most 112 registers) and 256, GELU (epilogue 0) and
+    # residual (1) epilogues; a spill fails
+    mlp_ptxas = {}
+    for r in _build.ptxas_report("mlp", "gemm_kernel"):
+        bn = 256 if "ILi256E" in r["name"] else 128
+        epi = "gelu" if f"ILi{bn}ELi0E" in r["name"] else "residual"
+        mlp_ptxas[f"gemm_kernel<{bn}, {epi}>"] = r
+        print(f"[ptxas] gemm_kernel<{bn}, {epi}>: {r['registers']} registers, "
+              f"{r['smem']} bytes smem, {r['spill_stores']} bytes spill "
+              f"stores, {r['spill_loads']} bytes spill loads", flush=True)
+    gate(len(mlp_ptxas) == 4
+         and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                 for r in mlp_ptxas.values()),
+         f"gemm_kernel ptxas: {mlp_ptxas}")
 
     # ---------------------------------------------------------------- 3 --
     def time_ms(fn, iters=20):
@@ -1540,6 +1564,81 @@ def main() -> int:
            10 * vn * vd * vh, main=True)
     del x, w1, w2, got, want, leaves
 
+    # kernels 7 and 2 at ragged rows (n 520 = 4 x 128 + 8: the last row
+    # tile of each product is masked) and, for kernel 2, at the single
+    # pass's old widths with the ViTVQGAN hidden width (1368 = 10 x 128 +
+    # 88 columns, rows of g and W2 padded to 64 bytes)
+    rn = 520
+    for wd, wh in ((vd, vh), (128, hid), (256, hid), (384, hid)):
+        x = randn(rn, wd, dtype=torch.bfloat16)
+        w1 = randn(wh, wd, dtype=torch.bfloat16, scale=wd ** -0.5)
+        b1, b2 = randn(wh, scale=0.1), randn(wd, scale=0.1)
+        w2 = randn(wd, wh, dtype=torch.bfloat16, scale=wh ** -0.5)
+        if wd == vd:
+            rargs = (x, w1, b1, w2, b2)
+            got, want = fused_mlp(*rargs), _fused_mlp_reference(*rargs)
+            record("mlp", f"({rn},{wd}) hid {wh} ragged rows",
+                   torch.bfloat16, BF16_TOL, rel_l2(got, want),
+                   max_abs(got, want), time_ms(lambda: fused_mlp(*rargs)),
+                   time_ms(lambda: _fused_mlp_reference(*rargs)),
+                   time_ms(lambda: F.linear(F.gelu(F.linear(
+                       x, w1, b1.bfloat16())), w2, b2.bfloat16())),
+                   nbytes(x, w1, b1, w2, b2, got), 4 * rn * wd * wh)
+            continue
+        lg_, lb_ = randn(wd, scale=0.1, shift=1.0), randn(wd, scale=0.1)
+        rargs = (x, lg_, lb_, w1, b1, w2, b2)
+        got, want = fused_ln_mlp(*rargs), _ln_mlp_reference(*rargs, 1e-5)
+        mlp_err = rel_l2(got.float() - x.float(), want.float() - x.float())
+        lgb, lbb, b1b, b2b = (t.to(torch.bfloat16) for t in (lg_, lb_, b1, b2))
+        record("ln_mlp", f"({rn},{wd}) hid {wh} ragged rows (MLP part "
+               f"rel_l2 {mlp_err:.2e})", torch.bfloat16, BF16_TOL,
+               rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: fused_ln_mlp(*rargs)),
+               time_ms(lambda: _ln_mlp_reference(*rargs, 1e-5)),
+               time_ms(lambda: x + F.linear(F.gelu(F.linear(F.layer_norm(
+                   x, (wd,), lgb, lbb), w1, b1b)), w2, b2b)),
+               nbytes(x, x, lg_, lb_, w1, b1, w2, b2), 4 * rn * wd * wh)
+        gate(mlp_err <= 2e-2, f"ln_mlp ({rn},{wd}) MLP part: {mlp_err}")
+    del x, w1, w2, got, want, rargs
+
+    # kernels 7 and 2 against their library chains in turns (kernel,
+    # library, library, kernel; device time, launches queued behind a
+    # sleep), then back to back, beside the mma.sync kernels they replace
+    # (back to back, PERF.md's table: 0.1694 and 0.1761 ms, same card type)
+    xm, wm1, bm1, wm2, bm2 = margs
+    bm1b, bm2b = bm1.to(torch.bfloat16), bm2.to(torch.bfloat16)
+    xl, lgl, lbl, wl1, bl1, wl2, bl2 = mlp_args
+    lglb, lblb = lgl.to(torch.bfloat16), lbl.to(torch.bfloat16)
+    mlp_turns = []
+    for row, shape, run, lib, before, flops in (
+            (7, f"({vn},{vd}) hid {vh}", lambda: fused_mlp(*margs),
+             lambda: F.linear(F.gelu(F.linear(xm, wm1, bm1b)), wm2, bm2b),
+             0.1694, 4 * vn * vd * vh),
+            (2, f"({n_tok},{dim}) hid {hid}", lambda: fused_ln_mlp(*mlp_args),
+             lambda: xl + F.linear(F.gelu(F.linear(F.layer_norm(
+                 xl, (dim,), lglb, lblb), wl1, bl1)), wl2, bl2),
+             0.1761, 4 * n_tok * dim * hid)):
+        k1, l1, l2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
+                          device_ms(run))
+        bk1, bl1_, bl2_, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
+                                time_ms(run))
+        b_ms = bound(0, [(flops, "bfloat16")])[0]
+        r = dict(row=row, shape=shape, kernel_ms=(k1 + k2) / 2,
+                 library_ms=(l1 + l2) / 2, ratio=(k1 + k2) / (l1 + l2),
+                 back_to_back_kernel_ms=(bk1 + bk2) / 2,
+                 back_to_back_library_ms=(bl1_ + bl2_) / 2,
+                 back_to_back_ratio=(bk1 + bk2) / (bl1_ + bl2_),
+                 mma_sync_ms=before, bound_ms=b_ms)
+        mlp_turns.append(r)
+        print(f"[turns] kernel {row} {shape}: device kernel {k1:.4f} / "
+              f"{k2:.4f} ms, library {l1:.4f} / {l2:.4f} ms, kernel/library "
+              f"{r['ratio']:.3f}; back to back {bk1:.4f} / {bk2:.4f} against "
+              f"{bl1_:.4f} / {bl2_:.4f}, {r['back_to_back_ratio']:.3f} "
+              f"(mma.sync kernel {before} ms back to back); bound "
+              f"{b_ms:.4f} ms ({100 * b_ms / r['kernel_ms']:.1f} % of it)",
+              flush=True)
+    del xm, wm1, wm2, xl, wl1, wl2
+
     # the GEGLU FFN at MaskGIT's decode shape (8 x 1024 rows, d 768, inner
     # 4096), bf16 and fp32 (TF32 off); the library chain is F.linear ->
     # chunk -> gelu * gate -> F.layer_norm -> F.linear
@@ -2108,6 +2207,18 @@ def main() -> int:
     profile_rows = profile(torch, lambda: [recon(r, None) for r in requests],
                            lambda: recon(requests[0], None),
                            "3 recon requests")
+    # the ln_mlp products (csrc/gemm_sm90.cuh's gemm_kernel: only ln_mlp
+    # launches it on this path) a request; its 12 LayerNorm passes share
+    # the layernorm kernel's rows with the blocks' other LayerNorms
+    ln_mlp_ms = sum(r["ms"] for r in profile_rows["rows"]
+                    if "gemm_kernel" in r["key"]) / len(requests)
+    ln_ms = sum(r["ms"] for r in profile_rows["rows"]
+                if "layernorm" in r["key"]) / len(requests)
+    profile_rows["ln_mlp_products_ms_per_request"] = ln_mlp_ms
+    print(f"[profile] ln_mlp products {ln_mlp_ms:.3f} ms of device time a "
+          f"recon request ({per_forward['ln_mlp']} calls, 2 launches each); "
+          f"every LayerNorm kernel of the request, the ln_mlp passes "
+          f"among them, {ln_ms:.3f} ms", flush=True)
 
     # ---------------------------------------------------------------- 6 --
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -3295,6 +3406,7 @@ def main() -> int:
                            ring=ring, flash_bthd_rel_l2=bthd_errs,
                            flash_fwd_ptxas=ptxas,
                            flash_bwd_ptxas=bwd_ptxas,
+                           mlp_ptxas=mlp_ptxas, mlp_vs_library=mlp_turns,
                            flash_bwd_vs_sdpa=bwd_vs_sdpa,
                            flash_fwd_vs_sdpa=fwd_vs_sdpa,
                            flash_fwd_host_us=host_us),

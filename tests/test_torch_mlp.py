@@ -250,8 +250,10 @@ def _fake_launches(monkeypatch, *mods):
 
 @pytest.mark.parametrize("d", [128, 256, 384, 512, 640, 768, 1024])
 def test_every_gated_ln_mlp_width_reaches_a_kernel(monkeypatch, d):
-    """Widths the gate admits: the single pass up to 512, scratches for the
-    wide path above it, forward and backward; none raises."""
+    """Widths the gate admits, forward and backward; none raises. The
+    forward takes its LayerNorm and g scratches and a plan at every width;
+    the backward runs its single pass up to 512 and scratches for the wide
+    path above it."""
     launched = _fake_launches(monkeypatch, t_ffn)
     rs = np.random.RandomState(d)
     x = torch.from_numpy(rs.randn(16, d).astype(np.float32)).bfloat16()
@@ -264,8 +266,9 @@ def test_every_gated_ln_mlp_width_reaches_a_kernel(monkeypatch, d):
     (fwd, fa), (bwd, ba) = launched
     assert (fwd, bwd) == ("amt_ln_mlp", "amt_ln_mlp_bwd")
     wide = d not in t_ffn.FUSED_DIMS
-    assert fa[10:13] == (16, d, 96) and ba[21:24] == (16, d, 96)
-    assert (fa[8] is None, fa[9] is None) == (not wide, not wide)
+    assert fa[11:14] == (16, d, 96) and ba[21:24] == (16, d, 96)
+    assert fa[8] is not None and fa[9] is not None and len(fa[10]) == 34
+    assert fa[15] == 0  # fp32 biases
     assert (ba[13] is None, ba[14] is None) == (not wide, not wide)
 
 
