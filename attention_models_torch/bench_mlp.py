@@ -27,10 +27,15 @@
         recon imgs/s (entry()'s ViTVQGAN through vq_recon_service, batch
         8, 10 requests a reading) and ViT eval imgs/s (cfg/vit.yaml as R's
         chip_smoke.py builds it, batch 64, 10 forwards a reading), five
-        readings each, as chip_smoke.py's phases 5 and 13 time them; and
-        the host's enqueue time of one fused_ln_mlp call at the main path's
-        shape on bf16 parameters (50 calls queued behind a sleep on the
-        card, 15 readings) and of one fused_mlp call at ViT's. To
+        readings each, as chip_smoke.py's phases 5 and 13 time them; the
+        ViTVQGAN training micro-step on cfg/vitvqgan.yaml as R's
+        chip_smoke.py builds it (phase 7: bf16 compute, batch 8, the same
+        synthetic batch each step): host clock of six micro-steps after two
+        warm-ups, and the card's busy time of two more (torch.profiler,
+        device events only); and the host's enqueue time of one
+        fused_ln_mlp call at the main path's shape on bf16 parameters (50
+        calls queued behind a sleep on the card, 15 readings) and of one
+        fused_mlp call at ViT's. To
         compare two commits, unpack the parent's (git archive) under
         build/ and run this file with --root at it and at this checkout in
         turns (parent, change, change, parent) in one call; run it as a
@@ -127,6 +132,8 @@ def _profile(fn) -> dict:
 def run(iters: int) -> None:
     sys.path.insert(0, str(ROOT))
     from attention_models_torch.ops import _build, ffn
+    from attention_models_torch.ops.gemm_sm90 import (
+        K_MAJOR, gemm_plan, meta, scratch_meta)
 
     F = torch.nn.functional
     _card()
@@ -145,30 +152,34 @@ def run(iters: int) -> None:
         b2 = randn(d, scale=0.1, dtype=torch.float32)
         lng = randn(d, scale=0.1, shift=1.0, dtype=torch.float32)
         lnb = randn(d, scale=0.1, dtype=torch.float32)
-        w2a = ffn.aligned_rows(w2)
         y = torch.empty_like(x)
-        metas = (ffn._meta("x", x), ffn._meta("w1", w1), ffn._meta("w2", w2a))
+        metas = (meta("x", x), meta("w1", w1), meta("w2", w2))
         stream = _build.stream_of(x)
-        shipped = ffn.mlp_plan(x, w1, w2a)
+        shipped = ffn.mlp_plan(x, w1, w2)
 
-        def launch(plan, w2v=w2a):
-            """A kernel variant: (its call, the output it writes)."""
+        def launch(plan):
+            """A kernel variant: (its call, the output it writes); W2 staged
+            by the C side where the plan's pitch differs from hid."""
             out = torch.empty_like(x)
             g = torch.empty(n, plan.up.ldc, dtype=x.dtype, device="cuda")
+            nw = plan.w2_stage_elems(hid)
+            stage = (torch.empty(nw, dtype=x.dtype, device="cuda").data_ptr()
+                     if nw else None)
             if ln:
                 def call():
                     _build.launch(
                         "amt_ln_mlp", x.data_ptr(), lng.data_ptr(),
                         lnb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                        w2v.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                        y.data_ptr(), g.data_ptr(), plan.c_array(), n, d,
-                        hid, 1e-5, 0, stream)
+                        w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                        y.data_ptr(), g.data_ptr(), stage, plan.c_array(), n,
+                        d, hid, 1e-5, 0, stream)
             else:
                 def call():
                     _build.launch(
                         "amt_mlp", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                        w2v.data_ptr(), b2.data_ptr(), None, g.data_ptr(),
-                        out.data_ptr(), plan.c_array(), n, d, hid, 0, stream)
+                        w2.data_ptr(), b2.data_ptr(), None, g.data_ptr(),
+                        stage, out.data_ptr(), plan.c_array(), n, d, hid, 0,
+                        stream)
             return call, out
 
         # name: (call, output or None (the call returns it), same bits
@@ -178,15 +189,17 @@ def run(iters: int) -> None:
         gm = ffn._g_meta(n, hid)
         for up, down in itertools.product(WIDTHS, WIDTHS):
             plan = ffn.MlpPlan(
-                ffn._gemm_plan(metas[0], metas[1], up, gm[2][0]),
-                ffn._gemm_plan(gm, metas[2], down, d))
+                gemm_plan(metas[0], K_MAJOR, metas[1], K_MAJOR, up, gm[2][0]),
+                gemm_plan(gm, K_MAJOR, ffn._w2_meta(metas[2]), K_MAJOR, down,
+                          d))
             variants[f"BN {up}/{down}"] = (*launch(plan), True)
         if hid % ffn.ROW_ALIGN:
-            g16 = ("g", (n, hid), (hid, 1), 2, 0)
+            g16 = scratch_meta("g", n, hid, hid)
             plan = ffn.MlpPlan(
                 dataclasses.replace(shipped.up, ldc=hid),
-                ffn._gemm_plan(g16, ffn._meta("w2", w2), shipped.down.bn, d))
-            variants["rows 16-byte aligned"] = (*launch(plan, w2), True)
+                gemm_plan(g16, K_MAJOR, metas[2], K_MAJOR, shipped.down.bn,
+                          d))
+            variants["rows 16-byte aligned"] = (*launch(plan), True)
         lng_b, lnb_b = lng.bfloat16(), lnb.bfloat16()
         b1_b, b2_b = b1.bfloat16(), b2.bfloat16()
         if ln:
@@ -236,6 +249,7 @@ def run(iters: int) -> None:
 def variants() -> None:
     sys.path.insert(0, str(ROOT))
     from attention_models_torch.ops import _build, ffn
+    from attention_models_torch.ops.gemm_sm90 import GEMM_K, GEMM_ROWS
 
     _card()
     csrc = ROOT / "attention_models_torch" / "csrc"
@@ -273,19 +287,21 @@ def variants() -> None:
         x = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
         w1 = (torch.randn(hid, d, generator=gen, device="cuda")
               * d ** -0.5).bfloat16()
-        w2 = ffn.aligned_rows((torch.randn(d, hid, generator=gen,
-                                           device="cuda")
-                               * hid ** -0.5).bfloat16())
+        w2 = (torch.randn(d, hid, generator=gen, device="cuda")
+              * hid ** -0.5).bfloat16()
         b1, b2 = torch.zeros(hid, device="cuda"), torch.zeros(d, device="cuda")
         lng, lnb = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
         y, res = torch.empty_like(x), torch.empty_like(x)
         shipped = ffn.mlp_plan(y if ln else x, w1, w2)
         g = torch.empty(n, shipped.up.ldc, dtype=x.dtype, device="cuda")
+        nw = shipped.w2_stage_elems(hid)
+        stage = (torch.empty(nw, dtype=x.dtype, device="cuda").data_ptr()
+                 if nw else None)
         for name, lib in libs.items():
             _, st128, st256 = VARIANTS[name]
             plan = ffn.MlpPlan(*(dataclasses.replace(
                 p, smem=(st128 if p.bn == 128 else st256)
-                * (ffn.GEMM_ROWS + p.bn) * ffn.GEMM_K * 2
+                * (GEMM_ROWS + p.bn) * GEMM_K * 2
                 + 16 * (st128 if p.bn == 128 else st256) + 1024)
                 for p in (shipped.up, shipped.down)))
 
@@ -295,12 +311,12 @@ def variants() -> None:
                         x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
                         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                         b2.data_ptr(), res.data_ptr(), y.data_ptr(),
-                        g.data_ptr(), arr, n, d, hid, 1e-5, 0, stream)
+                        g.data_ptr(), stage, arr, n, d, hid, 1e-5, 0, stream)
                 else:
                     err = lib.amt_mlp(
                         x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                         w2.data_ptr(), b2.data_ptr(), None, g.data_ptr(),
-                        res.data_ptr(), arr, n, d, hid, 0, stream)
+                        stage, res.data_ptr(), arr, n, d, hid, 0, stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             per_kernel = _profile(call)
@@ -372,7 +388,47 @@ def paths(root: Path) -> None:
                 vit(vimg)
             torch.cuda.synchronize()
         res["vit_eval_imgs_per_s"].append(640 / (time.perf_counter() - t))
+    del model, recon, vit
+    res.update(_train_paths(cs, root))
     print(json.dumps(res), flush=True)
+
+
+def _train_paths(cs, root: Path) -> dict:
+    """The ViTVQGAN training micro-step of the checkout at ``root``: host
+    ms of six steps after two warm-ups, and the card's busy ms a step over
+    two traced steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from attention_models_torch.data.loaders import build_loader
+    from attention_models_torch.models.factory import build_model
+    from attention_models_torch.training.build_trainer import build_trainer
+
+    torch.backends.cudnn.allow_tf32 = True  # as phase 7 (main.py's default)
+    cfg = cs.training_config(str(root / "build" / "bench_train"))
+    loaders = build_loader(cfg)  # (train, validation)
+    trainer = build_trainer(cfg, build_model(cfg), loaders,
+                            torch.device("cuda"))
+    img = trainer.to_device(next(iter(loaders[0]))[0])
+    for _ in range(2):
+        trainer.train_step(img)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(6):
+        t = time.perf_counter()
+        trainer.train_step(img)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            trainer.train_step(img)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Optimizer.", "Activity Buffer")))
+    return dict(train_step_ms=ms, train_device_ms_a_step=busy / 2e3)
 
 
 def main() -> int:

@@ -138,8 +138,8 @@ __device__ __forceinline__ void issue_s(float (&s)[64],
                                         const __nv_bfloat16* qs,
                                         const __nv_bfloat16* ks) {
   using namespace hopper;
-  const uint64_t qdesc = wgmma_desc<D * 2>(qs, 8 * D * 2);
-  const uint64_t kdesc = wgmma_desc<D * 2>(ks, 8 * D * 2);
+  const uint64_t qdesc = wgmma_desc<D * 2>(qs, 8 * D * 2, 8 * D * 2);
+  const uint64_t kdesc = wgmma_desc<D * 2>(ks, 8 * D * 2, 8 * D * 2);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
@@ -154,7 +154,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[8][4],
                                          const __nv_bfloat16* vs) {
   using namespace hopper;
-  const uint64_t desc = wgmma_desc<D * 2>(vs, 8 * D * 2);
+  const uint64_t desc = wgmma_desc<D * 2>(vs, 8 * D * 2, 8 * D * 2);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {

@@ -191,8 +191,8 @@ template <int D>
 __device__ __forceinline__ void issue_abt(float (&acc)[32], const bf16* a,
                                           const bf16* b) {
   using namespace hopper;
-  const uint64_t da = wgmma_desc<D * 2>(a, 8 * D * 2);
-  const uint64_t db = wgmma_desc<D * 2>(b, 8 * D * 2);
+  const uint64_t da = wgmma_desc<D * 2>(a, 8 * D * 2, 8 * D * 2);
+  const uint64_t db = wgmma_desc<D * 2>(b, 8 * D * 2, 8 * D * 2);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
@@ -208,7 +208,7 @@ __device__ __forceinline__ void issue_ab(float (&o)[D / 2],
                                          const uint32_t (&a)[4][4],
                                          const bf16* b) {
   using namespace hopper;
-  const uint64_t desc = wgmma_desc<D * 2>(b, 8 * D * 2);
+  const uint64_t desc = wgmma_desc<D * 2>(b, 8 * D * 2, 8 * D * 2);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {

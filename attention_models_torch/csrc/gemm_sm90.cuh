@@ -1,37 +1,59 @@
-// One Hopper tile product with fused epilogues, on TMA and wgmma:
-//   C (M, N) = epilogue(A B^T + bias),  A (M, K) and B (N, K) bf16, both
-// K-major (rows of x or g, and rows of W1 or W2 in the torch Linear layout:
-// wgmma's K-major B as it stands, never transposed). Sums in fp32, one
-// rounding to bf16 at the end. Epilogues:
-//   - kBiasGelu:     C = bf16(gelu(A B^T + bias)), the exact erff GELU;
-//   - kBiasResidual: C = bf16(A B^T + bias (+ res)), res (M, N) bf16 or null.
-// The bias is fp32 or bf16 (as the caller holds it), added in fp32.
+// One Hopper tile product on TMA and wgmma, with the epilogue a template
+// argument:
+//   C (M, N) = epilogue(A B^T)            one product, or
+//   C (M, N) = epilogue(A B^T, A2 B2^T)   a dual product over the same tile
+//                                          and the same K,
+// A (M, K) and B (N, K) bf16, sums in fp32. Each operand is read
+//   - K-major (kK): a row-major (rows, K) matrix, K contiguous (x, or W1
+//     in the torch Linear layout: wgmma's K-major B as it stands), or
+//   - MN-major (kMN): a row-major (K, rows) matrix, rows contiguous (W2
+//     read as the B of dy W2, dH and yc read as the A and B of the weight
+//     gradient dH^T yc), through wgmma's transpose bit.
+// The epilogue is a struct with an Args type and a run<BN>() the kernel
+// calls on a warpgroup's registers; each .cu brings its own. Here:
+//   - BiasGelu:     C = bf16(gelu(A B^T + bias)), the exact erff GELU;
+//   - BiasResidual: C = bf16(A B^T + bias (+ res)), res (M, N) bf16 or null
+//     (the bias fp32 or bf16, added in fp32: kernels 7 and 2);
+//   - StoreF32:     C = A B^T in fp32 (weight gradients, dy_ln);
+//   - StoreBf16:    C = bf16(A B^T) (dh).
 //
-// Shape of a block (csrc/mlp.cu is the first user; kernels 7 and 2):
-//   - 128 rows x BN columns (BN 128 or 256) of C: two consumer warpgroups of
-//     64 rows, each holding 64 x BN fp32 accumulators, and one producer warp
-//     of which one thread issues TMA loads;
-//   - K in slices of 64 (one 128-byte swizzle row of bf16): A (128 x 64) and
-//     B (BN x 64) tiles by rank-2 tensor maps with 128-byte swizzle into a
-//     ring of kStages stages with full (TMA bytes) and empty (eight consumer
-//     warps) mbarriers; TMA zero-fills past M, N and K, so ragged tails add
-//     nothing and need no padded copy. A row pitch of A or B that is only
-//     16-byte aligned slows TMA (attention_models_torch/bench_mlp.py's
-//     "rows 16-byte aligned" rows), so the wrappers give the operands of
-//     the second product (g, a copy of W2) 64-byte aligned rows;
-//   - each slice is four SS wgmma m64nBNk16; a slice's products stay in
-//     flight while the next slice's are issued (wgmma_wait<1>), and its stage
-//     goes back to the producer when they complete;
-//   - the epilogue runs in registers (bias, GELU or residual, masked at M and
-//     N), writes bf16 through the freed ring with padded rows (no bank
-//     conflicts) and stores 16-byte row pieces below M and N.
-// BN 128 runs two blocks an SM (3 stages, at most 112 registers a thread), so
-// one block's epilogue overlaps the other's products; BN 256 one block an SM
-// (4 stages, up to 224 registers). The host plan (ops/ffn.py::mlp_plan)
-// picks BN for each product from its shape and holds the maps' dims, strides
-// and boxes, the grid and the shared memory; gemm_from_plan encodes the maps
-// and launches. No atomics: every sum runs in one fixed order.
+// Shape of a block:
+//   - 128 rows x BN columns of C: two consumer warpgroups of 64 rows, each
+//     holding 64 x BN fp32 accumulators (two sets in a dual product), and
+//     one producer warp of which one thread issues TMA loads;
+//   - K in slices of 64 into a ring of kStages stages with full (TMA bytes)
+//     and empty (eight consumer warps) mbarriers. A K-major tile is one
+//     rank-2 box of (64 K, rows) with 128-byte swizzle; an MN-major tile is
+//     rows / 64 boxes of (64 MN, 64 K), one 128-byte swizzle row of MN a K
+//     row, the boxes 8 KB apart (wgmma's leading byte offset; 8 K rows are
+//     1 KB, its stride byte offset). TMA zero-fills past M, N and K, so
+//     ragged tails add nothing to any sum and need no padded copy. A row
+//     pitch that is only 16-byte aligned slows TMA (bench_mlp.py's "rows
+//     16-byte aligned" rows): the wrappers give the scratches 64-byte
+//     aligned rows and stage W2 at such a pitch;
+//   - each slice is four SS wgmma m64nBNk16 a product; a slice's products
+//     stay in flight while the next slice's are issued (wgmma_wait<1>), and
+//     its stage goes back to the producer when they complete;
+//   - the epilogue runs in registers and writes through the freed ring with
+//     padded rows (no bank conflicts), then 16-byte row pieces below M and
+//     N; column sums an epilogue takes (a bias gradient) run in a fixed
+//     order: a warp's 16 rows by shuffles, then its warpgroup's 4 warps in
+//     order, one fp32 partial row per 64 rows.
+// Split K (blockIdx.z): a weight gradient reduces over all n rows, and at
+// ViTVQGAN's shapes its tiles are fewer than the SMs; the plan splits K
+// into grid.z ranges of kslices slices, each block writes an fp32 partial,
+// and sum_splits adds the partials in order. No atomics: every sum runs in
+// one fixed order, so two calls on the same inputs are bit-equal.
+// BN 128 runs two blocks an SM (3 stages, at most 112 registers a thread),
+// so one block's epilogue overlaps the other's products; BN 256 and the
+// dual product at BN 128 one block an SM (up to 224 registers). The host
+// plan (ops/gemm_sm90.py::GemmPlan) holds each map's dims, row pitch, box
+// and majorness, the grid, the split, the tile width and the shared
+// memory; gemm_from_plan checks it against the product, encodes the maps
+// and launches.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -46,42 +68,59 @@ constexpr int kBM = 128;       // rows of C a block
 constexpr int kBK = 64;        // K a stage
 constexpr int kThreads = 288;  // two consumer warpgroups + one producer warp
 constexpr int kSwizzle = 128;  // bytes: one row of a K slice
-constexpr int kPlanValues = 17;
+constexpr int kSlab = 64;      // MN elements in one swizzle row
+constexpr uint32_t kSlabBytes = kSlab * kBK * 2;  // one (64 MN, 64 K) box
+constexpr int kPlanValues = 21;
+constexpr float kInvSqrt2 = 0.70710678118654752f;
+constexpr float kInvSqrt2Pi = 0.39894228040143268f;
 
-template <int BN>
+enum Major { kK = 0, kMN = 1 };
+
+// The operands' majorness: A and B, and for a dual product A2 and B2.
+template <int kMajA_, int kMajB_, int kMajA2_ = -1, int kMajB2_ = -1>
+struct Form {
+  static constexpr int kMajA = kMajA_, kMajB = kMajB_;
+  static constexpr int kMajA2 = kMajA2_, kMajB2 = kMajB2_;
+  static constexpr int kDual = kMajA2_ >= 0 ? 1 : 0;
+};
+
+template <int BN, int kDual>
 struct Config;
 template <>
-struct Config<128> {
+struct Config<128, 0> {
   static constexpr int kStages = 3, kBlocksPerSM = 2;
 };
 template <>
-struct Config<256> {
+struct Config<256, 0> {
   static constexpr int kStages = 4, kBlocksPerSM = 1;
 };
-
-enum Epilogue { kBiasGelu = 0, kBiasResidual = 1 };
-
-struct GemmArgs {
-  const void* bias;            // (N,) fp32, or bf16 when bias_bf16
-  const __nv_bfloat16* res;    // kBiasResidual: (M, N) bf16, or null
-  __nv_bfloat16* c;            // (M, N) bf16, rows ldc elements apart
-  int m, n, k;
-  int ldc;                     // row stride of C and res (elements)
-  int bias_bf16;
+template <>
+struct Config<128, 1> {
+  static constexpr int kStages = 3, kBlocksPerSM = 1;
 };
 
-// Shared memory; every tile starts on a 1024-byte boundary (the swizzle
-// atom): the base is aligned by hand and each tile is a multiple of 1024.
-template <int BN>
+
+// A stage of the ring: A, B (and A2, B2) tiles, each a multiple of the
+// 1024-byte swizzle atom.
+template <int BN, int kDual>
+struct Ring {
+  static constexpr int kStages = Config<BN, kDual>::kStages;
+  static constexpr uint32_t kA = kBM * kBK * 2, kB = BN * kBK * 2;
+  static constexpr uint32_t kStage = (1 + kDual) * (kA + kB);
+  static constexpr uint32_t kBytes = kStages * kStage;
+};
+
+// Shared memory; every tile starts on a 1024-byte boundary: the base is
+// aligned by hand.
+template <int BN, int kDual>
 struct Tiles {
-  __nv_bfloat16 a[Config<BN>::kStages][kBM * kBK];
-  __nv_bfloat16 b[Config<BN>::kStages][BN * kBK];
-  uint64_t full[Config<BN>::kStages], empty[Config<BN>::kStages];
+  uint8_t ring[Ring<BN, kDual>::kStages][Ring<BN, kDual>::kStage];
+  uint64_t full[Ring<BN, kDual>::kStages], empty[Ring<BN, kDual>::kStages];
 };
 
-template <int BN>
+template <int BN, int kDual>
 constexpr size_t smem_bytes() {
-  return sizeof(Tiles<BN>) + 1024;
+  return sizeof(Tiles<BN, kDual>) + 1024;
 }
 
 __device__ __forceinline__ float gelu_exact(float v) {
@@ -96,14 +135,95 @@ __device__ __forceinline__ float2 bias_pair(const __nv_bfloat16* b, int col) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b + col));
 }
 
-// The epilogue of a warpgroup's 64 x BN accumulators (rows m0r + 16w + g
-// and + 8): bias, then GELU or the residual, in fp32; bf16 into the
-// warpgroup's padded staging rows, then 16-byte row pieces below M and N.
-template <int BN, int kEpi, typename TB>
-__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
-                                         const GemmArgs& a, const TB* bias,
-                                         uint8_t* stage, int m0r, int n0,
-                                         int c) {
+// -- epilogue helpers ----------------------------------------------------------
+// A warpgroup's accumulators (w = warp in the warpgroup, g = lane / 4,
+// t = lane % 4): acc[4i + e] is C[16w + g + 8 (e / 2)][8i + 2t + (e % 2)]
+// of its 64 x BN tile.
+
+// A warpgroup's 64 x BN tile of T staged in shared memory with padded rows,
+// then written as 16-byte row pieces below M and N.
+template <int BN, typename T>
+struct Staged {
+  static constexpr int kRowBytes = BN * (int)sizeof(T) + 16;
+  static constexpr int kBytes = 64 * kRowBytes;
+
+  // (v0, v1) at local row r, columns cl, cl + 1
+  static __device__ __forceinline__ void put(uint8_t* st, int r, int cl,
+                                             float v0, float v1) {
+    if constexpr (sizeof(T) == 2)
+      *reinterpret_cast<uint32_t*>(st + r * kRowBytes + cl * 2) =
+          pack_bf16x2(v0, v1);
+    else
+      *reinterpret_cast<float2*>(st + r * kRowBytes + cl * 4) =
+          make_float2(v0, v1);
+  }
+  // After the warpgroup's barrier: rows m0r.. of out, ld elements apart.
+  static __device__ __forceinline__ void flush(const uint8_t* st, T* out,
+                                               int64_t ld, int m0r, int n0,
+                                               int m, int n) {
+    constexpr int kPer = 16 / (int)sizeof(T), kChunks = BN / kPer;
+    const int tid = threadIdx.x % 128;
+#pragma unroll 4
+    for (int idx = tid; idx < 64 * kChunks; idx += 128) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      const int row = m0r + r, col = n0 + ch * kPer;
+      if (row < m && col < n)
+        *reinterpret_cast<uint4*>(out + (int64_t)row * ld + col) =
+            *reinterpret_cast<const uint4*>(st + r * kRowBytes + ch * 16);
+    }
+  }
+};
+
+// Column sums of a warpgroup's 64 rows in a fixed order: cs[2i + u] holds
+// this thread's sum over its two rows of column 8i + 2t + u; the warp's 16
+// rows by shuffles over g, then the 4 warps in order through red (4 x BN
+// floats of shared memory), into out[n0 + col] below N. Ends with the
+// warpgroup's barrier (id 2 + c).
+template <int BN>
+__device__ __forceinline__ void colsum_rows(float (&cs)[BN / 4], float* red,
+                                            float* out, int n0, int n,
+                                            int c) {
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int w = tid / 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < BN / 4; ++j) {
+#pragma unroll
+    for (int o = 4; o <= 16; o <<= 1)
+      cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], o);
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      red[w * BN + 8 * i + 2 * t] = cs[2 * i];
+      red[w * BN + 8 * i + 2 * t + 1] = cs[2 * i + 1];
+    }
+  }
+  hopper::named_barrier_sync(2 + c, 128);
+  for (int col = tid; col < BN; col += 128)
+    if (n0 + col < n)
+      out[n0 + col] = ((red[col] + red[BN + col]) + red[2 * BN + col]) +
+                      red[3 * BN + col];
+}
+
+// -- epilogues -------------------------------------------------------------------
+
+struct GemmArgs {
+  const void* bias;            // (N,) fp32, or bf16 when bias_bf16
+  const __nv_bfloat16* res;    // BiasResidual: (M, N) bf16, or null
+  __nv_bfloat16* c;            // (M, N) bf16, rows ldc elements apart
+  int m, n, k;
+  int ldc;                     // row stride of C and res (elements)
+  int bias_bf16;
+};
+
+// The bias epilogues of kernels 7 and 2: bias, then GELU or the residual,
+// in fp32; bf16 into the warpgroup's padded staging rows, then 16-byte row
+// pieces below M and N.
+template <int BN, bool kGelu, typename TB>
+__device__ __forceinline__ void bias_epilogue(const float (&acc)[BN / 2],
+                                              const GemmArgs& a, const TB* bias,
+                                              uint8_t* stage, int m0r, int n0,
+                                              int c) {
   constexpr int kRowBytes = 2 * BN + 16;  // padded: no bank conflicts
   const int tid = threadIdx.x % 128, lane = tid % 32;
   const int w = tid / 32, g = lane / 4, t = lane % 4;
@@ -116,7 +236,7 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
     const float2 bb = bias_pair(bias, col);
     float v00 = acc[4 * i] + bb.x, v01 = acc[4 * i + 1] + bb.y;
     float v10 = acc[4 * i + 2] + bb.x, v11 = acc[4 * i + 3] + bb.y;
-    if constexpr (kEpi == kBiasGelu) {
+    if constexpr (kGelu) {
       v00 = gelu_exact(v00);
       v01 = gelu_exact(v01);
       v10 = gelu_exact(v10);
@@ -152,28 +272,128 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2],
   }
 }
 
-template <int BN>
+template <bool kGelu>
+struct BiasAct {
+  using Args = GemmArgs;
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    uint8_t* stage = ring + c * 64 * (2 * BN + 16);
+    if (a.bias_bf16)
+      bias_epilogue<BN, kGelu>(acc, a, static_cast<const __nv_bfloat16*>(a.bias),
+                               stage, m0r, n0, c);
+    else
+      bias_epilogue<BN, kGelu>(acc, a, static_cast<const float*>(a.bias), stage,
+                               m0r, n0, c);
+  }
+};
+using BiasGelu = BiasAct<true>;
+using BiasResidual = BiasAct<false>;
+
+// C = A B^T as it is summed, in T (fp32 or bf16). With a split K, block z
+// writes its partial to c + z * split (an (M, N) fp32 plane).
+template <typename T>
+struct Store {
+  struct Args {
+    T* c;
+    int m, n, ldc;
+    int64_t split;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = Staged<BN, T>;
+    uint8_t* st = ring + c * S::kBytes;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      S::put(st, rl, 8 * i + 2 * t, acc[4 * i], acc[4 * i + 1]);
+      S::put(st, rl + 8, 8 * i + 2 * t, acc[4 * i + 2], acc[4 * i + 3]);
+    }
+    hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.c + blockIdx.z * a.split, a.ldc, m0r, n0, a.m, a.n);
+  }
+};
+using StoreF32 = Store<float>;
+using StoreBf16 = Store<__nv_bfloat16>;
+
+// -- the kernel ------------------------------------------------------------------
+
+// The TMA loads of one operand tile (rows r0.. of the operand, K slice kt).
+template <int kMaj, int kRows>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int kt, int r0) {
+  if constexpr (kMaj == kK) {
+    hopper::tma_load_2d(dst, map, bar, kt * kBK, r0);  // box (64 K, kRows)
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRows / kSlab; ++j)  // boxes (64 MN, 64 K)
+      hopper::tma_load_2d(dst + j * kSlabBytes, map, bar, r0 + j * kSlab,
+                          kt * kBK);
+  }
+}
+
+// The descriptor of rows r0.. (a multiple of 64) of an operand tile, and the
+// bytes one 16-deep k step moves it: 32 along a K-major swizzle row, 16 K
+// rows (2 KB) down an MN-major slab.
+template <int kMaj>
+__device__ __forceinline__ uint64_t tile_desc(const uint8_t* tile, int r0) {
+  if constexpr (kMaj == kK)
+    return hopper::wgmma_desc<kSwizzle>(tile + r0 * kBK * 2, 8 * kSwizzle,
+                                        8 * kSwizzle);
+  else
+    return hopper::wgmma_desc<kSwizzle>(tile + (r0 / kSlab) * kSlabBytes,
+                                        kSlabBytes, 8 * kSwizzle);
+}
+template <int kMaj>
+__host__ __device__ constexpr uint32_t k_step_bytes() {
+  return kMaj == kK ? 32 : 16 * kSwizzle;
+}
+
+template <int BN, int kMajA, int kMajB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
                                          uint64_t db) {
   if constexpr (BN == 256)
-    hopper::wgmma_ss_m64n256k16(d, da, db, 1);
+    hopper::wgmma_ss_m64n256k16<kMajA, kMajB>(d, da, db, 1);
   else
-    hopper::wgmma_ss_m64n128k16(d, da, db, 1);
+    hopper::wgmma_ss_m64n128k16<kMajA, kMajB>(d, da, db, 1);
 }
 
-template <int BN, int kEpi>
-__global__ __launch_bounds__(kThreads, Config<BN>::kBlocksPerSM) void gemm_kernel(
+// The slice's 4 k steps of one product on a stage's A and B tiles.
+template <int BN, int kMajA, int kMajB>
+__device__ __forceinline__ void slice_products(float (&acc)[BN / 2],
+                                               const uint8_t* a,
+                                               const uint8_t* b, int c) {
+  const uint64_t da = tile_desc<kMajA>(a, 64 * c);
+  const uint64_t db = tile_desc<kMajB>(b, 0);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_ss<BN, kMajA, kMajB>(
+        acc, hopper::desc_advance(da, kk * k_step_bytes<kMajA>()),
+        hopper::desc_advance(db, kk * k_step_bytes<kMajB>()));
+}
+
+template <int BN, class Fm, class Epi>
+__global__ __launch_bounds__(kThreads, (Config<BN, Fm::kDual>::kBlocksPerSM)) void gemm_kernel(
     const __grid_constant__ CUtensorMap amap,
-    const __grid_constant__ CUtensorMap bmap, GemmArgs a) {
+    const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap a2map,
+    const __grid_constant__ CUtensorMap b2map, const typename Epi::Args args,
+    int k, int kslices) {
   using namespace hopper;
-  constexpr int S = Config<BN>::kStages;
-  constexpr uint32_t kStageBytes = (kBM + BN) * kBK * 2;
+  using R = Ring<BN, Fm::kDual>;
+  constexpr int S = R::kStages;
   extern __shared__ uint8_t smem_raw[];
-  Tiles<BN>& sm = *reinterpret_cast<Tiles<BN>*>(
+  Tiles<BN, Fm::kDual>& sm = *reinterpret_cast<Tiles<BN, Fm::kDual>*>(
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
 
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
-  const int ktiles = (a.k + kBK - 1) / kBK;
+  const int ktiles = (k + kBK - 1) / kBK;
+  const int kt0 = blockIdx.z * kslices;
+  const int nk = min(ktiles, kt0 + kslices) - kt0;  // >= 1 (the plan's split)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -190,12 +410,23 @@ __global__ __launch_bounds__(kThreads, Config<BN>::kBlocksPerSM) void gemm_kerne
     if (lane == 0) {
       prefetch_tensor_map(&amap);
       prefetch_tensor_map(&bmap);
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int st = kt % S;
-        mbar_wait(&sm.empty[st], ((kt / S) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[st], kStageBytes);
-        tma_load_2d(sm.a[st], &amap, &sm.full[st], kt * kBK, m0);
-        tma_load_2d(sm.b[st], &bmap, &sm.full[st], kt * kBK, n0);
+      if constexpr (Fm::kDual) {
+        prefetch_tensor_map(&a2map);
+        prefetch_tensor_map(&b2map);
+      }
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % S, kt = kt0 + i;
+        uint8_t* stage = sm.ring[st];
+        mbar_wait(&sm.empty[st], ((i / S) & 1) ^ 1);
+        mbar_expect_tx(&sm.full[st], R::kStage);
+        load_tile<Fm::kMajA, kBM>(stage, &amap, &sm.full[st], kt, m0);
+        load_tile<Fm::kMajB, BN>(stage + R::kA, &bmap, &sm.full[st], kt, n0);
+        if constexpr (Fm::kDual) {
+          load_tile<Fm::kMajA2, kBM>(stage + R::kA + R::kB, &a2map,
+                                     &sm.full[st], kt, m0);
+          load_tile<Fm::kMajB2, BN>(stage + 2 * R::kA + R::kB, &b2map,
+                                    &sm.full[st], kt, n0);
+        }
       }
     }
     return;
@@ -204,84 +435,172 @@ __global__ __launch_bounds__(kThreads, Config<BN>::kBlocksPerSM) void gemm_kerne
   const int c = warp / 4;  // consumer warpgroup: rows 64c.. of the block
 
   float acc[BN / 2];
+  float acc2[Fm::kDual ? BN / 2 : 1];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int st = kt % S;
-    mbar_wait(&sm.full[st], (kt / S) & 1);
-    const __nv_bfloat16* as = sm.a[st] + c * 64 * kBK;
-    const uint64_t da = wgmma_desc<kSwizzle>(as, 8 * kSwizzle);
-    const uint64_t db = wgmma_desc<kSwizzle>(sm.b[st], 8 * kSwizzle);
-    wgmma_fence();
+  if constexpr (Fm::kDual) {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_ss<BN>(acc, desc_advance(da, kk * 32), desc_advance(db, kk * 32));
+    for (int i = 0; i < BN / 2; ++i) acc2[i] = 0.f;
+  }
+
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % S;
+    mbar_wait(&sm.full[st], (i / S) & 1);
+    const uint8_t* stage = sm.ring[st];
+    wgmma_fence();
+    slice_products<BN, Fm::kMajA, Fm::kMajB>(acc, stage, stage + R::kA, c);
+    if constexpr (Fm::kDual)
+      slice_products<BN, Fm::kMajA2, Fm::kMajB2>(
+          acc2, stage + R::kA + R::kB, stage + 2 * R::kA + R::kB, c);
     wgmma_commit();
     wgmma_wait<1>();  // the previous slice's products have completed
-    if (kt > 0 && lane == 0) mbar_arrive(&sm.empty[(kt - 1) % S]);
+    if (i > 0 && lane == 0) mbar_arrive(&sm.empty[(i - 1) % S]);
   }
   wgmma_wait<0>();
   fence_regs(acc);
+  if constexpr (Fm::kDual) fence_regs(acc2);
 
   // Both warpgroups' products have completed and no load is in flight: the
-  // ring is free for the output staging, 64 padded rows a warpgroup.
+  // ring is free for the epilogue's staging.
   named_barrier_sync(1, 256);
-  uint8_t* stage = reinterpret_cast<uint8_t*>(&sm) + c * 64 * (2 * BN + 16);
-  if (a.bias_bf16)
-    epilogue<BN, kEpi>(acc, a, static_cast<const __nv_bfloat16*>(a.bias), stage,
-                       m0 + 64 * c, n0, c);
+  uint8_t* ring = &sm.ring[0][0];
+  if constexpr (Fm::kDual)
+    Epi::template run<BN>(acc, acc2, args, ring, m0 + 64 * c, n0, c);
   else
-    epilogue<BN, kEpi>(acc, a, static_cast<const float*>(a.bias), stage,
-                       m0 + 64 * c, n0, c);
+    Epi::template run<BN>(acc, args, ring, m0 + 64 * c, n0, c);
 }
 
-template <int BN, int kEpi>
-cudaError_t launch(const CUtensorMap& amap, const CUtensorMap& bmap,
-                   const GemmArgs& a, dim3 grid, int64_t smem,
+template <int BN, class Fm, class Epi>
+cudaError_t launch(const CUtensorMap (&maps)[4], const typename Epi::Args& args,
+                   int k, int kslices, dim3 grid, int64_t smem,
                    cudaStream_t s) {
   static int64_t smem_set = 0;  // the attribute, set once per size
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gemm_kernel<BN, kEpi>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gemm_kernel<BN, Fm, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
     smem_set = smem;
   }
-  gemm_kernel<BN, kEpi><<<grid, kThreads, (size_t)smem, s>>>(amap, bmap, a);
+  gemm_kernel<BN, Fm, Epi><<<grid, kThreads, (size_t)smem, s>>>(
+      maps[0], maps[1], maps[2], maps[3], args, k, kslices);
   return cudaGetLastError();
 }
 
-// One product from its host plan (kPlanValues int64, ops/ffn.py's
-// GemmPlan): the A map's dims (K, M), row bytes and box (64, 128); the B
-// map's dims (K, N), row bytes and box (64, BN); the swizzle bytes; the grid
-// (N tiles, M tiles); the threads; the dynamic shared memory; BN; C's row
-// stride in elements. A plan that does not describe this product, or whose
+// A plan's operand map (6 values: dims innermost first, row bytes, box,
+// majorness) describes operand (rows, K) of majorness kMaj with tiles of
+// `rows_box` rows.
+__host__ inline bool map_fits(const int64_t* p, int kMaj, int64_t rows,
+                              int64_t k, int64_t rows_box) {
+  if (p[5] != kMaj) return false;
+  if (kMaj == kK)
+    return p[0] == k && p[1] == rows && p[3] == kBK && p[4] == rows_box;
+  return p[0] == rows && p[1] == k && p[3] == kSlab && p[4] == kBK;
+}
+
+__host__ inline bool encode_map(CUtensorMap* map, const void* base,
+                                const int64_t* p) {
+  return hopper::encode_bf16_map_2d(map, base, p, p[2], (int)p[3], (int)p[4],
+                                    kSwizzle);
+}
+
+// The plan (kPlanValues int64, ops/gemm_sm90.py's GemmPlan) of a product
+// (M, N, K) with C's row stride ldc: A's map (dims, row bytes, box,
+// majorness), B's, the swizzle bytes, the grid (N tiles, M tiles, K
+// splits), the threads, the dynamic shared memory, BN, ldc, the K slices
+// of a split.
+template <int BN, class Fm>
+__host__ inline bool plan_fits(const int64_t* p, int kMajA, int kMajB, int m,
+                               int n, int k, int ldc) {
+  const int64_t ktiles = (k + kBK - 1) / kBK, splits = p[15], ks = p[20];
+  return map_fits(p, kMajA, m, k, kBM) && map_fits(p + 6, kMajB, n, k, BN) &&
+         p[12] == kSwizzle && p[13] == (n + BN - 1) / BN &&
+         p[14] == (m + kBM - 1) / kBM && splits >= 1 && ks >= 1 &&
+         (splits - 1) * ks < ktiles && splits * ks >= ktiles &&
+         p[16] == kThreads && p[17] >= (int64_t)smem_bytes<BN, Fm::kDual>() &&
+         p[17] <= 232448 && p[18] == BN && p[19] == ldc && n % 8 == 0 &&
+         ldc % 8 == 0 && ldc >= n;
+}
+
+// One product (or a dual one: p2 the second pair's plan, whose grid, split,
+// tile width and shared memory must equal p's) from its plan, at one of the
+// tile widths kBNs. A plan that does not describe this product, or whose
 // maps cuTensorMapEncodeTiled refuses, is an invalid value; nothing is
 // launched.
-template <int kEpi>
-cudaError_t gemm_from_plan(const int64_t* p, const void* A, const void* B,
-                           const GemmArgs& a, cudaStream_t s) {
-  const int64_t bn = p[15], smem = p[14];
-  const bool shape_ok =
-      p[0] == a.k && p[1] == a.m && p[5] == a.k && p[6] == a.n &&
-      p[3] == kBK && p[4] == kBM && p[8] == kBK && p[9] == bn &&
-      p[10] == kSwizzle && p[11] == (a.n + bn - 1) / bn &&
-      p[12] == (a.m + kBM - 1) / kBM && p[13] == kThreads && p[16] == a.ldc &&
-      a.n % 8 == 0 && a.ldc % 8 == 0 && a.ldc >= a.n;
-  if (!shape_ok || (bn != 128 && bn != 256) ||
-      smem < (int64_t)(bn == 256 ? smem_bytes<256>() : smem_bytes<128>()) ||
-      smem > 232448)
+template <class Fm, class Epi, int... kBNs>
+cudaError_t gemm_from_plan(const int64_t* p, const int64_t* p2, const void* A,
+                           const void* B, const void* A2, const void* B2,
+                           const typename Epi::Args& args, int m, int n, int k,
+                           int ldc, cudaStream_t s) {
+  if (p == nullptr || m <= 0 || (Fm::kDual && p2 == nullptr))
     return cudaErrorInvalidValue;
-  CUtensorMap amap, bmap;
-  if (!hopper::encode_bf16_map_2d(&amap, A, p, p[2], (int)p[3], (int)p[4],
-                                  kSwizzle) ||
-      !hopper::encode_bf16_map_2d(&bmap, B, p + 5, p[7], (int)p[8], (int)p[9],
-                                  kSwizzle))
+  cudaError_t err = cudaErrorInvalidValue;
+  const auto one = [&](auto bn_tag) {
+    constexpr int BN = decltype(bn_tag)::value;
+    if (p[18] != BN) return false;
+    if (!plan_fits<BN, Fm>(p, Fm::kMajA, Fm::kMajB, m, n, k, ldc)) return true;
+    if constexpr (Fm::kDual) {
+      if (!plan_fits<BN, Fm>(p2, Fm::kMajA2, Fm::kMajB2, m, n, k, ldc)) return true;
+      for (int i = 12; i < kPlanValues; ++i)
+        if (p2[i] != p[i]) return true;
+    }
+    CUtensorMap maps[4];
+    if (!encode_map(&maps[0], A, p) || !encode_map(&maps[1], B, p + 6))
+      return true;
+    if constexpr (Fm::kDual) {
+      if (!encode_map(&maps[2], A2, p2) || !encode_map(&maps[3], B2, p2 + 6))
+        return true;
+    } else {
+      maps[2] = maps[0];
+      maps[3] = maps[1];
+    }
+    const dim3 grid((unsigned)p[13], (unsigned)p[14], (unsigned)p[15]);
+    err = launch<BN, Fm, Epi>(maps, args, k, (int)p[20], grid, p[17], s);
+    return true;
+  };
+  (one(std::integral_constant<int, kBNs>{}) || ...);
+  return err;
+}
+
+// out (m, n; rows ldc apart) = the sum over z = 0 .. splits-1, in order, of
+// part[z] ((m, n) contiguous planes). n % 4 == 0.
+__global__ void sum_splits_kernel(const float* __restrict__ part,
+                                  float* __restrict__ out, int m, int n,
+                                  int ldc, int splits) {
+  const int64_t plane = (int64_t)m * n;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= plane) return;
+  float4 s = *reinterpret_cast<const float4*>(part + i);
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = *reinterpret_cast<const float4*>(part + z * plane + i);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const int64_t r = i / n, col = i % n;
+  *reinterpret_cast<float4*>(out + r * ldc + col) = s;
+}
+
+// An fp32 product of a plan (StoreF32) into out, through the partial planes
+// `part` (splits x m x n) when the plan splits K.
+template <class Fm, int... kBNs>
+cudaError_t gemm_f32_from_plan(const int64_t* p, const void* A, const void* B,
+                               float* out, float* part, int m, int n, int k,
+                               int ldc, cudaStream_t s) {
+  const int splits = p == nullptr ? 0 : (int)p[15];
+  if (splits > 1 && (part == nullptr || n % 4 != 0))
     return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)p[11], (unsigned)p[12]);
-  return bn == 256 ? launch<256, kEpi>(amap, bmap, a, grid, smem, s)
-                   : launch<128, kEpi>(amap, bmap, a, grid, smem, s);
+  const StoreF32::Args args{splits > 1 ? part : out, m, n, splits > 1 ? n : ldc,
+                            (int64_t)m * n};
+  cudaError_t err = gemm_from_plan<Fm, StoreF32, kBNs...>(
+      p, nullptr, A, B, nullptr, nullptr, args, m, n, k, splits > 1 ? n : ldc,
+      s);
+  if (err != cudaSuccess || splits <= 1) return err;
+  const int64_t quads = (int64_t)m * n / 4;
+  sum_splits_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
+      part, out, m, n, ldc, splits);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -3,9 +3,10 @@
 //   - TMA tile loads (rank 2 and 4) into shared memory, completed on an
 //     mbarrier;
 //   - mbarrier init, arrive, expect-tx and parity wait;
-//   - wgmma shared-memory descriptors, fence / commit / wait, the bf16
-//     products with A in registers (RS) at n 64 and 32, and with both
-//     operands in shared memory (SS) at n 256, 128 and 64;
+//   - wgmma shared-memory descriptors (K-major and MN-major operands),
+//     fence / commit / wait, the bf16 products with A in registers (RS) at
+//     n 64 and 32, and with both operands in shared memory (SS) at n 256,
+//     128 and 64, either operand K-major or MN-major;
 //   - setmaxnreg, named barriers, and the address swizzle TMA applies, so
 //     that a thread can read or write a swizzled tile itself;
 //   - on the host, cuTensorMapEncodeTiled reached through the runtime's
@@ -128,17 +129,19 @@ __host__ __device__ constexpr int desc_layout() {
   return kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
 }
 // Descriptor of a tile in shared memory stored with kSwizzle-byte swizzle
-// (the layout TMA writes). `group` is the byte stride between groups of 8
-// rows of the tile; it goes into both offset fields: for a K-major operand
-// the stride field is the one read (the leading one is unused when swizzled),
-// and for an MN-major operand whose n fits one swizzle atom, as here, the
-// leading field is never read.
+// (the layout TMA writes), with its two byte offsets:
+//   - K-major (rows of K contiguous): `sbo` is the byte stride between
+//     groups of 8 rows (8 swizzle rows); `lbo` is not read when swizzled.
+//   - MN-major (rows of MN contiguous, one 128-byte swizzle row holding 64
+//     bf16 of MN): `lbo` is the byte distance between 64-element MN slabs
+//     and `sbo` the byte stride between groups of 8 K rows. An operand of
+//     at most 64 MN elements (one slab) never reads `lbo`.
 template <int kSwizzle>
-__device__ __forceinline__ uint64_t wgmma_desc(const void* tile,
-                                               uint32_t group) {
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lbo,
+                                               uint32_t sbo) {
   uint64_t d = (smem_u32(tile) & 0x3FFFF) >> 4;
-  d |= static_cast<uint64_t>((group >> 4) & 0x3FFF) << 16;
-  d |= static_cast<uint64_t>((group >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
   d |= static_cast<uint64_t>(desc_layout<kSwizzle>()) << 62;
   return d;
 }
@@ -239,8 +242,10 @@ __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
         "r"(accumulate), "n"(kTransB));
 }
 
-// D(64 x 64) (+)= A(64 x 16) * B(16 x 64), both K-major in shared memory
-// (SS), bf16 operands, fp32 accumulators (d: 32 a thread).
+// D(64 x 64) (+)= A(64 x 16) * B(16 x 64), both in shared memory (SS),
+// bf16 operands, fp32 accumulators (d: 32 a thread). kTnspA / kTnspB = 1
+// read A / B MN-major (M or N contiguous), 0 K-major.
+template <int kTnspA = 0, int kTnspB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
                                                    uint64_t desc_a,
                                                    uint64_t desc_b,
@@ -253,7 +258,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -262,11 +267,14 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspA),
+        "n"(kTnspB));
 }
 
-// D(64 x 128) (+)= A(64 x 16) * B(16 x 128), both K-major in shared memory
-// (SS), bf16 operands, fp32 accumulators (d: 64 a thread).
+// D(64 x 128) (+)= A(64 x 16) * B(16 x 128), both in shared memory (SS),
+// bf16 operands, fp32 accumulators (d: 64 a thread). kTnspA / kTnspB = 1
+// read A / B MN-major (M or N contiguous), 0 K-major.
+template <int kTnspA = 0, int kTnspB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
                                                     uint64_t desc_a,
                                                     uint64_t desc_b,
@@ -283,7 +291,7 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -300,11 +308,14 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspA),
+        "n"(kTnspB));
 }
 
-// D(64 x 256) (+)= A(64 x 16) * B(16 x 256), both K-major in shared memory
-// (SS), bf16 operands, fp32 accumulators (d: 128 a thread).
+// D(64 x 256) (+)= A(64 x 16) * B(16 x 256), both in shared memory (SS),
+// bf16 operands, fp32 accumulators (d: 128 a thread). kTnspA / kTnspB = 1
+// read A / B MN-major (M or N contiguous), 0 K-major.
+template <int kTnspA = 0, int kTnspB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
                                                     uint64_t desc_a,
                                                     uint64_t desc_b,
@@ -329,7 +340,7 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
       " %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119,"
       " %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -362,7 +373,8 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTnspA),
+        "n"(kTnspB));
 }
 
 // -- warp specialisation ------------------------------------------------------

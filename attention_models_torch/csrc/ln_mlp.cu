@@ -33,17 +33,20 @@ extern "C" int amt_layernorm(const void* x, const void* gamma, const void* beta,
                              int64_t n, int d, float eps, int dtype, void* stream);
 cudaError_t amt_mlp_sm90(const int64_t* plan, const bf16* x, const bf16* w1,
                          const void* b1, const bf16* w2, const void* b2,
-                         const bf16* res, bf16* g_scratch, bf16* out, int n, int d,
-                         int hid, int bias_dtype, cudaStream_t s);
+                         const bf16* res, bf16* g_scratch, bf16* w2_stage,
+                         bf16* out, int n, int d, int hid, int bias_dtype,
+                         cudaStream_t s);
 
-// y_scratch (n, d) and g_scratch (n, hid), bf16; plan: the MLP plan of y,
-// W1 and W2 (ops/ffn.py::mlp_plan, 34 int64); lng and lnb fp32, b1 and b2
-// fp32 or (bias_dtype AMT_BF16) bf16.
+// y_scratch (n, d) and g_scratch (n, hid), bf16; w2_stage (d, pitch) or
+// null (csrc/mlp.cu); plan: the MLP plan of y, W1 and W2 (ops/ffn.py::
+// mlp_plan, 42 int64); lng and lnb fp32, b1 and b2 fp32 or (bias_dtype
+// AMT_BF16) bf16.
 AMT_EXPORT int amt_ln_mlp(const void* x, const void* lng, const void* lnb,
                           const void* w1, const void* b1, const void* w2,
                           const void* b2, void* out, void* y_scratch,
-                          void* g_scratch, const int64_t* plan, int n, int d,
-                          int hid, float eps, int bias_dtype, void* stream) {
+                          void* g_scratch, void* w2_stage, const int64_t* plan,
+                          int n, int d, int hid, float eps, int bias_dtype,
+                          void* stream) {
   if (n == 0) return cudaSuccess;
   if (n < 0 || hid % 8 != 0 || d % 128 != 0 || y_scratch == nullptr ||
       g_scratch == nullptr)
@@ -53,6 +56,7 @@ AMT_EXPORT int amt_ln_mlp(const void* x, const void* lng, const void* lnb,
   return amt_mlp_sm90(plan, static_cast<const bf16*>(y_scratch),
                       static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
                       static_cast<const bf16*>(x), static_cast<bf16*>(g_scratch),
-                      static_cast<bf16*>(out), n, d, hid, bias_dtype,
+                      static_cast<bf16*>(w2_stage), static_cast<bf16*>(out), n, d,
+                      hid, bias_dtype,
                       static_cast<cudaStream_t>(stream));
 }

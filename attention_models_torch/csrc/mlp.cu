@@ -23,47 +23,71 @@
 //   1. g = bf16(gelu(x W1^T + b1)) into a bf16 (n, hid) scratch;
 //   2. out = bf16(g W2^T + b2 (+ residual)).
 // The scratch (17 MB at ViT's shape) stays in the 50 MB L2 between them; its
-// rows, and those of W2 (a copy whose rows start 64-byte aligned where hid
-// is not a multiple of 32), are what the second product's TMA reads. The
-// residual of the second epilogue serves the pre-LN block (csrc/ln_mlp.cu).
-// The host plan (ops/ffn.py::mlp_plan, 34 int64: the two products'
-// GemmPlans) holds both products' maps, tile widths, grids, shared memory
-// and output row strides.
+// rows, and those of W2, are what the second product's TMA reads. Where the
+// hidden width is not a multiple of 32, W2's rows would start only 16-byte
+// aligned: each call first copies W2 into a scratch with 64-byte aligned
+// rows (one cudaMemcpy2DAsync on the stream, 1.4 MB at ViTVQGAN's shape),
+// so the products read the weight they are given at this call, never a
+// copy held from an earlier one. The residual of the second epilogue serves
+// the pre-LN block (csrc/ln_mlp.cu). The host plan (ops/ffn.py::mlp_plan,
+// 42 int64: the two products' GemmPlans) holds both products' maps, tile
+// widths, grids, shared memory and output row strides.
 #include "gemm_sm90.cuh"
 
 using bf16 = __nv_bfloat16;
 
+// W2 (rows, k) as the B map of `plan` reads it: W2 itself when the map's row
+// pitch is W2's, else `stage` after copying W2 (k elements a row) to the
+// map's pitch; null if the plan's pitch needs a stage that is missing.
+const bf16* stage_rows(const int64_t* plan, const bf16* w2, bf16* stage,
+                       int rows, int k, cudaStream_t s) {
+  const int64_t pitch = plan[8];  // the B map's row bytes
+  if (pitch == (int64_t)k * 2) return w2;
+  if (stage == nullptr || pitch < (int64_t)k * 2) return nullptr;
+  if (cudaMemcpy2DAsync(stage, pitch, w2, (size_t)k * 2, (size_t)k * 2, rows,
+                        cudaMemcpyDeviceToDevice, s) != cudaSuccess)
+    return nullptr;
+  return stage;
+}
+
 // The two products from an MLP plan: x (n, d) and W1 (hid, d) with d
-// elements a row; g_scratch and W2 rows as the plan gives them (its down
-// product's A and B maps); b1 and b2 fp32 or, with bias_dtype AMT_BF16,
-// bf16; res (n, d) or null.
+// elements a row; g_scratch at the row stride of the plan; W2 (d, hid)
+// contiguous, staged into w2_stage at the plan's pitch where it differs;
+// b1 and b2 fp32 or, with bias_dtype AMT_BF16, bf16; res (n, d) or null.
 cudaError_t amt_mlp_sm90(const int64_t* plan, const bf16* x, const bf16* w1,
                          const void* b1, const bf16* w2, const void* b2,
-                         const bf16* res, bf16* g_scratch, bf16* out, int n, int d,
-                         int hid, int bias_dtype, cudaStream_t s) {
+                         const bf16* res, bf16* g_scratch, bf16* w2_stage,
+                         bf16* out, int n, int d, int hid, int bias_dtype,
+                         cudaStream_t s) {
   if (n == 0) return cudaSuccess;
   using namespace sm90;
   // the first product writes g with the row stride the second reads it at
   if (n < 0 || plan == nullptr || d % 8 != 0 || hid % 8 != 0 ||
-      plan[kPlanValues + 2] != 2 * plan[16] ||
+      plan[kPlanValues + 2] != 2 * plan[19] ||
       (bias_dtype != AMT_F32 && bias_dtype != AMT_BF16))
     return cudaErrorInvalidValue;
   const int bf = bias_dtype == AMT_BF16;
-  const GemmArgs up{b1, nullptr, g_scratch, n, hid, d, (int)plan[16], bf};
-  const cudaError_t err = gemm_from_plan<kBiasGelu>(plan, x, w1, up, s);
+  const GemmArgs up{b1, nullptr, g_scratch, n, hid, d, (int)plan[19], bf};
+  cudaError_t err = gemm_from_plan<Form<kK, kK>, BiasGelu, 128, 256>(
+      plan, nullptr, x, w1, nullptr, nullptr, up, n, hid, d, up.ldc, s);
   if (err != cudaSuccess) return err;
+  const bf16* w2r = stage_rows(plan + kPlanValues, w2, w2_stage, d, hid, s);
+  if (w2r == nullptr) return cudaErrorInvalidValue;
   const GemmArgs down{b2, res, out, n, d, hid, d, bf};
-  return gemm_from_plan<kBiasResidual>(plan + kPlanValues, g_scratch, w2, down, s);
+  return gemm_from_plan<Form<kK, kK>, BiasResidual, 128, 256>(
+      plan + kPlanValues, nullptr, g_scratch, w2r, nullptr, nullptr, down, n,
+      d, hid, d, s);
 }
 
-// Kernel 7's two launches: g_scratch (n, hid) bf16 and W2 with the row
-// strides of the plan; res (n, d) or null.
+// Kernel 7's two launches: g_scratch (n, hid) bf16 at the plan's row stride;
+// w2_stage (d, pitch) or null where W2 needs no stage; res (n, d) or null.
 AMT_EXPORT int amt_mlp(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, const void* res, void* g_scratch, void* out,
-                       const int64_t* plan, int n, int d, int hid, int bias_dtype,
-                       void* stream) {
+                       const void* b2, const void* res, void* g_scratch,
+                       void* w2_stage, void* out, const int64_t* plan, int n, int d,
+                       int hid, int bias_dtype, void* stream) {
   return amt_mlp_sm90(plan, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
                       b1, static_cast<const bf16*>(w2), b2, static_cast<const bf16*>(res),
-                      static_cast<bf16*>(g_scratch), static_cast<bf16*>(out), n, d,
-                      hid, bias_dtype, static_cast<cudaStream_t>(stream));
+                      static_cast<bf16*>(g_scratch), static_cast<bf16*>(w2_stage),
+                      static_cast<bf16*>(out), n, d, hid, bias_dtype,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -4,10 +4,7 @@
 // _head_nll_fwd_call) and ::_head_xent_bwd_kernel (entry _head_nll_bwd),
 // bf16 and fp32, with the optional bias of Parti's head. h is (n, d) and
 // the head weight W is (V, d), the torch Linear layout (the TPU kernel
-// takes its transpose (d, V)): the logits product h W^T walks both along
-// d, so both are kK operands of csrc/gemm.cuh as they lie; dh = dl W walks
-// W down its V rows (a kR operand) and dW = dl^T h walks dl and h down
-// their n rows (both kR).
+// takes its transpose (d, V)).
 //
 // Forward (kernel 13): per row, logits = h W^T rounded to h's dtype (+ the
 // bias, also in the dtype), then in fp32 lse = max + log sum exp(l - max)
@@ -24,20 +21,30 @@
 //
 // Design. The TPU kernel holds a (rows, V) logits tile and the whole W in
 // VMEM; here one fp32 row of logits is 32 KB. The forward streams W in
-// 128-wide vocab chunks through the tile product and keeps, per thread and
-// row, a running (max, sum of exp) over the columns it holds -- the online
-// softmax -- and the target's logit when its chunk passes; the threads'
-// partial statistics merge at the end of the block. The vocab is split
-// into up to 4 ranges, one block each, so 8192 rows fill the card; a small
-// kernel merges the ranges' statistics in order. The (n, V) logits never
-// reach device memory. The backward writes dl once, as an (n, V) scratch
-// in the dtype (134 MB at these shapes in bf16), with each block's
-// column sums of the fp32 dl (before the rounding, as the TPU kernel sums
-// db), then runs the two products dh = dl W and dW = dl^T h from it; the
-// db partials are summed in order. Deterministic, no atomics. Recomputing
-// the logits per (d, V) tile of dW instead would skip the scratch at the
-// price of a third product.
+// 128-wide vocab chunks through csrc/gemm.cuh's tile product (both
+// operands kK as they lie) and keeps, per thread and row, a running (max,
+// sum of exp) over the columns it holds -- the online softmax -- and the
+// target's logit when its chunk passes; the threads' partial statistics
+// merge at the end of the block. The vocab is split into up to 4 ranges,
+// one block each, so 8192 rows fill the card; a small kernel merges the
+// ranges' statistics in order. The (n, V) logits never reach device memory.
+// The backward writes dl once, as an (n, V) scratch in the dtype (134 MB at
+// these shapes in bf16), then runs the two products dh = dl W and dW =
+// dl^T h from it; recomputing the logits per (d, V) tile of dW instead
+// would skip the scratch at the price of a third product. In bf16 its three
+// products are csrc/gemm_sm90.cuh's TMA/wgmma tile product:
+//   1. logits = h W^T (both K-major), the epilogue forming dl in registers
+//      and writing it in bf16 with, given a bias, the fp32 column sums of
+//      dl (before the rounding, as the TPU kernel sums db) per 64 rows;
+//   2. dh = dl W, W read MN-major, bf16 out;
+//   3. dW = dl^T h, both operands MN-major, fp32 out (K = n split into
+//      ordered partials where the plan says so);
+// the host plan (ops/xent.py::xent_bwd_plan) holds the three products'
+// maps, grids and tile widths. In fp32 the products stay csrc/gemm.cuh's
+// exact FMA tiles (dl^T read as its kR operands). Deterministic, no
+// atomics: the db partials and any split of dW are summed in order.
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -238,64 +245,66 @@ __global__ __launch_bounds__(kThreads) void xent_fwd_f32_kernel(
   }
 }
 
-// Backward, first pass, bf16: block (vocab chunk, row tile) recomputes its
-// logits tile, writes dl in bf16 and its columns' sums of the fp32 dl over
-// its 128 rows to dbpart[row tile] (when dbpart is not null).
-__global__ __launch_bounds__(kThreads) void xent_dl_bf16_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ w, const bf16* __restrict__ bias,
-    const int* __restrict__ tgt, const float* __restrict__ lse,
-    const float* __restrict__ coef, bf16* __restrict__ dl, float* __restrict__ dbpart,
-    int n, int d, int V) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float acc[4][4][4];
-  mma_tile<kK, kK>(h, d, n, w, d, V, d, m0, n0, reinterpret_cast<bf16*>(smem_raw), acc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-  float cs[4][2];
+// Backward, the logits product's epilogue in bf16: acc = h W^T of a
+// warpgroup's 64 x BN tile (rows m0r.., vocab columns n0..) becomes dl in
+// bf16 and, given a bias, the fp32 column sums of dl over its 64 rows.
+struct XentDl {
+  struct Args {
+    const bf16* bias;   // (V,) or null
+    const int* tgt;     // (n,)
+    const float* lse;   // (n,)
+    const float* coef;  // (n,)
+    bf16* dl;           // (n, V), rows ld elements apart
+    float* dbpart;      // (2 * row tiles, V), or null without a bias
+    int m, n, ld;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = sm90::Staged<BN, bf16>;
+    uint8_t* st = ring + c * S::kBytes;
+    float* red = reinterpret_cast<float*>(ring + 2 * S::kBytes) + c * 4 * BN;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+    const int r0 = m0r + rl, r1 = r0 + 8;
+    const bool ok[2] = {r0 < a.m, r1 < a.m};
+    const int tg[2] = {ok[0] ? a.tgt[r0] : -1, ok[1] ? a.tgt[r1] : -1};
+    const float ls[2] = {ok[0] ? a.lse[r0] : 0.f, ok[1] ? a.lse[r1] : 0.f};
+    const float cf[2] = {ok[0] ? a.coef[r0] : 0.f, ok[1] ? a.coef[r1] : 0.f};
+    float cs[BN / 4];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) cs[nt][0] = cs[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-      const bool ok = row < n;
-      const int tg = ok ? tgt[row] : -1;
-      const float ls = ok ? lse[row] : 0.f, cf = ok ? coef[row] : 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        float v[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float p = expf(logit<bf16>(acc[mt][nt][2 * half + u], bias, col + u) - ls);
-          v[u] = (p - (col + u == tg ? 1.f : 0.f)) * cf;
-          cs[nt][u] += v[u];
-        }
-        if (ok) store2(dl + (int64_t)row * V + col, v[0], v[1]);
+    for (int i = 0; i < BN / 8; ++i) {
+      const int cl = 8 * i + 2 * t, col = n0 + cl;
+      float bb[2] = {0.f, 0.f};
+      if (a.bias != nullptr && col < a.n) {
+        const float2 b2 = sm90::bias_pair(a.bias, col);
+        bb[0] = b2.x;
+        bb[1] = b2.y;
       }
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e / 2, u = e % 2;
+        float l = round_to<bf16>(acc[4 * i + e]);
+        if (a.bias != nullptr) l = round_to<bf16>(l + bb[u]);
+        const float p = expf(l - ls[h]);
+        // a row past n has coef 0 and no target: nothing, even where p is inf
+        v[e] = ok[h] ? (p - (col + u == tg[h] ? 1.f : 0.f)) * cf[h] : 0.f;
+      }
+      S::put(st, rl, cl, v[0], v[1]);
+      S::put(st, rl + 8, cl, v[2], v[3]);
+      cs[2 * i] = v[0] + v[2];
+      cs[2 * i + 1] = v[1] + v[3];
     }
-  if (dbpart == nullptr) return;
-  // sum over the warp's 64 rows (the 8 lanes g), then the 2 row warps
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int o = 4; o <= 16; o <<= 1) cs[nt][u] += __shfl_xor_sync(0xffffffffu, cs[nt][u], o);
-  __syncthreads();  // the tile product's shared memory is free
-  float* red = reinterpret_cast<float*>(smem_raw);  // [2 wm][kBN]
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) red[wm * kBN + wn * 32 + nt * 8 + 2 * t + u] = cs[nt][u];
+    if (a.dbpart != nullptr)
+      sm90::colsum_rows<BN>(cs, red, a.dbpart + (int64_t)(2 * blockIdx.y + c) * a.n,
+                            n0, a.n, c);
+    else
+      hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.dl, a.ld, m0r, n0, a.m, a.n);
   }
-  __syncthreads();
-  if (threadIdx.x < kBN)
-    dbpart[(int64_t)blockIdx.y * V + n0 + threadIdx.x] = red[threadIdx.x] + red[kBN + threadIdx.x];
-}
+};
 
 // Backward, first pass, fp32: 64 x 64 tiles; dbpart rows are 64-row tiles.
 __global__ __launch_bounds__(kThreads) void xent_dl_f32_kernel(
@@ -385,13 +394,17 @@ AMT_EXPORT int amt_head_xent_fwd(const void* h, const void* w, const void* bias,
   return cudaGetLastError();
 }
 
-// dl: (n, V) scratch in the dtype; dbpart: fp32 (ceil(n / 64), V) when the
-// bias is given (else unused, may be null); dh (n, d) in the dtype; dw (V, d)
-// and db (V,) in fp32.
+// dl: (n, V) scratch in the dtype; dbpart: fp32 partial column sums of dl
+// when the bias is given (else unused, may be null): (2 ceil(n / 128), V) in
+// bf16, (ceil(n / 64), V) in fp32; dh (n, d) in the dtype; dw (V, d) and db
+// (V,) in fp32. bf16 only: plan, ops/xent.py::XentBwdPlan (3 GemmPlans:
+// logits, dh, dW), and wpart, the fp32 partials of dW where its plan splits
+// K (else unused).
 AMT_EXPORT int amt_head_xent_bwd(const void* h, const void* w, const void* bias,
                                  const void* tgt, const void* lse, const void* coef,
-                                 void* dl, void* dbpart, void* dh, void* dw, void* db, int n,
-                                 int d, int V, int dtype, void* stream) {
+                                 void* dl, void* dbpart, void* dh, void* dw, void* db,
+                                 void* wpart, const int64_t* plan, int n, int d, int V,
+                                 int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || n % 8 != 0 || d % 8 != 0 || V % kBN != 0) return cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
@@ -402,22 +415,27 @@ AMT_EXPORT int amt_head_xent_bwd(const void* h, const void* w, const void* bias,
   auto* dwf = static_cast<float*>(dw);
   cudaError_t err;
   if (dtype == AMT_BF16) {
+    using sm90::Form;
+    using sm90::kK;
+    using sm90::kMN;
+    constexpr int P = sm90::kPlanValues;
+    if (plan == nullptr) return cudaErrorInvalidValue;
     const auto* hi = static_cast<const bf16*>(h);
     const auto* wi = static_cast<const bf16*>(w);
     auto* dli = static_cast<bf16*>(dl);
-    if ((err = cudaFuncSetAttribute(xent_dl_bf16_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)kTileSmem)) != cudaSuccess)
-      return err;
-    const int tiles = (n + kBM - 1) / kBM;
-    xent_dl_bf16_kernel<<<dim3(V / kBN, tiles), kThreads, kTileSmem, s>>>(
-        hi, wi, static_cast<const bf16*>(bias), tg, ls, cf, dli, dbp, n, d, V);
-    if ((err = cudaGetLastError()) != cudaSuccess ||
-        (has_bias && (err = colsum(dbp, static_cast<float*>(db), tiles, V, s)) != cudaSuccess) ||
-        (err = gemm_bf16<kK, kR, bf16>(dli, V, wi, d, static_cast<bf16*>(dh), d, n, d, V, s)) !=
+    const XentDl::Args xa{static_cast<const bf16*>(bias), tg, ls, cf, dli, dbp, n, V, V};
+    const sm90::StoreBf16::Args ha{static_cast<bf16*>(dh), n, d, d, 0};
+    if ((err = sm90::gemm_from_plan<Form<kK, kK>, XentDl, 128>(
+             plan, nullptr, hi, wi, nullptr, nullptr, xa, n, V, d, V, s)) != cudaSuccess ||
+        (has_bias && (err = colsum(dbp, static_cast<float*>(db),
+                                   2 * ((n + sm90::kBM - 1) / sm90::kBM), V, s)) !=
+                         cudaSuccess) ||
+        (err = sm90::gemm_from_plan<Form<kK, kMN>, sm90::StoreBf16, 128>(
+             plan + P, nullptr, dli, wi, nullptr, nullptr, ha, n, d, V, d, s)) !=
             cudaSuccess)
       return err;
-    return gemm_bf16<kR, kR, float>(dli, V, hi, d, dwf, d, V, d, n, s);
+    return sm90::gemm_f32_from_plan<Form<kMN, kMN>, 128>(
+        plan + 2 * P, dli, hi, dwf, static_cast<float*>(wpart), V, d, n, d, s);
   }
   if (dtype == AMT_F32) {
     const auto* hi = static_cast<const float*>(h);

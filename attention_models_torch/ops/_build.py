@@ -43,22 +43,23 @@ _SIGNATURES = {
     "amt_layernorm": [_P, _P, _P, _P, ctypes.c_int64, _I, _F, _I, _P],
     "amt_nearest_codes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "amt_flash_fwd_kv": [_P] * 4 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
-    "amt_ln_mlp": [_P] * 10 + [_S] + [_I, _I, _I, _F, _I, _P],
+    "amt_ln_mlp": [_P] * 11 + [_S] + [_I, _I, _I, _F, _I, _P],
     "amt_flash_bwd_kv": [_P] * 7 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_fwd": [_P] * 5 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_bwd_dkv": [_P] * 8 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_bwd_dq": [_P] * 7 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
-    "amt_ln_mlp_bwd": [_P] * 21 + [_I, _I, _I, _F, _P],
+    "amt_ln_mlp_bwd": [_S] + [_P] * 20 + [_I, _I, _I, _F, _P],
     "amt_ffn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_bwd": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
     "amt_head_xent_fwd": [_P] * 7 + [_I] * 4 + [_P],
-    "amt_head_xent_bwd": [_P] * 11 + [_I] * 4 + [_P],
+    "amt_head_xent_bwd": [_P] * 12 + [_S] + [_I] * 4 + [_P],
     "amt_sample_epilogue": [_P] * 4 + [_I, _I, _P, _P, _I, _I, _I, _I, _F,
                                        _F, _I, _P],
     "amt_ffn_q8": [_P] * 12 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_q8wide": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "amt_ln_mlp_q8": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
-    "amt_mlp": [_P] * 8 + [_S] + [_I] * 4 + [_P],
+    "amt_mlp": [_P] * 9 + [_S] + [_I] * 4 + [_P],
+    "amt_tile_product": [_S] + [_P] * 4 + [_I] * 5 + [_P],
     "amt_mlp_bwd": [_P] * 14 + [_I, _I, _I, _P],
 }
 

@@ -3,21 +3,28 @@
 - ``fused_mlp``: the biased GELU MLP gelu(x W1^T + b1) W2^T + b2, forward
   and backward (kernels 7 and 8: csrc/mlp.cu, csrc/mlp_bwd.cu).
 - ``fused_ln_mlp``: the pre-LN MLP block x + Mlp(LayerNorm(x)), forward and
-  backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu). The forward at every
-  d % 128 == 0 is the LayerNorm kernel writing Y and kernel 7's two
-  products on it, the second adding x; the backward runs one pass at
-  d 128, 256, 384 and 512 and the LayerNorm kernel and kernel 8's tiles at
-  every wider d % 128 == 0.
+  backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu). At every d % 128 == 0 the
+  forward is the LayerNorm kernel writing Y and kernel 7's two products on
+  it, the second adding x; the backward is the LayerNorm kernel writing yc,
+  a dual product (H = yc W1^T and dG = dy W2 over one tile, G and dH in
+  its epilogue), dy_ln = dH W1, the weight gradients dH^T yc and dy^T G
+  with K split into ordered partials, and the LN backward's row pass.
 - ``fused_ffn``: the GEGLU FFN LN_gamma(gate * gelu(a)) W2 with
   [a | gate] = x W1, no biases, forward and backward (csrc/ffn.cu,
   csrc/ffn_bwd.cu).
 
 The forwards of kernels 7 and 2 run csrc/gemm_sm90.cuh's TMA/wgmma tile
-product twice. ``mlp_plan`` computes on the host what those launches need
-(each operand's rank-2 tensor map, the tile width of each product, the
-grids and the shared memory), cached by the operands' shapes, strides and
-alignment, and refuses by name a view TMA cannot take; the C side encodes
-the maps and launches.
+product twice, kernel 6 five times. ``mlp_plan`` and ``ln_mlp_bwd_plan``
+compute on the host what those launches need (``ops/gemm_sm90.py``: each
+operand's rank-2 tensor map, K-major or MN-major, the tile width of each
+product, the grids, the splits of K and the shared memory, and the
+scratches' pitches), cached by the operands' shapes, strides and alignment,
+and refuse by name a view TMA cannot take; the C side encodes the maps and
+launches. Where the hidden width is not a multiple of 32, W2's rows would
+start only 16-byte aligned, which TMA reads slowly: the C entries copy W2
+into a scratch at a 64-byte pitch at every call (one cudaMemcpy2DAsync),
+so the kernels read the weight they are given, never a copy held from an
+earlier call.
 
 Counterparts of ``attention_models_tpu/ops/ffn.py``'s ``fused_mlp`` and
 ``fused_ln_mlp`` (bf16 only on the kernel path, as there) and ``fused_ffn``
@@ -39,7 +46,6 @@ directly (``needs_grad``).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from dataclasses import dataclass, field
@@ -54,20 +60,24 @@ from attention_models_torch.ops.dispatch import (
     needs_grad,
     rows_lane_tileable,
 )
+from attention_models_torch.ops.gemm_sm90 import (
+    GEMM_ROWS,
+    K_MAJOR,
+    MN_MAJOR,
+    ROW_ALIGN,
+    GemmPlan,
+    PlanArray,
+    gemm_plan,
+    meta,
+    row_pitch,
+    scratch_meta,
+)
 from attention_models_torch.ops.layernorm import _ln_reference
 
-FUSED_DIMS = (128, 256, 384, 512)  # widths of csrc/ln_mlp_bwd.cu's single pass
-BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's row passes
+BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's LN backward
 FFN_BWD_ROWS = 16     # rows per block of csrc/ffn_bwd.cu's row pass
 TILE_ROWS = 128       # rows of csrc/gemm.cuh's tiles (kernel 8's db1 partials)
 COL_ROWS = 64         # rows per partial of kernel 8's db2 column sums
-# csrc/gemm_sm90.cuh's tile product (kBM, kBK, kThreads, kSwizzle, and each
-# tile width's ring depth, Config<BN>::kStages): 128 rows of C a block, K
-# slices of 64 bf16 (one 128-byte swizzle row), two consumer warpgroups and
-# a producer warp
-GEMM_ROWS, GEMM_K, GEMM_THREADS, GEMM_SWIZZLE = 128, 64, 288, 128
-GEMM_STAGES = {128: 3, 256: 4}
-ROW_ALIGN = 32        # elements: g's and W2's rows start 64-byte aligned
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -138,42 +148,15 @@ def _pad_hidden(w1, b1, w2):
     return F.pad(w1, (0, 0, 0, pad)), F.pad(b1, (0, pad)), F.pad(w2, (0, pad))
 
 
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+# -- the tile products' host plans -------------------------------------------
 
-
-# -- the tile products' host plan ---------------------------------------------
-
-@dataclass(frozen=True)
-class RowMap:
-    """A rank-2 TMA tensor map over a row-major (rows, K) bf16 matrix:
-    ``dims`` (K, rows) in elements, innermost first; ``stride`` the bytes
-    between rows; ``box`` (GEMM_K, tile rows), the tile one load brings."""
-    dims: tuple[int, int]
-    stride: int
-    box: tuple[int, int]
-
-
-@dataclass(frozen=True)
-class GemmPlan:
-    """One tile product C (M, N) = epilogue(A B^T + bias): the maps of A
-    (M, K) and B (N, K), the swizzle (bytes), the grid (N tiles of ``bn``,
-    M tiles of GEMM_ROWS), the threads, the dynamic shared memory, the tile
-    width ``bn`` and C's row stride ``ldc`` (elements)."""
-    a: RowMap
-    b: RowMap
-    swizzle: int
-    grid: tuple[int, int]
-    threads: int
-    smem: int
-    bn: int
-    ldc: int
-
-    def values(self) -> list[int]:
-        """The 17 int64 values csrc/gemm_sm90.cuh's gemm_from_plan reads."""
-        return [*self.a.dims, self.a.stride, *self.a.box, *self.b.dims,
-                self.b.stride, *self.b.box, self.swizzle, *self.grid,
-                self.threads, self.smem, self.bn, self.ldc]
+def pick_bn(n: int, gelu: bool) -> int:
+    """The tile width of a forward product with N columns: 128 for the GELU
+    product (two blocks an SM, so one block's erff epilogue runs under the
+    other's products), 256 for the residual product (one block an SM, a
+    quarter fewer operand bytes from L2 a flop) unless N fits one 128-wide
+    tile (chosen in turns on the H100, PERF.md section 6)."""
+    return 128 if gelu or n <= 128 else 256
 
 
 @dataclass(frozen=True)
@@ -181,116 +164,57 @@ class MlpPlan:
     """The two products of kernels 7 and 2: ``up`` g = gelu(x W1^T + b1)
     (M n, N hid, K d; kernel 2's x is its LayerNorm's output) into the bf16
     scratch g, whose rows are ``up.ldc`` elements apart, and ``down``
-    g W2^T (M n, N d, K hid)."""
+    g W2^T (M n, N d, K hid), whose B map reads W2 staged at ``up.ldc``
+    elements a row where hid is not a multiple of ROW_ALIGN."""
     up: GemmPlan
     down: GemmPlan
-    _c: object = field(default=None, init=False, repr=False, compare=False)
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        vals = self.up.values() + self.down.values()
-        object.__setattr__(self, "_c", (ctypes.c_int64 * len(vals))(*vals))
+        object.__setattr__(self, "_arr", PlanArray((self.up, self.down)))
 
     def c_array(self):
-        """The 34 int64 values ``amt_mlp`` and ``amt_ln_mlp`` read (built
+        """The 42 int64 values ``amt_mlp`` and ``amt_ln_mlp`` read (built
         once)."""
-        return self._c
+        return self._arr.c_array()
 
-
-def gemm_smem_bytes(bn: int) -> int:
-    """Dynamic shared memory of the tile product at tile width ``bn``: the
-    struct Tiles<bn> (GEMM_STAGES[bn] stages of an A and a B tile, a full
-    and an empty mbarrier each) plus 1024 bytes of alignment slack."""
-    stages = GEMM_STAGES[bn]
-    return stages * (GEMM_ROWS + bn) * GEMM_K * 2 + 16 * stages + 1024
-
-
-def pick_bn(n: int, gelu: bool) -> int:
-    """The tile width of a product with N columns: 128 for the GELU product
-    (two blocks an SM, so one block's erff epilogue runs under the other's
-    products), 256 for the residual product (one block an SM, a quarter
-    fewer operand bytes from L2 a flop) unless N fits one 128-wide tile
-    (chosen in turns on the H100, PERF.md section 6)."""
-    return 128 if gelu or n <= 128 else 256
-
-
-def aligned_rows(t: torch.Tensor) -> torch.Tensor:
-    """A (rows, k) matrix as a view whose rows start 64-byte aligned (every
-    ROW_ALIGN elements): ``t`` itself, or a zero-padded copy whose extra
-    columns TMA never reads (they lie past the map's K). The copy is held
-    on ``t`` and made again only when t's version or storage changes, so a
-    serving loop pads each weight once instead of at every call (the pad
-    dominated the wrapper's host time, ``bench_mlp.py paths``); an
-    inference-mode tensor, which has no version, is padded afresh."""
-    k = t.shape[1]
-    pad = -k % ROW_ALIGN
-    if not pad:
-        return t
-    if t.is_inference():
-        return F.pad(t, (0, pad))[:, :k]
-    key = (t._version, t.data_ptr())
-    held = getattr(t, "_aligned_rows", None)
-    if held is None or held[0] != key:
-        with torch.no_grad():
-            held = (key, F.pad(t, (0, pad))[:, :k])
-        t._aligned_rows = held
-    return held[1]
-
-
-def _row_map(name: str, shape: tuple, stride: tuple, item: int,
-             misalign: int, rows_box: int) -> RowMap:
-    """The map of a (rows, K) view given its shape, element strides, item
-    size and address modulo 16; a view TMA cannot take raises, naming
-    why."""
-    rows, k = shape
-    if misalign:
-        raise ValueError(f"mlp kernel: {name} starts at an address that is "
-                         f"not 16-byte aligned, which TMA cannot load")
-    if stride[1] != 1:
-        raise ValueError(f"mlp kernel: {name} needs a contiguous last "
-                         f"dimension for TMA (strides {stride})")
-    row_bytes = stride[0] * item
-    if row_bytes <= 0 or row_bytes % 16:
-        raise ValueError(f"mlp kernel: {name}'s row stride of {row_bytes} "
-                         f"bytes is not a positive multiple of 16, which TMA "
-                         f"cannot take")
-    return RowMap((k, rows), row_bytes, (GEMM_K, rows_box))
-
-
-def _gemm_plan(a: tuple, b: tuple, bn: int, ldc: int) -> GemmPlan:
-    m, n = a[1][0], b[1][0]
-    return GemmPlan(_row_map(*a, GEMM_ROWS), _row_map(*b, bn),
-                    swizzle=GEMM_SWIZZLE,
-                    grid=(-(-n // bn), -(-m // GEMM_ROWS)),
-                    threads=GEMM_THREADS, smem=gemm_smem_bytes(bn), bn=bn,
-                    ldc=ldc)
+    def w2_stage_elems(self, hid: int) -> int:
+        """Elements of the W2 stage the C side fills (0: W2 read as it
+        is)."""
+        pitch = self.down.b.stride // 2
+        return 0 if pitch == hid else self.down.b.dims[1] * pitch
 
 
 def _g_meta(n: int, hid: int) -> tuple:
     """The wrapper's g scratch: (n, hid) at a pitch of whole ROW_ALIGNs."""
-    return ("g", (n, hid), (-(-hid // ROW_ALIGN) * ROW_ALIGN, 1), 2, 0)
+    return scratch_meta("g", n, hid, row_pitch(hid))
+
+
+def _w2_meta(w2: tuple) -> tuple:
+    """W2 (rows, hid) as the kernels read it: as it is where hid is a
+    multiple of ROW_ALIGN, else its stage at a 64-byte pitch."""
+    rows, hid = w2[1]
+    return w2 if hid % ROW_ALIGN == 0 else scratch_meta(
+        "w2", rows, hid, row_pitch(hid))
 
 
 @functools.lru_cache(maxsize=256)
 def _mlp_plan(x: tuple, w1: tuple, w2: tuple) -> MlpPlan:
     (n, d), hid = x[1], w1[1][0]
     g = _g_meta(n, hid)
-    return MlpPlan(_gemm_plan(x, w1, pick_bn(hid, gelu=True), g[2][0]),
-                   _gemm_plan(g, w2, pick_bn(d, gelu=False), d))
-
-
-def _meta(name: str, t: torch.Tensor) -> tuple:
-    return (name, tuple(t.shape), tuple(t.stride()), t.element_size(),
-            t.data_ptr() % 16)
+    return MlpPlan(
+        gemm_plan(x, K_MAJOR, w1, K_MAJOR, pick_bn(hid, gelu=True), g[2][0]),
+        gemm_plan(g, K_MAJOR, _w2_meta(w2), K_MAJOR, pick_bn(d, gelu=False),
+                  d))
 
 
 def mlp_plan(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> MlpPlan:
     """The plan of kernel 7's (or kernel 2's) two products for x (n, d),
-    w1 (hid, d) and w2 (d, hid) in bf16 (w2 as ``aligned_rows`` gives it),
-    cached by their shapes, strides and 16-byte alignment, so a serving
-    loop pays for it once; a view TMA cannot take raises a ValueError
-    naming it. The g scratch is allocated with ``up.ldc`` elements a
-    row."""
-    return _mlp_plan(_meta("x", x), _meta("w1", w1), _meta("w2", w2))
+    w1 (hid, d) and w2 (d, hid) in bf16, cached by their shapes, strides and
+    16-byte alignment, so a serving loop pays for it once; a view TMA cannot
+    take raises a ValueError naming it. The g scratch is allocated with
+    ``up.ldc`` elements a row."""
+    return _mlp_plan(meta("x", x), meta("w1", w1), meta("w2", w2))
 
 
 def _launch_mlp(entry: str, x, w1, b1f, w2, b2f, *pre) -> torch.Tensor:
@@ -300,12 +224,15 @@ def _launch_mlp(entry: str, x, w1, b1f, w2, b2f, *pre) -> torch.Tensor:
     residual): the plan, the scratches, one call of ``entry``."""
     d, hid = x.shape[-1], w1.shape[0]
     n = x.numel() // d
-    w2 = aligned_rows(w2)
     plan = mlp_plan(x.view(n, d), w1, w2)  # kernel 2's Y is laid out as x
-    # one scratch: kernel 2's Y (n, d), then g (n, plan.up.ldc)
-    ny = n * d if pre else 0
-    scratch = torch.empty(ny + n * plan.up.ldc, dtype=x.dtype,
-                          device=x.device)
+    # one scratch: kernel 2's Y (n, d), g (n, plan.up.ldc), W2's stage
+    ny, ng = (n * d if pre else 0), n * plan.up.ldc
+    nw = plan.w2_stage_elems(hid)
+    scratch = torch.empty(ny + ng + nw, dtype=x.dtype, device=x.device)
+    def at(off):
+        return scratch.data_ptr() + off * scratch.element_size()
+
+    w2_stage = at(ny + ng) if nw else None
     out = torch.empty_like(x)
     bias = _build.DTYPE_CODES[b1f.dtype]
     stream = _build.stream_of(x)
@@ -315,15 +242,89 @@ def _launch_mlp(entry: str, x, w1, b1f, w2, b2f, *pre) -> torch.Tensor:
             _build.launch(
                 entry, x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
                 w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(),
-                scratch.data_ptr() + ny * scratch.element_size(),
-                plan.c_array(), n, d, hid, eps, bias, stream)
+                out.data_ptr(), at(0), at(ny), w2_stage, plan.c_array(), n, d,
+                hid, eps, bias, stream)
         else:
             _build.launch(
                 entry, x.data_ptr(), w1.data_ptr(), b1f.data_ptr(),
-                w2.data_ptr(), b2f.data_ptr(), None, scratch.data_ptr(),
+                w2.data_ptr(), b2f.data_ptr(), None, at(0), w2_stage,
                 out.data_ptr(), plan.c_array(), n, d, hid, bias, stream)
     return out
+
+
+def _layout(parts: list[tuple[str, int]], align: int = 128) -> tuple:
+    """(name, offset, size) of each scratch part in one buffer, each offset
+    a multiple of ``align`` elements; the total last."""
+    out, off = [], 0
+    for name, size in parts:
+        out.append((name, off, size))
+        off += -(-size // align) * align
+    return tuple(out), off
+
+
+@dataclass(frozen=True)
+class LnMlpBwdPlan:
+    """Kernel 6's five tile products (csrc/ln_mlp_bwd.cu) and its scratches:
+    the dual product ``h`` (H = yc W1^T) and ``dg`` (dG = dy W2, W2 read
+    MN-major, staged where hid is not a multiple of ROW_ALIGN) over the
+    same (128 rows x 128 hidden) tiles, ``dyln`` (dH W1, W1 MN-major),
+    ``dw1`` (dH^T yc) and ``dw2`` (dy^T G), both operands MN-major with K
+    split into ordered partials. G and dH are (n, hid) at ``h.ldc``
+    elements a row. ``bf16`` and ``f32`` lay out the scratches of one bf16
+    and one fp32 buffer: (name, offset, size) each, and the total."""
+    h: GemmPlan
+    dg: GemmPlan
+    dyln: GemmPlan
+    dw1: GemmPlan
+    dw2: GemmPlan
+    bf16: tuple
+    f32: tuple
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_arr", PlanArray(
+            (self.h, self.dg, self.dyln, self.dw1, self.dw2)))
+
+    def c_array(self):
+        """The 105 int64 values ``amt_ln_mlp_bwd`` reads (built once)."""
+        return self._arr.c_array()
+
+
+@functools.lru_cache(maxsize=256)
+def _ln_mlp_bwd_plan(dy: tuple, w1: tuple, w2: tuple) -> LnMlpBwdPlan:
+    (n, d), hid = dy[1], w1[1][0]
+    what = "ln_mlp backward"
+    pitch = row_pitch(hid)
+    yc = scratch_meta("yc", n, d, d)
+    g, dh = scratch_meta("g", n, hid, pitch), scratch_meta("dh", n, hid, pitch)
+    w2s = _w2_meta(w2)
+    plans = dict(
+        h=gemm_plan(yc, K_MAJOR, w1, K_MAJOR, 128, pitch, dual=True,
+                    what=what),
+        dg=gemm_plan(dy, K_MAJOR, w2s, MN_MAJOR, 128, pitch, dual=True,
+                     what=what),
+        dyln=gemm_plan(dh, K_MAJOR, w1, MN_MAJOR, 128, d, what=what),
+        dw1=gemm_plan(dh, MN_MAJOR, yc, MN_MAJOR, 128, d, split=True,
+                      what=what),
+        dw2=gemm_plan(dy, MN_MAJOR, g, MN_MAJOR, 128, hid, split=True,
+                      what=what))
+    splits = max(plans["dw1"].splits, plans["dw2"].splits)
+    tiles = -(-n // GEMM_ROWS)
+    bf16 = _layout([("yc", n * d), ("g", n * pitch), ("dh", n * pitch),
+                    ("w2s", d * pitch if w2s is not w2 else 0)])
+    f32 = _layout([("dyln", n * d), ("dhpart", 2 * tiles * hid),
+                   ("part", 3 * -(-n // BWD_ROWS) * d),
+                   ("wpart", splits * hid * d if splits > 1 else 0)])
+    return LnMlpBwdPlan(**plans, bf16=bf16, f32=f32)
+
+
+def ln_mlp_bwd_plan(dy: torch.Tensor, w1: torch.Tensor,
+                    w2: torch.Tensor) -> LnMlpBwdPlan:
+    """Kernel 6's plan for the cotangent dy (n, d) (x, yc and dx are laid
+    out as it), w1 (hid, d) and w2 (d, hid) in bf16, cached by their
+    shapes, strides and 16-byte alignment; a view TMA cannot take raises a
+    ValueError naming it."""
+    return _ln_mlp_bwd_plan(meta("dy", dy), meta("w1", w1), meta("w2", w2))
 
 
 def _check_kernel_operands(x, w1, w2, vecs,
@@ -387,35 +388,28 @@ def fused_ln_mlp_backward(x, lng, lnb, w1, b1, w2, dy, *, eps: float = 1e-5):
         x, w1, w2, (("ln_gamma", lng), ("ln_beta", lnb), ("b1", b1)))
     d, hid = x.shape[-1], w1.shape[0]
     n = x.numel() // d
+    plan = ln_mlp_bwd_plan(dy.view(n, d), w1, w2)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
+    bufs = (torch.empty(plan.bf16[1], dtype=x.dtype, device=dev),
+            torch.empty(plan.f32[1], **f32))
+    scratch = [buf.data_ptr() + off * buf.element_size() if size else None
+               for buf, (layout, _) in zip(bufs, (plan.bf16, plan.f32))
+               for _, off, size in layout]
     dx = torch.empty_like(x)
-    # scratch: yc (n, d), G and dH (n, hid) in bf16, per-block partial sums
-    # of dlng / dlnb and of db1 (over the fp32 dH); above the single pass's
-    # widths also dy_ln (n, d) in fp32 and kernel 8's db2 partials
-    yc = torch.empty(n, d, dtype=x.dtype, device=dev)
-    gs = torch.empty(n, hid, dtype=x.dtype, device=dev)
-    dhs = torch.empty(n, hid, dtype=x.dtype, device=dev)
-    blocks = -(-n // BWD_ROWS)
-    part = torch.empty(2, blocks, d, **f32)
-    dhpart = torch.empty(2 * blocks, hid, **f32)
-    wide = d not in FUSED_DIMS
-    dyln = torch.empty(n, d, **f32) if wide else None
-    dypart = torch.empty(-(-n // COL_ROWS), d, **f32) if wide else None
-    dlng, dlnb = torch.empty(d, **f32), torch.empty(d, **f32)
     dw1, db1 = torch.empty(hid, d, **f32), torch.empty(hid, **f32)
-    dw2, db2 = torch.empty(d, hid, **f32), torch.empty(d, **f32)
+    dw2 = torch.empty(d, hid, **f32)
+    lnbias = torch.empty(3, d, **f32)  # dlng, dlnb, db2
     with torch.cuda.device(dev):
         _build.launch(
-            "amt_ln_mlp_bwd", x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
-            w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), yc.data_ptr(), gs.data_ptr(), dhs.data_ptr(),
-            part.data_ptr(), dhpart.data_ptr(), _ptr(dyln), _ptr(dypart),
-            dlng.data_ptr(), dlnb.data_ptr(),
-            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            n, d, hid, eps, _build.stream_of(x),
+            "amt_ln_mlp_bwd", plan.c_array(), x.data_ptr(), lng.data_ptr(),
+            lnb.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(),
+            dy.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), lnbias.data_ptr(), *scratch, n, d, hid, eps,
+            _build.stream_of(x),
         )
     fused_ln_mlp_backward.launches += 1
+    dlng, dlnb, db2 = lnbias
     return (dx, dlng, dlnb, dw1[:hid0], db1[:hid0], dw2[:, :hid0], db2)
 
 

@@ -1,0 +1,227 @@
+"""Host plans of csrc/gemm_sm90.cuh's TMA/wgmma tile product.
+
+Everything a launch of the tile product needs is decided here, on the host,
+from the operands' shapes, strides and alignment: each operand's rank-2
+tensor map (dims, row pitch, box, K-major or MN-major), the grid, the split
+of K into ordered partials, the tile width and the shared memory. A view TMA
+cannot take raises a ValueError naming it before anything is launched; the
+C side checks the plan against the product, encodes the maps and launches.
+Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 (``ops/ffn.py::
+ln_mlp_bwd_plan``) and 14 (``ops/xent.py::xent_bwd_plan``) build their plans
+from these pieces.
+
+``tile_product`` runs one product in any operand form with an fp32 result
+(``csrc/tile_product.cu``); no model path calls it: chip_smoke.py holds each
+form against ``torch.matmul`` of the same views on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass, field
+
+import torch
+
+from attention_models_torch.ops import _build
+from attention_models_torch.ops.dispatch import check_tensor, is_kernel_path
+
+# csrc/gemm_sm90.cuh: 128 rows of C a block, K slices of 64 bf16 (one
+# 128-byte swizzle row), two consumer warpgroups and a producer warp; an
+# MN-major tile is loaded as (64 MN, 64 K) boxes
+GEMM_ROWS, GEMM_K, GEMM_THREADS, GEMM_SWIZZLE = 128, 64, 288, 128
+SLAB = 64
+# ring depth of each (tile width, dual product) the header instantiates
+GEMM_STAGES = {(128, False): 3, (256, False): 4, (128, True): 3}
+ROW_ALIGN = 32        # elements: scratch and staged rows start 64-byte aligned
+SM_COUNT = 132        # the H100 SXM's SMs: the split aims at two blocks each
+MAX_SPLITS = 8        # ranges of K at most (each adds an fp32 partial plane)
+K_MAJOR, MN_MAJOR = 0, 1
+
+
+@dataclass(frozen=True)
+class TileMap:
+    """A rank-2 TMA tensor map over a row-major bf16 matrix: ``dims``
+    (inner, outer) in elements, innermost first ((K, rows) for a K-major
+    operand, (rows, K) for an MN-major one); ``stride`` the bytes between
+    outer rows; ``box`` the tile one load brings ((GEMM_K, tile rows)
+    K-major, (SLAB, GEMM_K) MN-major); ``major`` K_MAJOR or MN_MAJOR."""
+    dims: tuple[int, int]
+    stride: int
+    box: tuple[int, int]
+    major: int
+
+    def values(self) -> list[int]:
+        return [*self.dims, self.stride, *self.box, self.major]
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """One tile product C (M, N) = epilogue(A B^T): the maps of A (M, K) and
+    B (N, K), the swizzle (bytes), the grid (N tiles of ``bn``, M tiles of
+    GEMM_ROWS, K splits), the threads, the dynamic shared memory, the tile
+    width ``bn``, the row stride ``ldc`` (elements) of what the epilogue
+    writes (a split's fp32 partial planes: N) and the K slices of a
+    split."""
+    a: TileMap
+    b: TileMap
+    swizzle: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem: int
+    bn: int
+    ldc: int
+    kslices: int
+
+    def values(self) -> list[int]:
+        """The 21 int64 values csrc/gemm_sm90.cuh's gemm_from_plan reads
+        (kPlanValues)."""
+        return [*self.a.values(), *self.b.values(), self.swizzle,
+                *self.grid, self.threads, self.smem, self.bn, self.ldc,
+                self.kslices]
+
+    @property
+    def splits(self) -> int:
+        return self.grid[2]
+
+
+@dataclass(frozen=True)
+class PlanArray:
+    """Products' plans as the one int64 array a C entry reads (built
+    once)."""
+    plans: tuple[GemmPlan, ...]
+    _c: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        vals = [v for p in self.plans for v in p.values()]
+        object.__setattr__(self, "_c", (ctypes.c_int64 * len(vals))(*vals))
+
+    def c_array(self):
+        return self._c
+
+
+def gemm_smem_bytes(bn: int, dual: bool = False) -> int:
+    """Dynamic shared memory of the tile product at tile width ``bn``: the
+    struct Tiles (GEMM_STAGES stages of an A and a B tile, two of each in a
+    dual product, a full and an empty mbarrier a stage) plus 1024 bytes of
+    alignment slack."""
+    stages = GEMM_STAGES[(bn, dual)]
+    stage = (1 + dual) * (GEMM_ROWS + bn) * GEMM_K * 2
+    return stages * stage + 16 * stages + 1024
+
+
+def row_pitch(k: int) -> int:
+    """Elements a row of k elements takes when rows start 64-byte
+    aligned."""
+    return -(-k // ROW_ALIGN) * ROW_ALIGN
+
+
+def meta(name: str, t: torch.Tensor) -> tuple:
+    """What a plan reads of a tensor: its name, shape, element strides, item
+    size and address modulo 16."""
+    return (name, tuple(t.shape), tuple(t.stride()), t.element_size(),
+            t.data_ptr() % 16)
+
+
+def scratch_meta(name: str, rows: int, cols: int, pitch: int) -> tuple:
+    """The meta of a (rows, cols) bf16 scratch at ``pitch`` elements a row
+    (allocated 16-byte aligned)."""
+    return (name, (rows, cols), (pitch, 1), 2, 0)
+
+
+def tile_map(m: tuple, major: int, rows_box: int,
+             what: str = "mlp kernel") -> TileMap:
+    """The map of a matrix given its meta: for a K-major operand the
+    (rows, K) matrix itself, for an MN-major one the (K, rows) matrix; a
+    view TMA cannot take raises, naming why."""
+    name, (outer, inner), stride, item, misalign = m
+    if misalign:
+        raise ValueError(f"{what}: {name} starts at an address that is "
+                         f"not 16-byte aligned, which TMA cannot load")
+    if stride[1] != 1:
+        raise ValueError(f"{what}: {name} needs a contiguous last "
+                         f"dimension for TMA (strides {stride})")
+    row_bytes = stride[0] * item
+    if row_bytes <= 0 or row_bytes % 16:
+        raise ValueError(f"{what}: {name}'s row stride of {row_bytes} "
+                         f"bytes is not a positive multiple of 16, which TMA "
+                         f"cannot take")
+    box = (GEMM_K, rows_box) if major == K_MAJOR else (SLAB, GEMM_K)
+    return TileMap((inner, outer), row_bytes, box, major)
+
+
+def split_k(tiles: int, k: int) -> tuple[int, int]:
+    """(splits, slices a split) for a product of ``tiles`` output tiles over
+    K: as many ranges of K as one wave of two blocks an SM holds (a block
+    past the wave would run alone at its end), each a whole number of
+    GEMM_K slices, at most MAX_SPLITS; 1 where the tiles fill half the
+    wave or more (chosen in turns on the H100, bench_bwd.py)."""
+    ktiles = -(-k // GEMM_K)
+    want = min(max(1, 2 * SM_COUNT // tiles), ktiles, MAX_SPLITS)
+    kslices = -(-ktiles // want)
+    return -(-ktiles // kslices), kslices
+
+
+def gemm_plan(a: tuple, a_major: int, b: tuple, b_major: int, bn: int,
+              ldc: int, *, split: bool = False, dual: bool = False,
+              what: str = "mlp kernel") -> GemmPlan:
+    """The plan of C = A B^T for the operands' metas and majorness, at tile
+    width ``bn``; ``split``: K split into ordered fp32 partials as
+    ``split_k`` chooses (the epilogue then writes (M, N) planes: ``ldc`` is
+    N); ``dual``: the shared memory of a dual product's ring."""
+    am = tile_map(a, a_major, GEMM_ROWS, what)
+    bm = tile_map(b, b_major, bn, what)
+    m = am.dims[1] if a_major == K_MAJOR else am.dims[0]
+    k = am.dims[0] if a_major == K_MAJOR else am.dims[1]
+    n = bm.dims[1] if b_major == K_MAJOR else bm.dims[0]
+    kb = bm.dims[0] if b_major == K_MAJOR else bm.dims[1]
+    if k != kb:
+        raise ValueError(f"{what}: {a[0]} and {b[0]} disagree on K "
+                         f"({k} and {kb})")
+    grid_n, grid_m = -(-n // bn), -(-m // GEMM_ROWS)
+    splits, kslices = (split_k(grid_n * grid_m, k) if split
+                       else (1, -(-k // GEMM_K)))
+    return GemmPlan(am, bm, swizzle=GEMM_SWIZZLE,
+                    grid=(grid_n, grid_m, splits), threads=GEMM_THREADS,
+                    smem=gemm_smem_bytes(bn, dual), bn=bn,
+                    ldc=n if splits > 1 else ldc, kslices=kslices)
+
+
+# -- one product in any form (the forms' check on the card) -----------------
+
+FORMS = {(K_MAJOR, K_MAJOR): 0, (K_MAJOR, MN_MAJOR): 1,
+         (MN_MAJOR, K_MAJOR): 2, (MN_MAJOR, MN_MAJOR): 3}
+
+
+def _operand(t: torch.Tensor, major: int) -> torch.Tensor:
+    """The (rows, K) operand a stored matrix is read as."""
+    return t if major == K_MAJOR else t.T
+
+
+def tile_product(a: torch.Tensor, a_major: int, b: torch.Tensor,
+                 b_major: int, *, split: bool = False) -> torch.Tensor:
+    """C (M, N) = A B^T in fp32, with A (M, K) stored as ``a`` itself
+    (K_MAJOR) or as its transpose ``a`` (K, M) (MN_MAJOR), and B (N, K)
+    likewise; bf16 operands. The tile product for CUDA tensors, a plain
+    fp32 matmul for CPU tensors."""
+    am, bmat = _operand(a, a_major), _operand(b, b_major)
+    if not is_kernel_path(a):
+        return am.float() @ bmat.float().T
+    for name, t in (("a", a), ("b", b)):
+        check_tensor(t, name, (torch.bfloat16,), 2, a.device)
+    m, n, k = am.shape[0], bmat.shape[0], am.shape[1]
+    plan = gemm_plan(meta("a", a), a_major, meta("b", b), b_major, 128, n,
+                     split=split, what="tile product")
+    out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    part = (torch.empty(plan.splits, m, n, dtype=torch.float32,
+                        device=a.device) if plan.splits > 1 else None)
+    arr = PlanArray((plan,))
+    with torch.cuda.device(a.device):
+        _build.launch("amt_tile_product", arr.c_array(), a.data_ptr(),
+                      b.data_ptr(), out.data_ptr(),
+                      None if part is None else part.data_ptr(), m, n, k, n,
+                      FORMS[(a_major, b_major)], _build.stream_of(a))
+    tile_product.launches += 1
+    return out
+
+
+tile_product.launches = 0

@@ -9,7 +9,11 @@ streams W, the backward kernel writes dl = (softmax - onehot) * coef once
 and forms dh and dW from it. Numerics as the TPU kernels: the product
 accumulates in fp32 and is rounded to h's dtype (plus the bias in that
 dtype) before the fp32 softmax; dl is rounded to h's dtype before both
-products; dW and db are fp32.
+products; dW and db are fp32. In bf16 the backward's three products are
+csrc/gemm_sm90.cuh's TMA/wgmma tile product, planned on the host by
+``xent_bwd_plan`` (``ops/gemm_sm90.py``: the logits h W^T with dl formed in
+its epilogue, dh = dl W with W read MN-major, dW = dl^T h with both
+operands MN-major).
 
 ``w`` is the head weight in the torch Linear layout (V, d) (the TPU kernel
 takes its transpose (d, V)). On the card ``_HeadNll`` wires the two kernels
@@ -22,6 +26,9 @@ directly (``needs_grad``).
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass, field
+
 import torch
 
 from attention_models_torch.ops import _build
@@ -31,9 +38,19 @@ from attention_models_torch.ops.dispatch import (
     needs_grad,
     rows_lane_tileable,
 )
+from attention_models_torch.ops.gemm_sm90 import (
+    GEMM_ROWS,
+    K_MAJOR,
+    MN_MAJOR,
+    GemmPlan,
+    PlanArray,
+    gemm_plan,
+    meta,
+    scratch_meta,
+)
 
 MAX_SPLITS = 4      # vocab ranges of csrc/xent.cu's forward
-DB_TILE_ROWS = 64   # rows per db partial of csrc/xent.cu's backward (fp32)
+DB_TILE_ROWS = 64   # rows per db partial of csrc/xent.cu's backward
 
 
 def _logits(h, w, bias):
@@ -156,6 +173,45 @@ def _head_xent_fwd_kernel(h, w, bias, targets):
     return nll, lse
 
 
+@dataclass(frozen=True)
+class XentBwdPlan:
+    """Kernel 14's three bf16 tile products (csrc/xent.cu): ``logits``
+    h W^T (both K-major; dl formed in the epilogue into the (n, V)
+    scratch), ``dh`` dl W (W read MN-major), ``dw`` dl^T h (both operands
+    MN-major, K = n split into ordered partials where the tiles do not fill
+    the card)."""
+    logits: GemmPlan
+    dh: GemmPlan
+    dw: GemmPlan
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_arr",
+                           PlanArray((self.logits, self.dh, self.dw)))
+
+    def c_array(self):
+        """The 63 int64 values ``amt_head_xent_bwd`` reads (built once)."""
+        return self._arr.c_array()
+
+
+@functools.lru_cache(maxsize=64)
+def _xent_bwd_plan(h: tuple, w: tuple) -> XentBwdPlan:
+    (n, d), v = h[1], w[1][0]
+    dl = scratch_meta("dl", n, v, v)
+    what = "head xent backward"
+    return XentBwdPlan(
+        gemm_plan(h, K_MAJOR, w, K_MAJOR, 128, v, what=what),
+        gemm_plan(dl, K_MAJOR, w, MN_MAJOR, 128, d, what=what),
+        gemm_plan(dl, MN_MAJOR, h, MN_MAJOR, 128, d, split=True, what=what))
+
+
+def xent_bwd_plan(h: torch.Tensor, w: torch.Tensor) -> XentBwdPlan:
+    """Kernel 14's plan for bf16 h (n, d) and w (V, d), cached by their
+    shapes, strides and 16-byte alignment; a view TMA cannot take raises a
+    ValueError naming it."""
+    return _xent_bwd_plan(meta("h", h), meta("w", w))
+
+
 def head_xent_backward(h, w, targets, lse, coef, *, bias=None):
     """Gradients of the per-row nll for the cotangent ``coef`` (n,): (dh in
     h's dtype, dW (V, d) fp32, db (V,) fp32 or None). The kernel for CUDA
@@ -171,19 +227,25 @@ def head_xent_backward(h, w, targets, lse, coef, *, bias=None):
         if t.shape != (n,) or t.device != h.device:
             raise ValueError(f"head xent backward: {name} must be ({n},)")
     f32 = dict(dtype=torch.float32, device=h.device)
+    plan = xent_bwd_plan(h, wc) if h.dtype == torch.bfloat16 else None
+    # db partials: one row per 64 rows (bf16: per warpgroup of each
+    # 128-row tile)
+    db_rows = (2 * -(-n // GEMM_ROWS) if plan is not None
+               else -(-n // DB_TILE_ROWS))
     dl = torch.empty(n, v, dtype=h.dtype, device=h.device)
-    dbpart = (torch.empty(-(-n // DB_TILE_ROWS), v, **f32) if bc is not None
-              else None)
+    dbpart = torch.empty(db_rows, v, **f32) if bc is not None else None
+    wpart = (torch.empty(plan.dw.splits, v, d, **f32)
+             if plan is not None and plan.dw.splits > 1 else None)
     dh = torch.empty_like(h)
     dw = torch.empty(v, d, **f32)
     db = torch.empty(v, **f32) if bc is not None else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(h.device):
         _build.launch(
-            "amt_head_xent_bwd", h.data_ptr(), wc.data_ptr(),
-            bc.data_ptr() if bc is not None else None, tg.data_ptr(),
-            lse.data_ptr(), coef.data_ptr(), dl.data_ptr(),
-            dbpart.data_ptr() if dbpart is not None else None, dh.data_ptr(),
-            dw.data_ptr(), db.data_ptr() if db is not None else None, n, d, v,
+            "amt_head_xent_bwd", h.data_ptr(), wc.data_ptr(), ptr(bc),
+            tg.data_ptr(), lse.data_ptr(), coef.data_ptr(), dl.data_ptr(),
+            ptr(dbpart), dh.data_ptr(), dw.data_ptr(), ptr(db), ptr(wpart),
+            None if plan is None else plan.c_array(), n, d, v,
             _build.DTYPE_CODES[h.dtype], _build.stream_of(h),
         )
     head_xent_backward.launches += 1

@@ -9,12 +9,17 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               the wgmma/TMA kernel of kernels 1, 9 and 16) at d 64 and 32,
               and for the backward's dkv and dq kernels (bf16 wgmma/TMA and
               fp32 register tiles, kernels 5, 10, 17 and 18) at d 64 and 32,
-              and for the GELU-MLP forwards' tile product (gemm_kernel of
-              csrc/gemm_sm90.cuh in csrc/mlp.cu, kernels 7 and 2: BN 128
-              and 256, GELU and residual epilogues): registers, static
-              shared memory, spill bytes (a spill fails)
-  3. kernels  each kernel at the main path's shapes against its plain
-              version on the card, in each dtype it takes, with kernel,
+              and for every instantiation of csrc/gemm_sm90.cuh's tile
+              product (gemm_kernel): the GELU-MLP forwards' (csrc/mlp.cu,
+              kernels 7 and 2: BN 128 and 256, GELU and residual
+              epilogues), kernel 6's dual product and fp32 products
+              (csrc/ln_mlp_bwd.cu), kernel 14's three (csrc/xent.cu) and
+              the four operand forms (csrc/tile_product.cu): registers,
+              static shared memory, spill bytes (a spill fails)
+  3. kernels  first the tile product's four operand forms (A and B each
+              K-major or MN-major, K whole and split) against torch.matmul
+              of the same views; then each kernel at the main path's
+              shapes against its plain version on the card, in each dtype it takes, with kernel,
               plain and library (one PyTorch call; for a backward kernel
               its forward + backward) times and the bound; the repaired
               widths too (ln_mlp forward and backward at d 768 and 1024,
@@ -44,7 +49,12 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               (delta, dkv, dq) against SDPA's forward + backward in turns at
               the ten shapes of PERF.md's backward rows (kernels 5, 10 and
               17 + 18, bf16 and fp32), beside the ratios of the kernels it
-              replaced, 17 and 18 also alone
+              replaced, 17 and 18 also alone; the LN-MLP backward (kernel
+              6) at the main path's shape, at ragged rows (n 520) and at
+              d 768 and 1024, and the head cross-entropy backward (kernel
+              14) in bf16 with and without the bias, each with a bit-equal
+              repeat call and against its library chain in turns beside
+              the time it replaces, and kernels 11, 12 and 13 in turns
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -213,6 +223,10 @@ Tolerances (kernel against plain on the card):
     path (summation order only); in bf16 the loss's and the global
     gradient's errors against the fp32 plain path, kernels at most
     FLOOR_RATIO times the plain path's;
+  - the tile product's forms against torch.matmul of the same bf16 views
+    in fp32 (TF32 off): relative L2 1e-4 (sums of up to 8192 exact
+    products in another order); kernels 6 and 14 bit-equal on a repeat
+    call (every sum in one fixed order, no atomics);
   - the W8A8 blocks (kernels 19-21): relative L2 1e-2 in bf16 and 1e-4 in
     fp32 (TF32 off), the int8 activations that differ from the plain
     version's counted and printed (the kernels take every fp32 step in the
@@ -261,9 +275,11 @@ Tolerances (kernel against plain on the card):
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -606,6 +622,7 @@ def main() -> int:
     from attention_models_torch.models.vitvqgan import vitvqgan_base
     from attention_models_torch.ops import _build, dispatch
     from attention_models_torch.ops import ffn as ffn_mod
+    from attention_models_torch.ops.gemm_sm90 import tile_product
     from attention_models_torch.ops import flash_attention as flash_mod
     from attention_models_torch.ops import layernorm as ln_mod
     from attention_models_torch.ops.codebook import (
@@ -707,18 +724,36 @@ def main() -> int:
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in bwd_ptxas.values()),
          f"flash backward ptxas: {bwd_ptxas}")
-    # the GELU-MLP forwards' tile product (kernels 7 and 2): BN 128 (two
-    # blocks an SM: at most 112 registers) and 256, GELU (epilogue 0) and
-    # residual (1) epilogues; a spill fails
+    # every instantiation of csrc/gemm_sm90.cuh's tile product: the GELU-MLP
+    # forwards' (kernels 7 and 2: BN 128, two blocks an SM, so at most 112
+    # registers, and 256; GELU and residual epilogues), kernel 6's dual
+    # product (one block an SM) and its fp32 products, kernel 14's three
+    # and the four operand forms of the check below; a spill fails
+    epilogues = (("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
+                 ("StoreIfE", "f32"), ("StoreI13__nv_bfloat16E", "bf16"),
+                 ("GeluBwd", "gelu backward"), ("XentDl", "dl"))
+
+    def gemm_label(mangled):
+        bn = re.search(r"gemm_kernelILi(\d+)E", mangled).group(1)
+        form = ", ".join("K" if v == "0" else "MN" for v in re.search(
+            r"FormILi(n?\d)ELi(n?\d)ELi(n?\d)ELi(n?\d)E",
+            mangled).groups() if v != "n1")
+        epi = next(e for key, e in epilogues if key in mangled)
+        return f"gemm_kernel<{bn}, {form}, {epi}>"
+
     mlp_ptxas = {}
-    for r in _build.ptxas_report("mlp", "gemm_kernel"):
-        bn = 256 if "ILi256E" in r["name"] else 128
-        epi = "gelu" if f"ILi{bn}ELi0E" in r["name"] else "residual"
-        mlp_ptxas[f"gemm_kernel<{bn}, {epi}>"] = r
-        print(f"[ptxas] gemm_kernel<{bn}, {epi}>: {r['registers']} registers, "
-              f"{r['smem']} bytes smem, {r['spill_stores']} bytes spill "
-              f"stores, {r['spill_loads']} bytes spill loads", flush=True)
-    gate(len(mlp_ptxas) == 4
+    for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 3),
+                       ("tile_product", 4)):
+        rows = _build.ptxas_report(src, "gemm_kernel")
+        for r in rows:
+            label = f"{src}: {gemm_label(r['name'])}"
+            mlp_ptxas[label] = r
+            print(f"[ptxas] {label}: {r['registers']} registers, {r['smem']} "
+                  f"bytes smem, {r['spill_stores']} bytes spill stores, "
+                  f"{r['spill_loads']} bytes spill loads", flush=True)
+        gate(len(rows) == count, f"{src}: {len(rows)} gemm_kernel "
+             f"instantiations, expected {count}")
+    gate(len(mlp_ptxas) == 14
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in mlp_ptxas.values()),
          f"gemm_kernel ptxas: {mlp_ptxas}")
@@ -800,6 +835,64 @@ def main() -> int:
               f"{b_ms:.4f} ms ({b_by})", flush=True)
         gate(err <= tol, f"{kernel} {label}: {metric} {err} > {tol}")
         return v
+
+    # csrc/gemm_sm90.cuh's tile product in each operand form alone
+    # (csrc/tile_product.cu: A and B each K-major or MN-major, fp32 out, K
+    # whole or split into ordered partials) against torch.matmul of the same
+    # views, before the kernels built on the forms (6 and 14) are checked:
+    # relative L2 <= 1e-4 (fp32 sums of up to 8192 exact bf16 products in
+    # another order)
+    form_errs = {}
+    for fm, fn_, fk in ((520, 384, 1000), (4096, 1024, 8192)):
+        fa = randn(fm, fk, dtype=torch.bfloat16)
+        fb = randn(fn_, fk, dtype=torch.bfloat16)
+        fwant = fa.float() @ fb.float().T
+        for am, bm, split in itertools.product((0, 1), (0, 1), (False, True)):
+            fgot = tile_product(fa if am == 0 else fa.T.contiguous(), am,
+                                fb if bm == 0 else fb.T.contiguous(), bm,
+                                split=split)
+            label = (f"({fm},{fn_},{fk}) A {'K' if am == 0 else 'MN'}-major "
+                     f"B {'K' if bm == 0 else 'MN'}-major split={split}")
+            form_errs[label] = rel_l2(fgot, fwant)
+            print(f"[form] {label}: rel_l2 {form_errs[label]:.3e} (tol 1e-4)",
+                  flush=True)
+    gate(all(e <= 1e-4 for e in form_errs.values()),
+         f"tile product forms: {form_errs}")
+    del fa, fb, fwant, fgot
+
+    def in_turns(row, shape, run, lib, before, flops):
+        """Device time of ``run`` against its library chain in turns
+        (kernel, library, library, kernel; launches queued behind a sleep),
+        then back to back, beside the time it replaces (PERF.md's table,
+        same card type)."""
+        k1, l1, l2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
+                          device_ms(run))
+        bk1, bl1, bl2, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
+                              time_ms(run))
+        b_ms = bound(0, [(flops, "bfloat16")])[0]
+        r = dict(row=row, shape=shape, kernel_ms=(k1 + k2) / 2,
+                 library_ms=(l1 + l2) / 2, ratio=(k1 + k2) / (l1 + l2),
+                 back_to_back_kernel_ms=(bk1 + bk2) / 2,
+                 back_to_back_library_ms=(bl1 + bl2) / 2,
+                 back_to_back_ratio=(bk1 + bk2) / (bl1 + bl2),
+                 before_ms=before, bound_ms=b_ms)
+        print(f"[turns] kernel {row} {shape}: device kernel {k1:.4f} / "
+              f"{k2:.4f} ms, library {l1:.4f} / {l2:.4f} ms, kernel/library "
+              f"{r['ratio']:.3f}; back to back {bk1:.4f} / {bk2:.4f} against "
+              f"{bl1:.4f} / {bl2:.4f}, {r['back_to_back_ratio']:.3f} (before "
+              f"{before} ms back to back); bound {b_ms:.4f} ms "
+              f"({100 * b_ms / r['kernel_ms']:.1f} % of it)", flush=True)
+        return r
+
+    def repeat_equal(name, fn, first):
+        """Two calls on the same inputs give the same bits."""
+        again = fn()
+        gate(all(a is None and b is None or torch.equal(a, b)
+                 for a, b in zip(first, again)),
+             f"{name}: a repeat call gave other bits")
+        print(f"[kernel] {name}: a repeat call is bit-equal", flush=True)
+
+    bwd_turns = []
 
     n_tok, dim, patch_feat, hid = 8 * 1024, 512, 192, 1368
 
@@ -1468,12 +1561,41 @@ def main() -> int:
            time_ms(lambda: _ln_mlp_backward_reference(*bwd_args, 1e-5)),
            time_ms(ln_mlp_library_fwd_bwd),
            nbytes(x, lng, lnb, w1, b1, w2, dy, *got), 10 * n_tok * dim * hid)
+    repeat_equal("ln_mlp_bwd", lambda: fused_ln_mlp_backward(*bwd_args), got)
+    bwd_turns.append(in_turns(
+        6, f"({n_tok},{dim}) hid {hid}",
+        lambda: fused_ln_mlp_backward(*bwd_args), ln_mlp_library_fwd_bwd,
+        0.9782, 10 * n_tok * dim * hid))
 
-    # the fused LN + MLP at the widths past the single pass (repair of the
-    # width dispatch): d 768 and 1024 with the ViTVQGAN hidden width of a
-    # 4x MLP (2048, 2728), 8 x 1024 rows, forward and backward, bf16; the
-    # library chains as above
-    for wd, wh in ((768, 2048), (1024, 2728)):
+    # kernel 6 at ragged rows (n 520 = 4 x 128 + 8: the last row tile of
+    # every product masked, the weight gradients' last K range short)
+    rargs = (x[:520], lng, lnb, w1, b1, w2, dy[:520])
+    got = fused_ln_mlp_backward(*rargs)
+    want = _ln_mlp_backward_reference(*rargs, 1e-5)
+    errs = {k: rel_l2(a, b) for k, a, b in zip(names, got, want)}
+    rleaves = [lib_leaves[0][:520].detach().clone().requires_grad_(True),
+               *lib_leaves[1:]]
+
+    def ragged_library_fwd_bwd():
+        xl, gl, bl, w1l, b1l, w2l, b2l = rleaves
+        h = F.linear(F.layer_norm(xl, (dim,), gl, bl), w1l, b1l)
+        y = xl + F.linear(F.gelu(h), w2l, b2l)
+        return torch.autograd.grad(y, rleaves, dy[:520])
+
+    record("ln_mlp_bwd", f"(520,{dim}) hid {hid} ragged rows (" + ", ".join(
+               f"{k} {v:.2e}" for k, v in errs.items()) + ")",
+           torch.bfloat16, BWD_BF16_TOL, max(errs.values()),
+           max(max_abs(a, b) for a, b in zip(got, want)),
+           time_ms(lambda: fused_ln_mlp_backward(*rargs)),
+           time_ms(lambda: _ln_mlp_backward_reference(*rargs, 1e-5)),
+           time_ms(ragged_library_fwd_bwd),
+           nbytes(*rargs, *got), 10 * 520 * dim * hid)
+    del rargs, rleaves
+
+    # the fused LN + MLP at wider widths: d 768 and 1024 with the ViTVQGAN
+    # hidden width of a 4x MLP (2048, 2728), 8 x 1024 rows, forward and
+    # backward, bf16; the library chains as above
+    for wd, wh, before in ((768, 2048, 1.0944), (1024, 2728, 1.7149)):
         x = randn(n_tok, wd, dtype=torch.bfloat16)
         lg_, lb_ = randn(wd, scale=0.1, shift=1.0), randn(wd, scale=0.1)
         w1 = randn(wh, wd, dtype=torch.bfloat16, scale=wd ** -0.5)
@@ -1489,7 +1611,7 @@ def main() -> int:
             h = F.linear(F.layer_norm(x, (wd,), lgb, lbb), w1, b1b)
             return x + F.linear(F.gelu(h), w2, b2b)
 
-        record("ln_mlp", f"({n_tok},{wd}) hid {wh} wide path (MLP part "
+        record("ln_mlp", f"({n_tok},{wd}) hid {wh} (MLP part "
                f"rel_l2 {mlp_err:.2e})", torch.bfloat16, BF16_TOL,
                rel_l2(got, want), max_abs(got, want),
                time_ms(lambda: fused_ln_mlp(*wargs)),
@@ -1511,7 +1633,7 @@ def main() -> int:
             y = xl + F.linear(F.gelu(h), w2l, b2l)
             return torch.autograd.grad(y, leaves, dy)
 
-        record("ln_mlp_bwd", f"({n_tok},{wd}) hid {wh} wide path (" + ", ".join(
+        record("ln_mlp_bwd", f"({n_tok},{wd}) hid {wh} (" + ", ".join(
                    f"{k} {v:.2e}" for k, v in errs.items()) + ")",
                torch.bfloat16, BWD_BF16_TOL, max(errs.values()),
                max(max_abs(a, b) for a, b in zip(got, want)),
@@ -1519,6 +1641,12 @@ def main() -> int:
                time_ms(lambda: _ln_mlp_backward_reference(*wbwd, 1e-5)),
                time_ms(wide_library_fwd_bwd),
                nbytes(x, lg_, lb_, w1, b1, w2, dy, *got), 10 * n_tok * wd * wh)
+        repeat_equal(f"ln_mlp_bwd d {wd}",
+                     lambda: fused_ln_mlp_backward(*wbwd), got)
+        bwd_turns.append(in_turns(
+            6, f"({n_tok},{wd}) hid {wh}",
+            lambda: fused_ln_mlp_backward(*wbwd), wide_library_fwd_bwd,
+            before, 10 * n_tok * wd * wh))
         del x, w1, w2, got, want, leaves
 
     # the fused GELU MLP (kernels 7 and 8) at ViT's shape: 64 images x 65
@@ -1609,34 +1737,14 @@ def main() -> int:
     bm1b, bm2b = bm1.to(torch.bfloat16), bm2.to(torch.bfloat16)
     xl, lgl, lbl, wl1, bl1, wl2, bl2 = mlp_args
     lglb, lblb = lgl.to(torch.bfloat16), lbl.to(torch.bfloat16)
-    mlp_turns = []
-    for row, shape, run, lib, before, flops in (
-            (7, f"({vn},{vd}) hid {vh}", lambda: fused_mlp(*margs),
-             lambda: F.linear(F.gelu(F.linear(xm, wm1, bm1b)), wm2, bm2b),
-             0.1694, 4 * vn * vd * vh),
-            (2, f"({n_tok},{dim}) hid {hid}", lambda: fused_ln_mlp(*mlp_args),
-             lambda: xl + F.linear(F.gelu(F.linear(F.layer_norm(
-                 xl, (dim,), lglb, lblb), wl1, bl1)), wl2, bl2),
-             0.1761, 4 * n_tok * dim * hid)):
-        k1, l1, l2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
-                          device_ms(run))
-        bk1, bl1_, bl2_, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
-                                time_ms(run))
-        b_ms = bound(0, [(flops, "bfloat16")])[0]
-        r = dict(row=row, shape=shape, kernel_ms=(k1 + k2) / 2,
-                 library_ms=(l1 + l2) / 2, ratio=(k1 + k2) / (l1 + l2),
-                 back_to_back_kernel_ms=(bk1 + bk2) / 2,
-                 back_to_back_library_ms=(bl1_ + bl2_) / 2,
-                 back_to_back_ratio=(bk1 + bk2) / (bl1_ + bl2_),
-                 mma_sync_ms=before, bound_ms=b_ms)
-        mlp_turns.append(r)
-        print(f"[turns] kernel {row} {shape}: device kernel {k1:.4f} / "
-              f"{k2:.4f} ms, library {l1:.4f} / {l2:.4f} ms, kernel/library "
-              f"{r['ratio']:.3f}; back to back {bk1:.4f} / {bk2:.4f} against "
-              f"{bl1_:.4f} / {bl2_:.4f}, {r['back_to_back_ratio']:.3f} "
-              f"(mma.sync kernel {before} ms back to back); bound "
-              f"{b_ms:.4f} ms ({100 * b_ms / r['kernel_ms']:.1f} % of it)",
-              flush=True)
+    mlp_turns = [in_turns(*t) for t in (
+        (7, f"({vn},{vd}) hid {vh}", lambda: fused_mlp(*margs),
+         lambda: F.linear(F.gelu(F.linear(xm, wm1, bm1b)), wm2, bm2b),
+         0.1694, 4 * vn * vd * vh),
+        (2, f"({n_tok},{dim}) hid {hid}", lambda: fused_ln_mlp(*mlp_args),
+         lambda: xl + F.linear(F.gelu(F.linear(F.layer_norm(
+             xl, (dim,), lglb, lblb), wl1, bl1)), wl2, bl2),
+         0.1761, 4 * n_tok * dim * hid))]
     del xm, wm1, wm2, xl, wl1, wl2
 
     # the GEGLU FFN at MaskGIT's decode shape (8 x 1024 rows, d 768, inner
@@ -1689,6 +1797,15 @@ def main() -> int:
                                                        1e-5)),
                time_ms(ffn_library_fwd_bwd), nbytes(x, w1, gam, w2, dy, *got),
                16 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
+        if dtype == torch.bfloat16:  # kernels 11 and 12, first read in turns
+            bwd_turns.append(in_turns(
+                11, f"({n_tok},{mg_dim}) inner {mg_inner}",
+                lambda: fused_ffn(x, w1, gam, w2), ffn_library, 0.7463,
+                6 * n_tok * mg_dim * mg_inner))
+            bwd_turns.append(in_turns(
+                12, f"({n_tok},{mg_dim}) inner {mg_inner}",
+                lambda: fused_ffn_backward(x, w1, gam, w2, dy),
+                ffn_library_fwd_bwd, 2.3493, 16 * n_tok * mg_dim * mg_inner))
         del got, want, leaves
 
     # the GEGLU FFN forward at Muse's decode shape (16 x 1024 rows, d 1024,
@@ -1767,6 +1884,21 @@ def main() -> int:
                       *(t for t in got if t is not None)),
                6 * n_tok * mg_dim * n_voc,
                main=dtype == torch.bfloat16 and not with_bias)
+        if dtype == torch.bfloat16:
+            repeat_equal(f"head_xent_bwd bias={with_bias}",
+                         lambda: head_xent_backward(h, w, tgt, lse_p, coef,
+                                                    bias=bias), got)
+            if not with_bias:  # kernel 13, first read in turns
+                bwd_turns.append(in_turns(
+                    13, label, lambda: _head_xent_fwd_kernel(h, w, bias, tgt),
+                    lambda: F.cross_entropy(F.linear(h, w, bias_c), tgt,
+                                            ignore_index=-1),
+                    0.4874, 2 * n_tok * mg_dim * n_voc))
+            bwd_turns.append(in_turns(
+                14, label, lambda: head_xent_backward(h, w, tgt, lse_p, coef,
+                                                      bias=bias),
+                xent_library_fwd_bwd, 1.5293 if with_bias else 1.4985,
+                6 * n_tok * mg_dim * n_voc))
         del got, want, leaves
 
     # the sampling epilogue at the decode shape: 8 x 1024 rows of 8192
@@ -3407,6 +3539,8 @@ def main() -> int:
                            flash_fwd_ptxas=ptxas,
                            flash_bwd_ptxas=bwd_ptxas,
                            mlp_ptxas=mlp_ptxas, mlp_vs_library=mlp_turns,
+                           tile_product_forms_rel_l2=form_errs,
+                           bwd_vs_library=bwd_turns,
                            flash_bwd_vs_sdpa=bwd_vs_sdpa,
                            flash_fwd_vs_sdpa=fwd_vs_sdpa,
                            flash_fwd_host_us=host_us),

@@ -252,8 +252,9 @@ def _fake_launches(monkeypatch, *mods):
 def test_every_gated_ln_mlp_width_reaches_a_kernel(monkeypatch, d):
     """Widths the gate admits, forward and backward; none raises. The
     forward takes its LayerNorm and g scratches and a plan at every width;
-    the backward runs its single pass up to 512 and scratches for the wide
-    path above it."""
+    the backward is one pipeline at every width: a plan of five products
+    and its yc, G, dH, dy_ln and partial-sum scratches (hidden 96 is not
+    staged, and 16 rows are one K slice, never split)."""
     launched = _fake_launches(monkeypatch, t_ffn)
     rs = np.random.RandomState(d)
     x = torch.from_numpy(rs.randn(16, d).astype(np.float32)).bfloat16()
@@ -265,11 +266,12 @@ def test_every_gated_ln_mlp_width_reaches_a_kernel(monkeypatch, d):
     t_ffn.fused_ln_mlp_backward(x, vec[0], vec[1], w1, vec[2], w2, x)
     (fwd, fa), (bwd, ba) = launched
     assert (fwd, bwd) == ("amt_ln_mlp", "amt_ln_mlp_bwd")
-    wide = d not in t_ffn.FUSED_DIMS
-    assert fa[11:14] == (16, d, 96) and ba[21:24] == (16, d, 96)
-    assert fa[8] is not None and fa[9] is not None and len(fa[10]) == 34
-    assert fa[15] == 0  # fp32 biases
-    assert (ba[13] is None, ba[14] is None) == (not wide, not wide)
+    assert fa[12:15] == (16, d, 96) and ba[21:24] == (16, d, 96)
+    assert fa[8] is not None and fa[9] is not None and len(fa[11]) == 42
+    assert fa[16] == 0  # fp32 biases
+    assert len(ba[0]) == 105  # H, dG, dy_ln, dW1, dW2
+    assert all(ba[i] is not None for i in (13, 14, 15, 17, 18, 19))
+    assert ba[16] is None and ba[20] is None  # no W2 stage, no split
 
 
 def test_ln_mlp_wrapper_refuses_an_unaligned_width_on_the_card(monkeypatch):

@@ -9,7 +9,9 @@ ops/ffn.py.
   the ViTVQGAN main path's (8192, 512) / hidden 1368 (kernel 2); the
   shared memory within the H100's 232,448 bytes a block.
 - g's and W2's rows start 64-byte aligned (hidden 1368: a pitch of 1376
-  elements), and the first product writes g at the pitch the second reads.
+  elements), and the first product writes g at the pitch the second reads;
+  W2 is staged at that pitch by the C side at every call, from the weight
+  itself: a write through ``.data`` reaches the next call.
 - The plan cache; every gated ln_mlp width and a hidden width that is not
   a multiple of 8 reaching a launch with the padded width; the biases
   passed in their own dtype (bf16 or fp32); views TMA cannot take refused
@@ -19,12 +21,14 @@ code.
 """
 
 import contextlib
+import ctypes
 
 import pytest
 import torch
 
 from attention_models_torch.ops import _build
 from attention_models_torch.ops import ffn as t_ffn
+from attention_models_torch.ops import gemm_sm90 as t_gemm
 
 SMEM_LIMIT = 232448
 
@@ -43,21 +47,26 @@ def _fake_launches(monkeypatch):
 
 
 # where each C entry takes the plan, and (n, d, hid) after it
-PLAN_ARG = {"amt_mlp": 8, "amt_ln_mlp": 10}
+PLAN_ARG = {"amt_mlp": 9, "amt_ln_mlp": 11}
+# where each takes W2 and its stage
+W2_ARG = {"amt_mlp": (3, 7), "amt_ln_mlp": (5, 10)}
 
 
 def _decode(arr):
-    """The 34 plan values the C side reads, by product and name."""
+    """The 42 plan values the C side reads, by product and name (both
+    operands K-major, K never split)."""
     v = list(arr)
-    assert len(v) == 34
+    assert len(v) == 42
     out = {}
-    for name, p in (("up", v[:17]), ("down", v[17:])):
+    for name, p in (("up", v[:21]), ("down", v[21:])):
+        assert (p[5], p[11], p[15]) == (0, 0, 1)  # majorness, one K range
+        assert p[20] == -(-p[0] // 64)            # every K slice
         out[name] = dict(a=dict(dims=tuple(p[0:2]), stride=p[2],
                                 box=tuple(p[3:5])),
-                         b=dict(dims=tuple(p[5:7]), stride=p[7],
-                                box=tuple(p[8:10])),
-                         swizzle=p[10], grid=tuple(p[11:13]), threads=p[13],
-                         smem=p[14], bn=p[15], ldc=p[16])
+                         b=dict(dims=tuple(p[6:8]), stride=p[8],
+                                box=tuple(p[9:11])),
+                         swizzle=p[12], grid=tuple(p[13:15]), threads=p[16],
+                         smem=p[17], bn=p[18], ldc=p[19])
     return out
 
 
@@ -125,10 +134,10 @@ def test_kernel_2_plan_at_the_main_paths_shape(monkeypatch):
 def test_shared_memory_of_each_tile_width():
     # stages x (A 128 x 64 + B BN x 64) bf16, a full and an empty mbarrier a
     # stage, 1024 bytes of alignment slack; two BN 128 blocks fit an SM
-    assert t_ffn.gemm_smem_bytes(128) == 3 * 256 * 128 + 48 + 1024 == 99376
-    assert t_ffn.gemm_smem_bytes(256) == 4 * 384 * 128 + 64 + 1024 == 197696
-    assert 2 * (t_ffn.gemm_smem_bytes(128) + 1024) <= 233472
-    assert t_ffn.gemm_smem_bytes(256) <= SMEM_LIMIT
+    assert t_gemm.gemm_smem_bytes(128) == 3 * 256 * 128 + 48 + 1024 == 99376
+    assert t_gemm.gemm_smem_bytes(256) == 4 * 384 * 128 + 64 + 1024 == 197696
+    assert 2 * (t_gemm.gemm_smem_bytes(128) + 1024) <= 233472
+    assert t_gemm.gemm_smem_bytes(256) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("n,gelu,bn", [(2048, True, 128), (1368, True, 128),
@@ -138,27 +147,86 @@ def test_tile_width_rule(n, gelu, bn):
     assert t_ffn.pick_bn(n, gelu) == bn
 
 
+def _rows_at(ptr: int, rows: int, k: int, pitch: int) -> torch.Tensor:
+    """The bf16 bits of a (rows, k) matrix at host address ``ptr``,
+    ``pitch`` elements a row: what the C side reads there."""
+    buf = (ctypes.c_int16 * (rows * pitch)).from_address(ptr)
+    return torch.frombuffer(buf, dtype=torch.int16).view(rows, pitch)[:, :k]
+
+
 @pytest.mark.parametrize("k,pitch", [(1368, 1376), (2048, 2048), (96, 96),
                                      (104, 128), (2728, 2752)])
-def test_aligned_rows(k, pitch):
-    w = torch.arange(3 * k, dtype=torch.float32).reshape(3, k).bfloat16()
-    got = t_ffn.aligned_rows(w)
-    assert got.stride() == (pitch, 1) and got.data_ptr() % 64 == 0
-    assert torch.equal(got, w)
-    assert (got is w) == (pitch == k)
+def test_aligned_rows(monkeypatch, k, pitch):
+    """W2 (d, k) reaches the C side as it is, with a stage of 64-byte
+    aligned rows where k is not a multiple of 32; the second product's B
+    map reads rows ``pitch`` elements apart."""
+    launched = _fake_launches(monkeypatch)
+    w2 = torch.arange(128 * k, dtype=torch.float32).reshape(128, k).bfloat16()
+    with torch.no_grad():
+        t_ffn.fused_mlp(_bf16(16, 128), _bf16(k, 128), torch.zeros(k), w2,
+                        torch.zeros(128))
+    name, plan, _, args = _one_launch(launched)
+    w2_at, stage_at = W2_ARG[name]
+    assert args[w2_at] == w2.data_ptr()
+    assert plan["down"]["b"]["stride"] == 2 * pitch
+    assert (args[stage_at] is None) == (pitch == k)
+    if pitch != k:
+        assert args[stage_at] % 64 == 0
+    assert t_ffn.row_pitch(k) == pitch
 
 
-def test_the_aligned_copy_is_held_until_the_weight_changes():
-    w = torch.arange(3 * 100, dtype=torch.float32).reshape(3, 100).bfloat16()
-    a = t_ffn.aligned_rows(w)
-    assert t_ffn.aligned_rows(w) is a and a.stride() == (128, 1)
-    w.add_(1)  # an in-place update: a new copy with the new values
-    b = t_ffn.aligned_rows(w)
-    assert b is not a and torch.equal(b, w)
-    with torch.inference_mode():  # no version to key on: copied afresh
+def test_the_aligned_copy_is_held_until_the_weight_changes(monkeypatch):
+    """No copy of W2 is held between calls any more: each call hands the C
+    side the weight itself (hidden 104: staged at a pitch of 128), so a
+    repeated call, an in-place update and an inference-mode weight all
+    reach the kernels as they are at that call."""
+    launched = _fake_launches(monkeypatch)
+    w = torch.arange(128 * 104, dtype=torch.float32).reshape(128, 104)
+    w = w.bfloat16()
+
+    def call(w2):
+        t_ffn.fused_mlp(_bf16(16, 128), _bf16(104, 128), torch.zeros(104),
+                        w2, torch.zeros(128))
+        name, plan, _, args = _one_launch(launched[-1:])
+        assert plan["down"]["b"]["stride"] == 2 * 128
+        ptr, stage = args[W2_ARG[name][0]], args[W2_ARG[name][1]]
+        assert ptr == w2.data_ptr() and stage is not None
+        return _rows_at(ptr, 128, 104, 104)
+
+    with torch.no_grad():
+        assert torch.equal(call(w), call(w))
+        w.add_(1)  # an in-place update: the next call reads the new values
+        assert torch.equal(call(w), w.view(torch.int16))
+    with torch.inference_mode():  # no version to key on: nothing is keyed
         wi = w.clone()
-        assert t_ffn.aligned_rows(wi) is not t_ffn.aligned_rows(wi)
-        assert torch.equal(t_ffn.aligned_rows(wi), wi)
+        assert torch.equal(call(wi), wi.view(torch.int16))
+
+
+@pytest.mark.parametrize("entry", ["amt_mlp", "amt_ln_mlp"])
+def test_a_write_through_data_reaches_the_kernels(monkeypatch, entry):
+    """A write through ``w2.data`` (which bumps neither the version nor the
+    pointer) reaches the next call: the C side reads the weight it is
+    given, at its own pitch, and stages it itself."""
+    launched = _fake_launches(monkeypatch)
+    d, hid = 128, 1368
+    w2 = torch.randn(d, hid, generator=torch.Generator().manual_seed(0))
+    w2 = w2.bfloat16()
+    args = (_bf16(16, d), _bf16(hid, d), torch.zeros(hid), w2,
+            torch.zeros(d))
+    for _ in range(3):
+        with torch.no_grad():
+            if entry == "amt_mlp":
+                t_ffn.fused_mlp(*args)
+            else:
+                t_ffn.fused_ln_mlp(args[0], torch.ones(d), torch.zeros(d),
+                                   *args[1:])
+        name, plan, _, a = _one_launch(launched[-1:])
+        w2_at, stage_at = W2_ARG[name]
+        assert a[stage_at] is not None
+        assert plan["down"]["b"]["stride"] == 2 * 1376
+        assert torch.equal(_rows_at(a[w2_at], d, hid, hid),
+                           w2.view(torch.int16))
+        w2.data.mul_(2)
 
 
 def test_the_plan_is_cached(monkeypatch):
@@ -168,7 +236,7 @@ def test_the_plan_is_cached(monkeypatch):
     _mlp(64, 256, 96)
     _mlp(64, 256, 96)
     (_, a1), (_, a2) = launched
-    assert a1[8] is a2[8]  # the same C array, built once
+    assert a1[9] is a2[9]  # the same C array, built once
 
 
 @pytest.mark.parametrize("d", [128, 256, 384, 512, 768, 1024])
