@@ -114,3 +114,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+namespace {
+// out (m, n; rows ldc apart) = the sum over z = 0 .. splits-1, in order, of
+// part[z] ((m, n) contiguous planes), n % 4 == 0: the second pass of a
+// product whose K was split into ordered fp32 partials (no atomics, so a
+// repeat call gives the same bits).
+__global__ void sum_splits_kernel(const float* __restrict__ part,
+                                  float* __restrict__ out, int m, int n,
+                                  int ldc, int splits) {
+  const int64_t plane = (int64_t)m * n;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= plane) return;
+  float4 s = *reinterpret_cast<const float4*>(part + i);
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = *reinterpret_cast<const float4*>(part + z * plane + i);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  *reinterpret_cast<float4*>(out + (i / n) * ldc + i % n) = s;
+}
+}  // namespace

@@ -4,8 +4,7 @@
 //
 // Replaces attention_models_tpu/ops/ffn.py::_ffn_kernel (entry fused_ffn /
 // _ffn_forward), bf16 and fp32. W1 is (2i, d) and W2 (d, i): the torch
-// Linear layout, whose rows are the "col" B operand of mma.sync as they
-// stand.
+// Linear layout, whose rows are the K-major B operand as they stand.
 //
 // Bound on the H100: operations. At the MaskGIT decode shape (n = 8192
 // rows, d 768, i 4096) the two products are 6*n*d*i = 154.6 GFLOP: 0.156 ms
@@ -13,41 +12,48 @@
 // the weights are ~44 MB (0.013 ms).
 //
 // Design. The LayerNorm sits between the two products over the full inner
-// width 4096, so a row's W2 product cannot start before all of its g is
-// known. The TPU kernel holds a row tile's whole g and both weight matrices
-// in 100 MB of VMEM; here a 64-row fp32 g alone is 1 MB. Of the three ways
-// (a small row tile's g in shared memory; accumulating (g*gamma) W2 per
-// chunk beside sum(g), sum(g^2) and correcting at the end; a global g
-// scratch) this takes the third, because it keeps the TPU kernel's rounding
-// points exactly -- g and its statistics in fp32, the variance over
-// (g - mean) in a second pass, y = ghat * gamma rounded to the tower dtype
-// before the W2 product -- and each of its three launches is a simple
-// kernel:
-//   1. gemm_geglu: H = x W1^T in 128 x 128 tiles (mma.sync m16n8k16 bf16,
-//      fp32 accumulators; an exact FMA tile in fp32) whose B rows interleave
-//      8 "a" rows of W1 with their 8 "gate" rows, so each thread holds a and
-//      gate of the same (row, column) and writes g = gate * gelu(a) (true
-//      erff; the TPU kernel's A&S polynomial differs by <= 1.5e-7) to an
-//      fp32 scratch (n, i). H never reaches device memory.
-//   2. ln_rows: one block a row, two-pass fp32 mean and variance of g, then
-//      y = (g - mean) * rsqrt(var + eps) * gamma in the tower dtype.
-//   3. out = y W2^T: the same tiles, csrc/gemm.cuh's plain product.
-// The cost is the scratch: g is written once and read three times (fp32,
-// 134 MB at n 8192) and y is written once and read once per 128-column
-// output tile -- ~0.1 ms of traffic beside the 0.156 ms bound. The weights
-// (19 MB in bf16) are streamed through shared memory by cp.async in 32-deep
-// K slices (three stages) and stay in the 50 MB L2 across the tiles.
-// mma.sync in place of wgmma, and the scratch, are what later PRs tune.
+// width, so a row's W2 product cannot start before all of its g is known.
+// The TPU kernel holds a row tile's whole g and both weight matrices in
+// VMEM; here a 64-row fp32 g alone is 1 MB. So g goes through a global
+// scratch, which keeps the TPU kernel's rounding points exactly (a, gate,
+// g and its two-pass statistics in fp32, y = ghat * gamma rounded to the
+// dtype before the W2 product), in three launches:
+//   1. the GEGLU product. bf16: csrc/gemm_sm90.cuh's TMA/wgmma tile product
+//      in its paired-column form (Paired): a block's B tile is two TMA
+//      boxes of W1, BN/2 "a" rows and the BN/2 matching "gate" rows, so
+//      accumulator columns j and j + BN/2 of a thread are a and gate of one
+//      inner column, and the epilogue (GegluF32) writes g = gate * gelu(a)
+//      (true erff; the TPU kernel's A&S polynomial differs by <= 1.5e-7) to
+//      an fp32 scratch through the freed ring; W1 is read as it lies, x
+//      once for every BN/2 inner columns. fp32: geglu_f32_kernel, the
+//      register-tiled FMA product of csrc/gemm.cuh with the B tile's
+//      columns 0-63 on W1's "a" rows and 64-127 on the matching "gate"
+//      rows, which a thread's two column groups pair;
+//   2. ffn_ln_rows_kernel: one block a row, the row read once into
+//      registers (16-byte pieces; a row wider than kRowsMax in chunks read
+//      again for each step), the two-pass fp32 mean and variance from them,
+//      y = (g - mean) * rsqrt(var + eps) * gamma written once in the dtype
+//      (64-byte aligned rows);
+//   3. out = y W2^T: the tile product with the StoreBf16 epilogue (bf16),
+//      csrc/gemm.cuh's FMA product with K split into ordered partials where
+//      its last wave would run half empty (fp32).
+// The host plan (ops/ffn.py::ffn_plan, 42 int64: the GEGLU product's and
+// the W2 product's GemmPlans) holds the maps (W1's B boxes BN/2 rows), the
+// tile widths, grids, shared memory and the scratches' row pitches. The
+// scratch traffic, g (fp32) written and read once and y written and read
+// once, is ~0.06 ms at n 8192 beside the products.
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 constexpr int kLds = kLdK;  // shared row stride (bf16) of the A and B tiles
 
-__device__ __forceinline__ float gelu_exact(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
+using sm90::gelu_exact;
 
+// Kernel 20's bf16 up-projection (csrc/quant.cu's wide int8 FFN, through
+// amt_geglu_bf16) is this kernel's only caller; kernel 11 runs the
+// paired-column tile product below.
 // H = x W1^T for bf16 x (M, K) and W1 (2 * inner, K), both row-major: tile
 // column c of block column bx reads W1 row bx*64 + (c/16)*8 + c%8, plus
 // inner when (c/8) is odd; the block writes g = gate * gelu(a) for inner
@@ -154,99 +160,141 @@ __global__ __launch_bounds__(kThreads) void gemm_geglu_bf16_kernel(
   }
 }
 
-// The fp32 twin with exact FMA products, 64 x 64 tiles, 16-deep K slices,
-// each thread rows ty + 16 i and columns tx + 16 j: tile columns 0..31 are
-// W1 rows bx*32 + c ("a") and 32..63 the matching "gate" rows
-// bx*32 + c - 32 + inner, so a thread's columns j and j + 2 pair up.
-__global__ __launch_bounds__(kThreads) void gemm_geglu_f32_kernel(
-    const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ c,
-    int M, int K, int inner) {
-  __shared__ float as[kFK][kFM + 4];
-  __shared__ float bs[kFK][kFN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kFM;
-  const int lr = tid / 4, lk = (tid % 4) * 4;  // this thread's float4 of each tile
-  const bool a_ok = m0 + lr < M;
-  const float* a_src = a + (int64_t)(a_ok ? m0 + lr : 0) * K + lk;
-  const int brow = blockIdx.x * 32 + (lr & 31) + (lr >> 5) * inner;
-  const float* b_src = b + (int64_t)brow * K + lk;
-
-  float acc[4][4];
+// The GEGLU product's epilogue (bf16, paired columns): acc[4i + e] and
+// acc[4(i + BN/16) + e] are a and gate of inner column n0/2 + 8i + 2t +
+// (e % 2); g = gate * gelu(a) in fp32 through the warpgroup's padded
+// staging rows, then 16-byte row pieces below M and inner.
+struct GegluF32 {
+  struct Args {
+    float* g;  // (M, inner) fp32, rows ldg elements apart
+    int m, inner, ldg;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = sm90::Staged<BN / 2, float>;
+    constexpr int kHalf = BN / 16;  // the gate's acc index offset, / 4
+    uint8_t* st = ring + c * S::kBytes;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kHalf; ++i) {
+      float v[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    const float4 av = a_ok ? *reinterpret_cast<const float4*>(a_src + k0)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 bv = *reinterpret_cast<const float4*>(b_src + k0);
-    __syncthreads();  // the previous slice is consumed
-    as[lk][lr] = av.x; as[lk + 1][lr] = av.y; as[lk + 2][lr] = av.z; as[lk + 3][lr] = av.w;
-    bs[lk][lr] = bv.x; bs[lk + 1][lr] = bv.y; bs[lk + 2][lr] = bv.z; bs[lk + 3][lr] = bv.w;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFK; ++k) {
-      float ar[4], br[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) br[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+      for (int e = 0; e < 4; ++e)
+        v[e] = acc[4 * (i + kHalf) + e] * gelu_exact(acc[4 * i + e]);
+      S::put(st, rl, 8 * i + 2 * t, v[0], v[1]);
+      S::put(st, rl + 8, 8 * i + 2 * t, v[2], v[3]);
     }
+    hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.g, a.ldg, m0r, n0 / 2, a.m, a.inner);
   }
+};
 
+// fp32 GEGLU product: g (M, inner; rows ldg apart) = gate * gelu(a) of
+// x W1^T, one 128 x 64 block of g a block: tile columns 0-63 read W1 rows
+// c0 .. c0 + 63 ("a"), 64-127 rows inner + c0 .. ("gate"), so a thread's
+// accumulators j and j + 4 are a and gate of g column c0 + 4 tx + j.
+__global__ __launch_bounds__(kRThreads, 2) void geglu_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1,
+    float* __restrict__ g, int ldg, int M, int K, int inner) {
+  __shared__ __align__(16) RTiles<128> sm;
+  const int m0 = blockIdx.y * kRM, c0 = blockIdx.x * 64;
+  const int tr = Piece<kK, 128>::tile_row(threadIdx.x);
+  const int brow = c0 + tr + (tr < 64 ? 0 : inner - 64);
+  float acc[8][8];
+  reg_product<128>(plain_piece<kK, kRM>(x, K, M, m0),
+                   Piece<kK, 128>(w1, K, brow, true, threadIdx.x), K, sm, acc);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      c[(int64_t)row * inner + blockIdx.x * 32 + tx + 16 * j] =
-          acc[i][j + 2] * gelu_exact(acc[i][j]);
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? 4 * ty + i : 60 + 4 * ty + i);
+    if (row < M)
+      store4(g + (int64_t)row * ldg + c0 + 4 * tx,
+             acc[i][4] * gelu_exact(acc[i][0]), acc[i][5] * gelu_exact(acc[i][1]),
+             acc[i][6] * gelu_exact(acc[i][2]), acc[i][7] * gelu_exact(acc[i][3]));
   }
 }
 
-// y = (g - mean) * rsqrt(var + eps) * gamma per row of the fp32 scratch g,
-// two passes for the statistics; one block a row, float4 accesses.
+// y = (g - mean) * rsqrt(var + eps) * gamma for one row of the fp32 scratch
+// g a block (row_threads(min(inner, kRowsMax), NV) threads): the mean, then
+// the variance over (g - mean), each a fixed-order block sum. A row of at
+// most blockDim.x * NV 16-byte pieces is read once and held in registers; a
+// wider one is walked in chunks of that many pieces, each of the three
+// steps reading its chunks again (4 inner bytes a row, from L2).
+template <typename T, int NV>
+__global__ __launch_bounds__(256) void ffn_ln_rows_kernel(
+    const float* __restrict__ g, int ldg, const float* __restrict__ gamma,
+    T* __restrict__ y, int ldy, int inner, float eps) {
+  __shared__ float red[32];
+  const int n4 = inner / 4, nt = blockDim.x, step = nt * NV;
+  // NV 4 serves rows of at most kRowsNV4 columns only, which it holds
+  const bool held = NV == 4 || n4 <= step;
+  const int chunks = held ? 1 : (n4 + step - 1) / step;
+  const float4* gr = reinterpret_cast<const float4*>(g + (int64_t)blockIdx.x * ldg);
+  float4 v[NV];
+  const auto load = [&](int c0) {
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int c = c0 + threadIdx.x + nt * u;
+      v[u] = c < n4 ? gr[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  float s[1] = {0.f};
+  for (int k = 0; k < chunks; ++k) {
+    const int c0 = k * step;
+    load(c0);
+#pragma unroll
+    for (int u = 0; u < NV; ++u) s[0] += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+  }
+  block_sums(s, red);
+  const float mean = s[0] / inner;
+  float q[1] = {0.f};
+  for (int k = 0; k < chunks; ++k) {
+    const int c0 = k * step;
+    if (!held) load(c0);
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      if (c0 + threadIdx.x + nt * u >= n4) continue;
+      const float d0 = v[u].x - mean, d1 = v[u].y - mean;
+      const float d2 = v[u].z - mean, d3 = v[u].w - mean;
+      q[0] += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
+    }
+  }
+  block_sums(q, red);
+  const float rstd = rsqrtf(q[0] / inner + eps);
+  T* out = y + (int64_t)blockIdx.x * ldy;
+  for (int k = 0; k < chunks; ++k) {
+    const int c0 = k * step;
+    if (!held) load(c0);
+#pragma unroll
+    for (int u = 0; u < NV; ++u) {
+      const int c = c0 + threadIdx.x + nt * u;
+      if (c >= n4) continue;
+      const float4 gm = reinterpret_cast<const float4*>(gamma)[c];
+      store4(out + 4 * c, (v[u].x - mean) * rstd * gm.x, (v[u].y - mean) * rstd * gm.y,
+             (v[u].z - mean) * rstd * gm.z, (v[u].w - mean) * rstd * gm.w);
+    }
+  }
+}
+
 template <typename T>
-__global__ __launch_bounds__(kThreads) void ln_rows_kernel(
-    const float* __restrict__ gsc, const float* __restrict__ gamma, T* __restrict__ y,
-    int inner, float eps) {
-  __shared__ float red[kThreads / 32];
-  const float4* row = reinterpret_cast<const float4*>(gsc + (int64_t)blockIdx.x * inner);
-  const int n4 = inner / 4;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n4; i += kThreads) {
-    const float4 v = row[i];
-    s += (v.x + v.y) + (v.z + v.w);
-  }
-  const float mean = block_sum(s, red) / inner;
-  float q = 0.f;
-  for (int i = threadIdx.x; i < n4; i += kThreads) {
-    const float4 v = row[i];
-    const float d0 = v.x - mean, d1 = v.y - mean, d2 = v.z - mean, d3 = v.w - mean;
-    q += (d0 * d0 + d1 * d1) + (d2 * d2 + d3 * d3);
-  }
-  const float rstd = rsqrtf(block_sum(q, red) / inner + eps);
-  T* out = y + (int64_t)blockIdx.x * inner;
-  for (int i = threadIdx.x; i < n4; i += kThreads) {
-    const float4 v = row[i];
-    const float4 gm = reinterpret_cast<const float4*>(gamma)[i];
-    out[4 * i] = from_f32<T>((v.x - mean) * rstd * gm.x);
-    out[4 * i + 1] = from_f32<T>((v.y - mean) * rstd * gm.y);
-    out[4 * i + 2] = from_f32<T>((v.z - mean) * rstd * gm.z);
-    out[4 * i + 3] = from_f32<T>((v.w - mean) * rstd * gm.w);
-  }
+cudaError_t ln_rows(const float* g, int ldg, const float* gamma, T* y, int ldy, int n,
+                    int inner, float eps, cudaStream_t s) {
+  if (inner <= kRowsNV4)
+    ffn_ln_rows_kernel<T, 4><<<n, row_threads(inner, 4), 0, s>>>(g, ldg, gamma, y, ldy,
+                                                               inner, eps);
+  else
+    ffn_ln_rows_kernel<T, 8><<<n, row_threads(min(inner, kRowsMax), 8), 0, s>>>(
+        g, ldg, gamma, y, ldy, inner, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The first launch of the bf16 forward: g = gate * gelu(a) of x W1^T into
-// fp32 g (n, inner). csrc/quant.cu's wide int8 FFN takes it as it stands.
+// The first launch of kernel 20's bf16 wide FFN (csrc/quant.cu): g = gate *
+// gelu(a) of x W1^T into fp32 g (n, inner), on the mma.sync kernel above.
 cudaError_t amt_geglu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1, float* g,
                            int n, int d, int inner, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -257,40 +305,48 @@ cudaError_t amt_geglu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1, floa
   return cudaGetLastError();
 }
 
-// g_scratch: fp32 (n, inner); y_scratch: (n, inner) in the tower dtype.
-AMT_EXPORT int amt_ffn(const void* x, const void* w1, const void* gamma, const void* w2,
-                       void* g_scratch, void* y_scratch, void* out, int n, int d,
-                       int inner, float eps, int dtype, void* stream) {
+// plan: ops/ffn.py::FfnPlan (bf16: the GEGLU and W2 products, 42 int64; fp32
+// takes none). g_scratch: fp32 (n, inner) and y_scratch: (n, inner) in the
+// dtype, at the plan's row pitches (bf16) or inner elements a row (fp32);
+// part (fp32 only): 2 n d floats for the W2 product's split partials.
+AMT_EXPORT int amt_ffn(const int64_t* plan, const void* x, const void* w1,
+                       const void* gamma, const void* w2, void* g_scratch,
+                       void* y_scratch, void* part, void* out, int n, int d, int inner,
+                       float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (d % kBN != 0 || inner % 64 != 0) return cudaErrorInvalidValue;
+  if (n < 0 || d % 128 != 0 || inner % 128 != 0)
+    return cudaErrorInvalidValue;
   const auto* gm = static_cast<const float*>(gamma);
   float* gs = static_cast<float*>(g_scratch);
+  cudaError_t err;
   if (dtype == AMT_BF16) {
-    const auto* xi = static_cast<const __nv_bfloat16*>(x);
-    const auto* w1i = static_cast<const __nv_bfloat16*>(w1);
-    const auto* w2i = static_cast<const __nv_bfloat16*>(w2);
-    auto* ys = static_cast<__nv_bfloat16*>(y_scratch);
-    cudaError_t err = amt_geglu_bf16(xi, w1i, gs, n, d, inner, s);
-    if (err != cudaSuccess) return err;
-    ln_rows_kernel<__nv_bfloat16><<<n, kThreads, 0, s>>>(gs, gm, ys, inner, eps);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    return gemm_bf16<kK, kK, __nv_bfloat16>(ys, inner, w2i, inner,
-                                           static_cast<__nv_bfloat16*>(out), d, n, d,
-                                           inner, s);
+    constexpr int P = sm90::kPlanValues;
+    if (plan == nullptr) return cudaErrorInvalidValue;
+    const int ldg = (int)plan[19];         // g's pitch (fp32 elements)
+    const int ldy = (int)(plan[P + 2] / 2);  // y's: the W2 product's A map
+    auto* ys = static_cast<bf16*>(y_scratch);
+    const GegluF32::Args ga{gs, n, inner, ldg};
+    if ((err = sm90::gemm_from_plan<sm90::Paired, GegluF32, 256>(
+             plan, nullptr, x, w1, nullptr, nullptr, ga, n, 2 * inner, d, ldg, s)) !=
+            cudaSuccess ||
+        (err = ln_rows<bf16>(gs, ldg, gm, ys, ldy, n, inner, eps, s)) != cudaSuccess)
+      return err;
+    const sm90::StoreBf16::Args oa{static_cast<bf16*>(out), n, d, d, 0};
+    return sm90::gemm_from_plan<sm90::Form<sm90::kK, sm90::kK>, sm90::StoreBf16, 128, 256>(
+        plan + P, nullptr, ys, w2, nullptr, nullptr, oa, n, d, inner, d, s);
   }
   if (dtype == AMT_F32) {
-    const auto* xi = static_cast<const float*>(x);
-    const auto* w1i = static_cast<const float*>(w1);
-    const auto* w2i = static_cast<const float*>(w2);
     auto* ys = static_cast<float*>(y_scratch);
-    cudaError_t err;
-    gemm_geglu_f32_kernel<<<dim3(inner / 32, (n + kFM - 1) / kFM), kThreads, 0, s>>>(
-        xi, w1i, gs, n, d, inner);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ln_rows_kernel<float><<<n, kThreads, 0, s>>>(gs, gm, ys, inner, eps);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    return gemm_f32<kK, kK>(ys, inner, w2i, inner, static_cast<float*>(out), d, n, d, inner, s);
+    geglu_f32_kernel<<<dim3(inner / 64, (n + kRM - 1) / kRM), kRThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w1), gs, inner, n, d,
+        inner);
+    if ((err = cudaGetLastError()) != cudaSuccess ||
+        (err = ln_rows<float>(gs, inner, gm, ys, inner, n, inner, eps, s)) != cudaSuccess)
+      return err;
+    return gemm_f32_split<kK, kK>(ys, inner, static_cast<const float*>(w2), inner,
+                                  static_cast<float*>(out), d, n, d, inner,
+                                  static_cast<float*>(part), 2 * (int64_t)n * d, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -8,14 +8,19 @@
 //     in the torch Linear layout: wgmma's K-major B as it stands), or
 //   - MN-major (kMN): a row-major (K, rows) matrix, rows contiguous (W2
 //     read as the B of dy W2, dH and yc read as the A and B of the weight
-//     gradient dH^T yc), through wgmma's transpose bit.
+//     gradient dH^T yc), through wgmma's transpose bit;
+// or B paired (Paired, kernel 11's GEGLU product): W1's "a" and "gate"
+// rows loaded as two K-major half boxes of one tile, so a thread holds a
+// and gate of the same inner column.
 // The epilogue is a struct with an Args type and a run<BN>() the kernel
 // calls on a warpgroup's registers; each .cu brings its own. Here:
 //   - BiasGelu:     C = bf16(gelu(A B^T + bias)), the exact erff GELU;
 //   - BiasResidual: C = bf16(A B^T + bias (+ res)), res (M, N) bf16 or null
 //     (the bias fp32 or bf16, added in fp32: kernels 7 and 2);
 //   - StoreF32:     C = A B^T in fp32 (weight gradients, dy_ln);
-//   - StoreBf16:    C = bf16(A B^T) (dh).
+//   - StoreBf16:    C = bf16(A B^T) (dh, the FFN's out and dx);
+//   - csrc/ffn.cu's GegluF32: g = gate * gelu(a) in fp32 over paired
+//     columns.
 //
 // Shape of a block:
 //   - 128 rows x BN columns of C: two consumer warpgroups of 64 rows, each
@@ -82,6 +87,18 @@ struct Form {
   static constexpr int kMajA = kMajA_, kMajB = kMajB_;
   static constexpr int kMajA2 = kMajA2_, kMajB2 = kMajB2_;
   static constexpr int kDual = kMajA2_ >= 0 ? 1 : 0;
+  static constexpr int kPairB = 0;
+};
+
+// The paired-column form of the GEGLU product (kernel 11): A and B
+// K-major, B = W1 (2 inner, K) whose rows [0, inner) are the "a" half and
+// [inner, 2 inner) the "gate" half. Block x's B tile is two boxes of BN / 2
+// rows stacked in the stage: W1 rows c0 .. c0 + BN/2 - 1 and inner + c0 ..,
+// c0 = x BN / 2, so accumulator column j and j + BN / 2 are a and gate of
+// inner column c0 + j, in the same thread (N = 2 inner, a multiple of BN:
+// inner = gridDim.x BN / 2).
+struct Paired : Form<kK, kK> {
+  static constexpr int kPairB = 1;
 };
 
 template <int BN, int kDual>
@@ -420,7 +437,14 @@ __global__ __launch_bounds__(kThreads, (Config<BN, Fm::kDual>::kBlocksPerSM)) vo
         mbar_wait(&sm.empty[st], ((i / S) & 1) ^ 1);
         mbar_expect_tx(&sm.full[st], R::kStage);
         load_tile<Fm::kMajA, kBM>(stage, &amap, &sm.full[st], kt, m0);
-        load_tile<Fm::kMajB, BN>(stage + R::kA, &bmap, &sm.full[st], kt, n0);
+        if constexpr (Fm::kPairB) {  // a rows, then gate rows, BN / 2 each
+          const int c0 = n0 / 2, inner = gridDim.x * (BN / 2);
+          load_tile<kK, BN / 2>(stage + R::kA, &bmap, &sm.full[st], kt, c0);
+          load_tile<kK, BN / 2>(stage + R::kA + BN / 2 * kBK * 2, &bmap,
+                                &sm.full[st], kt, inner + c0);
+        } else {
+          load_tile<Fm::kMajB, BN>(stage + R::kA, &bmap, &sm.full[st], kt, n0);
+        }
         if constexpr (Fm::kDual) {
           load_tile<Fm::kMajA2, kBM>(stage + R::kA + R::kB, &a2map,
                                      &sm.full[st], kt, m0);
@@ -509,17 +533,22 @@ __host__ inline bool encode_map(CUtensorMap* map, const void* base,
 // majorness), B's, the swizzle bytes, the grid (N tiles, M tiles, K
 // splits), the threads, the dynamic shared memory, BN, ldc, the K slices
 // of a split.
+// A paired-column plan's B map has boxes of BN / 2 rows, N is a multiple
+// of BN and C is N / 2 wide.
 template <int BN, class Fm>
 __host__ inline bool plan_fits(const int64_t* p, int kMajA, int kMajB, int m,
                                int n, int k, int ldc) {
   const int64_t ktiles = (k + kBK - 1) / kBK, splits = p[15], ks = p[20];
-  return map_fits(p, kMajA, m, k, kBM) && map_fits(p + 6, kMajB, n, k, BN) &&
+  constexpr int kPair = Fm::kPairB;
+  if (kPair && n % BN != 0) return false;
+  return map_fits(p, kMajA, m, k, kBM) &&
+         map_fits(p + 6, kMajB, n, k, BN >> kPair) &&
          p[12] == kSwizzle && p[13] == (n + BN - 1) / BN &&
          p[14] == (m + kBM - 1) / kBM && splits >= 1 && ks >= 1 &&
          (splits - 1) * ks < ktiles && splits * ks >= ktiles &&
          p[16] == kThreads && p[17] >= (int64_t)smem_bytes<BN, Fm::kDual>() &&
          p[17] <= 232448 && p[18] == BN && p[19] == ldc && n % 8 == 0 &&
-         ldc % 8 == 0 && ldc >= n;
+         ldc % 8 == 0 && ldc >= (n >> kPair);
 }
 
 // One product (or a dual one: p2 the second pair's plan, whose grid, split,
@@ -560,26 +589,6 @@ cudaError_t gemm_from_plan(const int64_t* p, const int64_t* p2, const void* A,
   };
   (one(std::integral_constant<int, kBNs>{}) || ...);
   return err;
-}
-
-// out (m, n; rows ldc apart) = the sum over z = 0 .. splits-1, in order, of
-// part[z] ((m, n) contiguous planes). n % 4 == 0.
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, int m, int n,
-                                  int ldc, int splits) {
-  const int64_t plane = (int64_t)m * n;
-  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (i >= plane) return;
-  float4 s = *reinterpret_cast<const float4*>(part + i);
-  for (int z = 1; z < splits; ++z) {
-    const float4 v = *reinterpret_cast<const float4*>(part + z * plane + i);
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  const int64_t r = i / n, col = i % n;
-  *reinterpret_cast<float4*>(out + r * ldc + col) = s;
 }
 
 // An fp32 product of a plan (StoreF32) into out, through the partial planes

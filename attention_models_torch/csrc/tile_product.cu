@@ -1,28 +1,62 @@
-// csrc/gemm_sm90.cuh's tile product in each operand form, alone: C (M, N)
-// = A B^T in fp32 with A and B each K-major or MN-major (form = 2 * A's
-// majorness + B's: 0 both K-major, 1 B MN-major, 2 A MN-major, 3 both), K
-// split into ordered fp32 partials where the plan says so. No model path
-// calls it: chip_smoke.py holds each form against torch.matmul of the same
-// views on the card before the kernels built on those forms (kernels 6 and
-// 14) are checked, so a wrong descriptor shows by form.
+// The tile products alone, in each operand form, with an fp32 result:
+//   amt_tile_product:     csrc/gemm_sm90.cuh's TMA/wgmma product of bf16
+//                         operands, C (M, N) = A B^T with A and B each
+//                         K-major or MN-major (form = 2 * A's majorness +
+//                         B's: 0 both K-major, 1 B MN-major, 2 A MN-major,
+//                         3 both), K split into ordered fp32 partials where
+//                         the plan says so;
+//   amt_tile_product_f32: csrc/gemm.cuh's register-tiled FMA product
+//                         (gemm_f32) of fp32 operands, A and B each kK or kR
+//                         (form alike: 2 * A's layout + B's), at tile width
+//                         tn (128 or 64; 0: gemm_f32's own choice).
+// No model path calls them: chip_smoke.py holds each form against
+// torch.matmul of the same views on the card before the kernels built on
+// those forms (6, 11, 12 and 14) are checked, so a wrong descriptor or
+// layout shows by form.
+#include "gemm.cuh"
 #include "gemm_sm90.cuh"
 
 AMT_EXPORT int amt_tile_product(const int64_t* plan, const void* a, const void* b,
                                 void* c, void* part, int m, int n, int k, int ldc,
                                 int form, void* stream) {
-  using namespace sm90;
+  using sm90::Form;
+  using sm90::gemm_f32_from_plan;
+  using sm90::kMN;
+  constexpr int kKM = sm90::kK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(c);
   float* pp = static_cast<float*>(part);
   switch (form) {
     case 0:
-      return gemm_f32_from_plan<Form<kK, kK>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
+      return gemm_f32_from_plan<Form<kKM, kKM>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
     case 1:
-      return gemm_f32_from_plan<Form<kK, kMN>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
+      return gemm_f32_from_plan<Form<kKM, kMN>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
     case 2:
-      return gemm_f32_from_plan<Form<kMN, kK>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
+      return gemm_f32_from_plan<Form<kMN, kKM>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
     case 3:
       return gemm_f32_from_plan<Form<kMN, kMN>, 128>(plan, a, b, out, pp, m, n, k, ldc, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// A (M, K) at lda, B (N, K) at ldb, in the layouts of `form`; C (M, N)
+// contiguous.
+AMT_EXPORT int amt_tile_product_f32(const void* a, int lda, const void* b, int ldb,
+                                    void* c, int m, int n, int k, int form, int tn,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* A = static_cast<const float*>(a);
+  const auto* B = static_cast<const float*>(b);
+  float* C = static_cast<float*>(c);
+  switch (form) {
+    case 0:
+      return gemm_f32_tn<kK, kK>(A, lda, B, ldb, C, n, m, n, k, tn, s);
+    case 1:
+      return gemm_f32_tn<kK, kR>(A, lda, B, ldb, C, n, m, n, k, tn, s);
+    case 2:
+      return gemm_f32_tn<kR, kK>(A, lda, B, ldb, C, n, m, n, k, tn, s);
+    case 3:
+      return gemm_f32_tn<kR, kR>(A, lda, B, ldb, C, n, m, n, k, tn, s);
   }
   return cudaErrorInvalidValue;
 }

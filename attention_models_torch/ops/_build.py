@@ -49,8 +49,8 @@ _SIGNATURES = {
     "amt_flash_bwd_dkv": [_P] * 8 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_flash_bwd_dq": [_P] * 7 + [_S, _S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp_bwd": [_S] + [_P] * 20 + [_I, _I, _I, _F, _P],
-    "amt_ffn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
-    "amt_ffn_bwd": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
+    "amt_ffn": [_S] + [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    "amt_ffn_bwd": [_S] + [_P] * 15 + [_I, _I, _I, _F, _I, _P],
     "amt_head_xent_fwd": [_P] * 7 + [_I] * 4 + [_P],
     "amt_head_xent_bwd": [_P] * 12 + [_S] + [_I] * 4 + [_P],
     "amt_sample_epilogue": [_P] * 4 + [_I, _I, _P, _P, _I, _I, _I, _I, _F,
@@ -60,6 +60,7 @@ _SIGNATURES = {
     "amt_ln_mlp_q8": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
     "amt_mlp": [_P] * 9 + [_S] + [_I] * 4 + [_P],
     "amt_tile_product": [_S] + [_P] * 4 + [_I] * 5 + [_P],
+    "amt_tile_product_f32": [_P, _I, _P, _I, _P] + [_I] * 5 + [_P],
     "amt_mlp_bwd": [_P] * 14 + [_I, _I, _I, _P],
 }
 

@@ -10,21 +10,29 @@
   its epilogue), dy_ln = dH W1, the weight gradients dH^T yc and dy^T G
   with K split into ordered partials, and the LN backward's row pass.
 - ``fused_ffn``: the GEGLU FFN LN_gamma(gate * gelu(a)) W2 with
-  [a | gate] = x W1, no biases, forward and backward (csrc/ffn.cu,
-  csrc/ffn_bwd.cu).
+  [a | gate] = x W1, no biases, forward and backward (kernels 11 and 12:
+  csrc/ffn.cu, csrc/ffn_bwd.cu). In bf16 the forward is the paired-column
+  GEGLU product (W1's "a" and "gate" rows as two half boxes of one B tile,
+  g = gate * gelu(a) in fp32 in its epilogue), the LayerNorm row pass and
+  y W2^T; the backward is H = x W1^T and dy_ln = dy W2 in fp32, the row
+  pass, and dW2, dx and dW1 (the weight gradients with K split into
+  ordered partials where the plan says so). In fp32 the same passes run
+  on csrc/gemm.cuh's register-tiled FMA product.
 
 The forwards of kernels 7 and 2 run csrc/gemm_sm90.cuh's TMA/wgmma tile
-product twice, kernel 6 five times. ``mlp_plan`` and ``ln_mlp_bwd_plan``
+product twice, kernel 6 five times, kernel 11 twice and kernel 12 five
+times. ``mlp_plan``, ``ln_mlp_bwd_plan``, ``ffn_plan`` and ``ffn_bwd_plan``
 compute on the host what those launches need (``ops/gemm_sm90.py``: each
 operand's rank-2 tensor map, K-major or MN-major, the tile width of each
 product, the grids, the splits of K and the shared memory, and the
-scratches' pitches), cached by the operands' shapes, strides and alignment,
-and refuse by name a view TMA cannot take; the C side encodes the maps and
-launches. Where the hidden width is not a multiple of 32, W2's rows would
-start only 16-byte aligned, which TMA reads slowly: the C entries copy W2
-into a scratch at a 64-byte pitch at every call (one cudaMemcpy2DAsync),
-so the kernels read the weight they are given, never a copy held from an
-earlier call.
+scratches' pitches), cached by the operands' shapes, strides and alignment
+(kernels 11 and 12: by their sizes alone, their operands checked contiguous
+and 16-byte aligned first), and refuse by name a view TMA cannot take; the
+C side encodes the maps and launches. Where the hidden width is not a
+multiple of 32, W2's rows would start only 16-byte aligned, which TMA
+reads slowly: the C entries copy W2 into a scratch at a 64-byte pitch at
+every call (one cudaMemcpy2DAsync), so the kernels read the weight they
+are given, never a copy held from an earlier call.
 
 Counterparts of ``attention_models_tpu/ops/ffn.py``'s ``fused_mlp`` and
 ``fused_ln_mlp`` (bf16 only on the kernel path, as there) and ``fused_ffn``
@@ -76,6 +84,8 @@ from attention_models_torch.ops.layernorm import _ln_reference
 
 BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's LN backward
 FFN_BWD_ROWS = 16     # rows per block of csrc/ffn_bwd.cu's row pass
+FFN_GEGLU_BN = 256    # kernel 11's GEGLU product: 128 inner columns a block
+FFN_OUT_BN = 256      # kernel 11's y W2^T: 256 columns a block
 TILE_ROWS = 128       # rows of csrc/gemm.cuh's tiles (kernel 8's db1 partials)
 COL_ROWS = 64         # rows per partial of kernel 8's db2 column sums
 
@@ -647,42 +657,173 @@ def _ffn_backward_reference(x, w1, gamma, w2, dy, eps):
     return dx.reshape(x.shape), dw1, dgamma, dw2
 
 
-def _check_ffn_operands(x, w1c, gamma, w2c):
-    """The kernels' shape, dtype and alignment rules; gamma as contiguous
-    fp32."""
+@dataclass(frozen=True)
+class FfnPlan:
+    """Kernel 11's two bf16 tile products (csrc/ffn.cu): ``geglu``, the
+    paired-column product of x (n, d) and W1 (2 inner, d), both K-major, W1
+    read as boxes of ``bn / 2`` rows (a block's "a" rows, then its "gate"
+    rows), writing g = gate * gelu(a) into the fp32 scratch g (n, inner) at
+    ``geglu.ldc`` elements a row; ``out`` = y W2^T, y (n, inner) in bf16 at
+    ``y_pitch`` elements a row and W2 (d, inner) both K-major."""
+    geglu: GemmPlan
+    out: GemmPlan
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_arr", PlanArray((self.geglu, self.out)))
+
+    def c_array(self):
+        """The 42 int64 values ``amt_ffn`` reads (built once)."""
+        return self._arr.c_array()
+
+    @property
+    def g_pitch(self) -> int:
+        return self.geglu.ldc
+
+    @property
+    def y_pitch(self) -> int:
+        return self.out.a.stride // 2
+
+
+@functools.lru_cache(maxsize=64)
+def ffn_plan(n: int, d: int, inner: int) -> FfnPlan:
+    """Kernel 11's plan for n rows of contiguous bf16 x (n, d), W1
+    (2 inner, d) and W2 (d, inner), cached on the sizes alone (the
+    wrapper checks the operands contiguous and 16-byte aligned first). The
+    tile widths were chosen in turns on the H100 (``bench_ffn.py``)."""
+    what = "ffn kernel"
+    x = scratch_meta("x", n, d, d)
+    w1 = scratch_meta("w1", 2 * inner, d, d)
+    w2 = scratch_meta("w2", d, inner, inner)
+    y = scratch_meta("y", n, inner, row_pitch(inner))
+    return FfnPlan(
+        gemm_plan(x, K_MAJOR, w1, K_MAJOR, FFN_GEGLU_BN, row_pitch(inner),
+                  paired=True, what=what),
+        gemm_plan(y, K_MAJOR, w2, K_MAJOR, FFN_OUT_BN if d > 128 else 128, d,
+                  what=what))
+
+
+@dataclass(frozen=True)
+class FfnBwdPlan:
+    """Kernel 12's five bf16 tile products (csrc/ffn_bwd.cu) and its
+    scratches: ``h`` (H = x W1^T, both K-major, fp32 (n, 2 inner)),
+    ``dyln`` (dy W2, W2 (d, inner) read MN-major, fp32 (n, inner)),
+    ``dw2`` (dy^T y) and ``dw1`` ([da | dgate]^T x), both operands
+    MN-major with K = n split into ordered partials, and ``dx``
+    ([da | dgate] W1, W1 read MN-major, bf16 out). ``f32`` and ``low``
+    lay out the fp32 and the bf16 scratch buffers: (name, offset, size)
+    each, and the total."""
+    h: GemmPlan
+    dyln: GemmPlan
+    dw2: GemmPlan
+    dx: GemmPlan
+    dw1: GemmPlan
+    f32: tuple
+    low: tuple
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_arr", PlanArray(
+            (self.h, self.dyln, self.dw2, self.dx, self.dw1)))
+
+    def c_array(self):
+        """The 105 int64 values ``amt_ffn_bwd`` reads (built once)."""
+        return self._arr.c_array()
+
+
+def _ffn_bwd_layout(n: int, d: int, inner: int, pitch: dict,
+                    wpart: int) -> tuple:
+    """The fp32 buffer (H, dy_ln, dgamma's block partials, ``wpart``
+    elements of split planes) and the dtype's (y, [da | dgate]) of kernel
+    12, at the row pitches ``pitch`` (elements)."""
+    f32 = _layout([("h", n * pitch["h"]), ("dyln", n * pitch["dyln"]),
+                   ("gpart", -(-n // FFN_BWD_ROWS) * inner),
+                   ("wpart", wpart)])
+    low = _layout([("y", n * pitch["y"]), ("dh", n * pitch["dh"])])
+    return f32, low
+
+
+@functools.lru_cache(maxsize=64)
+def ffn_bwd_plan(n: int, d: int, inner: int) -> FfnBwdPlan:
+    """Kernel 12's plan for n rows of contiguous bf16 x and dy (n, d), W1
+    (2 inner, d) and W2 (d, inner), cached on the sizes alone (the
+    wrapper checks the operands first)."""
+    what = "ffn backward"
+    i2 = 2 * inner
+    pitch = dict(h=row_pitch(i2), dyln=row_pitch(inner), y=row_pitch(inner),
+                 dh=row_pitch(i2))
+    x, dy = scratch_meta("x", n, d, d), scratch_meta("dy", n, d, d)
+    w1 = scratch_meta("w1", i2, d, d)
+    w2 = scratch_meta("w2", d, inner, inner)
+    y = scratch_meta("y", n, inner, pitch["y"])
+    dh = scratch_meta("dh", n, i2, pitch["dh"])
+    plans = dict(
+        h=gemm_plan(x, K_MAJOR, w1, K_MAJOR, 128, pitch["h"], what=what),
+        dyln=gemm_plan(dy, K_MAJOR, w2, MN_MAJOR, 128, pitch["dyln"],
+                       what=what),
+        dw2=gemm_plan(dy, MN_MAJOR, y, MN_MAJOR, 128, inner, split=True,
+                      what=what),
+        dx=gemm_plan(dh, K_MAJOR, w1, MN_MAJOR, 128, d, what=what),
+        dw1=gemm_plan(dh, MN_MAJOR, x, MN_MAJOR, 128, d, split=True,
+                      what=what))
+    splits = max(plans["dw2"].splits, plans["dw1"].splits)
+    f32, low = _ffn_bwd_layout(n, d, inner, pitch,
+                               splits * i2 * d if splits > 1 else 0)
+    return FfnBwdPlan(**plans, f32=f32, low=low)
+
+
+def _check_ffn_operands(x, w1c, gamma, w2c, dy=None):
+    """The kernels' shape, dtype and alignment rules, each operand named
+    where it breaks one; gamma as contiguous 16-byte aligned fp32."""
     check_tensor(x, "x", (torch.float32, torch.bfloat16))
     d, inner = x.shape[-1], w2c.shape[1]
     if w1c.shape != (2 * inner, d) or w2c.shape != (d, inner):
         raise ValueError(f"ffn kernel: w1 {tuple(w1c.shape)} and w2 "
                          f"{tuple(w2c.shape)} do not fit d={d}")
-    if d % 128 or inner % 64:
-        raise ValueError(f"ffn kernel: d={d} must be a multiple of 128 and "
-                         f"inner={inner} of 64")
+    if d % 128 or inner % 128:
+        raise ValueError(f"ffn kernel: d={d} and inner={inner} must be "
+                         f"multiples of 128")
     check_tensor(w1c, "w1", (x.dtype,), 2, x.device)
     check_tensor(w2c, "w2", (x.dtype,), 2, x.device)
     check_tensor(gamma, "gamma", (torch.float32, torch.bfloat16), 1, x.device)
     if gamma.shape != (inner,):
         raise ValueError(f"ffn kernel: gamma must be ({inner},)")
+    named = [("x", x), ("w1", w1c), ("w2", w2c)]
+    if dy is not None:
+        check_tensor(dy, "dy", (x.dtype,), x.dim(), x.device)
+        if dy.shape != x.shape:
+            raise ValueError("ffn backward: dy must match x")
+        named.append(("dy", dy))
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"ffn kernel: {name} starts at an address that "
+                             f"is not 16-byte aligned")
     gam = gamma.float().contiguous()
-    if any(t.data_ptr() % 16 for t in (x, w1c, w2c, gam)):
-        raise ValueError("ffn kernel: x, w1, gamma, w2 must be 16-byte "
-                         "aligned")
-    return gam
+    return gam.clone() if gam.data_ptr() % 16 else gam
 
 
 def _ffn_fwd_kernel(x, w1c, gamma, w2c, eps):
-    """One launch of the forward kernel on weights in x's dtype."""
+    """One launch of the forward kernel on weights in x's dtype (bf16 with
+    ``ffn_plan``'s plan, fp32 without one)."""
     gam = _check_ffn_operands(x, w1c, gamma, w2c)
     d, inner = x.shape[-1], w2c.shape[1]
     n = x.numel() // d
-    g = torch.empty(n, inner, dtype=torch.float32, device=x.device)
-    y = torch.empty(n, inner, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    plan = ffn_plan(n, d, inner) if x.dtype == torch.bfloat16 else None
+    pg, py = (plan.g_pitch, plan.y_pitch) if plan else (inner, inner)
+    # fp32: g, then the W2 product's split partials (2 n d)
+    g = torch.empty(n * pg + (0 if plan else 2 * n * d), dtype=torch.float32,
+                    device=x.device)
+    part = None if plan else g.data_ptr() + 4 * n * pg
+    y = torch.empty(n * py, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         _build.launch(
-            "amt_ffn", x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
-            w2c.data_ptr(), g.data_ptr(), y.data_ptr(), out.data_ptr(), n, d,
-            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x),
+            "amt_ffn", plan.c_array() if plan else None, x.data_ptr(),
+            w1c.data_ptr(), gam.data_ptr(), w2c.data_ptr(), g.data_ptr(),
+            y.data_ptr(), part, out.data_ptr(), n, d, inner, eps,
+            _build.DTYPE_CODES[x.dtype], _build.stream_of(x),
         )
     fused_ffn.launches += 1
     return out
@@ -695,32 +836,42 @@ def fused_ffn_backward(x, w1, gamma, w2, dy, *, eps: float = 1e-5):
     tensors."""
     if not is_kernel_path(x):
         return _ffn_backward_reference(x, w1, gamma, w2, dy, eps)
-    gam = _check_ffn_operands(x, w1, gamma, w2)
     dy = dy.contiguous()
-    check_tensor(dy, "dy", (x.dtype,), x.dim(), x.device)
-    if dy.shape != x.shape or dy.data_ptr() % 16:
-        raise ValueError("ffn backward: dy must match x, 16-byte aligned")
+    gam = _check_ffn_operands(x, w1, gamma, w2, dy)
     d, inner = x.shape[-1], w2.shape[1]
     n = x.numel() // d
+    if n % 8:
+        raise ValueError(f"ffn backward: {n} rows, not a multiple of 8")
     dev, dt = x.device, x.dtype
     f32 = dict(dtype=torch.float32, device=dev)
     # scratch: H = [a | gate] and dy_ln in fp32, y and [da | dgate] in the
-    # dtype, per-block partial sums of dgamma
-    hs = torch.empty(n, 2 * inner, **f32)
-    dyln = torch.empty(n, inner, **f32)
-    ys = torch.empty(n, inner, dtype=dt, device=dev)
-    dhs = torch.empty(n, 2 * inner, dtype=dt, device=dev)
-    gpart = torch.empty(-(-n // FFN_BWD_ROWS), inner, **f32)
+    # dtype, per-block partial sums of dgamma, the weight gradients' split
+    # planes (bf16: the plan's; fp32: 2 max(n, 2 inner) d elements for the
+    # FMA products' split partials, rows 2 inner and inner elements apart)
+    if dt == torch.bfloat16:
+        plan = ffn_bwd_plan(n, d, inner)
+        f32_layout, low_layout = plan.f32, plan.low
+    else:
+        plan = None
+        f32_layout, low_layout = _ffn_bwd_layout(
+            n, d, inner, dict(h=2 * inner, dyln=inner, y=inner, dh=2 * inner),
+            2 * max(n, 2 * inner) * d)
+    bufs = (torch.empty(f32_layout[1], **f32),
+            torch.empty(low_layout[1], dtype=dt, device=dev))
+    ptr = {name: buf.data_ptr() + off * buf.element_size() if size else None
+           for buf, (layout, _) in zip(bufs, (f32_layout, low_layout))
+           for name, off, size in layout}
     dx = torch.empty_like(x)
     dw1, dgamma = torch.empty(2 * inner, d, **f32), torch.empty(inner, **f32)
     dw2 = torch.empty(d, inner, **f32)
     with torch.cuda.device(dev):
         _build.launch(
-            "amt_ffn_bwd", x.data_ptr(), w1.data_ptr(), gam.data_ptr(),
-            w2.data_ptr(), dy.data_ptr(), hs.data_ptr(), dyln.data_ptr(),
-            ys.data_ptr(), dhs.data_ptr(), gpart.data_ptr(), dx.data_ptr(),
-            dw1.data_ptr(), dgamma.data_ptr(), dw2.data_ptr(), n, d, inner,
-            eps, _build.DTYPE_CODES[dt], _build.stream_of(x),
+            "amt_ffn_bwd", plan.c_array() if plan else None, x.data_ptr(),
+            w1.data_ptr(), gam.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+            ptr["h"], ptr["dyln"], ptr["y"], ptr["dh"], ptr["gpart"],
+            ptr["wpart"], dx.data_ptr(), dw1.data_ptr(), dgamma.data_ptr(),
+            dw2.data_ptr(), n, d, inner, eps, _build.DTYPE_CODES[dt],
+            _build.stream_of(x),
         )
     fused_ffn_backward.launches += 1
     return dx, dw1, dgamma, dw2

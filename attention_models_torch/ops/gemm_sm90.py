@@ -7,12 +7,17 @@ of K into ordered partials, the tile width and the shared memory. A view TMA
 cannot take raises a ValueError naming it before anything is launched; the
 C side checks the plan against the product, encodes the maps and launches.
 Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 (``ops/ffn.py::
-ln_mlp_bwd_plan``) and 14 (``ops/xent.py::xent_bwd_plan``) build their plans
-from these pieces.
+ln_mlp_bwd_plan``), 11 and 12 (``ops/ffn.py::ffn_plan`` and
+``ffn_bwd_plan``) and 14 (``ops/xent.py::xent_bwd_plan``) build their plans
+from these pieces. Kernel 11's GEGLU product reads W1 in the paired-column
+form: its B tile is two boxes of ``bn / 2`` rows, W1's "a" rows and the
+matching "gate" rows.
 
 ``tile_product`` runs one product in any operand form with an fp32 result
-(``csrc/tile_product.cu``); no model path calls it: chip_smoke.py holds each
-form against ``torch.matmul`` of the same views on the card.
+(``csrc/tile_product.cu``): the tile product for bf16 operands, csrc/
+gemm.cuh's register-tiled FMA product (``gemm_f32``) for fp32 ones. No model
+path calls it: chip_smoke.py holds each form against ``torch.matmul`` of the
+same views on the card.
 """
 
 from __future__ import annotations
@@ -163,13 +168,15 @@ def split_k(tiles: int, k: int) -> tuple[int, int]:
 
 def gemm_plan(a: tuple, a_major: int, b: tuple, b_major: int, bn: int,
               ldc: int, *, split: bool = False, dual: bool = False,
-              what: str = "mlp kernel") -> GemmPlan:
+              paired: bool = False, what: str = "mlp kernel") -> GemmPlan:
     """The plan of C = A B^T for the operands' metas and majorness, at tile
     width ``bn``; ``split``: K split into ordered fp32 partials as
     ``split_k`` chooses (the epilogue then writes (M, N) planes: ``ldc`` is
-    N); ``dual``: the shared memory of a dual product's ring."""
+    N); ``dual``: the shared memory of a dual product's ring; ``paired``:
+    the paired-column form (B K-major, N a multiple of ``bn``, its boxes
+    ``bn / 2`` rows; C is N / 2 wide)."""
     am = tile_map(a, a_major, GEMM_ROWS, what)
-    bm = tile_map(b, b_major, bn, what)
+    bm = tile_map(b, b_major, bn // 2 if paired else bn, what)
     m = am.dims[1] if a_major == K_MAJOR else am.dims[0]
     k = am.dims[0] if a_major == K_MAJOR else am.dims[1]
     n = bm.dims[1] if b_major == K_MAJOR else bm.dims[0]
@@ -177,6 +184,10 @@ def gemm_plan(a: tuple, a_major: int, b: tuple, b_major: int, bn: int,
     if k != kb:
         raise ValueError(f"{what}: {a[0]} and {b[0]} disagree on K "
                          f"({k} and {kb})")
+    if paired and (b_major != K_MAJOR or n % bn):
+        raise ValueError(f"{what}: the paired-column product needs {b[0]} "
+                         f"K-major with its {n} rows a multiple of the tile "
+                         f"width {bn}")
     grid_n, grid_m = -(-n // bn), -(-m // GEMM_ROWS)
     splits, kslices = (split_k(grid_n * grid_m, k) if split
                        else (1, -(-k // GEMM_K)))
@@ -198,17 +209,36 @@ def _operand(t: torch.Tensor, major: int) -> torch.Tensor:
 
 
 def tile_product(a: torch.Tensor, a_major: int, b: torch.Tensor,
-                 b_major: int, *, split: bool = False) -> torch.Tensor:
+                 b_major: int, *, split: bool = False,
+                 tile_width: int = 0) -> torch.Tensor:
     """C (M, N) = A B^T in fp32, with A (M, K) stored as ``a`` itself
     (K_MAJOR) or as its transpose ``a`` (K, M) (MN_MAJOR), and B (N, K)
-    likewise; bf16 operands. The tile product for CUDA tensors, a plain
-    fp32 matmul for CPU tensors."""
+    likewise. For CUDA tensors: bf16 operands through the tile product
+    (``split``: K in ordered partials), fp32 operands through gemm_f32
+    (``tile_width`` 128 or 64, 0 its own choice); for CPU tensors a plain
+    fp32 matmul."""
     am, bmat = _operand(a, a_major), _operand(b, b_major)
     if not is_kernel_path(a):
         return am.float() @ bmat.float().T
     for name, t in (("a", a), ("b", b)):
-        check_tensor(t, name, (torch.bfloat16,), 2, a.device)
+        check_tensor(t, name, (torch.bfloat16, torch.float32), 2, a.device)
+    if b.dtype != a.dtype:
+        raise TypeError("tile product: a and b must share a dtype")
     m, n, k = am.shape[0], bmat.shape[0], am.shape[1]
+    if a.dtype == torch.float32:
+        if m % 8 or n % 8 or k % 8 or any(t.data_ptr() % 16
+                                          for t in (a, b)):
+            raise ValueError("tile product (fp32): M, N and K must be "
+                             "multiples of 8 and the operands 16-byte "
+                             "aligned")
+        out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+        with torch.cuda.device(a.device):
+            _build.launch("amt_tile_product_f32", a.data_ptr(), a.stride(0),
+                          b.data_ptr(), b.stride(0), out.data_ptr(), m, n, k,
+                          FORMS[(a_major, b_major)], tile_width,
+                          _build.stream_of(a))
+        tile_product.launches += 1
+        return out
     plan = gemm_plan(meta("a", a), a_major, meta("b", b), b_major, 128, n,
                      split=split, what="tile product")
     out = torch.empty(m, n, dtype=torch.float32, device=a.device)

@@ -13,12 +13,20 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               product (gemm_kernel): the GELU-MLP forwards' (csrc/mlp.cu,
               kernels 7 and 2: BN 128 and 256, GELU and residual
               epilogues), kernel 6's dual product and fp32 products
-              (csrc/ln_mlp_bwd.cu), kernel 14's three (csrc/xent.cu) and
-              the four operand forms (csrc/tile_product.cu): registers,
-              static shared memory, spill bytes (a spill fails)
+              (csrc/ln_mlp_bwd.cu), kernel 11's paired-column GEGLU product
+              (BN 256) and y W2^T (BN 128 and 256; csrc/ffn.cu), kernel
+              12's four (csrc/ffn_bwd.cu), kernel 14's three (csrc/xent.cu)
+              and the four operand forms (csrc/tile_product.cu), and of
+              the fp32 FMA kernels (csrc/gemm.cuh's gemm_f32_kernel in
+              each source that instantiates it, csrc/ffn.cu's
+              geglu_f32_kernel) and the GEGLU FFN's row passes (ffn_ln_rows_kernel,
+              ffn_bwd_rows_kernel): registers, static shared memory, spill
+              bytes (a spill fails)
   3. kernels  first the tile product's four operand forms (A and B each
-              K-major or MN-major, K whole and split) against torch.matmul
-              of the same views; then each kernel at the main path's
+              K-major or MN-major, K whole and split) and the fp32 FMA
+              product's four layouts (A and B each kK or kR, tile width 128
+              and 64) against torch.matmul of the same views (TF32 off);
+              then each kernel at the main path's
               shapes against its plain version on the card, in each dtype it takes, with kernel,
               plain and library (one PyTorch call; for a backward kernel
               its forward + backward) times and the bound; the repaired
@@ -54,7 +62,13 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               d 768 and 1024, and the head cross-entropy backward (kernel
               14) in bf16 with and without the bias, each with a bit-equal
               repeat call and against its library chain in turns beside
-              the time it replaces, and kernels 11, 12 and 13 in turns
+              the time it replaces; the GEGLU FFN forward and backward
+              (kernels 11 and 12) in bf16 and fp32 at MaskGIT's shape, at
+              ragged rows (n 520), at d 1024 and at inner 8704 (a row the
+              row passes walk in chunks), each with a bit-equal
+              repeat call, and in turns (both dtypes; kernel 11 also at
+              Muse's shape) beside the times they replace; kernel 13 in
+              turns
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -727,36 +741,77 @@ def main() -> int:
     # every instantiation of csrc/gemm_sm90.cuh's tile product: the GELU-MLP
     # forwards' (kernels 7 and 2: BN 128, two blocks an SM, so at most 112
     # registers, and 256; GELU and residual epilogues), kernel 6's dual
-    # product (one block an SM) and its fp32 products, kernel 14's three
-    # and the four operand forms of the check below; a spill fails
+    # product (one block an SM) and its fp32 products, kernel 11's
+    # paired-column GEGLU product (BN 256) and y W2^T (BN 128 and 256: 128
+    # only where d is 128), kernel 12's
+    # four, kernel 14's three and the four operand forms of the check below;
+    # a spill fails
     epilogues = (("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
                  ("StoreIfE", "f32"), ("StoreI13__nv_bfloat16E", "bf16"),
-                 ("GeluBwd", "gelu backward"), ("XentDl", "dl"))
+                 ("GeluBwd", "gelu backward"), ("XentDl", "dl"),
+                 ("GegluF32", "geglu"))
 
     def gemm_label(mangled):
         bn = re.search(r"gemm_kernelILi(\d+)E", mangled).group(1)
-        form = ", ".join("K" if v == "0" else "MN" for v in re.search(
-            r"FormILi(n?\d)ELi(n?\d)ELi(n?\d)ELi(n?\d)E",
-            mangled).groups() if v != "n1")
+        if "6PairedE" in mangled:
+            form = "K, K paired"
+        else:
+            form = ", ".join("K" if v == "0" else "MN" for v in re.search(
+                r"FormILi(n?\d)ELi(n?\d)ELi(n?\d)ELi(n?\d)E",
+                mangled).groups() if v != "n1")
         epi = next(e for key, e in epilogues if key in mangled)
         return f"gemm_kernel<{bn}, {form}, {epi}>"
 
+    def ptxas_line(label, r):
+        print(f"[ptxas] {label}: {r['registers']} registers, {r['smem']} "
+              f"bytes smem, {r['spill_stores']} bytes spill stores, "
+              f"{r['spill_loads']} bytes spill loads", flush=True)
+
     mlp_ptxas = {}
     for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 3),
-                       ("tile_product", 4)):
+                       ("tile_product", 4), ("ffn", 3), ("ffn_bwd", 4)):
         rows = _build.ptxas_report(src, "gemm_kernel")
         for r in rows:
             label = f"{src}: {gemm_label(r['name'])}"
             mlp_ptxas[label] = r
-            print(f"[ptxas] {label}: {r['registers']} registers, {r['smem']} "
-                  f"bytes smem, {r['spill_stores']} bytes spill stores, "
-                  f"{r['spill_loads']} bytes spill loads", flush=True)
+            ptxas_line(label, r)
         gate(len(rows) == count, f"{src}: {len(rows)} gemm_kernel "
              f"instantiations, expected {count}")
-    gate(len(mlp_ptxas) == 14
+    gate(len(mlp_ptxas) == 21
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in mlp_ptxas.values()),
          f"gemm_kernel ptxas: {mlp_ptxas}")
+    # the fp32 FMA product (tile width 128 and 64, each kK / kR layout pair
+    # a source uses), kernel 11's fp32 GEGLU product and the GEGLU FFN's
+    # row passes (bf16 and fp32, 4 and 8 pieces a thread); a spill fails
+    fma_ptxas = {}
+    for src, kern, count in (("ffn", "gemm_f32_kernel", 2),
+                             ("ffn_bwd", "gemm_f32_kernel", 6),
+                             ("xent", "gemm_f32_kernel", 4),
+                             ("tile_product", "gemm_f32_kernel", 8),
+                             ("ffn", "geglu_f32_kernel", 1),
+                             ("ffn", "ffn_ln_rows_kernel", 4),
+                             ("ffn_bwd", "ffn_bwd_rows_kernel", 4)):
+        rows = _build.ptxas_report(src, kern)
+        for r in rows:
+            m = re.search(r"ILi(\d+)ELi(\d)ELi(\d)E", r["name"])
+            tmpl = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d)E", r["name"])
+            if m:
+                label = (f"{src}: {kern}<{m.group(1)}, "
+                         f"{'kK' if m.group(2) == '0' else 'kR'}, "
+                         f"{'kK' if m.group(3) == '0' else 'kR'}>")
+            elif tmpl:
+                dt = "float" if tmpl.group(1) == "f" else "bf16"
+                label = f"{src}: {kern}<{dt}, {tmpl.group(2)}>"
+            else:
+                label = f"{src}: {kern}"
+            fma_ptxas[label] = r
+            ptxas_line(label, r)
+        gate(len(rows) == count, f"{src}: {len(rows)} {kern} "
+             f"instantiations, expected {count}")
+    gate(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+             for r in fma_ptxas.values()), f"fp32 FMA / row pass ptxas: "
+         f"{fma_ptxas}")
 
     # ---------------------------------------------------------------- 3 --
     def time_ms(fn, iters=20):
@@ -858,25 +913,45 @@ def main() -> int:
                   flush=True)
     gate(all(e <= 1e-4 for e in form_errs.values()),
          f"tile product forms: {form_errs}")
+    # csrc/gemm.cuh's register-tiled fp32 FMA product (gemm_f32, kernels 11,
+    # 12 and 14 in fp32) in each layout (A and B each kK, stored (rows, K),
+    # or kR, stored (K, rows)) at both tile widths against torch.matmul with
+    # TF32 off: relative L2 <= 1e-5 (exact fp32 sums of up to 8192 terms in
+    # another order)
+    f32_form_errs = {}
+    for fm, fn_, fk in ((520, 384, 1000), (4096, 1024, 8192)):
+        fa, fb = randn(fm, fk), randn(fn_, fk)
+        fwant = fa @ fb.T
+        for am, bm, tw in itertools.product((0, 1), (0, 1), (128, 64)):
+            fgot = tile_product(fa if am == 0 else fa.T.contiguous(), am,
+                                fb if bm == 0 else fb.T.contiguous(), bm,
+                                tile_width=tw)
+            label = (f"({fm},{fn_},{fk}) A {'kK' if am == 0 else 'kR'} "
+                     f"B {'kK' if bm == 0 else 'kR'} width {tw}")
+            f32_form_errs[label] = rel_l2(fgot, fwant)
+            print(f"[form] fp32 {label}: rel_l2 {f32_form_errs[label]:.3e} "
+                  f"(tol 1e-5)", flush=True)
+    gate(all(e <= 1e-5 for e in f32_form_errs.values()),
+         f"fp32 FMA product layouts: {f32_form_errs}")
     del fa, fb, fwant, fgot
 
-    def in_turns(row, shape, run, lib, before, flops):
+    def in_turns(row, shape, run, lib, before, flops, peak="bfloat16"):
         """Device time of ``run`` against its library chain in turns
         (kernel, library, library, kernel; launches queued behind a sleep),
         then back to back, beside the time it replaces (PERF.md's table,
-        same card type)."""
+        same card type); ``flops`` at the ``peak`` type's rate."""
         k1, l1, l2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
                           device_ms(run))
         bk1, bl1, bl2, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
                               time_ms(run))
-        b_ms = bound(0, [(flops, "bfloat16")])[0]
-        r = dict(row=row, shape=shape, kernel_ms=(k1 + k2) / 2,
+        b_ms = bound(0, [(flops, peak)])[0]
+        r = dict(row=row, shape=shape, dtype=peak, kernel_ms=(k1 + k2) / 2,
                  library_ms=(l1 + l2) / 2, ratio=(k1 + k2) / (l1 + l2),
                  back_to_back_kernel_ms=(bk1 + bk2) / 2,
                  back_to_back_library_ms=(bl1 + bl2) / 2,
                  back_to_back_ratio=(bk1 + bk2) / (bl1 + bl2),
                  before_ms=before, bound_ms=b_ms)
-        print(f"[turns] kernel {row} {shape}: device kernel {k1:.4f} / "
+        print(f"[turns] kernel {row} {shape} {peak}: device kernel {k1:.4f} / "
               f"{k2:.4f} ms, library {l1:.4f} / {l2:.4f} ms, kernel/library "
               f"{r['ratio']:.3f}; back to back {bk1:.4f} / {bk2:.4f} against "
               f"{bl1:.4f} / {bl2:.4f}, {r['back_to_back_ratio']:.3f} (before "
@@ -1747,34 +1822,51 @@ def main() -> int:
          0.1761, 4 * n_tok * dim * hid))]
     del xm, wm1, wm2, xl, wl1, wl2
 
-    # the GEGLU FFN at MaskGIT's decode shape (8 x 1024 rows, d 768, inner
-    # 4096), bf16 and fp32 (TF32 off); the library chain is F.linear ->
-    # chunk -> gelu * gate -> F.layer_norm -> F.linear
-    for dtype in (torch.bfloat16, torch.float32):
-        x = randn(n_tok, mg_dim, dtype=dtype)
-        w1 = randn(2 * mg_inner, mg_dim, dtype=dtype, scale=mg_dim ** -0.5)
-        gam = randn(mg_inner, scale=0.1, shift=1.0)
-        w2 = randn(mg_dim, mg_inner, dtype=dtype, scale=mg_inner ** -0.5)
+    # the GEGLU FFN (kernels 11 and 12) at MaskGIT's decode shape (8 x 1024
+    # rows, d 768, inner 4096), at ragged rows (n 520), at d 1024, and at
+    # inner 8704 (n 520: a row wider than the 8192 columns the row passes
+    # hold in registers, walked in chunks), bf16 and fp32 (TF32 off), each
+    # with a bit-equal repeat call; the library
+    # chain is F.linear -> chunk -> gelu * gate -> F.layer_norm -> F.linear
+    # (for kernel 12 its forward + backward). At MaskGIT's shape both
+    # kernels are read against their chains in turns, beside the times of
+    # the kernels they replace (PERF.md's table: bf16 in turns, fp32 back to
+    # back, same card type)
+    ffn_before = {(11, torch.bfloat16): 0.7486, (12, torch.bfloat16): 2.3930,
+                  (11, torch.float32): 6.3029, (12, torch.float32): 16.2629}
+    for (fn_rows, fd, fi), dtype in itertools.product(
+            ((n_tok, mg_dim, mg_inner), (520, mg_dim, mg_inner),
+             (n_tok, 1024, mg_inner), (520, mg_dim, 8704)),
+            (torch.bfloat16, torch.float32)):
+        main_shape = (fn_rows, fd, fi) == (n_tok, mg_dim, mg_inner)
+        dname = str(dtype).split(".")[-1]
+        x = randn(fn_rows, fd, dtype=dtype)
+        w1 = randn(2 * fi, fd, dtype=dtype, scale=fd ** -0.5)
+        gam = randn(fi, scale=0.1, shift=1.0)
+        w2 = randn(fd, fi, dtype=dtype, scale=fi ** -0.5)
         got, want = fused_ffn(x, w1, gam, w2), _ffn_reference(x, w1, gam, w2,
                                                              1e-5)
         gam_c = gam.to(dtype)
 
         def ffn_library():
-            a, gate = F.linear(x, w1).chunk(2, dim=-1)
-            y = F.layer_norm(gate * F.gelu(a), (mg_inner,), gam_c)
+            a, gate_ = F.linear(x, w1).chunk(2, dim=-1)
+            y = F.layer_norm(gate_ * F.gelu(a), (fi,), gam_c)
             return F.linear(y, w2)
 
-        record("ffn", f"({n_tok},{mg_dim}) inner {mg_inner}", dtype,
+        shape = f"({fn_rows},{fd}) inner {fi}"
+        record("ffn", shape, dtype,
                BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                rel_l2(got, want), max_abs(got, want),
                time_ms(lambda: fused_ffn(x, w1, gam, w2)),
                time_ms(lambda: _ffn_reference(x, w1, gam, w2, 1e-5)),
                time_ms(ffn_library), nbytes(x, w1, gam, w2, got),
-               6 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
+               6 * fn_rows * fd * fi,
+               main=main_shape and dtype == torch.bfloat16)
+        repeat_equal(f"ffn {shape} {dname}",
+                     lambda: (fused_ffn(x, w1, gam, w2),), (got,))
 
-        # its backward (kernel 12) on the same operands; the library chain
-        # forward + backward
-        dy = randn(n_tok, mg_dim, dtype=dtype)
+        # its backward (kernel 12) on the same operands
+        dy = randn(fn_rows, fd, dtype=dtype)
         got = fused_ffn_backward(x, w1, gam, w2, dy)
         want = _ffn_backward_reference(x, w1, gam, w2, dy, 1e-5)
         errs = {k: rel_l2(a, b) for k, a, b in zip(
@@ -1784,11 +1876,11 @@ def main() -> int:
 
         def ffn_library_fwd_bwd():
             xl, w1l, gl, w2l = leaves
-            a, gate = F.linear(xl, w1l).chunk(2, dim=-1)
-            y = F.linear(F.layer_norm(gate * F.gelu(a), (mg_inner,), gl), w2l)
+            a, gate_ = F.linear(xl, w1l).chunk(2, dim=-1)
+            y = F.linear(F.layer_norm(gate_ * F.gelu(a), (fi,), gl), w2l)
             return torch.autograd.grad(y, leaves, dy)
 
-        record("ffn_bwd", f"({n_tok},{mg_dim}) inner {mg_inner} (" + ", ".join(
+        record("ffn_bwd", f"{shape} (" + ", ".join(
                    f"{k} {v:.2e}" for k, v in errs.items()) + ")", dtype,
                BWD_BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                max(errs.values()), max(max_abs(a, b) for a, b in zip(got, want)),
@@ -1796,20 +1888,23 @@ def main() -> int:
                time_ms(lambda: _ffn_backward_reference(x, w1, gam, w2, dy,
                                                        1e-5)),
                time_ms(ffn_library_fwd_bwd), nbytes(x, w1, gam, w2, dy, *got),
-               16 * n_tok * mg_dim * mg_inner, main=dtype == torch.bfloat16)
-        if dtype == torch.bfloat16:  # kernels 11 and 12, first read in turns
+               16 * fn_rows * fd * fi,
+               main=main_shape and dtype == torch.bfloat16)
+        repeat_equal(f"ffn_bwd {shape} {dname}",
+                     lambda: fused_ffn_backward(x, w1, gam, w2, dy), got)
+        if main_shape:  # kernels 11 and 12 against their chains in turns
             bwd_turns.append(in_turns(
-                11, f"({n_tok},{mg_dim}) inner {mg_inner}",
-                lambda: fused_ffn(x, w1, gam, w2), ffn_library, 0.7463,
-                6 * n_tok * mg_dim * mg_inner))
+                11, shape, lambda: fused_ffn(x, w1, gam, w2), ffn_library,
+                ffn_before[(11, dtype)], 6 * fn_rows * fd * fi, dname))
             bwd_turns.append(in_turns(
-                12, f"({n_tok},{mg_dim}) inner {mg_inner}",
-                lambda: fused_ffn_backward(x, w1, gam, w2, dy),
-                ffn_library_fwd_bwd, 2.3493, 16 * n_tok * mg_dim * mg_inner))
-        del got, want, leaves
+                12, shape, lambda: fused_ffn_backward(x, w1, gam, w2, dy),
+                ffn_library_fwd_bwd, ffn_before[(12, dtype)],
+                16 * fn_rows * fd * fi, dname))
+        del x, w1, w2, dy, got, want, leaves
 
     # the GEGLU FFN forward at Muse's decode shape (16 x 1024 rows, d 1024,
-    # inner 4096), bf16 (quant none)
+    # inner 4096), bf16 (quant none), and in turns beside the time of the
+    # kernel it replaces (1.8552 ms back to back, PERF.md's table)
     x = randn(16 * 1024, 1024, dtype=torch.bfloat16)
     w1 = randn(2 * 4096, 1024, dtype=torch.bfloat16, scale=1024 ** -0.5)
     gam = randn(4096, scale=0.1, shift=1.0)
@@ -1827,6 +1922,11 @@ def main() -> int:
            time_ms(lambda: _ffn_reference(x, w1, gam, w2, 1e-5)),
            time_ms(ffn_library_muse), nbytes(x, w1, gam, w2, got),
            6 * 16 * 1024 * 1024 * 4096)
+    repeat_equal("ffn (16384,1024) inner 4096 bfloat16",
+                 lambda: (fused_ffn(x, w1, gam, w2),), (got,))
+    bwd_turns.append(in_turns(
+        11, "(16384,1024) inner 4096", lambda: fused_ffn(x, w1, gam, w2),
+        ffn_library_muse, 1.8552, 6 * 16 * 1024 * 1024 * 4096))
     del x, w1, w2, got, want
 
     # the fused head cross-entropy (kernels 13 and 14) at MaskGIT's training
@@ -3538,8 +3638,10 @@ def main() -> int:
                            ring=ring, flash_bthd_rel_l2=bthd_errs,
                            flash_fwd_ptxas=ptxas,
                            flash_bwd_ptxas=bwd_ptxas,
-                           mlp_ptxas=mlp_ptxas, mlp_vs_library=mlp_turns,
+                           mlp_ptxas=mlp_ptxas, fma_ptxas=fma_ptxas,
+                           mlp_vs_library=mlp_turns,
                            tile_product_forms_rel_l2=form_errs,
+                           fp32_product_layouts_rel_l2=f32_form_errs,
                            bwd_vs_library=bwd_turns,
                            flash_bwd_vs_sdpa=bwd_vs_sdpa,
                            flash_fwd_vs_sdpa=fwd_vs_sdpa,
