@@ -1,4 +1,5 @@
-"""A/B timings of the flash backward on one card, beside chip_smoke.py's.
+"""A/B timings of the flash backward (and the fp32 forward) on one card,
+beside chip_smoke.py's.
 
     python attention_models_torch/bench_flash_bwd.py variants [--source F]
         Builds copies of csrc/flash_attention_bwd.cu with the bf16 kernels'
@@ -8,6 +9,17 @@
         and dq kernels in turns at the main paths' shapes (device time,
         launches queued behind a sleep). Every variant must give the first
         one's bits.
+    python attention_models_torch/bench_flash_bwd.py fwd32
+        Builds copies of csrc/flash_attention.cu with the fp32 forward's
+        ring depth and blocks an SM edited, each into its own library under
+        build/flash_fwd32_variants/, and times the fp32 forward (kernel 16's
+        layout) in turns at the recon shape (h 8 and 12) and at t 4096
+        (causal and not). Every variant must give the first one's bits.
+    python attention_models_torch/bench_flash_bwd.py bits --root R
+        Builds the kernels' library of the checkout at R beside this one's
+        and runs the flash kernels of both on the same inputs: the bf16
+        forward and the fp32 backward (dkv, dq) must give R's bits; the
+        fp32 forward's relative L2 to R's is printed.
     python attention_models_torch/bench_flash_bwd.py paths [--root R]
         Prints one JSON line for the checkout at R (default: this one):
         longcontext()'s rows, the 4-shard ring's forward + backward at
@@ -43,6 +55,14 @@ SHAPES = (("recon 5", 8, 8, 1024, False), ("recon 5 h12", 8, 12, 1024, False),
 # name: (dkv stages, dkv blocks an SM, dq stages, dq blocks an SM)
 VARIANTS = {"dkv 3/2 dq 2/4": (3, 2, 2, 4), "dkv 2/3 dq 2/4": (2, 3, 2, 4),
             "dkv 3/2 dq 3/3": (3, 2, 3, 3)}
+# the fp32 forward's (stages, blocks an SM) variants; the first is shipped
+FWD32_VARIANTS = {"2 stages, 3 blocks": (2, 3), "3 stages, 2 blocks": (3, 2),
+                  "2 stages, 2 blocks": (2, 2)}
+FWD32_SHAPES = (("recon h8", 8, 8, 1024, False),
+                ("recon h12", 8, 12, 1024, False),
+                ("t4096 causal", 1, 8, 4096, True),
+                ("t4096", 1, 8, 4096, False))
+HEADERS = ("common.cuh", "hopper.cuh", "flash_f32.cuh", "errors.cu")
 
 
 def _card() -> None:
@@ -78,7 +98,6 @@ def _smem(d: int, dkv_st: int, dq_st: int) -> tuple[int, int]:
 
 def variants(source: str | None) -> None:
     sys.path.insert(0, str(ROOT))
-    from attention_models_torch.ops import _build
     from attention_models_torch.ops import flash_attention as fa
 
     _card()
@@ -89,33 +108,10 @@ def variants(source: str | None) -> None:
         st = [int(text.split(f"constexpr int {k} = ")[1].split(";")[0])
               for k in ("kDkvStages", "kDqStages")]
         cases[f"source {source}"] = (text, *st)
-    out = ROOT / "build" / "flash_bwd_variants"
-    procs, libs = {}, {}
-    for i, (name, (text, _, _)) in enumerate(cases.items()):
-        d = out / f"v{i}"
-        d.mkdir(parents=True, exist_ok=True)
-        for f in ("common.cuh", "hopper.cuh", "errors.cu"):
-            shutil.copy(CSRC / f, d)
-        (d / "flash_attention_bwd.cu").write_text(text)
-        cmd = [_build.nvcc_path(), *_build.ARCH, *_build.FLAGS, "-shared",
-               str(d / "flash_attention_bwd.cu"), str(d / "errors.cu"), "-o",
-               str(d / "lib.so")]
-        procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True))
-    for name, (d, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        regs = [int(x.split()[0]) for x in log.split("Used")[1:]]
-        spills = log.count(" 0 bytes spill stores")
-        print(f"[build] {name}: registers {regs}, kernels without spills "
-              f"{spills} of {len(regs)}", flush=True)
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        for fn in ("amt_flash_bwd_dkv", "amt_flash_bwd_dq"):
-            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+    libs = _build_variants(
+        "flash_bwd_variants", "flash_attention_bwd.cu",
+        {n: c[0] for n, c in cases.items()},
+        ("amt_flash_bwd_dkv", "amt_flash_bwd_dq"))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -162,6 +158,166 @@ def variants(source: str | None) -> None:
                 f"{n} {sum(x) / len(x):.4f} ms ("
                 + " / ".join(f"{y:.4f}" for y in x) + ")"
                 for n, x in times.items()) + "; same bits", flush=True)
+
+
+def _build_variants(out: str, source: str, texts: dict,
+                    fns: tuple) -> dict:
+    """Each text as csrc/``source`` beside the headers it includes, built
+    into build/``out``/v<i>/lib.so by one nvcc each, all started together;
+    prints ptxas's registers and spills and returns the libraries with the
+    entries ``fns`` bound, by name."""
+    from attention_models_torch.ops import _build
+    procs, libs = {}, {}
+    for i, (name, text) in enumerate(texts.items()):
+        d = ROOT / "build" / out / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        for f in HEADERS:
+            shutil.copy(CSRC / f, d)
+        (d / source).write_text(text)
+        cmd = [_build.nvcc_path(), *_build.ARCH, *_build.FLAGS, "-shared",
+               str(d / source), str(d / "errors.cu"), "-o", str(d / "lib.so")]
+        procs[name] = (d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True))
+    for name, (d, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        regs = [int(x.split()[0]) for x in log.split("Used")[1:]]
+        spills = log.count(" 0 bytes spill stores")
+        print(f"[build] {name}: registers {regs}, kernels without spills "
+              f"{spills} of {len(regs)}", flush=True)
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        for fn in fns:
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def fwd32() -> None:
+    sys.path.insert(0, str(ROOT))
+    from attention_models_torch.ops import flash_attention as fa
+
+    _card()
+    base = (CSRC / "flash_attention.cu").read_text()
+    texts = {}
+    for name, (stages, blocks) in FWD32_VARIANTS.items():
+        text = base
+        for old, new in (("constexpr int kFwd32Stages = 2;",
+                          f"constexpr int kFwd32Stages = {stages};"),
+                         ("constexpr int kFwd32Blocks = 3;",
+                          f"constexpr int kFwd32Blocks = {blocks};")):
+            if old not in text:
+                raise ValueError(f"the forward source has no {old!r}")
+            text = text.replace(old, new)
+        texts[name] = text
+    libs = _build_variants("flash_fwd32_variants", "flash_attention.cu",
+                           texts, ("amt_flash_fwd",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    names = list(libs)
+    for label, b, h, t, causal in FWD32_SHAPES:
+        q, k, v = (torch.randn(b, h, t, 64, generator=gen, device="cuda")
+                   for _ in range(3))
+        outs, runs = {}, {}
+        for name in names:
+            o = torch.empty_like(q)
+            lse = torch.empty(b, h, t, device="cuda")
+            outs[name] = (o, lse)
+            strides = fa._strides(q, k, v, o, lse)
+
+            def run(lib=libs[name], o=o, lse=lse, strides=strides):
+                err = lib.amt_flash_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), strides, None, b, h, t, t, 64, 0.125,
+                    int(causal), 0, stream)
+                if err:
+                    raise RuntimeError(f"launch: CUDA error {err}")
+            runs[name] = run
+        times = {n: [] for n in names}
+        for rnd in range(4):
+            for n in (names if rnd % 2 == 0 else names[::-1]):
+                times[n].append(_device_ms(runs[n]))
+        same = all(torch.equal(a, r) for n in names
+                   for a, r in zip(outs[n], outs[names[0]]))
+        if not same:
+            raise AssertionError(f"{label}: variants differ")
+        print(f"[{label}] fp32 forward: " + ", ".join(
+            f"{n} {sum(x) / len(x):.4f} ms ("
+            + " / ".join(f"{y:.4f}" for y in x) + ")"
+            for n, x in times.items()) + "; same bits", flush=True)
+
+
+def bits(root: Path) -> None:
+    sys.path.insert(0, str(ROOT))
+    from attention_models_torch.ops import _build
+    from attention_models_torch.ops import flash_attention as fa
+
+    _card()
+    other = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); from "
+         "attention_models_torch.ops import _build; print(_build.build())"],
+        cwd=root, capture_output=True, text=True, check=True)
+    libs = {"this": ctypes.CDLL(str(_build.build())),
+            "root": ctypes.CDLL(other.stdout.strip().splitlines()[-1])}
+    for lib in libs.values():
+        for fn in ("amt_flash_fwd", "amt_flash_bwd_dkv", "amt_flash_bwd_dq"):
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(lib, q, k, v, g, causal, fwd_from=None):
+        """The forward (or R's, given ``fwd_from``), then dkv and dq."""
+        b, h, t, d = q.shape
+        dtype = q.dtype
+        bf16 = dtype == torch.bfloat16
+        tail = (b, h, t, t, d, 0.125, int(causal), _build.DTYPE_CODES[dtype],
+                stream)
+        o, lse = torch.empty_like(q), torch.empty(b, h, t, device="cuda")
+        flib = lib if fwd_from is None else fwd_from
+        err = flib.amt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), fa._strides(q, k, v, o, lse),
+            fa.fwd_plan(q, k, v, causal).c_array() if bf16 else None, *tail)
+        delta = fa.flash_delta(o, g)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        st = fa._strides(q, k, v, g, lse, delta, dq, dk, dv)
+        plan = fa.bwd_plan(q, k, v, g, causal).c_array() if bf16 else None
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+               lse.data_ptr(), delta.data_ptr())
+        err = err or lib.amt_flash_bwd_dkv(*ins, dk.data_ptr(), dv.data_ptr(),
+                                           st, plan, *tail)
+        err = err or lib.amt_flash_bwd_dq(*ins, dq.data_ptr(), st, plan, *tail)
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+        return o, lse, dq, dk, dv
+
+    for label, b, h, t, causal in SHAPES[:3]:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = (torch.randn(b, h, t, 64, generator=gen,
+                                      device="cuda").to(dtype)
+                          for _ in range(4))
+            this = run(libs["this"], q, k, v, g, causal)
+            ref = run(libs["root"], q, k, v, g, causal)
+            err_o = float((this[0].double() - ref[0].double()).norm()
+                          / ref[0].double().norm())
+            if dtype == torch.bfloat16:  # forward and backward unchanged
+                same = all(torch.equal(x, y) for x, y in zip(this, ref))
+                what = "forward and backward"
+            else:  # the backward on R's forward in both
+                this = run(libs["this"], q, k, v, g, causal,
+                           fwd_from=libs["root"])
+                same = all(torch.equal(x, y) for x, y in zip(this, ref))
+                what = "backward on R's forward"
+            print(f"[bits] {label} {str(dtype)[6:]}: {what} bit-equal to "
+                  f"R's {same}; forward out relative L2 to R's "
+                  f"{err_o:.3e}", flush=True)
+            if not same:
+                raise AssertionError(f"{label} {dtype}: bits differ")
 
 
 def _device_ms(fn, iters: int = 20) -> float:
@@ -240,17 +396,22 @@ def paths(root: Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("variants", "paths"))
+    ap.add_argument("mode", choices=("variants", "fwd32", "bits", "paths"))
     ap.add_argument("--source", default=None,
                     help="variants: one more backward source to time")
     ap.add_argument("--root", default=str(ROOT),
-                    help="paths: the checkout to measure")
+                    help="paths: the checkout to measure; bits: the one "
+                         "to compare with")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_flash_bwd: needs a CUDA card", file=sys.stderr)
         return 2
     if args.mode == "variants":
         variants(args.source)
+    elif args.mode == "fwd32":
+        fwd32()
+    elif args.mode == "bits":
+        bits(Path(args.root).resolve())
     else:
         paths(Path(args.root).resolve())
     return 0

@@ -78,16 +78,38 @@
 // warpgroups taking turns to issue S with named barriers (0-5 % slower),
 // and a third ring stage (from 2 % faster to 6 % slower by shape).
 //
-// fp32 design (the exact path the golden index check runs): one thread per
-// query row, 64 rows a block, q row and output accumulator in registers,
-// k/v tiles in shared memory read as broadcasts, fp32 FMA dots, exact expf.
+// fp32 design (flash_fwd_f32_kernel, the exact path the golden index check
+// and the fp32 MaskGIT trainer run; wgmma has no fp32 operands and TF32
+// would break the 1e-5 gate), built like the backward's dq kernel from
+// csrc/flash_f32.cuh's register tiles:
+//   - a block is 128 threads owning 64 query rows of one (batch, head),
+//     loaded once into shared rows of D + 4 floats; k and v stream in
+//     32-key chunks through a ring of kFwd32Stages stages of 16-byte
+//     cp.async, rows past tk zero-filled;
+//   - per chunk each thread computes a 4 x 4 micro-tile of S (rows
+//     4*(tid/8) + i, keys tid%8 + 8j); a row's 32 scores lie with 8
+//     adjacent lanes, whose shuffles (xor 1, 2, 4) give the chunk's max;
+//     alpha = exp(m_old - m) and P = exp(S * scale - m) are exact expf in
+//     the natural-log domain; each lane keeps its part of the row sum;
+//   - P goes to shared memory as [key][row], then O = alpha O + P V as a
+//     4 x D/8 slice a thread (the rows of its S micro-tile, so alpha is in
+//     its registers);
+//   - the mask runs only on the chunks that cross the block's diagonal and
+//     on the ragged last chunk; chunks past its last row's diagonal are
+//     never loaded; causal q tiles run heaviest first (grid (b*h, q tiles),
+//     as the backward's dq);
+//   - the epilogue sums the row's 8 parts of l by shuffles, writes O / l as
+//     float4 through the output strides and lse = m + log l.
+// Every sum runs in one fixed order that does not depend on the strides.
+// It replaces a one-thread-a-row body (64 rows a block, k and v read as
+// shared-memory broadcasts, ascending causal order) that ran at 15-27 % of
+// the fp32 FMA peak.
 #include "common.cuh"
+#include "flash_f32.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // the fp32 kernel's tiles
-constexpr int kBlockK = 64;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -110,7 +132,7 @@ struct FwdArgs {
   int h, tq, tk;
   float scale;
   int causal;
-  int heaviest_first;  // bf16: run the q tiles in descending order
+  int heaviest_first;  // run the q tiles in descending order
 };
 
 // Shared memory of the bf16 kernel; every tile starts on a 1024-byte
@@ -405,106 +427,134 @@ __global__ __launch_bounds__(kFwdThreads, 1) void flash_fwd_bf16_kernel(
   }
 }
 
-constexpr int kChunk = 16;
+// -- fp32: register tiles (csrc/flash_f32.cuh) ----------------------------------
+
+// The fp32 kernel's ring of k / v chunks and the blocks an SM its
+// registers are held to (ops/flash_attention.py takes no plan in fp32).
+constexpr int kFwd32Stages = 2;
+constexpr int kFwd32Blocks = 3;
 
 template <int D>
-__global__ __launch_bounds__(kBlockQ) void flash_fwd_f32_kernel(FwdArgs a) {
-  __shared__ __align__(16) float ks[kBlockK][D];
-  __shared__ __align__(16) float vs[kBlockK][D];
+struct FwdF32 {
+  float q[kF32Own][D + 4];
+  float k[kFwd32Stages][kF32Chunk][D + 4];
+  float v[kFwd32Stages][kF32Chunk][D + 4];
+  float p[kF32Chunk][kF32Own + 4];  // P, stored [key][query row]
+};
 
-  const int bi = blockIdx.y / a.h, hi = blockIdx.y % a.h;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int row = q0 + threadIdx.x;
-  const int tq = a.tq, tk = a.tk;
-  const int off = tk - tq;
-
-  float qr[D], acc[D];
-  const float4* qrow = reinterpret_cast<const float4*>(
-      static_cast<const float*>(a.q) + bi * a.sq.b + hi * a.sq.h +
-      (row < tq ? row : 0) * a.sq.r);
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 v = row < tq ? qrow[c] : make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[4 * c + 0] = v.x;
-    qr[4 * c + 1] = v.y;
-    qr[4 * c + 2] = v.z;
-    qr[4 * c + 3] = v.w;
-  }
-#pragma unroll
-  for (int c = 0; c < D; ++c) acc[c] = 0.f;
-  float m = kNegInf, l = 0.f;
-
+template <int D>
+__global__ __launch_bounds__(kF32Threads, kFwd32Blocks) void flash_fwd_f32_kernel(
+    FwdArgs a) {
+  extern __shared__ float4 smem_f32[];
+  FwdF32<D>& sm = *reinterpret_cast<FwdF32<D>*>(smem_f32);
+  const int bi = blockIdx.x / a.h, hi = blockIdx.x % a.h;
+  const int qt = a.heaviest_first ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kF32Own;
+  const int tq = a.tq, tk = a.tk, off = tk - tq;
+  const int tid = threadIdx.x;
+  // chunks [0, nfull) hide no key from any row of the block, chunks
+  // [nfull, n) need the mask; none past the last row's diagonal is loaded
+  const int kend = a.causal ? min(tk, q0 + kF32Own + off) : tk;
+  const int n = (kend + kF32Chunk - 1) / kF32Chunk;
+  const int nfull =
+      min(n, (a.causal ? min(tk, q0 + off + 1) : tk) / kF32Chunk);
   const float* kb = static_cast<const float*>(a.k) + bi * a.sk.b + hi * a.sk.h;
   const float* vb = static_cast<const float*>(a.v) + bi * a.sv.b + hi * a.sv.h;
-  const int kend = a.causal ? min(tk, q0 + kBlockQ + off) : tk;
 
-  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBlockK * (D / 4); i += blockDim.x) {
-      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-      float4 kval = make_float4(0.f, 0.f, 0.f, 0.f), vval = kval;
-      if (k0 + r < tk) {
-        const int64_t kr = k0 + r;
-        kval = *reinterpret_cast<const float4*>(kb + kr * a.sk.r + c);
-        vval = *reinterpret_cast<const float4*>(vb + kr * a.sv.r + c);
-      }
-      *reinterpret_cast<float4*>(&ks[r][c]) = kval;
-      *reinterpret_cast<float4*>(&vs[r][c]) = vval;
+  // chunk c into stage c % kFwd32Stages; one commit group a chunk (empty
+  // past n), the q tile in chunk 0's
+  const auto load_chunk = [&](int c) {
+    if (c < n) {
+      const int st = c % kFwd32Stages;
+      load_rows_f32<D>(&sm.k[st][0][0], kb, a.sk.r, c * kF32Chunk, kF32Chunk,
+                       tk);
+      load_rows_f32<D>(&sm.v[st][0][0], vb, a.sv.r, c * kF32Chunk, kF32Chunk,
+                       tk);
     }
+    cp_async_commit();
+  };
+  load_rows_f32<D>(&sm.q[0][0],
+                   static_cast<const float*>(a.q) + bi * a.sq.b + hi * a.sq.h,
+                   a.sq.r, q0, kF32Own, tq);
+#pragma unroll
+  for (int c = 0; c < kFwd32Stages - 1; ++c) load_chunk(c);
+
+  // this thread's rows row .. row + 3: running max m, its part l of the row
+  // sum (the keys tid%8 + 8j of each chunk), o's 4 x D/8 slice
+  const int row = q0 + 4 * (tid / 8);
+  float o[4][D / 8], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) o[i][c] = 0.f;
+  }
+  for (int c = 0; c < n; ++c) {
+    cp_async_wait<kFwd32Stages - 2>();  // chunk c has landed for this thread
+    __syncthreads();  // ... for every thread; chunk c - 1's stage and P free
+    load_chunk(c + kFwd32Stages - 1);
+    const int st = c % kFwd32Stages, k0 = c * kF32Chunk;
+
+    // S of the chunk, scaled; masked (-> kNegInf, P 0) on the diagonal and
+    // the ragged last chunk only
+    float s[4][4];
+    micro_abt<D>(s, &sm.q[0][0], &sm.k[st][0][0]);
+    const bool masked = c >= nfull;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tid % 8 + 8 * j;
+        s[i][j] = masked && (key >= tk || (a.causal && key > row + i + off))
+                      ? kNegInf
+                      : s[i][j] * a.scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // the row's max over its 8 lanes
+#pragma unroll
+      for (int x = 1; x <= 4; x <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float alpha = expf(m[i] - mx);
+      m[i] = mx;
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = masked && s[i][j] == kNegInf ? 0.f : expf(s[i][j] - mx);
+        ps += s[i][j];
+      }
+      l[i] = l[i] * alpha + ps;
+#pragma unroll
+      for (int cc = 0; cc < D / 8; ++cc) o[i][cc] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(&sm.p[tid % 8 + 8 * j][4 * (tid / 8)]) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();
 
-    const int kmax = min(kBlockK, kend - k0);
-    for (int c0 = 0; c0 < kmax; c0 += kChunk) {
-      float s[kChunk];
-      float mx = m;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const int j = c0 + jj, col = k0 + j;
-        const float4* k4 = reinterpret_cast<const float4*>(ks[j]);
-        float dot = 0.f;
-#pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 e = k4[c];
-          dot = fmaf(qr[4 * c + 0], e.x, dot);
-          dot = fmaf(qr[4 * c + 1], e.y, dot);
-          dot = fmaf(qr[4 * c + 2], e.z, dot);
-          dot = fmaf(qr[4 * c + 3], e.w, dot);
-        }
-        const bool masked = col >= tk || (a.causal && col > row + off);
-        s[jj] = masked ? kNegInf : dot * a.scale;
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float alpha = expf(m - mx);
-      m = mx;
-      l *= alpha;
-#pragma unroll
-      for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = s[jj] == kNegInf ? 0.f : expf(s[jj] - m);
-        l += p;
-        const float4* v4 = reinterpret_cast<const float4*>(vs[c0 + jj]);
-#pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 e = v4[c];
-          acc[4 * c + 0] = fmaf(p, e.x, acc[4 * c + 0]);
-          acc[4 * c + 1] = fmaf(p, e.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(p, e.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(p, e.w, acc[4 * c + 3]);
-        }
-      }
-    }
+    // O += P V
+    micro_atb<D>(o, &sm.p[0][0], &sm.v[st][0][0]);
   }
 
-  if (row < tq) {
-    const float inv = 1.f / l;
-    float4* orow = reinterpret_cast<float4*>(
-        static_cast<float*>(a.out) + bi * a.so.b + hi * a.so.h + row * a.so.r);
+  // l over the 8 lanes that share the rows (each lane ends with the same
+  // sum); O / l, then lse = m + log l from the first lane
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c)
-      orow[c] = make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
-                            acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
-    a.lse[bi * a.sl.b + hi * a.sl.h + row * a.sl.r] = m + logf(l);
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int x = 1; x <= 4; x <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+#pragma unroll
+    for (int cc = 0; cc < D / 8; ++cc) o[i][cc] /= l[i];
+  }
+  store_slice<D>(static_cast<float*>(a.out) + bi * a.so.b + hi * a.so.h,
+                 a.so.r, q0, tq, o, 1.f);
+  if (tid % 8 == 0) {
+    float* lb = a.lse + bi * a.sl.b + hi * a.sl.h;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (row + i < tq) lb[(row + i) * a.sl.r] = m[i] + logf(l[i]);
   }
 }
 
@@ -543,10 +593,22 @@ cudaError_t launch_bf16(FwdArgs a, const int64_t* plan, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// The fp32 kernel: grid (b*h, q tiles of 64 rows), causal q tiles heaviest
+// first (b*h rides x, so every head's heaviest tile is in the first wave).
 template <int D>
-cudaError_t launch_f32(const FwdArgs& a, int b, cudaStream_t s) {
-  const dim3 grid((a.tq + kBlockQ - 1) / kBlockQ, b * a.h);
-  flash_fwd_f32_kernel<D><<<grid, kBlockQ, 0, s>>>(a);
+cudaError_t launch_f32(FwdArgs a, int b, cudaStream_t s) {
+  static int64_t smem_set = 0;  // the attribute, set once
+  const int64_t smem = sizeof(FwdF32<D>);
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const dim3 grid(b * a.h, (a.tq + kF32Own - 1) / kF32Own);
+  a.heaviest_first = a.causal;
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, (size_t)smem, s>>>(a);
   return cudaGetLastError();
 }
 

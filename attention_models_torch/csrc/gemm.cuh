@@ -1,5 +1,6 @@
-// Tile products and block reductions shared by the GEGLU FFN and head
-// kernels (csrc/ffn.cu, csrc/ffn_bwd.cu, csrc/xent.cu): C (M x N) = A B
+// Tile products and block reductions shared by the GEGLU FFN, head, MLP,
+// LayerNorm and W8A8 kernels (csrc/ffn.cu, ffn_bwd.cu, xent.cu, mlp_bwd.cu,
+// ln_mlp_bwd.cu, layernorm.cu, quant.cu, tile_product.cu): C (M x N) = A B
 // over K, with A an (M, K) view and B an (N, K) view of device memory, each
 // in one of two layouts:
 //   kK: element (r, k) at p[r * ld + k]  (contiguous along k: x, W1 rows)
@@ -13,12 +14,12 @@
 // cp.async (three stages). A kK tile keeps its rows in shared memory
 // ([r][k]) and feeds the fragments with 32-bit loads; a kR tile keeps
 // [k][r] and feeds them element by element (load_a_frag / load_b_frag).
-// fp32 (gemm_f32: kernels 11, 12 and 14 in fp32): the register-tiled FMA
-// product below, 128 x 128 (or 128 x 64) tiles of 8 x 8 (8 x 4) outputs a
-// thread. The 64 x 64 FMA helpers (fma_tile) serve xent.cu's fp32 logits
-// kernels. Rows and columns past M, N and K are zero-filled, so K adds
-// nothing there. Requirements: M, N, K and every ld multiples of 8,
-// operands 16-byte aligned.
+// fp32 (gemm_f32: kernels 11, 12 and 14 in fp32; reg_product also under
+// kernel 11's GEGLU product and kernels 13 and 14's fp32 logits): the
+// register-tiled FMA product below, 128 x 128 (or 128 x 64) tiles of 8 x 8
+// (8 x 4) outputs a thread. Rows and columns past M, N and K are
+// zero-filled, so K adds nothing there. Requirements: M, N, K and every
+// ld multiples of 8, operands 16-byte aligned.
 #pragma once
 
 #include "common.cuh"
@@ -182,74 +183,6 @@ cudaError_t gemm_bf16(const bf16* A, int lda, const bf16* B, int ldb, OutT* C,
   gemm_bf16_kernel<LA, LB, OutT><<<grid, kThreads, kTileSmem, s>>>(A, lda, B, ldb, C, ldc,
                                                                     M, N, K);
   return cudaGetLastError();
-}
-
-// ---- fp32: 64 x 64 exact FMA tiles (xent.cu's fp32 logits kernels) -------
-constexpr int kFM = 64, kFN = 64, kFK = 16;
-typedef float FTile[kFK][kFM + 4];  // [k][r]
-
-template <int L>
-__device__ __forceinline__ float4 f32_fetch(const float* p, int ld, int R, int K,
-                                            int r0, int k0) {
-  const int tid = threadIdx.x;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (L == kK) {
-    const int r = tid >> 2, kc = (tid & 3) * 4;
-    return r0 + r < R && k0 + kc < K
-               ? *reinterpret_cast<const float4*>(p + (int64_t)(r0 + r) * ld + k0 + kc)
-               : zero;
-  }
-  const int k = tid >> 4, rc = (tid & 15) * 4;
-  return k0 + k < K && r0 + rc < R
-             ? *reinterpret_cast<const float4*>(p + (int64_t)(k0 + k) * ld + r0 + rc)
-             : zero;
-}
-template <int L>
-__device__ __forceinline__ void f32_store(FTile& xs, float4 v) {
-  const int tid = threadIdx.x;
-  if (L == kK) {
-    const int r = tid >> 2, kc = (tid & 3) * 4;
-    xs[kc][r] = v.x;
-    xs[kc + 1][r] = v.y;
-    xs[kc + 2][r] = v.z;
-    xs[kc + 3][r] = v.w;
-  } else {
-    const int k = tid >> 4, rc = (tid & 15) * 4;
-    *reinterpret_cast<float4*>(&xs[k][rc]) = v;
-  }
-}
-
-// acc[i][j] = (A B)[m0 + ty + 16 i][n0 + tx + 16 j], tx = tid % 16, ty =
-// tid / 16; the K loop runs in order
-template <int LA, int LB>
-__device__ void fma_tile(const float* A, int lda, int M, const float* B, int ldb,
-                         int N, int K, int m0, int n0, FTile& as, FTile& bs,
-                         float acc[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    const float4 av = f32_fetch<LA>(A, lda, M, K, m0, k0);
-    const float4 bv = f32_fetch<LB>(B, ldb, N, K, n0, k0);
-    __syncthreads();  // the previous slice (or tile) is consumed
-    f32_store<LA>(as, av);
-    f32_store<LB>(bs, bv);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFK; ++k) {
-      float ar[4], br[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) br[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-  }
 }
 
 // ---- fp32: register-tiled exact FMA products (gemm_f32) -------------------

@@ -272,13 +272,15 @@ __global__ __launch_bounds__(kThreads) void gemm_s8_geglu_kernel(
 // fp32 operands summed in double in k order and rounded once (csrc/ffn.cu's
 // fp32 tile: 64 x 64, 16-deep slices, tile columns 0..31 the "a" rows
 // bx*32 + c of W1 and 32..63 the matching "gate" rows).
+constexpr int kDM = 64, kDN = 64, kDK = 16;  // its tile: rows, columns, k slice
+
 __global__ __launch_bounds__(kThreads) void gemm_geglu_f64acc_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
     float* __restrict__ c, int M, int K, int inner) {
-  __shared__ float as[kFK][kFM + 4];
-  __shared__ float bs[kFK][kFN + 4];
+  __shared__ float as[kDK][kDM + 4];
+  __shared__ float bs[kDK][kDN + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kFM;
+  const int m0 = blockIdx.y * kDM;
   const int lr = tid / 4, lk = (tid % 4) * 4;
   const bool a_ok = m0 + lr < M;
   const float* a_src = a + (int64_t)(a_ok ? m0 + lr : 0) * K + lk;
@@ -289,7 +291,7 @@ __global__ __launch_bounds__(kThreads) void gemm_geglu_f64acc_kernel(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-  for (int k0 = 0; k0 < K; k0 += kFK) {
+  for (int k0 = 0; k0 < K; k0 += kDK) {
     const float4 av = a_ok ? *reinterpret_cast<const float4*>(a_src + k0)
                            : make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 bv = *reinterpret_cast<const float4*>(b_src + k0);
@@ -298,7 +300,7 @@ __global__ __launch_bounds__(kThreads) void gemm_geglu_f64acc_kernel(
     bs[lk][lr] = bv.x; bs[lk + 1][lr] = bv.y; bs[lk + 2][lr] = bv.z; bs[lk + 3][lr] = bv.w;
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < kFK; ++k) {
+    for (int k = 0; k < kDK; ++k) {
       double ar[4], br[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) ar[i] = as[k][ty + 16 * i];
@@ -531,7 +533,7 @@ AMT_EXPORT int amt_ffn_q8wide(const void* x, const void* w1, const void* gamma,
                     eps, s);
   }
   if (dtype == AMT_F32) {
-    gemm_geglu_f64acc_kernel<<<dim3(inner / 32, (n + kFM - 1) / kFM), kThreads, 0, s>>>(
+    gemm_geglu_f64acc_kernel<<<dim3(inner / 32, (n + kDM - 1) / kDM), kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w1), gs, n, d, inner);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     return ffn_tail(gs, gm, w2, f2, yqi, syf, static_cast<float*>(out), n, d, inner,

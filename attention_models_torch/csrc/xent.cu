@@ -20,35 +20,47 @@
 // (0.313 ms / 4.62 ms); h, W and the outputs are ~25 MB (0.008 ms).
 //
 // Design. The TPU kernel holds a (rows, V) logits tile and the whole W in
-// VMEM; here one fp32 row of logits is 32 KB. The forward streams W in
-// 128-wide vocab chunks through csrc/gemm.cuh's tile product (both
-// operands kK as they lie) and keeps, per thread and row, a running (max,
-// sum of exp) over the columns it holds -- the online softmax -- and the
-// target's logit when its chunk passes; the threads' partial statistics
-// merge at the end of the block. The vocab is split into up to 4 ranges,
-// one block each, so 8192 rows fill the card; a small kernel merges the
-// ranges' statistics in order. The (n, V) logits never reach device memory.
+// VMEM; here one fp32 row of logits is 32 KB, and the (n, V) logits never
+// reach device memory in the forward. Both products of logits = h W^T run
+// on tiles of 128 rows x 128 vocab columns, both operands K-major as they
+// lie:
+//   - bf16: csrc/gemm_sm90.cuh's TMA/wgmma tile product (planned on the
+//     host: ops/xent.py::xent_fwd_plan and the first product of
+//     xent_bwd_plan);
+//   - fp32: csrc/gemm.cuh's register-tiled FMA product (reg_product; no
+//     plan), each thread holding 8 rows x 8 columns.
+// The forward's epilogue (XentStats; xent_stats_f32_kernel) forms each
+// logit as the TPU kernel rounds it and never stores one: per row it keeps
+// the (max, sum of exp) over the tile's columns the thread holds, merges
+// them across the lanes that share the row in a fixed order (a quad of the
+// wgmma layout; the 16 lanes of a register-tile row), and picks the
+// target's logit where the target lies in the tile. It writes one
+// (max, sum, target logit) triple per row and column tile into an fp32
+// partial scratch (3, V / 128, n); xent_combine_kernel merges a row's
+// partials in column order (lse = max + log sum, nll = lse - target
+// logit). V is a multiple of 128 (the C entries check it), so no tile
+// reaches past V.
 // The backward writes dl once, as an (n, V) scratch in the dtype (134 MB at
 // these shapes in bf16), then runs the two products dh = dl W and dW =
 // dl^T h from it; recomputing the logits per (d, V) tile of dW instead
-// would skip the scratch at the price of a third product. In bf16 its three
-// products are csrc/gemm_sm90.cuh's TMA/wgmma tile product:
-//   1. logits = h W^T (both K-major), the epilogue forming dl in registers
-//      and writing it in bf16 with, given a bias, the fp32 column sums of
-//      dl (before the rounding, as the TPU kernel sums db) per 64 rows;
-//   2. dh = dl W, W read MN-major, bf16 out;
-//   3. dW = dl^T h, both operands MN-major, fp32 out (K = n split into
-//      ordered partials where the plan says so);
-// the host plan (ops/xent.py::xent_bwd_plan) holds the three products'
-// maps, grids and tile widths. In fp32 the products stay csrc/gemm.cuh's
-// exact FMA tiles (dl^T read as its kR operands). Deterministic, no
-// atomics: the db partials and any split of dW are summed in order.
+// would skip the scratch at the price of a third product:
+//   1. logits = h W^T, the epilogue (XentDl; xent_grad_f32_kernel) forming
+//      dl in registers and writing it in the dtype with, given a bias, the
+//      fp32 column sums of dl (before the rounding, as the TPU kernel sums
+//      db): bf16 one partial row per 64 rows (a warpgroup), fp32 one per
+//      128-row tile;
+//   2. dh = dl W (bf16: W read MN-major; fp32: gemm_f32, dl kK and W kR);
+//   3. dW = dl^T h (bf16: both operands MN-major, K = n split into ordered
+//      partials where the plan says so; fp32: gemm_f32, both kR).
+// Deterministic, no atomics: the statistics, the db partials and any split
+// of dW are merged or summed in one fixed order, so a repeat call gives
+// the same bits.
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int kMaxSplits = 4;  // vocab ranges of the forward (ops/xent.py)
+constexpr int kTile = 128;  // rows and vocab columns of a logits tile
 
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
@@ -56,11 +68,11 @@ __device__ __forceinline__ float round_to(float v) {
 }
 
 // The logit as the TPU kernel forms it: the product rounded to the dtype,
-// plus the bias in the dtype (rounded again).
+// plus the bias b (already in the dtype) when there is one, rounded again.
 template <typename T>
-__device__ __forceinline__ float logit(float acc, const T* bias, int col) {
+__device__ __forceinline__ float logit(float acc, bool has_bias, float b) {
   const float l = round_to<T>(acc);
-  return bias != nullptr ? round_to<T>(l + to_f32<T>(bias[col])) : l;
+  return has_bias ? round_to<T>(l + b) : l;
 }
 
 // Online-softmax merge of (m, s) with (om, os).
@@ -70,17 +82,17 @@ __device__ __forceinline__ void merge(float& m, float& s, float om, float os) {
   m = mm;
 }
 
-// part: (3, splits, n) fp32 = running max, sum of exp and target logit of
-// each row over each vocab range.
+// part: (3, tiles, n) fp32 = max, sum of exp and target logit of each row
+// over each column tile; merged in column order.
 __global__ void xent_combine_kernel(const float* __restrict__ part, float* __restrict__ nll,
-                                    float* __restrict__ lse, int n, int splits) {
+                                    float* __restrict__ lse, int n, int tiles) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n) return;
   const float* pm = part;
-  const float* ps = part + (int64_t)splits * n;
-  const float* pt = part + (int64_t)2 * splits * n;
+  const float* ps = part + (int64_t)tiles * n;
+  const float* pt = part + (int64_t)2 * tiles * n;
   float m = pm[r], s = ps[r], tl = pt[r];
-  for (int k = 1; k < splits; ++k) {
+  for (int k = 1; k < tiles; ++k) {
     merge(m, s, pm[(int64_t)k * n + r], ps[(int64_t)k * n + r]);
     tl += pt[(int64_t)k * n + r];
   }
@@ -89,158 +101,135 @@ __global__ void xent_combine_kernel(const float* __restrict__ part, float* __res
   nll[r] = l - tl;
 }
 
-// Forward, bf16: block (range, row tile of 128); each thread holds 8 rows
-// (mt, half) and, per chunk, 8 of their columns.
-__global__ __launch_bounds__(kThreads) void xent_fwd_bf16_kernel(
-    const bf16* __restrict__ h, const bf16* __restrict__ w, const bf16* __restrict__ bias,
-    const int* __restrict__ tgt, float* __restrict__ part, int n, int d, int V,
-    int span) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int m0 = blockIdx.y * kBM, v0 = blockIdx.x * span;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-  int tg[4][2];
-  float mx[4][2], sm[4][2], tl[4][2];
+// The forward's epilogue in bf16: acc = h W^T of a warpgroup's 64 x BN tile
+// (rows m0r.., vocab columns n0..); each thread's two rows (rl, rl + 8)
+// over its BN / 4 columns, merged over the quad (t), written as the row's
+// partial for column tile blockIdx.x. The logits take the accumulators'
+// registers (two blocks an SM leave a thread 96).
+struct XentStats {
+  struct Args {
+    const bf16* bias;  // (V,) or null
+    const int* tgt;    // (n,)
+    float* part;       // (3, gridDim.x, n)
+    int m, n;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
+                                             const Args& a, uint8_t*, int m0r,
+                                             int n0, int) {
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+    const int r0 = m0r + rl, r1 = r0 + 8;
+    const int tg[2] = {r0 < a.m ? a.tgt[r0] : -1, r1 < a.m ? a.tgt[r1] : -1};
+    const bool has_bias = a.bias != nullptr;
+    // the logits in place of the accumulators (l[4i + e]: row e / 2,
+    // column 8i + 2t + e % 2; every column lies below V, a multiple of the
+    // tile width), then each row's max, sum of exp and target logit
+    float l[BN / 2];
+    float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f}, tl[2] = {0.f, 0.f};
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t;
+      const float2 bb = has_bias ? sm90::bias_pair(a.bias, col)
+                                 : make_float2(0.f, 0.f);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-      tg[mt][half] = row < n ? tgt[row] : -1;
-      mx[mt][half] = -INFINITY;
-      sm[mt][half] = 0.f;
-      tl[mt][half] = 0.f;
-    }
-  for (int n0 = v0; n0 < v0 + span; n0 += kBN) {
-    float acc[4][4][4];
-    mma_tile<kK, kK>(h, d, n, w, d, V, d, m0, n0, smem, acc);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float l[8];
-        float cm = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int col = n0 + wn * 32 + nt * 8 + 2 * t + u;
-            const float v = logit<bf16>(acc[mt][nt][2 * half + u], bias, col);
-            l[nt * 2 + u] = v;
-            cm = fmaxf(cm, v);
-            if (col == tg[mt][half]) tl[mt][half] = v;
-          }
-        const float mm = fmaxf(mx[mt][half], cm);
-        float s = sm[mt][half] * expf(mx[mt][half] - mm);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += expf(l[e] - mm);
-        sm[mt][half] = s;
-        mx[mt][half] = mm;
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e / 2, u = e % 2;
+        l[4 * i + e] = logit<bf16>(acc[4 * i + e], has_bias, u ? bb.y : bb.x);
+        m[hr] = fmaxf(m[hr], l[4 * i + e]);
+        if (col + u == tg[hr]) tl[hr] = l[4 * i + e];
       }
-  }
-  // merge across the 4 lanes of a quad, then across the 4 column warps
+    }
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+    for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+      for (int e = 0; e < 4; ++e) s[e / 2] += expf(l[4 * i + e] - m[e / 2]);
+    // the quad's four lanes hold the row's other columns
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
       for (int o = 1; o <= 2; o <<= 1) {
-        const float om = __shfl_xor_sync(0xffffffffu, mx[mt][half], o);
-        const float os = __shfl_xor_sync(0xffffffffu, sm[mt][half], o);
-        tl[mt][half] += __shfl_xor_sync(0xffffffffu, tl[mt][half], o);
-        merge(mx[mt][half], sm[mt][half], om, os);
+        const float om = __shfl_xor_sync(0xffffffffu, m[hr], o);
+        const float os = __shfl_xor_sync(0xffffffffu, s[hr], o);
+        tl[hr] += __shfl_xor_sync(0xffffffffu, tl[hr], o);
+        merge(m[hr], s[hr], om, os);
       }
-  __syncthreads();  // the tile product's shared memory is free
-  float* red = reinterpret_cast<float*>(smem_raw);  // [3][4 wn][kBM]
-  if (t == 0) {
+    if (t != 0) return;
+    const int64_t plane = (int64_t)gridDim.x * a.m;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = wm * 64 + mt * 16 + g + half * 8;
-        red[(0 * 4 + wn) * kBM + r] = mx[mt][half];
-        red[(1 * 4 + wn) * kBM + r] = sm[mt][half];
-        red[(2 * 4 + wn) * kBM + r] = tl[mt][half];
-      }
-  }
-  __syncthreads();
-  if (threadIdx.x < kBM && m0 + threadIdx.x < n) {
-    const int r = threadIdx.x;
-    float m = red[r], s = red[4 * kBM + r], tsum = red[8 * kBM + r];
-    for (int q = 1; q < 4; ++q) {
-      merge(m, s, red[q * kBM + r], red[(4 + q) * kBM + r]);
-      tsum += red[(8 + q) * kBM + r];
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = hr ? r1 : r0;
+      if (row >= a.m) continue;
+      const int64_t at = (int64_t)blockIdx.x * a.m + row;
+      a.part[at] = m[hr];
+      a.part[plane + at] = s[hr];
+      a.part[2 * plane + at] = tl[hr];
     }
-    const int64_t at = (int64_t)blockIdx.x * n + m0 + r;
-    const int64_t plane = (int64_t)gridDim.x * n;
-    part[at] = m;
-    part[plane + at] = s;
-    part[2 * plane + at] = tsum;
   }
+};
+
+// The fp32 logits of a 128 x 128 tile on the register-tiled FMA product:
+// acc[i][4 cg + j] is (h W^T)[row i][n0 + 64 cg + 4 tx + j], rows 4 ty + i
+// (i < 4) and 64 + 4 ty + i - 4 (i >= 4) of the tile.
+__device__ __forceinline__ void f32_logits(const float* h, const float* w, int n,
+                                           int d, int V, int m0, int n0,
+                                           RTiles<kTile>& sm, float (&acc)[8][8]) {
+  reg_product<kTile>(plain_piece<kK, kRM>(h, d, n, m0),
+                     plain_piece<kK, kTile>(w, d, V, n0), d, sm, acc);
 }
 
-// Forward, fp32: 64-row tiles of exact FMA products, 64-wide chunks; each
-// thread holds rows ty + 16 i and, per chunk, columns tx + 16 j.
-__global__ __launch_bounds__(kThreads) void xent_fwd_f32_kernel(
-    const float* __restrict__ h, const float* __restrict__ w, const float* __restrict__ bias,
-    const int* __restrict__ tgt, float* __restrict__ part, int n, int d, int V,
-    int span) {
-  __shared__ __align__(16) FTile as, bs;
-  const int m0 = blockIdx.y * kFM, v0 = blockIdx.x * span;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  int tg[4];
-  float mx[4], sm[4], tl[4];
+// The tile row of f32_logits' accumulator row i.
+__device__ __forceinline__ int f32_row(int i) {
+  const int ty = threadIdx.x / 16;
+  return i < 4 ? 4 * ty + i : 60 + 4 * ty + i;
+}
+
+// Forward, fp32: block (column tile, row tile of 128); each row's 128
+// columns lie with the 16 lanes that share ty, merged by shuffles (xor 1 ..
+// 8), then written as the row's partial for this column tile.
+__global__ __launch_bounds__(kRThreads, 2) void xent_stats_f32_kernel(
+    const float* __restrict__ h, const float* __restrict__ w,
+    const float* __restrict__ bias, const int* __restrict__ tgt,
+    float* __restrict__ part, int n, int d, int V) {
+  __shared__ __align__(16) RTiles<kTile> sm;
+  const int m0 = blockIdx.y * kRM, n0 = blockIdx.x * kTile;
+  float acc[8][8];
+  f32_logits(h, w, n, d, V, m0, n0, sm, acc);
+  const int tx = threadIdx.x % 16;
+  const bool has_bias = bias != nullptr;
+  int col[8];
+  float bb[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    tg[i] = row < n ? tgt[row] : -1;
-    mx[i] = -INFINITY;
-    sm[i] = 0.f;
-    tl[i] = 0.f;
+  for (int j = 0; j < 8; ++j) {
+    col[j] = n0 + 64 * (j / 4) + 4 * tx + j % 4;
+    bb[j] = has_bias ? bias[col[j]] : 0.f;
   }
-  for (int n0 = v0; n0 < v0 + span; n0 += kFN) {
-    float acc[4][4];
-    fma_tile<kK, kK>(h, d, n, w, d, V, d, m0, n0, as, bs, acc);
+  const int64_t plane = (int64_t)gridDim.x * n;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float l[4];
-      float cm = -INFINITY;
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + f32_row(i);
+    const int tg = row < n ? tgt[row] : -1;
+    float l[8], m = -INFINITY, s = 0.f, tl = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx + 16 * j;
-        l[j] = logit<float>(acc[i][j], bias, col);
-        cm = fmaxf(cm, l[j]);
-        if (col == tg[i]) tl[i] = l[j];
-      }
-      const float mm = fmaxf(mx[i], cm);
-      float s = sm[i] * expf(mx[i] - mm);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s += expf(l[j] - mm);
-      sm[i] = s;
-      mx[i] = mm;
+    for (int j = 0; j < 8; ++j) {
+      l[j] = logit<float>(acc[i][j], has_bias, bb[j]);
+      m = fmaxf(m, l[j]);
+      if (col[j] == tg) tl = l[j];
     }
-  }
-  // merge across the 16 lanes that share ty
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) s += expf(l[j] - m);
 #pragma unroll
     for (int o = 1; o <= 8; o <<= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, mx[i], o);
-      const float os = __shfl_xor_sync(0xffffffffu, sm[i], o);
-      tl[i] += __shfl_xor_sync(0xffffffffu, tl[i], o);
-      merge(mx[i], sm[i], om, os);
+      const float om = __shfl_xor_sync(0xffffffffu, m, o);
+      const float os = __shfl_xor_sync(0xffffffffu, s, o);
+      tl += __shfl_xor_sync(0xffffffffu, tl, o);
+      merge(m, s, om, os);
     }
-  if (tx == 0) {
-    const int64_t plane = (int64_t)gridDim.x * n;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty + 16 * i;
-      if (row >= n) continue;
+    if (tx == 0 && row < n) {
       const int64_t at = (int64_t)blockIdx.x * n + row;
-      part[at] = mx[i];
-      part[plane + at] = sm[i];
-      part[2 * plane + at] = tl[i];
+      part[at] = m;
+      part[plane + at] = s;
+      part[2 * plane + at] = tl;
     }
   }
 }
@@ -272,23 +261,19 @@ struct XentDl {
     const int tg[2] = {ok[0] ? a.tgt[r0] : -1, ok[1] ? a.tgt[r1] : -1};
     const float ls[2] = {ok[0] ? a.lse[r0] : 0.f, ok[1] ? a.lse[r1] : 0.f};
     const float cf[2] = {ok[0] ? a.coef[r0] : 0.f, ok[1] ? a.coef[r1] : 0.f};
+    const bool has_bias = a.bias != nullptr;
     float cs[BN / 4];
 #pragma unroll
     for (int i = 0; i < BN / 8; ++i) {
       const int cl = 8 * i + 2 * t, col = n0 + cl;
-      float bb[2] = {0.f, 0.f};
-      if (a.bias != nullptr && col < a.n) {
-        const float2 b2 = sm90::bias_pair(a.bias, col);
-        bb[0] = b2.x;
-        bb[1] = b2.y;
-      }
+      const float2 bb = has_bias && col < a.n ? sm90::bias_pair(a.bias, col)
+                                              : make_float2(0.f, 0.f);
       float v[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int h = e / 2, u = e % 2;
-        float l = round_to<bf16>(acc[4 * i + e]);
-        if (a.bias != nullptr) l = round_to<bf16>(l + bb[u]);
-        const float p = expf(l - ls[h]);
+        const float p =
+            expf(logit<bf16>(acc[4 * i + e], has_bias, u ? bb.y : bb.x) - ls[h]);
         // a row past n has coef 0 and no target: nothing, even where p is inf
         v[e] = ok[h] ? (p - (col + u == tg[h] ? 1.f : 0.f)) * cf[h] : 0.f;
       }
@@ -306,97 +291,105 @@ struct XentDl {
   }
 };
 
-// Backward, first pass, fp32: 64 x 64 tiles; dbpart rows are 64-row tiles.
-__global__ __launch_bounds__(kThreads) void xent_dl_f32_kernel(
-    const float* __restrict__ h, const float* __restrict__ w, const float* __restrict__ bias,
-    const int* __restrict__ tgt, const float* __restrict__ lse,
-    const float* __restrict__ coef, float* __restrict__ dl, float* __restrict__ dbpart,
-    int n, int d, int V) {
-  __shared__ __align__(16) FTile as, bs;
-  __shared__ float red[kThreads / 32][kFN];
-  const int m0 = blockIdx.y * kFM, n0 = blockIdx.x * kFN;
-  float acc[4][4];
-  fma_tile<kK, kK>(h, d, n, w, d, V, d, m0, n0, as, bs, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float cs[4] = {0.f, 0.f, 0.f, 0.f};
+// Backward, first pass, fp32: dl of a 128 x 128 tile on the register-tiled
+// FMA product, written in fp32; given dbpart, the tile's column sums of dl
+// (a thread's 8 rows, the warp's two ty, then the 8 warps in order) as
+// row blockIdx.y of dbpart.
+__global__ __launch_bounds__(kRThreads, 2) void xent_grad_f32_kernel(
+    const float* __restrict__ h, const float* __restrict__ w,
+    const float* __restrict__ bias, const int* __restrict__ tgt,
+    const float* __restrict__ lse, const float* __restrict__ coef,
+    float* __restrict__ dl, float* __restrict__ dbpart, int n, int d, int V) {
+  __shared__ __align__(16) RTiles<kTile> sm;
+  const int m0 = blockIdx.y * kRM, n0 = blockIdx.x * kTile;
+  float acc[8][8];
+  f32_logits(h, w, n, d, V, m0, n0, sm, acc);
+  const int tx = threadIdx.x % 16;
+  const bool has_bias = bias != nullptr;
+  float bb[8], cs[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
+  for (int j = 0; j < 8; ++j) {
+    bb[j] = has_bias ? bias[n0 + 64 * (j / 4) + 4 * tx + j % 4] : 0.f;
+    cs[j] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + f32_row(i);
     const bool ok = row < n;
     const int tg = ok ? tgt[row] : -1;
     const float ls = ok ? lse[row] : 0.f, cf = ok ? coef[row] : 0.f;
+    float v[8];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      const float p = expf(logit<float>(acc[i][j], bias, col) - ls);
-      const float v = (p - (col == tg ? 1.f : 0.f)) * cf;
-      cs[j] += v;
-      if (ok) dl[(int64_t)row * V + col] = v;
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 64 * (j / 4) + 4 * tx + j % 4;
+      const float p = expf(logit<float>(acc[i][j], has_bias, bb[j]) - ls);
+      v[j] = ok ? (p - (col == tg ? 1.f : 0.f)) * cf : 0.f;
+      cs[j] += v[j];
+    }
+    if (ok) {
+#pragma unroll
+      for (int cg = 0; cg < 2; ++cg)
+        store4(dl + (int64_t)row * V + n0 + 64 * cg + 4 * tx, v[4 * cg],
+               v[4 * cg + 1], v[4 * cg + 2], v[4 * cg + 3]);
     }
   }
   if (dbpart == nullptr) return;
-  // the two ty of a warp, then the 8 warps in order
+  // the product's stages are free (its last barrier follows its last read)
+  float* red = reinterpret_cast<float*>(&sm);  // [8 warps][kTile]
 #pragma unroll
-  for (int j = 0; j < 4; ++j) cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 16);
+  for (int j = 0; j < 8; ++j) cs[j] += __shfl_xor_sync(0xffffffffu, cs[j], 16);
   if ((threadIdx.x % 32) < 16) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[threadIdx.x / 32][tx + 16 * j] = cs[j];
+    for (int j = 0; j < 8; ++j)
+      red[(threadIdx.x / 32) * kTile + 64 * (j / 4) + 4 * tx + j % 4] = cs[j];
   }
   __syncthreads();
-  if (threadIdx.x < kFN) {
+  if (threadIdx.x < kTile) {
     float s = 0.f;
-    for (int q = 0; q < kThreads / 32; ++q) s += red[q][threadIdx.x];
+    for (int q = 0; q < kRThreads / 32; ++q) s += red[q * kTile + threadIdx.x];
     dbpart[(int64_t)blockIdx.y * V + n0 + threadIdx.x] = s;
   }
 }
 
-int vocab_splits(int V, int chunk) {
-  const int chunks = V / chunk;
-  for (int k = kMaxSplits; k > 1; k /= 2)
-    if (chunks % k == 0) return k;
-  return 1;
-}
-
 }  // namespace
 
-// part: fp32 scratch of 3 * 4 * n; nll, lse: fp32 (n,). bias may be null.
+// part: fp32 scratch (3, V / 128, n); nll, lse: fp32 (n,). bias may be
+// null. bf16 only: plan, ops/xent.py::XentFwdPlan (the logits product's
+// GemmPlan, BN 128).
 AMT_EXPORT int amt_head_xent_fwd(const void* h, const void* w, const void* bias,
-                                 const void* tgt, void* part, void* nll, void* lse, int n,
-                                 int d, int V, int dtype, void* stream) {
+                                 const void* tgt, void* part, void* nll, void* lse,
+                                 const int64_t* plan, int n, int d, int V, int dtype,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || d % 8 != 0 || V % kBN != 0) return cudaErrorInvalidValue;
+  if (n <= 0 || d % 8 != 0 || V % kTile != 0) return cudaErrorInvalidValue;
   const auto* tg = static_cast<const int*>(tgt);
   auto* pp = static_cast<float*>(part);
+  const int tiles = V / kTile;
   cudaError_t err;
-  int splits;
   if (dtype == AMT_BF16) {
-    splits = vocab_splits(V, kBN);
-    if ((err = cudaFuncSetAttribute(xent_fwd_bf16_kernel,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)kTileSmem)) != cudaSuccess)
-      return err;
-    const dim3 grid(splits, (n + kBM - 1) / kBM);
-    xent_fwd_bf16_kernel<<<grid, kThreads, kTileSmem, s>>>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-        static_cast<const bf16*>(bias), tg, pp, n, d, V, V / splits);
+    using sm90::Form;
+    using sm90::kK;
+    if (plan == nullptr || plan[13] != tiles) return cudaErrorInvalidValue;
+    const XentStats::Args xa{static_cast<const bf16*>(bias), tg, pp, n, V};
+    err = sm90::gemm_from_plan<Form<kK, kK>, XentStats, kTile>(
+        plan, nullptr, h, w, nullptr, nullptr, xa, n, V, d, V, s);
   } else if (dtype == AMT_F32) {
-    splits = vocab_splits(V, kFN);
-    const dim3 grid(splits, (n + kFM - 1) / kFM);
-    xent_fwd_f32_kernel<<<grid, kThreads, 0, s>>>(
+    xent_stats_f32_kernel<<<dim3(tiles, (n + kRM - 1) / kRM), kRThreads, 0, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(w),
-        static_cast<const float*>(bias), tg, pp, n, d, V, V / splits);
+        static_cast<const float*>(bias), tg, pp, n, d, V);
+    err = cudaGetLastError();
   } else {
     return cudaErrorInvalidValue;
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
   xent_combine_kernel<<<(n + 255) / 256, 256, 0, s>>>(pp, static_cast<float*>(nll),
-                                                     static_cast<float*>(lse), n, splits);
+                                                     static_cast<float*>(lse), n, tiles);
   return cudaGetLastError();
 }
 
 // dl: (n, V) scratch in the dtype; dbpart: fp32 partial column sums of dl
 // when the bias is given (else unused, may be null): (2 ceil(n / 128), V) in
-// bf16, (ceil(n / 64), V) in fp32; dh (n, d) in the dtype; dw (V, d) and db
+// bf16, (ceil(n / 128), V) in fp32; dh (n, d) in the dtype; dw (V, d) and db
 // (V,) in fp32. bf16 only: plan, ops/xent.py::XentBwdPlan (3 GemmPlans:
 // logits, dh, dW), and wpart, the fp32 partials of dW where its plan splits
 // K (else unused).
@@ -406,7 +399,7 @@ AMT_EXPORT int amt_head_xent_bwd(const void* h, const void* w, const void* bias,
                                  void* wpart, const int64_t* plan, int n, int d, int V,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0 || n % 8 != 0 || d % 8 != 0 || V % kBN != 0) return cudaErrorInvalidValue;
+  if (n <= 0 || n % 8 != 0 || d % 8 != 0 || V % kTile != 0) return cudaErrorInvalidValue;
   const bool has_bias = bias != nullptr;
   const auto* tg = static_cast<const int*>(tgt);
   const auto* ls = static_cast<const float*>(lse);
@@ -441,8 +434,8 @@ AMT_EXPORT int amt_head_xent_bwd(const void* h, const void* w, const void* bias,
     const auto* hi = static_cast<const float*>(h);
     const auto* wi = static_cast<const float*>(w);
     auto* dli = static_cast<float*>(dl);
-    const int tiles = (n + kFM - 1) / kFM;
-    xent_dl_f32_kernel<<<dim3(V / kFN, tiles), kThreads, 0, s>>>(
+    const int tiles = (n + kRM - 1) / kRM;
+    xent_grad_f32_kernel<<<dim3(V / kTile, tiles), kRThreads, 0, s>>>(
         hi, wi, static_cast<const float*>(bias), tg, ls, cf, dli, dbp, n, d, V);
     if ((err = cudaGetLastError()) != cudaSuccess ||
         (has_bias && (err = colsum(dbp, static_cast<float*>(db), tiles, V, s)) != cudaSuccess) ||

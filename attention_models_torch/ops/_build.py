@@ -51,7 +51,7 @@ _SIGNATURES = {
     "amt_ln_mlp_bwd": [_S] + [_P] * 20 + [_I, _I, _I, _F, _P],
     "amt_ffn": [_S] + [_P] * 8 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_bwd": [_S] + [_P] * 15 + [_I, _I, _I, _F, _I, _P],
-    "amt_head_xent_fwd": [_P] * 7 + [_I] * 4 + [_P],
+    "amt_head_xent_fwd": [_P] * 7 + [_S] + [_I] * 4 + [_P],
     "amt_head_xent_bwd": [_P] * 12 + [_S] + [_I] * 4 + [_P],
     "amt_sample_epilogue": [_P] * 4 + [_I, _I, _P, _P, _I, _I, _I, _I, _F,
                                        _F, _I, _P],

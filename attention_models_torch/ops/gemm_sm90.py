@@ -8,7 +8,8 @@ cannot take raises a ValueError naming it before anything is launched; the
 C side checks the plan against the product, encodes the maps and launches.
 Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 (``ops/ffn.py::
 ln_mlp_bwd_plan``), 11 and 12 (``ops/ffn.py::ffn_plan`` and
-``ffn_bwd_plan``) and 14 (``ops/xent.py::xent_bwd_plan``) build their plans
+``ffn_bwd_plan``), 13 and 14 (``ops/xent.py::xent_fwd_plan`` and
+``xent_bwd_plan``) build their plans
 from these pieces. Kernel 11's GEGLU product reads W1 in the paired-column
 form: its B tile is two boxes of ``bn / 2`` rows, W1's "a" rows and the
 matching "gate" rows.
@@ -39,7 +40,7 @@ SLAB = 64
 GEMM_STAGES = {(128, False): 3, (256, False): 4, (128, True): 3}
 ROW_ALIGN = 32        # elements: scratch and staged rows start 64-byte aligned
 SM_COUNT = 132        # the H100 SXM's SMs: the split aims at two blocks each
-MAX_SPLITS = 8        # ranges of K at most (each adds an fp32 partial plane)
+MAX_K_SPLITS = 8      # ranges of K at most (each adds an fp32 partial plane)
 K_MAJOR, MN_MAJOR = 0, 1
 
 
@@ -158,10 +159,10 @@ def split_k(tiles: int, k: int) -> tuple[int, int]:
     """(splits, slices a split) for a product of ``tiles`` output tiles over
     K: as many ranges of K as one wave of two blocks an SM holds (a block
     past the wave would run alone at its end), each a whole number of
-    GEMM_K slices, at most MAX_SPLITS; 1 where the tiles fill half the
+    GEMM_K slices, at most MAX_K_SPLITS; 1 where the tiles fill half the
     wave or more (chosen in turns on the H100, bench_bwd.py)."""
     ktiles = -(-k // GEMM_K)
-    want = min(max(1, 2 * SM_COUNT // tiles), ktiles, MAX_SPLITS)
+    want = min(max(1, 2 * SM_COUNT // tiles), ktiles, MAX_K_SPLITS)
     kslices = -(-ktiles // want)
     return -(-ktiles // kslices), kslices
 

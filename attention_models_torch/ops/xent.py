@@ -4,16 +4,19 @@ and plain versions.
 Counterpart of ``attention_models_tpu/ops/xent.py``. ``fused_head_xent``
 is the mean cross-entropy over the non-ignored positions of ``h W^T (+
 bias)`` against ``targets``, without the (n, V) logits in device memory:
-the forward kernel keeps a running (max, sum of exp) per row while it
-streams W, the backward kernel writes dl = (softmax - onehot) * coef once
-and forms dh and dW from it. Numerics as the TPU kernels: the product
-accumulates in fp32 and is rounded to h's dtype (plus the bias in that
-dtype) before the fp32 softmax; dl is rounded to h's dtype before both
-products; dW and db are fp32. In bf16 the backward's three products are
-csrc/gemm_sm90.cuh's TMA/wgmma tile product, planned on the host by
-``xent_bwd_plan`` (``ops/gemm_sm90.py``: the logits h W^T with dl formed in
-its epilogue, dh = dl W with W read MN-major, dW = dl^T h with both
-operands MN-major).
+the forward kernel writes each row's (max, sum of exp, target logit) over
+every 128-column tile of the logits and merges them in column order, the
+backward kernel writes dl = (softmax - onehot) * coef once and forms dh
+and dW from it. Numerics as the TPU kernels: the product accumulates in
+fp32 and is rounded to h's dtype (plus the bias in that dtype) before the
+fp32 softmax; dl is rounded to h's dtype before both products; dW and db
+are fp32. In bf16 the products are csrc/gemm_sm90.cuh's TMA/wgmma tile
+product, planned on the host by ``xent_fwd_plan`` (the logits h W^T with
+the statistics formed in its epilogue) and ``xent_bwd_plan``
+(``ops/gemm_sm90.py``: the logits with dl formed in its epilogue, dh = dl
+W with W read MN-major, dW = dl^T h with both operands MN-major); in fp32
+the logits run on csrc/gemm.cuh's register-tiled FMA product, with no
+plan.
 
 ``w`` is the head weight in the torch Linear layout (V, d) (the TPU kernel
 takes its transpose (d, V)). On the card ``_HeadNll`` wires the two kernels
@@ -49,8 +52,7 @@ from attention_models_torch.ops.gemm_sm90 import (
     scratch_meta,
 )
 
-MAX_SPLITS = 4      # vocab ranges of csrc/xent.cu's forward
-DB_TILE_ROWS = 64   # rows per db partial of csrc/xent.cu's backward
+TILE = 128  # rows and vocab columns of csrc/xent.cu's logits tiles (fp32)
 
 
 def _logits(h, w, bias):
@@ -155,19 +157,41 @@ def _check_operands(h, w, bias, targets):
     return wc, bc, tg
 
 
+@functools.lru_cache(maxsize=64)
+def _xent_fwd_plan(h: tuple, w: tuple) -> PlanArray:
+    return PlanArray((gemm_plan(h, K_MAJOR, w, K_MAJOR, TILE, w[1][0],
+                                what="head xent forward"),))
+
+
+def xent_fwd_plan(h: torch.Tensor, w: torch.Tensor) -> PlanArray:
+    """Kernel 13's plan for bf16 h (n, d) and w (V, d): its one tile
+    product, the logits h W^T with both operands K-major at tile width 128
+    (the epilogue writes each row's max, sum of exp and target logit over
+    every 128-column tile, never a logit), cached by their shapes, strides
+    and 16-byte alignment; a view TMA cannot take raises a ValueError
+    naming it."""
+    return _xent_fwd_plan(meta("h", h), meta("w", w))
+
+
 def _head_xent_fwd_kernel(h, w, bias, targets):
-    """One launch of the forward kernel: (nll, lse), fp32 (n,)."""
+    """One launch of the forward kernel: (nll, lse), fp32 (n,). Its fp32
+    scratch holds each row's partial statistics over every vocab tile:
+    (3, V / 128, n), the tiles the plan's grid covers in bf16."""
     wc, bc, tg = _check_operands(h, w, bias, targets)
     n, d = h.shape
+    v = wc.shape[0]
     f32 = dict(dtype=torch.float32, device=h.device)
-    part = torch.empty(3 * MAX_SPLITS * n, **f32)
+    plan = xent_fwd_plan(h, wc) if h.dtype == torch.bfloat16 else None
+    tiles = plan.plans[0].grid[0] if plan is not None else -(-v // TILE)
+    part = torch.empty(3, tiles, n, **f32)
     nll, lse = torch.empty(n, **f32), torch.empty(n, **f32)
     with torch.cuda.device(h.device):
         _build.launch(
             "amt_head_xent_fwd", h.data_ptr(), wc.data_ptr(),
             bc.data_ptr() if bc is not None else None, tg.data_ptr(),
-            part.data_ptr(), nll.data_ptr(), lse.data_ptr(), n, d,
-            wc.shape[0], _build.DTYPE_CODES[h.dtype], _build.stream_of(h),
+            part.data_ptr(), nll.data_ptr(), lse.data_ptr(),
+            None if plan is None else plan.c_array(), n, d, v,
+            _build.DTYPE_CODES[h.dtype], _build.stream_of(h),
         )
     fused_head_xent.launches += 1
     return nll, lse
@@ -228,10 +252,10 @@ def head_xent_backward(h, w, targets, lse, coef, *, bias=None):
             raise ValueError(f"head xent backward: {name} must be ({n},)")
     f32 = dict(dtype=torch.float32, device=h.device)
     plan = xent_bwd_plan(h, wc) if h.dtype == torch.bfloat16 else None
-    # db partials: one row per 64 rows (bf16: per warpgroup of each
-    # 128-row tile)
+    # db partials: bf16 one row per warpgroup (64 rows) of each 128-row
+    # tile, fp32 one per 128-row tile
     db_rows = (2 * -(-n // GEMM_ROWS) if plan is not None
-               else -(-n // DB_TILE_ROWS))
+               else -(-n // TILE))
     dl = torch.empty(n, v, dtype=h.dtype, device=h.device)
     dbpart = torch.empty(db_rows, v, **f32) if bc is not None else None
     wpart = (torch.empty(plan.dw.splits, v, d, **f32)

@@ -5,21 +5,24 @@
 Needs one Hopper card. Phases, one line each (any failure raises):
   1. device   the card's name, nvidia-smi's name and power limit
   2. build    nvcc of attention_models_torch/csrc/*.cu (one process a file);
-              ptxas's line for the bf16 flash forward (flash_fwd_bf16_kernel,
-              the wgmma/TMA kernel of kernels 1, 9 and 16) at d 64 and 32,
-              and for the backward's dkv and dq kernels (bf16 wgmma/TMA and
-              fp32 register tiles, kernels 5, 10, 17 and 18) at d 64 and 32,
-              and for every instantiation of csrc/gemm_sm90.cuh's tile
+              ptxas's line for the flash forward (flash_fwd_bf16_kernel,
+              the wgmma/TMA kernel of kernels 1, 9 and 16, and
+              flash_fwd_f32_kernel, their fp32 register tiles) at d 64 and
+              32, and for the backward's dkv and dq kernels (bf16 wgmma/TMA
+              and fp32 register tiles, kernels 5, 10, 17 and 18) at d 64
+              and 32, and for every instantiation of csrc/gemm_sm90.cuh's tile
               product (gemm_kernel): the GELU-MLP forwards' (csrc/mlp.cu,
               kernels 7 and 2: BN 128 and 256, GELU and residual
               epilogues), kernel 6's dual product and fp32 products
               (csrc/ln_mlp_bwd.cu), kernel 11's paired-column GEGLU product
               (BN 256) and y W2^T (BN 128 and 256; csrc/ffn.cu), kernel
-              12's four (csrc/ffn_bwd.cu), kernel 14's three (csrc/xent.cu)
-              and the four operand forms (csrc/tile_product.cu), and of
-              the fp32 FMA kernels (csrc/gemm.cuh's gemm_f32_kernel in
-              each source that instantiates it, csrc/ffn.cu's
-              geglu_f32_kernel) and the GEGLU FFN's row passes (ffn_ln_rows_kernel,
+              12's four (csrc/ffn_bwd.cu), kernel 13's and kernel 14's
+              three (csrc/xent.cu) and the four operand forms
+              (csrc/tile_product.cu), and of the fp32 FMA kernels
+              (csrc/gemm.cuh's gemm_f32_kernel in each source that
+              instantiates it, csrc/ffn.cu's geglu_f32_kernel, csrc/xent.cu's
+              xent_stats_f32_kernel and xent_grad_f32_kernel) and the GEGLU
+              FFN's row passes (ffn_ln_rows_kernel,
               ffn_bwd_rows_kernel): registers, static shared memory, spill
               bytes (a spill fails)
   3. kernels  first the tile product's four operand forms (A and B each
@@ -67,8 +70,12 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               ragged rows (n 520), at d 1024 and at inner 8704 (a row the
               row passes walk in chunks), each with a bit-equal
               repeat call, and in turns (both dtypes; kernel 11 also at
-              Muse's shape) beside the times they replace; kernel 13 in
-              turns
+              Muse's shape) beside the times they replace; kernels 13 and
+              14 in bf16 and fp32, with and without the bias, each with a
+              bit-equal repeat call and in turns; the fp32 flash forward
+              (kernels 1, 9 and 16) also at tq < tk and at t 1096, bit-equal
+              on a repeat call, and against SDPA in turns at the recon shape
+              (h 8 and 12) and at t 4096 (causal and not)
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -708,17 +715,18 @@ def main() -> int:
     _build.library()
     print(f"[build] {time.perf_counter() - t0:.1f} s -> {lib_path.name}",
           flush=True)
-    # the bf16 flash forward (wgmma/TMA) at both head widths: registers,
-    # static shared memory and spills as ptxas reports them; a spill fails
+    # the flash forward (bf16 wgmma/TMA, fp32 register tiles) at both head
+    # widths: registers, static shared memory and spills as ptxas reports
+    # them; a spill fails
     ptxas = {}
-    for r in _build.ptxas_report("flash_attention", "flash_fwd_bf16_kernel"):
-        d = 64 if "ILi64E" in r["name"] else 32
-        ptxas[f"d{d}"] = r
-        print(f"[ptxas] flash_fwd_bf16_kernel<{d}>: {r['registers']} "
-              f"registers, {r['smem']} bytes smem, {r['spill_stores']} bytes "
-              f"spill stores, {r['spill_loads']} bytes spill loads",
-              flush=True)
-    gate(sorted(ptxas) == ["d32", "d64"]
+    for kern in ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel"):
+        for r in _build.ptxas_report("flash_attention", kern):
+            d = 64 if "ILi64E" in r["name"] else 32
+            ptxas[f"{kern}<{d}>"] = r
+            print(f"[ptxas] {kern}<{d}>: {r['registers']} registers, "
+                  f"{r['smem']} bytes smem, {r['spill_stores']} bytes spill "
+                  f"stores, {r['spill_loads']} bytes spill loads", flush=True)
+    gate(len(ptxas) == 4
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in ptxas.values()),
          f"flash forward ptxas: {ptxas}")
@@ -744,12 +752,12 @@ def main() -> int:
     # product (one block an SM) and its fp32 products, kernel 11's
     # paired-column GEGLU product (BN 256) and y W2^T (BN 128 and 256: 128
     # only where d is 128), kernel 12's
-    # four, kernel 14's three and the four operand forms of the check below;
-    # a spill fails
+    # four, kernel 13's statistics product, kernel 14's three and the four
+    # operand forms of the check below; a spill fails
     epilogues = (("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
                  ("StoreIfE", "f32"), ("StoreI13__nv_bfloat16E", "bf16"),
                  ("GeluBwd", "gelu backward"), ("XentDl", "dl"),
-                 ("GegluF32", "geglu"))
+                 ("XentStats", "stats"), ("GegluF32", "geglu"))
 
     def gemm_label(mangled):
         bn = re.search(r"gemm_kernelILi(\d+)E", mangled).group(1)
@@ -768,7 +776,7 @@ def main() -> int:
               f"{r['spill_loads']} bytes spill loads", flush=True)
 
     mlp_ptxas = {}
-    for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 3),
+    for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 4),
                        ("tile_product", 4), ("ffn", 3), ("ffn_bwd", 4)):
         rows = _build.ptxas_report(src, "gemm_kernel")
         for r in rows:
@@ -777,17 +785,21 @@ def main() -> int:
             ptxas_line(label, r)
         gate(len(rows) == count, f"{src}: {len(rows)} gemm_kernel "
              f"instantiations, expected {count}")
-    gate(len(mlp_ptxas) == 21
+    gate(len(mlp_ptxas) == 22
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in mlp_ptxas.values()),
          f"gemm_kernel ptxas: {mlp_ptxas}")
     # the fp32 FMA product (tile width 128 and 64, each kK / kR layout pair
-    # a source uses), kernel 11's fp32 GEGLU product and the GEGLU FFN's
-    # row passes (bf16 and fp32, 4 and 8 pieces a thread); a spill fails
+    # a source uses), kernel 11's fp32 GEGLU product, kernel 13's fp32
+    # statistics and kernel 14's fp32 dl pass (both on the FMA product) and
+    # the GEGLU FFN's row passes (bf16 and fp32, 4 and 8 pieces a thread);
+    # a spill fails
     fma_ptxas = {}
     for src, kern, count in (("ffn", "gemm_f32_kernel", 2),
                              ("ffn_bwd", "gemm_f32_kernel", 6),
                              ("xent", "gemm_f32_kernel", 4),
+                             ("xent", "xent_stats_f32_kernel", 1),
+                             ("xent", "xent_grad_f32_kernel", 1),
                              ("tile_product", "gemm_f32_kernel", 8),
                              ("ffn", "geglu_f32_kernel", 1),
                              ("ffn", "ffn_ln_rows_kernel", 4),
@@ -1220,6 +1232,7 @@ def main() -> int:
             (b_, t_, t_, mg_heads, d_, torch.bfloat16, False),
             (b_, t_, t_, mg_heads, d_, torch.float32, False),
             (b_, t_ // 2, t_, h_, d_, torch.bfloat16, True),
+            (b_, t_ // 2, t_, h_, d_, torch.float32, True),
             (b_, t_, t_, h_, 32, torch.bfloat16, False),
             (b_, t_, t_, h_, 32, torch.float32, True)):
         sc = dd ** -0.5
@@ -1348,24 +1361,38 @@ def main() -> int:
         print(f"[kernel] flash layouts, {str(dtype)[6:]} causal={causal}, "
               f"bit for bit: {same}", flush=True)
         gate(all(same.values()), f"flash layouts differ: {same}")
+        if dtype == torch.float32:  # the register-tiled forward
+            repeat_equal("flash forward fp32 causal (kernel 1)",
+                         lambda: flash_attention_bthd_kv(q, kv, causal=causal),
+                         (o1, l1))
+            repeat_equal("flash forward fp32 causal (kernel 16)",
+                         lambda: flash_forward(heads(q), heads(k), heads(v),
+                                               scale=scale, causal=causal),
+                         (o16, l16))
         del q, kv, g, k, v, o1, l1, o9, l9, dq5, dkv5, dq10, dk10, dv10
         del o16, l16, delta, dk17, dv17, dq18
 
-    # the bf16 forward at a ragged length (b 2, h 8, t 1096: the last q and
-    # k/v tiles partly past t, zero-filled by TMA and never stored) through
-    # kernels 16 and 1, and at head width 32 on the recon shape through
-    # kernel 1, causal and not, against the plain versions
-    for kernel, bb, tt, dd, causal in (
-            ("flash_forward", 2, 1096, d_, False),
-            ("flash_forward", 2, 1096, d_, True),
-            ("flash_attention_bthd_kv", 2, 1096, d_, False),
-            ("flash_attention_bthd_kv", 2, 1096, d_, True),
-            ("flash_attention_bthd_kv", b_, t_, 32, False),
-            ("flash_attention_bthd_kv", b_, t_, 32, True)):
+    # the forward at a ragged length (b 2, h 8, t 1096: the last q and k/v
+    # tiles partly past t, zero-filled and never stored) through kernels 16
+    # and 1, and at head width 32 on the recon shape through kernel 1, causal
+    # and not, bf16 and fp32, against the plain versions
+    bf, f32 = torch.bfloat16, torch.float32
+    for kernel, bb, tt, dd, causal, fdt in (
+            ("flash_forward", 2, 1096, d_, False, bf),
+            ("flash_forward", 2, 1096, d_, True, bf),
+            ("flash_attention_bthd_kv", 2, 1096, d_, False, bf),
+            ("flash_attention_bthd_kv", 2, 1096, d_, True, bf),
+            ("flash_attention_bthd_kv", b_, t_, 32, False, bf),
+            ("flash_attention_bthd_kv", b_, t_, 32, True, bf),
+            ("flash_forward", 2, 1096, d_, False, f32),
+            ("flash_forward", 2, 1096, d_, True, f32),
+            ("flash_attention_bthd_kv", 2, 1096, d_, True, f32),
+            ("flash_attention_bthd_kv", 2, 1096, 32, False, f32),
+            ("flash_attention_bthd_kv", b_, t_, 32, False, f32)):
         sc = dd ** -0.5
+        ftol = tol_of(fdt)
         if kernel == "flash_forward":
-            q, k, v = (randn(bb, h_, tt, dd, dtype=torch.bfloat16)
-                       for _ in range(3))
+            q, k, v = (randn(bb, h_, tt, dd, dtype=fdt) for _ in range(3))
             out, lse = flash_forward(q, k, v, scale=sc, causal=causal)
             out_p, lse_p = _flash_forward_reference(q, k, v, sc, causal)
             run = lambda: flash_forward(q, k, v, scale=sc,  # noqa: E731
@@ -1375,8 +1402,8 @@ def main() -> int:
             qs, ks, vs = q, k, v
             moved = nbytes(q, k, v, out, lse)
         else:
-            q = randn(bb, tt, h_, dd, dtype=torch.bfloat16)
-            kv = randn(bb, tt, 2, h_, dd, dtype=torch.bfloat16)
+            q = randn(bb, tt, h_, dd, dtype=fdt)
+            kv = randn(bb, tt, 2, h_, dd, dtype=fdt)
             out, lse = flash_attention_bthd_kv(q, kv, causal=causal)
             out_p, lse_p = _flash_reference(q, kv, sc, causal)
             run = lambda: flash_attention_bthd_kv(  # noqa: E731
@@ -1386,11 +1413,11 @@ def main() -> int:
                           for t in (q, kv[:, :, 0], kv[:, :, 1]))
             moved = nbytes(q, kv, out, lse)
         lse_err = rel_l2(lse, lse_p)
-        gate(lse_err <= BF16_TOL, f"{kernel} t {tt} d {dd} lse rel_l2 "
+        gate(lse_err <= ftol, f"{kernel} t {tt} d {dd} lse rel_l2 "
              f"{lse_err}")
         gate(bool(torch.isfinite(out).all()), f"{kernel} t {tt}: non-finite")
         record(kernel, f"b{bb} t{tt} h{h_} d{dd} causal={causal} "
-               f"(lse rel_l2 {lse_err:.2e})", torch.bfloat16, BF16_TOL,
+               f"(lse rel_l2 {lse_err:.2e})", fdt, ftol,
                rel_l2(out, out_p), max_abs(out, out_p), time_ms(run),
                time_ms(plain, iters=5), time_ms(lambda: sdpa(qs, ks, vs,
                                                              causal)),
@@ -1473,26 +1500,35 @@ def main() -> int:
                nbytes(q, kv, out, lse, g, dq, dkv), 10 * bb * h_ * dd * npairs)
         del q, kv, g, out, lse, dq, dkv, dq_p, dkv_p
 
-    # the bf16 forward against SDPA in turns (kernel, SDPA, SDPA, kernel) at
-    # the shapes of the kernels' table, beside the ratio of the mma.sync
-    # kernel it replaced (same shapes, same card type): device time
-    # (launches queued behind a sleep), then back to back as a caller
-    # enqueues them (host time included where it exceeds the card's)
+    # the forward against SDPA in turns (kernel, SDPA, SDPA, kernel) at the
+    # shapes of the kernels' table, beside the ratio of the kernel it
+    # replaced (same shapes, same card type; bf16: the mma.sync kernel's,
+    # fp32: the one-thread-a-row kernel's kernel / SDPA, None where PERF.md
+    # has no reading): device time (launches queued behind a sleep), then
+    # back to back as a caller enqueues them (host time included where it
+    # exceeds the card's). fp32 runs with TF32 off, SDPA's included
     fwd_vs_sdpa = []
-    for row, bb, hh, tt, causal, before in (
-            (1, b_, h_, t_, False, 2.65), (1, b_, mg_heads, t_, False, 2.86),
-            (1, 16, 16, t_, False, 2.98), (9, b_, h_, t_, False, 2.81),
-            (16, 1, h_, 4096, True, 3.40), (16, 1, h_, 4096, False, 2.91),
-            (16, 1, h_, 16384, True, 3.17)):
+    for row, bb, hh, tt, causal, before, fdt in (
+            (1, b_, h_, t_, False, 2.65, bf),
+            (1, b_, mg_heads, t_, False, 2.86, bf),
+            (1, 16, 16, t_, False, 2.98, bf), (9, b_, h_, t_, False, 2.81, bf),
+            (16, 1, h_, 4096, True, 3.40, bf),
+            (16, 1, h_, 4096, False, 2.91, bf),
+            (16, 1, h_, 16384, True, 3.17, bf),
+            (1, b_, h_, t_, False, 1.775, f32),
+            (1, b_, mg_heads, t_, False, None, f32),
+            (9, b_, h_, t_, False, 1.785, f32),
+            (9, b_, mg_heads, t_, False, None, f32),
+            (16, 1, h_, 4096, True, 2.151, f32),
+            (16, 1, h_, 4096, False, None, f32)):
         if row == 16:
-            q, k, v = (randn(bb, hh, tt, d_, dtype=torch.bfloat16)
-                       for _ in range(3))
+            q, k, v = (randn(bb, hh, tt, d_, dtype=fdt) for _ in range(3))
             qs, ks, vs = q, k, v
             run = lambda: flash_forward(q, k, v, scale=scale,  # noqa: E731
                                         causal=causal)
         else:
-            q = randn(bb, tt, hh, d_, dtype=torch.bfloat16)
-            kv = randn(bb, tt, 2, hh, d_, dtype=torch.bfloat16)
+            q = randn(bb, tt, hh, d_, dtype=fdt)
+            kv = randn(bb, tt, 2, hh, d_, dtype=fdt)
             k, v = kv[:, :, 0], kv[:, :, 1]
             qs, ks, vs = (heads(t).contiguous() for t in (q, k, v))
             run = ((lambda: flash_attention_bthd_kv(q, kv, causal=causal))
@@ -1505,20 +1541,21 @@ def main() -> int:
         bk1, bs1, bs2, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
                               time_ms(run))
         ratio = (k1 + k2) / (s1 + s2)
+        fname = str(fdt).split(".")[-1]
         b_ms = bound(0, [(4 * bb * hh * d_ * pairs_of(tt, tt, causal),
-                          "bfloat16")])[0]
-        r = dict(row=row, b=bb, h=hh, t=tt, causal=causal,
+                          fname)])[0]
+        r = dict(row=row, b=bb, h=hh, t=tt, causal=causal, dtype=fname,
                  kernel_ms=(k1 + k2) / 2, sdpa_ms=(s1 + s2) / 2, ratio=ratio,
                  back_to_back_kernel_ms=(bk1 + bk2) / 2,
                  back_to_back_sdpa_ms=(bs1 + bs2) / 2,
                  back_to_back_ratio=(bk1 + bk2) / (bs1 + bs2),
-                 mma_sync_ratio=before, bound_ms=b_ms)
+                 before_ratio=before, bound_ms=b_ms)
         fwd_vs_sdpa.append(r)
-        print(f"[turns] kernel {row} b{bb} h{hh} t{tt} causal={causal}: "
-              f"device kernel {k1:.4f} / {k2:.4f} ms, SDPA {s1:.4f} / "
-              f"{s2:.4f} ms, kernel/SDPA {ratio:.3f} (mma.sync kernel "
-              f"{before}); back to back {bk1:.4f} / {bk2:.4f} against "
-              f"{bs1:.4f} / {bs2:.4f}, "
+        print(f"[turns] kernel {row} b{bb} h{hh} t{tt} {fname} "
+              f"causal={causal}: device kernel {k1:.4f} / {k2:.4f} ms, SDPA "
+              f"{s1:.4f} / {s2:.4f} ms, kernel/SDPA {ratio:.3f} (the kernel "
+              f"it replaced {before}); back to back {bk1:.4f} / {bk2:.4f} "
+              f"against {bs1:.4f} / {bs2:.4f}, "
               f"{r['back_to_back_ratio']:.3f}; bound {b_ms:.4f} ms "
               f"({100 * b_ms / r['kernel_ms']:.1f} % of it)", flush=True)
     q = k = v = kv = qs = ks = vs = None
@@ -1931,9 +1968,21 @@ def main() -> int:
 
     # the fused head cross-entropy (kernels 13 and 14) at MaskGIT's training
     # shape: 8 x 1024 rows, d 768, vocab 8192, ~36 % of the targets ignored
-    # (-1), without and with Parti's bias; the library is F.linear +
-    # F.cross_entropy(ignore_index=-1) (forward + backward for kernel 14)
+    # (-1), without and with Parti's bias, bf16 and fp32 (TF32 off); the
+    # library is F.linear + F.cross_entropy(ignore_index=-1) (forward +
+    # backward for kernel 14). Each kernel is bit-equal on a repeat call and
+    # read against its chain in turns, beside the time it replaces (PERF.md's
+    # table, same card type: kernel 13 back to back; kernel 14 bf16 back to
+    # back, fp32 in turns)
     n_voc = 8192
+    xent_before = {(13, torch.bfloat16, False): 0.4874,
+                   (13, torch.bfloat16, True): 0.5516,
+                   (13, torch.float32, False): 4.4199,
+                   (13, torch.float32, True): None,
+                   (14, torch.bfloat16, False): 1.4985,
+                   (14, torch.bfloat16, True): 1.5293,
+                   (14, torch.float32, False): 9.0345,
+                   (14, torch.float32, True): None}
     for dtype, with_bias in ((torch.bfloat16, False), (torch.bfloat16, True),
                              (torch.float32, False), (torch.float32, True)):
         h = randn(n_tok, mg_dim, dtype=dtype)
@@ -1984,21 +2033,24 @@ def main() -> int:
                       *(t for t in got if t is not None)),
                6 * n_tok * mg_dim * n_voc,
                main=dtype == torch.bfloat16 and not with_bias)
-        if dtype == torch.bfloat16:
-            repeat_equal(f"head_xent_bwd bias={with_bias}",
-                         lambda: head_xent_backward(h, w, tgt, lse_p, coef,
-                                                    bias=bias), got)
-            if not with_bias:  # kernel 13, first read in turns
-                bwd_turns.append(in_turns(
-                    13, label, lambda: _head_xent_fwd_kernel(h, w, bias, tgt),
-                    lambda: F.cross_entropy(F.linear(h, w, bias_c), tgt,
-                                            ignore_index=-1),
-                    0.4874, 2 * n_tok * mg_dim * n_voc))
-            bwd_turns.append(in_turns(
-                14, label, lambda: head_xent_backward(h, w, tgt, lse_p, coef,
-                                                      bias=bias),
-                xent_library_fwd_bwd, 1.5293 if with_bias else 1.4985,
-                6 * n_tok * mg_dim * n_voc))
+        dname = str(dtype).split(".")[-1]
+        repeat_equal(f"head_xent {dname} bias={with_bias}",
+                     lambda: _head_xent_fwd_kernel(h, w, bias, tgt),
+                     (nll, lse))
+        repeat_equal(f"head_xent_bwd {dname} bias={with_bias}",
+                     lambda: head_xent_backward(h, w, tgt, lse_p, coef,
+                                                bias=bias), got)
+        bwd_turns.append(in_turns(
+            13, label, lambda: _head_xent_fwd_kernel(h, w, bias, tgt),
+            lambda: F.cross_entropy(F.linear(h, w, bias_c), tgt,
+                                    ignore_index=-1),
+            xent_before[(13, dtype, with_bias)], 2 * n_tok * mg_dim * n_voc,
+            dname))
+        bwd_turns.append(in_turns(
+            14, label, lambda: head_xent_backward(h, w, tgt, lse_p, coef,
+                                                  bias=bias),
+            xent_library_fwd_bwd, xent_before[(14, dtype, with_bias)],
+            6 * n_tok * mg_dim * n_voc, dname))
         del got, want, leaves
 
     # the sampling epilogue at the decode shape: 8 x 1024 rows of 8192
