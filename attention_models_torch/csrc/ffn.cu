@@ -22,7 +22,8 @@
 //      in its paired-column form (Paired): a block's B tile is two TMA
 //      boxes of W1, BN/2 "a" rows and the BN/2 matching "gate" rows, so
 //      accumulator columns j and j + BN/2 of a thread are a and gate of one
-//      inner column, and the epilogue (GegluF32) writes g = gate * gelu(a)
+//      inner column, and the epilogue (sm90::GegluF32, which kernel 20's
+//      bf16 up-projection shares) writes g = gate * gelu(a)
 //      (true erff; the TPU kernel's A&S polynomial differs by <= 1.5e-7) to
 //      an fp32 scratch through the freed ring; W1 is read as it lies, x
 //      once for every BN/2 inner columns. fp32: geglu_f32_kernel, the
@@ -47,150 +48,7 @@
 
 namespace {
 
-constexpr int kLds = kLdK;  // shared row stride (bf16) of the A and B tiles
-
 using sm90::gelu_exact;
-
-// Kernel 20's bf16 up-projection (csrc/quant.cu's wide int8 FFN, through
-// amt_geglu_bf16) is this kernel's only caller; kernel 11 runs the
-// paired-column tile product below.
-// H = x W1^T for bf16 x (M, K) and W1 (2 * inner, K), both row-major: tile
-// column c of block column bx reads W1 row bx*64 + (c/16)*8 + c%8, plus
-// inner when (c/8) is odd; the block writes g = gate * gelu(a) for inner
-// columns bx*64 .. bx*64+63 to fp32 C (M, inner).
-__global__ __launch_bounds__(kThreads) void gemm_geglu_bf16_kernel(
-    const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
-    float* __restrict__ c, int M, int K, int inner) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kBM][kLds]
-  __nv_bfloat16* bs = as + kStages * kBM * kLds;                   // [kStages][kBN][kLds]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4;  // rows wm*64 .. +63 of the tile
-  const int wn = warp % 4;  // columns wn*32 .. +31 of the tile
-  const int m0 = blockIdx.y * kBM;
-
-  // each thread copies two 16-byte pieces of A and two of B per stage
-  const __nv_bfloat16* a_src[2];
-  const __nv_bfloat16* b_src[2];
-  bool a_ok[2];
-  int s_off[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int id = tid + i * kThreads;
-    const int r = id >> 2, kc = (id & 3) * 8;
-    a_ok[i] = m0 + r < M;
-    a_src[i] = a + (int64_t)(a_ok[i] ? m0 + r : 0) * K + kc;
-    const int brow = blockIdx.x * 64 + (r >> 4) * 8 + (r & 7) + ((r >> 3) & 1) * inner;
-    b_src[i] = b + (int64_t)brow * K + kc;
-    s_off[i] = r * kLds + kc;
-  }
-  auto load_stage = [&](int stage, int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      cp_async16(as + stage * kBM * kLds + s_off[i], a_src[i] + k0, a_ok[i]);
-      cp_async16(bs + stage * kBN * kLds + s_off[i], b_src[i] + k0, true);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  const int KT = K / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s * kBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed for this thread
-    __syncthreads();               // ... for every thread; slice kt-1 is done
-    const int nk = kt + kStages - 1;
-    if (nk < KT) load_stage(nk % kStages, nk * kBK);
-    cp_async_commit();
-    const __nv_bfloat16* at = as + (kt % kStages) * kBM * kLds;
-    const __nv_bfloat16* bt = bs + (kt % kStages) * kBN * kLds;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const __nv_bfloat16* p = at + (wm * 64 + mt * 16 + g) * kLds + kk + 2 * t;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kLds + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* p = bt + (wn * 32 + nt * 8 + g) * kLds + kk + 2 * t;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(p);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(acc[mt][nt], af[mt], bf[nt]);
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-      if (row >= M) continue;
-      // tiles nt = 0, 1 (and 2, 3) hold a and gate of the same 8 columns
-      float* out = c + (int64_t)row * inner;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int col = blockIdx.x * 64 + (wn * 2 + p) * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out + col) = make_float2(
-            acc[mt][2 * p + 1][2 * half] * gelu_exact(acc[mt][2 * p][2 * half]),
-            acc[mt][2 * p + 1][2 * half + 1] * gelu_exact(acc[mt][2 * p][2 * half + 1]));
-      }
-    }
-  }
-}
-
-// The GEGLU product's epilogue (bf16, paired columns): acc[4i + e] and
-// acc[4(i + BN/16) + e] are a and gate of inner column n0/2 + 8i + 2t +
-// (e % 2); g = gate * gelu(a) in fp32 through the warpgroup's padded
-// staging rows, then 16-byte row pieces below M and inner.
-struct GegluF32 {
-  struct Args {
-    float* g;  // (M, inner) fp32, rows ldg elements apart
-    int m, inner, ldg;
-  };
-  template <int BN>
-  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
-                                             const Args& a, uint8_t* ring,
-                                             int m0r, int n0, int c) {
-    using S = sm90::Staged<BN / 2, float>;
-    constexpr int kHalf = BN / 16;  // the gate's acc index offset, / 4
-    uint8_t* st = ring + c * S::kBytes;
-    const int tid = threadIdx.x % 128, lane = tid % 32;
-    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) {
-      float v[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        v[e] = acc[4 * (i + kHalf) + e] * gelu_exact(acc[4 * i + e]);
-      S::put(st, rl, 8 * i + 2 * t, v[0], v[1]);
-      S::put(st, rl + 8, 8 * i + 2 * t, v[2], v[3]);
-    }
-    hopper::named_barrier_sync(2 + c, 128);
-    S::flush(st, a.g, a.ldg, m0r, n0 / 2, a.m, a.inner);
-  }
-};
 
 // fp32 GEGLU product: g (M, inner; rows ldg apart) = gate * gelu(a) of
 // x W1^T, one 128 x 64 block of g a block: tile columns 0-63 read W1 rows
@@ -293,18 +151,6 @@ cudaError_t ln_rows(const float* g, int ldg, const float* gamma, T* y, int ldy, 
 
 }  // namespace
 
-// The first launch of kernel 20's bf16 wide FFN (csrc/quant.cu): g = gate *
-// gelu(a) of x W1^T into fp32 g (n, inner), on the mma.sync kernel above.
-cudaError_t amt_geglu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1, float* g,
-                           int n, int d, int inner, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_geglu_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTileSmem);
-  if (err != cudaSuccess) return err;
-  gemm_geglu_bf16_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kTileSmem, s>>>(
-      x, w1, g, n, d, inner);
-  return cudaGetLastError();
-}
-
 // plan: ops/ffn.py::FfnPlan (bf16: the GEGLU and W2 products, 42 int64; fp32
 // takes none). g_scratch: fp32 (n, inner) and y_scratch: (n, inner) in the
 // dtype, at the plan's row pitches (bf16) or inner elements a row (fp32);
@@ -326,8 +172,8 @@ AMT_EXPORT int amt_ffn(const int64_t* plan, const void* x, const void* w1,
     const int ldg = (int)plan[19];         // g's pitch (fp32 elements)
     const int ldy = (int)(plan[P + 2] / 2);  // y's: the W2 product's A map
     auto* ys = static_cast<bf16*>(y_scratch);
-    const GegluF32::Args ga{gs, n, inner, ldg};
-    if ((err = sm90::gemm_from_plan<sm90::Paired, GegluF32, 256>(
+    const sm90::GegluF32::Args ga{gs, n, inner, ldg};
+    if ((err = sm90::gemm_from_plan<sm90::Paired, sm90::GegluF32, 256>(
              plan, nullptr, x, w1, nullptr, nullptr, ga, n, 2 * inner, d, ldg, s)) !=
             cudaSuccess ||
         (err = ln_rows<bf16>(gs, ldg, gm, ys, ldy, n, inner, eps, s)) != cudaSuccess)

@@ -3,42 +3,51 @@
 //   C (M, N) = epilogue(A B^T)            one product, or
 //   C (M, N) = epilogue(A B^T, A2 B2^T)   a dual product over the same tile
 //                                          and the same K,
-// A (M, K) and B (N, K) bf16, sums in fp32. Each operand is read
+// A (M, K) and B (N, K) bf16, sums in fp32, or both int8 with exact s32
+// sums (S8: wgmma's m64nBNk32 .s32.s8.s8, K-major operands only). A K slice
+// is 128 bytes whatever the type (64 bf16 or 128 int8 elements): one
+// swizzle row, the same stage bytes and the same 32-byte descriptor step a
+// wgmma, so the ring, the producer and the barriers serve both. Each bf16
+// operand is read
 //   - K-major (kK): a row-major (rows, K) matrix, K contiguous (x, or W1
 //     in the torch Linear layout: wgmma's K-major B as it stands), or
 //   - MN-major (kMN): a row-major (K, rows) matrix, rows contiguous (W2
 //     read as the B of dy W2, dH and yc read as the A and B of the weight
 //     gradient dH^T yc), through wgmma's transpose bit;
-// or B paired (Paired, kernel 11's GEGLU product): W1's "a" and "gate"
-// rows loaded as two K-major half boxes of one tile, so a thread holds a
-// and gate of the same inner column.
+// or B paired (Paired, the GEGLU products of kernels 11 and 20): W1's "a"
+// and "gate" rows loaded as two K-major half boxes of one tile, so a
+// thread holds a and gate of the same inner column.
 // The epilogue is a struct with an Args type and a run<BN>() the kernel
-// calls on a warpgroup's registers; each .cu brings its own. Here:
+// calls on a warpgroup's registers; a .cu brings its own or takes one of
+// these:
 //   - BiasGelu:     C = bf16(gelu(A B^T + bias)), the exact erff GELU;
 //   - BiasResidual: C = bf16(A B^T + bias (+ res)), res (M, N) bf16 or null
 //     (the bias fp32 or bf16, added in fp32: kernels 7 and 2);
 //   - StoreF32:     C = A B^T in fp32 (weight gradients, dy_ln);
 //   - StoreBf16:    C = bf16(A B^T) (dh, the FFN's out and dx);
-//   - csrc/ffn.cu's GegluF32: g = gate * gelu(a) in fp32 over paired
-//     columns.
+//   - GegluF32:     g = gate * gelu(a) in fp32 over paired columns (the
+//     GEGLU up-projections of kernels 11 and 20);
+//   - DequantStore: C = (float(acc) * s_row) * s_col in fp32 or bf16, each
+//     product rounded (the int8 form: kernel 20's down-projection).
 //
 // Shape of a block:
 //   - 128 rows x BN columns of C: two consumer warpgroups of 64 rows, each
 //     holding 64 x BN fp32 accumulators (two sets in a dual product), and
 //     one producer warp of which one thread issues TMA loads;
-//   - K in slices of 64 into a ring of kStages stages with full (TMA bytes)
-//     and empty (eight consumer warps) mbarriers. A K-major tile is one
-//     rank-2 box of (64 K, rows) with 128-byte swizzle; an MN-major tile is
-//     rows / 64 boxes of (64 MN, 64 K), one 128-byte swizzle row of MN a K
-//     row, the boxes 8 KB apart (wgmma's leading byte offset; 8 K rows are
-//     1 KB, its stride byte offset). TMA zero-fills past M, N and K, so
-//     ragged tails add nothing to any sum and need no padded copy. A row
-//     pitch that is only 16-byte aligned slows TMA (bench_mlp.py's "rows
-//     16-byte aligned" rows): the wrappers give the scratches 64-byte
-//     aligned rows and stage W2 at such a pitch;
-//   - each slice is four SS wgmma m64nBNk16 a product; a slice's products
-//     stay in flight while the next slice's are issued (wgmma_wait<1>), and
-//     its stage goes back to the producer when they complete;
+//   - K in slices of 128 bytes into a ring of kStages stages with full (TMA
+//     bytes) and empty (eight consumer warps) mbarriers. A K-major tile is
+//     one rank-2 box of (one slice of K, rows) with 128-byte swizzle; an
+//     MN-major tile is rows / 64 boxes of (64 MN, 64 K), one 128-byte
+//     swizzle row of MN a K row, the boxes 8 KB apart (wgmma's leading byte
+//     offset; 8 K rows are 1 KB, its stride byte offset). TMA zero-fills
+//     past M, N and K, so ragged tails add nothing to any sum and need no
+//     padded copy. A row pitch that is only 16-byte aligned slows TMA
+//     (bench_mlp.py's "rows 16-byte aligned" rows): the wrappers give the
+//     scratches 64-byte aligned rows and stage W2 at such a pitch;
+//   - each slice is four SS wgmma (m64nBNk16 bf16, m64nBNk32 s8) a
+//     product; a slice's products stay in flight while the next slice's
+//     are issued (wgmma_wait<1>), and its stage goes back to the producer
+//     when they complete;
 //   - the epilogue runs in registers and writes through the freed ring with
 //     padded rows (no bank conflicts), then 16-byte row pieces below M and
 //     N; column sums an epilogue takes (a bias gradient) run in a fixed
@@ -70,7 +79,8 @@ namespace sm90 {
 namespace {
 
 constexpr int kBM = 128;       // rows of C a block
-constexpr int kBK = 64;        // K a stage
+constexpr int kBK = 64;        // bf16 K a stage
+constexpr int kSliceBytes = 128;  // bytes of K a stage, whatever the type
 constexpr int kThreads = 288;  // two consumer warpgroups + one producer warp
 constexpr int kSwizzle = 128;  // bytes: one row of a K slice
 constexpr int kSlab = 64;      // MN elements in one swizzle row
@@ -88,7 +98,23 @@ struct Form {
   static constexpr int kMajA2 = kMajA2_, kMajB2 = kMajB2_;
   static constexpr int kDual = kMajA2_ >= 0 ? 1 : 0;
   static constexpr int kPairB = 0;
+  static constexpr int kS8 = 0;
+  using Acc = float;
 };
+
+// The int8 form (kernel 20's down-projection): A and B int8, K-major (the
+// only majorness wgmma takes for int8), exact s32 sums. Its tiles, ring and
+// descriptors are the bf16 form's byte for byte: a slice is 128 int8 of K.
+struct S8 : Form<kK, kK> {
+  static constexpr int kS8 = 1;
+  using Acc = int;
+};
+
+// Elements of K in one slice of a form's operands.
+template <class Fm>
+__host__ __device__ constexpr int slice_k() {
+  return Fm::kS8 ? kSliceBytes : kSliceBytes / 2;
+}
 
 // The paired-column form of the GEGLU product (kernel 11): A and B
 // K-major, B = W1 (2 inner, K) whose rows [0, inner) are the "a" half and
@@ -122,7 +148,7 @@ struct Config<128, 1> {
 template <int BN, int kDual>
 struct Ring {
   static constexpr int kStages = Config<BN, kDual>::kStages;
-  static constexpr uint32_t kA = kBM * kBK * 2, kB = BN * kBK * 2;
+  static constexpr uint32_t kA = kBM * kSliceBytes, kB = BN * kSliceBytes;
   static constexpr uint32_t kStage = (1 + kDual) * (kA + kB);
   static constexpr uint32_t kBytes = kStages * kStage;
 };
@@ -337,14 +363,88 @@ struct Store {
 using StoreF32 = Store<float>;
 using StoreBf16 = Store<__nv_bfloat16>;
 
+// The GEGLU up-projection's epilogue (bf16, paired columns: kernels 11 and
+// 20): acc[4i + e] and acc[4(i + BN/16) + e] are a and gate of inner column
+// n0/2 + 8i + 2t + (e % 2); g = gate * gelu(a) in fp32 through the
+// warpgroup's padded staging rows, then 16-byte row pieces below M and
+// inner.
+struct GegluF32 {
+  struct Args {
+    float* g;  // (M, inner) fp32, rows ldg elements apart
+    int m, inner, ldg;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = Staged<BN / 2, float>;
+    constexpr int kHalf = BN / 16;  // the gate's acc index offset, / 4
+    uint8_t* st = ring + c * S::kBytes;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = acc[4 * (i + kHalf) + e] * gelu_exact(acc[4 * i + e]);
+      S::put(st, rl, 8 * i + 2 * t, v[0], v[1]);
+      S::put(st, rl + 8, 8 * i + 2 * t, v[2], v[3]);
+    }
+    hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.g, a.ldg, m0r, n0 / 2, a.m, a.inner);
+  }
+};
+
+// The int8 form's epilogue: C = (float(acc) * s_row[row]) * s_col[col] in T
+// (fp32 or bf16), each product rounded as the plain version's
+// (int_dot(...) * s_row) * s_col; the s32 sums are exact, so equal codes
+// give equal bits in any sum order.
+template <typename T>
+struct DequantStore {
+  struct Args {
+    T* c;                // (M, N), rows ldc elements apart
+    const float* s_row;  // (M,)
+    const float* s_col;  // (N,)
+    int m, n, ldc;
+  };
+  static __device__ __forceinline__ float dequant(int acc, float sr, float sc) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(acc), sr), sc);
+  }
+  template <int BN>
+  static __device__ __forceinline__ void run(const int (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = Staged<BN, T>;
+    uint8_t* st = ring + c * S::kBytes;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+    const float sr0 = m0r + rl < a.m ? a.s_row[m0r + rl] : 0.f;
+    const float sr1 = m0r + rl + 8 < a.m ? a.s_row[m0r + rl + 8] : 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int cl = 8 * i + 2 * t, col = n0 + cl;
+      if (col >= a.n) continue;  // N % 8 == 0: col + 1 < N as well
+      const float sc0 = a.s_col[col], sc1 = a.s_col[col + 1];
+      S::put(st, rl, cl, dequant(acc[4 * i], sr0, sc0),
+             dequant(acc[4 * i + 1], sr0, sc1));
+      S::put(st, rl + 8, cl, dequant(acc[4 * i + 2], sr1, sc0),
+             dequant(acc[4 * i + 3], sr1, sc1));
+    }
+    hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.c, a.ldc, m0r, n0, a.m, a.n);
+  }
+};
+
 // -- the kernel ------------------------------------------------------------------
 
-// The TMA loads of one operand tile (rows r0.. of the operand, K slice kt).
-template <int kMaj, int kRows>
+// The TMA loads of one operand tile (rows r0.. of the operand, K slice kt
+// of kSliceK elements).
+template <int kMaj, int kRows, int kSliceK = kBK>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t* bar, int kt, int r0) {
   if constexpr (kMaj == kK) {
-    hopper::tma_load_2d(dst, map, bar, kt * kBK, r0);  // box (64 K, kRows)
+    hopper::tma_load_2d(dst, map, bar, kt * kSliceK, r0);  // box (slice, kRows)
   } else {
 #pragma unroll
     for (int j = 0; j < kRows / kSlab; ++j)  // boxes (64 MN, 64 K)
@@ -354,12 +454,12 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
 }
 
 // The descriptor of rows r0.. (a multiple of 64) of an operand tile, and the
-// bytes one 16-deep k step moves it: 32 along a K-major swizzle row, 16 K
-// rows (2 KB) down an MN-major slab.
+// bytes one k step (16 bf16 or 32 int8) moves it: 32 along a K-major swizzle
+// row, 16 K rows (2 KB) down an MN-major slab.
 template <int kMaj>
 __device__ __forceinline__ uint64_t tile_desc(const uint8_t* tile, int r0) {
   if constexpr (kMaj == kK)
-    return hopper::wgmma_desc<kSwizzle>(tile + r0 * kBK * 2, 8 * kSwizzle,
+    return hopper::wgmma_desc<kSwizzle>(tile + r0 * kSliceBytes, 8 * kSwizzle,
                                         8 * kSwizzle);
   else
     return hopper::wgmma_desc<kSwizzle>(tile + (r0 / kSlab) * kSlabBytes,
@@ -378,16 +478,26 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
   else
     hopper::wgmma_ss_m64n128k16<kMajA, kMajB>(d, da, db, 1);
 }
-
-// The slice's 4 k steps of one product on a stage's A and B tiles.
 template <int BN, int kMajA, int kMajB>
-__device__ __forceinline__ void slice_products(float (&acc)[BN / 2],
+__device__ __forceinline__ void wgmma_ss(int (&d)[BN / 2], uint64_t da,
+                                         uint64_t db) {
+  static_assert(kMajA == kK && kMajB == kK, "int8 wgmma reads K-major only");
+  if constexpr (BN == 256)
+    hopper::wgmma_s8_m64n256k32(d, da, db, 1);
+  else
+    hopper::wgmma_s8_m64n128k32(d, da, db, 1);
+}
+
+// The slice's 4 k steps (32 bytes of K each) of one product on a stage's A
+// and B tiles.
+template <int BN, int kMajA, int kMajB, typename Acc>
+__device__ __forceinline__ void slice_products(Acc (&acc)[BN / 2],
                                                const uint8_t* a,
                                                const uint8_t* b, int c) {
   const uint64_t da = tile_desc<kMajA>(a, 64 * c);
   const uint64_t db = tile_desc<kMajB>(b, 0);
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
+  for (int kk = 0; kk < kSliceBytes / 32; ++kk)
     wgmma_ss<BN, kMajA, kMajB>(
         acc, hopper::desc_advance(da, kk * k_step_bytes<kMajA>()),
         hopper::desc_advance(db, kk * k_step_bytes<kMajB>()));
@@ -407,8 +517,10 @@ __global__ __launch_bounds__(kThreads, (Config<BN, Fm::kDual>::kBlocksPerSM)) vo
   Tiles<BN, Fm::kDual>& sm = *reinterpret_cast<Tiles<BN, Fm::kDual>*>(
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
 
+  using Acc = typename Fm::Acc;
+  constexpr int kSK = slice_k<Fm>();
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
-  const int ktiles = (k + kBK - 1) / kBK;
+  const int ktiles = (k + kSK - 1) / kSK;
   const int kt0 = blockIdx.z * kslices;
   const int nk = min(ktiles, kt0 + kslices) - kt0;  // >= 1 (the plan's split)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -436,14 +548,15 @@ __global__ __launch_bounds__(kThreads, (Config<BN, Fm::kDual>::kBlocksPerSM)) vo
         uint8_t* stage = sm.ring[st];
         mbar_wait(&sm.empty[st], ((i / S) & 1) ^ 1);
         mbar_expect_tx(&sm.full[st], R::kStage);
-        load_tile<Fm::kMajA, kBM>(stage, &amap, &sm.full[st], kt, m0);
+        load_tile<Fm::kMajA, kBM, kSK>(stage, &amap, &sm.full[st], kt, m0);
         if constexpr (Fm::kPairB) {  // a rows, then gate rows, BN / 2 each
           const int c0 = n0 / 2, inner = gridDim.x * (BN / 2);
           load_tile<kK, BN / 2>(stage + R::kA, &bmap, &sm.full[st], kt, c0);
-          load_tile<kK, BN / 2>(stage + R::kA + BN / 2 * kBK * 2, &bmap,
+          load_tile<kK, BN / 2>(stage + R::kA + BN / 2 * kSliceBytes, &bmap,
                                 &sm.full[st], kt, inner + c0);
         } else {
-          load_tile<Fm::kMajB, BN>(stage + R::kA, &bmap, &sm.full[st], kt, n0);
+          load_tile<Fm::kMajB, BN, kSK>(stage + R::kA, &bmap, &sm.full[st], kt,
+                                        n0);
         }
         if constexpr (Fm::kDual) {
           load_tile<Fm::kMajA2, kBM>(stage + R::kA + R::kB, &a2map,
@@ -458,10 +571,10 @@ __global__ __launch_bounds__(kThreads, (Config<BN, Fm::kDual>::kBlocksPerSM)) vo
 
   const int c = warp / 4;  // consumer warpgroup: rows 64c.. of the block
 
-  float acc[BN / 2];
+  Acc acc[BN / 2];
   float acc2[Fm::kDual ? BN / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
   if constexpr (Fm::kDual) {
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc2[i] = 0.f;
@@ -513,23 +626,26 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const typename Epi::Args& args,
 
 // A plan's operand map (6 values: dims innermost first, row bytes, box,
 // majorness) describes operand (rows, K) of majorness kMaj with tiles of
-// `rows_box` rows.
+// `rows_box` rows and K slices of `slice` elements.
 __host__ inline bool map_fits(const int64_t* p, int kMaj, int64_t rows,
-                              int64_t k, int64_t rows_box) {
+                              int64_t k, int64_t rows_box, int slice) {
   if (p[5] != kMaj) return false;
   if (kMaj == kK)
-    return p[0] == k && p[1] == rows && p[3] == kBK && p[4] == rows_box;
+    return p[0] == k && p[1] == rows && p[3] == slice && p[4] == rows_box;
   return p[0] == rows && p[1] == k && p[3] == kSlab && p[4] == kBK;
 }
 
+template <class Fm>
 __host__ inline bool encode_map(CUtensorMap* map, const void* base,
                                 const int64_t* p) {
-  return hopper::encode_bf16_map_2d(map, base, p, p[2], (int)p[3], (int)p[4],
-                                    kSwizzle);
+  return hopper::encode_map_2d(
+      map, Fm::kS8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      base, p, p[2], (int)p[3], (int)p[4], kSwizzle);
 }
 
 // The plan (kPlanValues int64, ops/gemm_sm90.py's GemmPlan) of a product
-// (M, N, K) with C's row stride ldc: A's map (dims, row bytes, box,
+// (M, N, K) with C's row stride ldc: A's map (dims in elements, row bytes,
+// box: one slice of K by the tile's rows for a K-major operand,
 // majorness), B's, the swizzle bytes, the grid (N tiles, M tiles, K
 // splits), the threads, the dynamic shared memory, BN, ldc, the K slices
 // of a split.
@@ -538,11 +654,12 @@ __host__ inline bool encode_map(CUtensorMap* map, const void* base,
 template <int BN, class Fm>
 __host__ inline bool plan_fits(const int64_t* p, int kMajA, int kMajB, int m,
                                int n, int k, int ldc) {
-  const int64_t ktiles = (k + kBK - 1) / kBK, splits = p[15], ks = p[20];
+  constexpr int kSK = slice_k<Fm>();
+  const int64_t ktiles = (k + kSK - 1) / kSK, splits = p[15], ks = p[20];
   constexpr int kPair = Fm::kPairB;
   if (kPair && n % BN != 0) return false;
-  return map_fits(p, kMajA, m, k, kBM) &&
-         map_fits(p + 6, kMajB, n, k, BN >> kPair) &&
+  return map_fits(p, kMajA, m, k, kBM, kSK) &&
+         map_fits(p + 6, kMajB, n, k, BN >> kPair, kSK) &&
          p[12] == kSwizzle && p[13] == (n + BN - 1) / BN &&
          p[14] == (m + kBM - 1) / kBM && splits >= 1 && ks >= 1 &&
          (splits - 1) * ks < ktiles && splits * ks >= ktiles &&
@@ -574,10 +691,10 @@ cudaError_t gemm_from_plan(const int64_t* p, const int64_t* p2, const void* A,
         if (p2[i] != p[i]) return true;
     }
     CUtensorMap maps[4];
-    if (!encode_map(&maps[0], A, p) || !encode_map(&maps[1], B, p + 6))
+    if (!encode_map<Fm>(&maps[0], A, p) || !encode_map<Fm>(&maps[1], B, p + 6))
       return true;
     if constexpr (Fm::kDual) {
-      if (!encode_map(&maps[2], A2, p2) || !encode_map(&maps[3], B2, p2 + 6))
+      if (!encode_map<Fm>(&maps[2], A2, p2) || !encode_map<Fm>(&maps[3], B2, p2 + 6))
         return true;
     } else {
       maps[2] = maps[0];

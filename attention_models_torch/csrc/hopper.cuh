@@ -6,7 +6,8 @@
 //   - wgmma shared-memory descriptors (K-major and MN-major operands),
 //     fence / commit / wait, the bf16 products with A in registers (RS) at
 //     n 64 and 32, and with both operands in shared memory (SS) at n 256,
-//     128 and 64, either operand K-major or MN-major;
+//     128 and 64, either operand K-major or MN-major; the s8 products (SS,
+//     both K-major, s32 sums) at n 256 and 128;
 //   - setmaxnreg, named barriers, and the address swizzle TMA applies, so
 //     that a thread can read or write a swizzled tile itself;
 //   - on the host, cuTensorMapEncodeTiled reached through the runtime's
@@ -162,13 +163,19 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// An accumulator is written by wgmma asynchronously: this makes the compiler
-// treat every register of `d` as written here (after wgmma_wait), so no read
-// of it is moved above the wait.
+// An accumulator (fp32, or s32 in the int8 products) is written by wgmma
+// asynchronously: this makes the compiler treat every register of `d` as
+// written here (after wgmma_wait), so no read of it is moved above the
+// wait.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 // The same for A registers (RS): wgmma reads them asynchronously, so they
 // must stay live, unchanged, until its wgmma_wait; fencing them there keeps
@@ -377,6 +384,106 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
         "n"(kTnspB));
 }
 
+// D(64 x 128) (+)= A(64 x 32) * B(32 x 128), both in shared memory (SS),
+// s8 operands (K-major only), exact s32 accumulators (d: 64 a thread).
+__device__ __forceinline__ void wgmma_s8_m64n128k32(int (&d)[64],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64 x 256) (+)= A(64 x 32) * B(32 x 256), both in shared memory (SS),
+// s8 operands (K-major only), exact s32 accumulators (d: 128 a thread).
+__device__ __forceinline__ void wgmma_s8_m64n256k32(int (&d)[128],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // -- warp specialisation ------------------------------------------------------
 
 // Give back registers (a producer warpgroup) or take them (consumers); every
@@ -448,13 +555,15 @@ inline bool encode_bf16_map_4d(CUtensorMap* map, const void* base,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A rank-2 bf16 tensor map over a row-major (dims[1], dims[0]) matrix at
-// `base`: dims innermost first (elements), `row_bytes` between rows, a box
-// of box0 x box1, zero fill past the extent. False if cuTensorMapEncodeTiled
-// refuses it.
-inline bool encode_bf16_map_2d(CUtensorMap* map, const void* base,
-                               const int64_t dims[2], int64_t row_bytes,
-                               int box0, int box1, int swizzle_bytes) {
+// A rank-2 tensor map of `type` (bf16, or UINT8 for int8 operands: TMA
+// moves bytes) over a row-major (dims[1], dims[0]) matrix at `base`: dims
+// innermost first (elements), `row_bytes` between rows, a box of box0 x
+// box1, zero fill past the extent. False if cuTensorMapEncodeTiled refuses
+// it.
+inline bool encode_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, const int64_t dims[2],
+                          int64_t row_bytes, int box0, int box1,
+                          int swizzle_bytes) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t gdim[2] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1]};
@@ -465,9 +574,8 @@ inline bool encode_bf16_map_2d(CUtensorMap* map, const void* base,
                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                 : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                       : CU_TENSOR_MAP_SWIZZLE_NONE;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-            gdim, gstride, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 2, const_cast<void*>(base), gdim, gstride, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

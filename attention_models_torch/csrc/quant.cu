@@ -20,34 +20,46 @@
 // the next product starts; the FFN's LayerNorm also spans the whole inner
 // row. So each block runs as row passes and tile products through global
 // scratches, as csrc/ffn.cu does:
-//   row_quant:  one block a row, the row in registers: optionally the
-//               LayerNorm (float64 sums of the row and of its centred
-//               squares, rounded once to fp32), then amax, the scale and the
-//               int8 codes (round half to even, IEEE division, clip +-127);
-//   gemm_s8:    128 x 128 int32 tiles of int8 A B^T, mma.sync m16n8k32 s8,
-//               64-byte k slices copied by cp.async (three stages), an
-//               epilogue that dequantises as (float(acc) * s_row) * s_col
-//               (+ bias) and either applies gelu into an fp32 scratch or
-//               adds the residual and writes the output;
-//   the FFN's first product interleaves 8 "a" rows of W1 with their 8
-//               "gate" rows per tile (csrc/ffn.cu's layout), so each thread
-//               dequantises a and gate of one (row, column) and writes
-//               g = gate * gelu(a) to an fp32 scratch;
-//   the wide FFN's first product is csrc/ffn.cu's bf16 GEGLU tile product
-//               (amt_geglu_bf16); in fp32 an FMA tile product with float64
-//               sums, rounded once, as the plain version's float64 product.
+//   row_quant:  one block a row: optionally the LayerNorm (float64 sums of
+//               the row and of its centred squares, rounded once to fp32),
+//               then amax, the scale and the int8 codes (round half to even,
+//               IEEE division, clip +-127). A row of up to 4096 values is
+//               held in registers; a wider one is walked in chunks of 4096,
+//               read again for each step, in the same order;
+//   kernel 20 (the wide FFN), three launches:
+//     - the up-projection g = gate * gelu(a) of [a | gate] = x W1^T into an
+//       fp32 scratch at the plan's row pitch. bf16: csrc/gemm_sm90.cuh's
+//       TMA/wgmma tile product in its paired-column form with the GegluF32
+//       epilogue, kernel 11's own (plan: ops/quant.py::q8wide_plan). fp32:
+//       geglu_f64_kernel on the fp64 tensor cores (DMMA, mma.sync m16n8k16
+//       .f64): each 32-deep fp32 slice is loaded into registers while the
+//       block multiplies the one before and becomes doubles in shared
+//       memory, each element converted once a block; a product of two fp32
+//       values is exact in float64 and DMMA sums in float64, so H is the
+//       float64 sum rounded once, as the plain version's float64 product
+//       (only the order of the float64 sums differs);
+//     - row_quant with the gamma-LN over the inner width;
+//     - y_q W2q^T on the tile product's int8 form (sm90::S8: TMA boxes of
+//       128 int8 of K, wgmma m64nBNk32 .s32.s8.s8, exact s32 sums) with the
+//       DequantStore epilogue;
+//   kernels 19 and 21: gemm_s8 (128 x 128 int32 tiles of int8 A B^T,
+//               mma.sync m16n8k32 s8, 64-byte k slices copied by cp.async
+//               in three stages, an epilogue that dequantises as
+//               (float(acc) * s_row) * s_col (+ bias) and either applies
+//               gelu into an fp32 scratch or adds the residual and writes
+//               the output); kernel 19's first product interleaves 8 "a"
+//               rows of W1 with their 8 "gate" rows per tile, so each
+//               thread dequantises a and gate of one (row, column) and
+//               writes g = gate * gelu(a) to an fp32 scratch.
 // Each dequantisation, bias, residual and LayerNorm step is one IEEE
 // operation in the plain version's order (__fmul_rn / __fadd_rn keep nvcc
 // from contracting them into FMAs), and the gelu is PyTorch's CUDA
-// expression, so the int8 codes equal the plain version's on the card.
-// Kernel 21's hid (1368) is not a multiple of 16 bytes: its W2 and gelu
-// codes are stored at a padded stride with zero columns. mma.sync in place
-// of wgmma and the scratches are what later PRs tune.
+// expression, so the int8 codes equal the plain version's on the card
+// (bf16 kernel 20: up to its fp32 sums' order). Kernel 21's hid (1368) is
+// not a multiple of 16 bytes: its W2 and gelu codes are stored at a padded
+// stride with zero columns.
 #include "gemm.cuh"
-
-// csrc/ffn.cu: g = gate * gelu(a) of x W1^T, bf16 operands, fp32 g (n, inner)
-cudaError_t amt_geglu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
-                           float* g, int n, int d, int inner, cudaStream_t s);
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -55,7 +67,8 @@ constexpr int kBK8 = 64;            // k bytes per slice: two m16n8k32 steps
 constexpr int kLd8 = kBK8 + 16;     // shared row stride (bytes) of a tile
 constexpr int kTile8 = kBM * kLd8;  // bytes of one operand tile
 constexpr size_t kSmem8 = (size_t)kStages * 2 * kTile8;
-constexpr int kRowPer = 16;  // row_quant values per thread: rows <= 4096
+constexpr int kRowPer = 16;  // row_quant values a thread holds
+constexpr int kRowChunk = kRowPer * kThreads;  // ... a row or chunk of 4096
 
 // D (16x8, s32) += A (16x32, s8, row) B (32x8, s8, col). PTX ISA,
 // mma.m16n8k32 .s8, g = lane / 4, t = lane % 4, each register four k bytes:
@@ -268,60 +281,132 @@ __global__ __launch_bounds__(kThreads) void gemm_s8_geglu_kernel(
     }
 }
 
-// fp32 GEGLU first product with float64 sums: exact FMA products of the
-// fp32 operands summed in double in k order and rounded once (csrc/ffn.cu's
-// fp32 tile: 64 x 64, 16-deep slices, tile columns 0..31 the "a" rows
-// bx*32 + c of W1 and 32..63 the matching "gate" rows).
-constexpr int kDM = 64, kDN = 64, kDK = 16;  // its tile: rows, columns, k slice
-
-__global__ __launch_bounds__(kThreads) void gemm_geglu_f64acc_kernel(
-    const float* __restrict__ a, const float* __restrict__ b,
-    float* __restrict__ c, int M, int K, int inner) {
-  __shared__ float as[kDK][kDM + 4];
-  __shared__ float bs[kDK][kDN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kDM;
-  const int lr = tid / 4, lk = (tid % 4) * 4;
-  const bool a_ok = m0 + lr < M;
-  const float* a_src = a + (int64_t)(a_ok ? m0 + lr : 0) * K + lk;
-  const int brow = blockIdx.x * 32 + (lr & 31) + (lr >> 5) * inner;
-  const float* b_src = b + (int64_t)brow * K + lk;
-  double acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-  for (int k0 = 0; k0 < K; k0 += kDK) {
-    const float4 av = a_ok ? *reinterpret_cast<const float4*>(a_src + k0)
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 bv = *reinterpret_cast<const float4*>(b_src + k0);
-    __syncthreads();  // the previous slice is consumed
-    as[lk][lr] = av.x; as[lk + 1][lr] = av.y; as[lk + 2][lr] = av.z; as[lk + 3][lr] = av.w;
-    bs[lk][lr] = bv.x; bs[lk + 1][lr] = bv.y; bs[lk + 2][lr] = bv.z; bs[lk + 3][lr] = bv.w;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kDK; ++k) {
-      double ar[4], br[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ar[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) br[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(ar[i], br[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      c[(int64_t)row * inner + blockIdx.x * 32 + tx + 16 * j] =
-          (float)acc[i][j + 2] * gelu_torch((float)acc[i][j]);
-  }
+// D (16x8, f64) += A (16x16, row) B (16x8, col), float64 (DMMA, the sm_90
+// shape: m8n8k4 runs at half the H100's fp64 tensor rate). PTX ISA,
+// mma.m16n8k16 .f64, g = lane / 4, t = lane % 4:
+//   a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)]    b[i] = B[t + 4 i][g]
+//   d[0..1] = D[g][2t..2t+1]    d[2..3] = D[g+8][2t..2t+1]
+__device__ __forceinline__ void dmma_16816(double d[4], const double a[8],
+                                           const double b[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
+
+// Kernel 20's fp32 up-projection: a block's tile is 128 rows of H by 128 of
+// its columns, W1's "a" rows c0 .. c0 + 63 and the matching "gate" rows
+// inner + c0 .. (c0 = 64 blockIdx.x), so the block writes g's columns
+// c0 .. c0 + 63. 8 warps of 32 rows x 64 columns: warp (wm, wn) takes rows
+// 32 wm .. (two m16 tiles), a columns 32 wn .. + 31 (n8 tiles nt 0-3) and
+// their gate columns (nt 4-7), so acc[mt][nt] and acc[mt][nt + 4] are a and
+// gate of one (row, column). K in 32-deep slices: each thread loads its 16-byte
+// pieces of the next slice (fp32, as they lie) into registers while the
+// block multiplies the current one, then converts them to double into the
+// other of two shared buffers (each element converted once a block, not
+// once a warp that reads it; the fp64 conversions share the DMMA's pipe).
+// Rows are padded to 36 doubles: a warp's fragment loads (row g (+ 8),
+// column t (+ 4 i) of a 16-deep step) fall in distinct banks.
+constexpr int kDmmaM = 128, kDmmaN = 128, kDmmaK = 32, kDmmaThreads = 256;
+constexpr int kDmmaLd = kDmmaK + 4;  // shared row (doubles) of a slice
+constexpr int kDmmaPieces = kDmmaM * kDmmaK / 4 / kDmmaThreads;  // float4s a thread
+struct DmmaTiles {
+  double a[2][kDmmaM][kDmmaLd];
+  double b[2][kDmmaN][kDmmaLd];
+};
+
+__global__ __launch_bounds__(kDmmaThreads, 1) void geglu_f64_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1,
+    float* __restrict__ g, int ldg, int M, int K, int inner) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DmmaTiles& sm = *reinterpret_cast<DmmaTiles*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4, wm = warp / 2, wn = warp % 2;
+  const int m0 = blockIdx.y * kDmmaM, c0 = blockIdx.x * 64;
+  // piece i of a thread: tile row (tid + 256 i) / 8, columns 4 ((tid % 8)) ..
+  const int pr = tid / 8, pc = (tid % 8) * 4;
+  const float* a_src = x + (int64_t)(m0 + pr) * K + pc;
+  const float* b_src = w1 + (int64_t)(c0 + pr) * K + pc;  // "a" rows; gate: + inner
+  float4 ra[kDmmaPieces], rb[kDmmaPieces];
+  const auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < kDmmaPieces; ++i) {
+      const int r = pr + 32 * i;  // rows 0-63 of B are "a", 64-127 "gate"
+      ra[i] = m0 + r < M ? *reinterpret_cast<const float4*>(a_src + (int64_t)32 * i * K + k0)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      rb[i] = *reinterpret_cast<const float4*>(
+          b_src + (int64_t)(r < 64 ? 32 * i : inner + 32 * i - 64) * K + k0);
+    }
+  };
+  const auto stash = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < kDmmaPieces; ++i) {
+      double2* pa = reinterpret_cast<double2*>(&sm.a[buf][pr + 32 * i][pc]);
+      double2* pb = reinterpret_cast<double2*>(&sm.b[buf][pr + 32 * i][pc]);
+      pa[0] = make_double2(ra[i].x, ra[i].y);
+      pa[1] = make_double2(ra[i].z, ra[i].w);
+      pb[0] = make_double2(rb[i].x, rb[i].y);
+      pb[1] = make_double2(rb[i].z, rb[i].w);
+    }
+  };
+  double acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0;
+  const int KT = K / kDmmaK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < KT) fetch((kt + 1) * kDmmaK);
+    const double(*as)[kDmmaLd] = sm.a[buf];
+    const double(*bs)[kDmmaLd] = sm.b[buf];
+#pragma unroll
+    for (int kk = 0; kk < kDmmaK; kk += 16) {
+      double af[2][8];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          af[mt][i] = as[32 * wm + 16 * mt + gq + 8 * (i & 1)][kk + tq + 4 * (i >> 1)];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {  // a columns (nt 0-3), then gate
+        const double* br = bs[(nt >> 2) * 64 + 32 * wn + 8 * (nt & 3) + gq] + kk + tq;
+        const double bf[4] = {br[0], br[4], br[8], br[12]};
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) dmma_16816(acc[mt][nt], af[mt], bf);
+      }
+    }
+    // the other buffer was last read before the previous barrier
+    if (kt + 1 < KT) stash(buf ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + 32 * wm + 16 * mt + gq + 8 * h;
+      if (row >= M) continue;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int col = c0 + 32 * wn + 8 * p + 2 * tq;
+        const double* a = &acc[mt][p][2 * h];
+        const double* gt = &acc[mt][p + 4][2 * h];
+        *reinterpret_cast<float2*>(g + (int64_t)row * ldg + col) =
+            make_float2((float)gt[0] * gelu_torch((float)a[0]),
+                        (float)gt[1] * gelu_torch((float)a[1]));
+      }
+    }
+}
+
+constexpr size_t kDmmaSmem = sizeof(DmmaTiles);
 
 __device__ __forceinline__ double block_sum_d(double v, double* red) {
 #pragma unroll
@@ -347,65 +432,168 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return m;
 }
 
-// One block a row of `width` values (row stride ld_in) held in registers:
-// with kLN the LayerNorm y = (v - mean) * rstd * gamma (+ beta) (float64
-// statistics, rounded once), then scale = max(amax, 1e-8) / 127 and
+// V values of T from p into v (V 4: one 16-byte load of fp32, 8-byte of
+// bf16)
+template <int V, typename T>
+__device__ __forceinline__ void load_vals(const T* p, float* v) {
+  if constexpr (V == 1) {
+    v[0] = to_f32(p[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = lo.x;
+    v[1] = lo.y;
+    v[2] = hi.x;
+    v[3] = hi.y;
+  }
+}
+
+// One block a row of `width` values (row stride ld_in): with kLN the
+// LayerNorm y = (v - mean) * rstd * gamma (+ beta) (float64 statistics,
+// rounded once), then scale = max(amax, 1e-8) / 127 and
 // q = clip(rint(y / scale), -127, 127) into q (row stride ld_q >= width; the
-// columns past width are zeros).
-template <typename T, bool kLN>
+// columns past width are zeros). Thread t takes V columns
+// V (t + kThreads j) .. + V - 1 of a chunk of kRowChunk (V 4: one vector
+// load and one 4-byte store of codes each; V 1 where the widths, strides or
+// pointers do not allow it). A row of at most kRowChunk columns is read once
+// and held in registers; a wider one is walked in chunks, each step (the
+// sum, the centred squares, amax, the codes) reading its chunks again in the
+// same order, so the float64 sums run in one fixed order.
+template <typename T, bool kLN, int V>
 __global__ __launch_bounds__(kThreads) void row_quant_kernel(
     const T* __restrict__ in, int ld_in, const float* __restrict__ gamma,
     const float* __restrict__ beta, int8_t* __restrict__ q, int ld_q,
     float* __restrict__ scale, int width, float eps) {
+  constexpr int kGroups = kRowPer / V;
   __shared__ double redd[kThreads / 32];
   __shared__ float redf[kThreads / 32];
   const T* row = in + (int64_t)blockIdx.x * ld_in;
+  const int chunks = (ld_q + kRowChunk - 1) / kRowChunk;
+  const bool held = chunks == 1;
+  // the first column of group j of the chunk at c0
+  const auto col = [&](int c0, int j) { return c0 + V * (threadIdx.x + kThreads * j); };
   float v[kRowPer];
+  const auto load = [&](int c0) {
 #pragma unroll
-  for (int j = 0; j < kRowPer; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    v[j] = c < width ? to_f32(row[c]) : 0.f;
-  }
+    for (int j = 0; j < kGroups; ++j) {
+      const int c = col(c0, j);
+      if (c < width) {
+        load_vals<V>(row + c, v + V * j);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[V * j + e] = 0.f;
+      }
+    }
+  };
+  float mean = 0.f, rstd = 0.f;
+  // v = y of the chunk at c0, in place
+  const auto norm = [&](int c0) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int c = col(c0, j) + e;
+        if (c < width) {
+          float y = __fmul_rn(__fmul_rn(v[V * j + e] - mean, rstd), gamma[c]);
+          if (beta != nullptr) y = __fadd_rn(y, beta[c]);
+          v[V * j + e] = y;
+        }
+      }
+    }
+  };
+  if (held) load(0);
   if (kLN) {
     double s = 0.0;
+    for (int k = 0; k < chunks; ++k) {
+      if (!held) load(k * kRowChunk);
 #pragma unroll
-    for (int j = 0; j < kRowPer; ++j) s += (double)v[j];  // zeros past width
-    const float mean = (float)(block_sum_d(s, redd) / width);
+      for (int j = 0; j < kRowPer; ++j) s += (double)v[j];  // zeros past width
+    }
+    mean = (float)(block_sum_d(s, redd) / width);
     double sq = 0.0;
+    for (int k = 0; k < chunks; ++k) {
+      const int c0 = k * kRowChunk;
+      if (!held) load(c0);
 #pragma unroll
-    for (int j = 0; j < kRowPer; ++j) {
-      if (threadIdx.x + j * kThreads < width) {
-        v[j] = v[j] - mean;
-        sq += (double)v[j] * (double)v[j];
+      for (int j = 0; j < kGroups; ++j) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if (col(c0, j) + e < width) {
+            const float cv = v[V * j + e] - mean;
+            sq += (double)cv * (double)cv;
+          }
+        }
       }
     }
-    const float rstd =
-        (float)(1.0 / sqrt(block_sum_d(sq, redd) / width + (double)eps));
-#pragma unroll
-    for (int j = 0; j < kRowPer; ++j) {
-      const int c = threadIdx.x + j * kThreads;
-      if (c < width) {
-        float y = __fmul_rn(__fmul_rn(v[j], rstd), gamma[c]);
-        if (beta != nullptr) y = __fadd_rn(y, beta[c]);
-        v[j] = y;
-      }
-    }
+    rstd = (float)(1.0 / sqrt(block_sum_d(sq, redd) / width + (double)eps));
+    if (held) norm(0);
   }
   float amax = 0.f;
+  for (int k = 0; k < chunks; ++k) {
+    const int c0 = k * kRowChunk;
+    if (!held) {
+      load(c0);
+      if (kLN) norm(c0);
+    }
 #pragma unroll
-  for (int j = 0; j < kRowPer; ++j)
-    if (threadIdx.x + j * kThreads < width) amax = fmaxf(amax, fabsf(v[j]));
+    for (int j = 0; j < kGroups; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (col(c0, j) + e < width) amax = fmaxf(amax, fabsf(v[V * j + e]));
+  }
   const float s = __fdiv_rn(fmaxf(block_max(amax, redf), 1e-8f), 127.f);
   int8_t* out = q + (int64_t)blockIdx.x * ld_q;
+  const auto code = [&](int c, float y) {
+    return c < width ? (int8_t)fminf(fmaxf(rintf(__fdiv_rn(y, s)), -127.f), 127.f)
+                     : (int8_t)0;
+  };
+  for (int k = 0; k < chunks; ++k) {
+    const int c0 = k * kRowChunk;
+    if (!held) {
+      load(c0);
+      if (kLN) norm(c0);
+    }
 #pragma unroll
-  for (int j = 0; j < kRowPer; ++j) {
-    const int c = threadIdx.x + j * kThreads;
-    if (c < ld_q)
-      out[c] = c < width
-                   ? (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v[j], s)), -127.f), 127.f)
-                   : (int8_t)0;
+    for (int j = 0; j < kGroups; ++j) {
+      const int c = col(c0, j);
+      if (c >= ld_q) continue;
+      if constexpr (V == 1) {
+        out[c] = code(c, v[j]);
+      } else {
+        uint32_t w = 0;
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          w |= (uint32_t)(uint8_t)code(c + e, v[V * j + e]) << (8 * e);
+        *reinterpret_cast<uint32_t*>(out + c) = w;
+      }
+    }
   }
   if (threadIdx.x == 0) scale[blockIdx.x] = s;
+}
+
+// row_quant_kernel over n rows, 4 columns a thread where every width,
+// stride and pointer allows it
+template <typename T, bool kLN>
+cudaError_t row_quant(const T* in, int ld_in, const float* gamma, const float* beta,
+                      int8_t* q, int ld_q, float* scale, int n, int width, float eps,
+                      cudaStream_t s) {
+  const bool vec = width % 4 == 0 && ld_in % 4 == 0 && ld_q % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(in) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 4 == 0;
+  if (vec)
+    row_quant_kernel<T, kLN, 4><<<n, kThreads, 0, s>>>(in, ld_in, gamma, beta, q, ld_q,
+                                                      scale, width, eps);
+  else
+    row_quant_kernel<T, kLN, 1><<<n, kThreads, 0, s>>>(in, ld_in, gamma, beta, q, ld_q,
+                                                      scale, width, eps);
+  return cudaGetLastError();
 }
 
 cudaError_t set_smem(const void* fn) {
@@ -427,14 +615,14 @@ cudaError_t gemm_s8_out(const int8_t* A, int lda, const int8_t* B, int ldb, int 
   return cudaGetLastError();
 }
 
-// y = the FFN's gamma-LN of g, quantized; then out = dequant(y_q W2q^T)
+// Kernel 19's tail: y = the FFN's gamma-LN of g, quantized; then
+// out = dequant(y_q W2q^T)
 template <typename T>
 cudaError_t ffn_tail(const float* gs, const float* gamma, const int8_t* w2q,
                      const float* s2, int8_t* yq, float* sy, T* out, int n, int d,
                      int inner, float eps, cudaStream_t s) {
-  row_quant_kernel<float, true><<<n, kThreads, 0, s>>>(gs, inner, gamma, nullptr, yq,
-                                                      inner, sy, inner, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      row_quant<float, true>(gs, inner, gamma, nullptr, yq, inner, sy, n, inner, eps, s);
   if (err != cudaSuccess) return err;
   return gemm_s8_out<T>(yq, inner, w2q, inner, n, d, inner, sy, s2, nullptr, nullptr,
                         out, d, s);
@@ -445,9 +633,7 @@ cudaError_t ffn_q8(const T* x, const int8_t* w1q, const float* s1, const float* 
                    const int8_t* w2q, const float* s2, int8_t* xq, float* sx,
                    float* gs, int8_t* yq, float* sy, T* out, int n, int d,
                    int inner, float eps, cudaStream_t s) {
-  row_quant_kernel<T, false><<<n, kThreads, 0, s>>>(x, d, nullptr, nullptr, xq, d, sx,
-                                                   d, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = row_quant<T, false>(x, d, nullptr, nullptr, xq, d, sx, n, d, eps, s);
   if (err != cudaSuccess) return err;
   if ((err = set_smem((const void*)gemm_s8_geglu_kernel)) != cudaSuccess) return err;
   gemm_s8_geglu_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kSmem8, s>>>(
@@ -456,14 +642,53 @@ cudaError_t ffn_q8(const T* x, const int8_t* w1q, const float* s1, const float* 
   return ffn_tail<T>(gs, gamma, w2q, s2, yq, sy, out, n, d, inner, eps, s);
 }
 
+// Kernel 20 from its plan (ops/quant.py::q8wide_plan: the paired GEGLU
+// product's GemmPlan, then y_q W2q^T's in the int8 form): g = gate * gelu(a)
+// into the fp32 scratch at the plan's pitch (bf16: the tile product; fp32:
+// geglu_f64_kernel), the gamma-LN and codes of each row, the int8 product.
+template <typename T>
+cudaError_t ffn_q8wide(const int64_t* plan, const T* x, const T* w1,
+                       const float* gamma, const int8_t* w2q, const float* s2,
+                       float* gs, int8_t* yq, float* sy, T* out, int n, int d,
+                       int inner, float eps, cudaStream_t s) {
+  constexpr int P = sm90::kPlanValues;
+  const int ldg = (int)plan[19];     // g's pitch (fp32 elements)
+  const int ldq = (int)plan[P + 2];  // y_q's: the int8 product's A map (bytes)
+  if (ldg < inner || ldg % 4 || ldq < inner) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const sm90::GegluF32::Args ga{gs, n, inner, ldg};
+    err = sm90::gemm_from_plan<sm90::Paired, sm90::GegluF32, 256>(
+        plan, nullptr, x, w1, nullptr, nullptr, ga, n, 2 * inner, d, ldg, s);
+  } else {
+    static bool smem_set = false;
+    if (!smem_set) {
+      err = cudaFuncSetAttribute(geglu_f64_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kDmmaSmem);
+      if (err != cudaSuccess) return err;
+      smem_set = true;
+    }
+    geglu_f64_kernel<<<dim3(inner / 64, (n + kDmmaM - 1) / kDmmaM), kDmmaThreads,
+                       kDmmaSmem, s>>>(x, w1, gs, ldg, n, d, inner);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  if ((err = row_quant<float, true>(gs, ldg, gamma, nullptr, yq, ldq, sy, n, inner, eps,
+                                    s)) != cudaSuccess)
+    return err;
+  const typename sm90::DequantStore<T>::Args oa{out, sy, s2, n, d, d};
+  return sm90::gemm_from_plan<sm90::S8, sm90::DequantStore<T>, 128, 256>(
+      plan + P, nullptr, yq, w2q, nullptr, nullptr, oa, n, d, inner, d, s);
+}
+
 template <typename T>
 cudaError_t ln_mlp_q8(const T* x, const float* lng, const float* lnb,
                       const int8_t* w1q, const float* s1, const float* b1,
                       const int8_t* w2q, const float* s2, const float* b2, int8_t* yq,
                       float* sy, float* gs, int8_t* gq, float* sg, T* out, int n,
                       int d, int hid, int hid_pad, float eps, cudaStream_t s) {
-  row_quant_kernel<T, true><<<n, kThreads, 0, s>>>(x, d, lng, lnb, yq, d, sy, d, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = row_quant<T, true>(x, d, lng, lnb, yq, d, sy, n, d, eps, s);
   if (err != cudaSuccess) return err;
   if ((err = set_smem((const void*)gemm_s8_kernel<kGelu, float>)) != cudaSuccess)
     return err;
@@ -471,9 +696,9 @@ cudaError_t ln_mlp_q8(const T* x, const float* lng, const float* lnb,
       <<<dim3((hid + kBN - 1) / kBN, (n + kBM - 1) / kBM), kThreads, kSmem8, s>>>(
           yq, d, w1q, d, n, hid, d, sy, s1, b1, nullptr, gs, hid);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  row_quant_kernel<float, false><<<n, kThreads, 0, s>>>(gs, hid, nullptr, nullptr, gq,
-                                                       hid_pad, sg, hid, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = row_quant<float, false>(gs, hid, nullptr, nullptr, gq, hid_pad, sg, n, hid,
+                                     eps, s)) != cudaSuccess)
+    return err;
   return gemm_s8_out<T>(gq, hid_pad, w2q, hid_pad, n, d, hid_pad, sg, s2, b2, x, out,
                         d, s);
 }
@@ -488,8 +713,7 @@ AMT_EXPORT int amt_ffn_q8(const void* x, const void* w1q, const void* s1,
                           int n, int d, int inner, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (d % kBN || inner % kBN || d > kRowPer * kThreads || inner > kRowPer * kThreads)
-    return cudaErrorInvalidValue;
+  if (d % kBN || inner % kBN) return cudaErrorInvalidValue;
   const auto* w1 = static_cast<const int8_t*>(w1q);
   const auto* w2 = static_cast<const int8_t*>(w2q);
   const auto* f1 = static_cast<const float*>(s1);
@@ -509,36 +733,30 @@ AMT_EXPORT int amt_ffn_q8(const void* x, const void* w1q, const void* s1,
   return cudaErrorInvalidValue;
 }
 
-// Scratch: g (n, inner) fp32, yq (n, inner) int8, sy (n). W1 (2 * inner, d)
-// in x's dtype, W2q (d, inner).
-AMT_EXPORT int amt_ffn_q8wide(const void* x, const void* w1, const void* gamma,
-                              const void* w2q, const void* s2, void* g, void* yq,
-                              void* sy, void* out, int n, int d, int inner, float eps,
-                              int dtype, void* stream) {
+// plan: ops/quant.py::Q8WidePlan (42 int64; fp32 reads the GEGLU product's
+// g pitch only). Scratch: g (n, inner) fp32 and yq (n, inner) int8 at the
+// plan's pitches, sy (n). W1 (2 * inner, d) in x's dtype, W2q (d, inner).
+AMT_EXPORT int amt_ffn_q8wide(const int64_t* plan, const void* x, const void* w1,
+                              const void* gamma, const void* w2q, const void* s2,
+                              void* g, void* yq, void* sy, void* out, int n, int d,
+                              int inner, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (d % kBN || inner % kBN || inner > kRowPer * kThreads) return cudaErrorInvalidValue;
+  if (plan == nullptr || n < 0 || d % 128 || inner % 128) return cudaErrorInvalidValue;
   const auto* w2 = static_cast<const int8_t*>(w2q);
   const auto* f2 = static_cast<const float*>(s2);
   const auto* gm = static_cast<const float*>(gamma);
   auto* gs = static_cast<float*>(g);
   auto* yqi = static_cast<int8_t*>(yq);
   auto* syf = static_cast<float*>(sy);
-  cudaError_t err;
-  if (dtype == AMT_BF16) {
-    err = amt_geglu_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w1), gs,
-                         n, d, inner, s);
-    if (err != cudaSuccess) return err;
-    return ffn_tail(gs, gm, w2, f2, yqi, syf, static_cast<bf16*>(out), n, d, inner,
-                    eps, s);
-  }
-  if (dtype == AMT_F32) {
-    gemm_geglu_f64acc_kernel<<<dim3(inner / 32, (n + kDM - 1) / kDM), kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w1), gs, n, d, inner);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    return ffn_tail(gs, gm, w2, f2, yqi, syf, static_cast<float*>(out), n, d, inner,
-                    eps, s);
-  }
+  if (dtype == AMT_BF16)
+    return ffn_q8wide(plan, static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                      gm, w2, f2, gs, yqi, syf, static_cast<bf16*>(out), n, d, inner,
+                      eps, s);
+  if (dtype == AMT_F32)
+    return ffn_q8wide(plan, static_cast<const float*>(x), static_cast<const float*>(w1),
+                      gm, w2, f2, gs, yqi, syf, static_cast<float*>(out), n, d, inner,
+                      eps, s);
   return cudaErrorInvalidValue;
 }
 
@@ -552,9 +770,7 @@ AMT_EXPORT int amt_ln_mlp_q8(const void* x, const void* lng, const void* lnb,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (d % kBN || d > kRowPer * kThreads || hid % 2 || hid_pad % 16 || hid_pad < hid ||
-      hid_pad > kRowPer * kThreads)
-    return cudaErrorInvalidValue;
+  if (d % kBN || hid % 2 || hid_pad % 16 || hid_pad < hid) return cudaErrorInvalidValue;
   const auto* lg = static_cast<const float*>(lng);
   const auto* lb = static_cast<const float*>(lnb);
   const auto* w1 = static_cast<const int8_t*>(w1q);

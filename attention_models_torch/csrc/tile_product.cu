@@ -9,9 +9,13 @@
 //                         (gemm_f32) of fp32 operands, A and B each kK or kR
 //                         (form alike: 2 * A's layout + B's), at tile width
 //                         tn (128 or 64; 0: gemm_f32's own choice).
+//   amt_tile_product_s8:  the int8 form (sm90::S8) with the DequantStore
+//                         epilogue: C = (float(A B^T) * s_row) * s_col in
+//                         fp32, A (M, K) and B (N, K) int8, K-major.
 // No model path calls them: chip_smoke.py holds each form against
-// torch.matmul of the same views on the card before the kernels built on
-// those forms (6, 11, 12 and 14) are checked, so a wrong descriptor or
+// torch.matmul of the same views on the card (the int8 form against
+// torch._int_mm, bit for bit, with unit scales) before the kernels built on
+// those forms (6, 11, 12, 14 and 20) are checked, so a wrong descriptor or
 // layout shows by form.
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
@@ -59,4 +63,18 @@ AMT_EXPORT int amt_tile_product_f32(const void* a, int lda, const void* b, int l
       return gemm_f32_tn<kR, kR>(A, lda, B, ldb, C, n, m, n, k, tn, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// plan: one GemmPlan of the int8 form at tile width 128; C (M, N) fp32,
+// rows ldc apart.
+AMT_EXPORT int amt_tile_product_s8(const int64_t* plan, const void* a, const void* b,
+                                   const void* s_row, const void* s_col, void* c,
+                                   int m, int n, int k, int ldc, void* stream) {
+  const sm90::DequantStore<float>::Args args{static_cast<float*>(c),
+                                             static_cast<const float*>(s_row),
+                                             static_cast<const float*>(s_col), m, n,
+                                             ldc};
+  return sm90::gemm_from_plan<sm90::S8, sm90::DequantStore<float>, 128>(
+      plan, nullptr, a, b, nullptr, nullptr, args, m, n, k, ldc,
+      static_cast<cudaStream_t>(stream));
 }

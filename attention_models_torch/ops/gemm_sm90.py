@@ -10,15 +10,19 @@ Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 (``ops/ffn.py::
 ln_mlp_bwd_plan``), 11 and 12 (``ops/ffn.py::ffn_plan`` and
 ``ffn_bwd_plan``), 13 and 14 (``ops/xent.py::xent_fwd_plan`` and
 ``xent_bwd_plan``) build their plans
-from these pieces. Kernel 11's GEGLU product reads W1 in the paired-column
-form: its B tile is two boxes of ``bn / 2`` rows, W1's "a" rows and the
-matching "gate" rows.
+from these pieces, and kernel 20 (``ops/quant.py::q8wide_plan``) too. The
+GEGLU products of kernels 11 and 20 read W1 in the paired-column form: its
+B tile is two boxes of ``bn / 2`` rows, W1's "a" rows and the matching
+"gate" rows. Kernel 20's down-projection runs the product's int8 form: a K
+slice is 128 bytes whatever the type, so its boxes are 128 int8 of K where
+bf16 ones are 64, over the same ring.
 
 ``tile_product`` runs one product in any operand form with an fp32 result
 (``csrc/tile_product.cu``): the tile product for bf16 operands, csrc/
-gemm.cuh's register-tiled FMA product (``gemm_f32``) for fp32 ones. No model
-path calls it: chip_smoke.py holds each form against ``torch.matmul`` of the
-same views on the card.
+gemm.cuh's register-tiled FMA product (``gemm_f32``) for fp32 ones;
+``tile_product_s8`` the int8 form with its dequantising epilogue. No model
+path calls them: chip_smoke.py holds each form against ``torch.matmul`` (the
+int8 form against ``torch._int_mm``) of the same views on the card.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ import torch
 from attention_models_torch.ops import _build
 from attention_models_torch.ops.dispatch import check_tensor, is_kernel_path
 
-# csrc/gemm_sm90.cuh: 128 rows of C a block, K slices of 64 bf16 (one
-# 128-byte swizzle row), two consumer warpgroups and a producer warp; an
-# MN-major tile is loaded as (64 MN, 64 K) boxes
+# csrc/gemm_sm90.cuh: 128 rows of C a block, K slices of 128 bytes (one
+# swizzle row: 64 bf16 or 128 int8), two consumer warpgroups and a producer
+# warp; an MN-major tile (bf16 only) is loaded as (64 MN, 64 K) boxes
 GEMM_ROWS, GEMM_K, GEMM_THREADS, GEMM_SWIZZLE = 128, 64, 288, 128
 SLAB = 64
 # ring depth of each (tile width, dual product) the header instantiates
@@ -46,11 +50,12 @@ K_MAJOR, MN_MAJOR = 0, 1
 
 @dataclass(frozen=True)
 class TileMap:
-    """A rank-2 TMA tensor map over a row-major bf16 matrix: ``dims``
-    (inner, outer) in elements, innermost first ((K, rows) for a K-major
-    operand, (rows, K) for an MN-major one); ``stride`` the bytes between
-    outer rows; ``box`` the tile one load brings ((GEMM_K, tile rows)
-    K-major, (SLAB, GEMM_K) MN-major); ``major`` K_MAJOR or MN_MAJOR."""
+    """A rank-2 TMA tensor map over a row-major bf16 or int8 matrix:
+    ``dims`` (inner, outer) in elements, innermost first ((K, rows) for a
+    K-major operand, (rows, K) for an MN-major one); ``stride`` the bytes
+    between outer rows; ``box`` the tile one load brings ((one 128-byte
+    slice of K, tile rows) K-major, (SLAB, GEMM_K) MN-major); ``major``
+    K_MAJOR or MN_MAJOR."""
     dims: tuple[int, int]
     stride: int
     box: tuple[int, int]
@@ -106,12 +111,13 @@ class PlanArray:
 
 
 def gemm_smem_bytes(bn: int, dual: bool = False) -> int:
-    """Dynamic shared memory of the tile product at tile width ``bn``: the
+    """Dynamic shared memory of the tile product at tile width ``bn`` (the
+    same for bf16 and int8 operands: a slice is 128 bytes a row): the
     struct Tiles (GEMM_STAGES stages of an A and a B tile, two of each in a
     dual product, a full and an empty mbarrier a stage) plus 1024 bytes of
     alignment slack."""
     stages = GEMM_STAGES[(bn, dual)]
-    stage = (1 + dual) * (GEMM_ROWS + bn) * GEMM_K * 2
+    stage = (1 + dual) * (GEMM_ROWS + bn) * GEMM_SWIZZLE
     return stages * stage + 16 * stages + 1024
 
 
@@ -128,10 +134,17 @@ def meta(name: str, t: torch.Tensor) -> tuple:
             t.data_ptr() % 16)
 
 
-def scratch_meta(name: str, rows: int, cols: int, pitch: int) -> tuple:
-    """The meta of a (rows, cols) bf16 scratch at ``pitch`` elements a row
-    (allocated 16-byte aligned)."""
-    return (name, (rows, cols), (pitch, 1), 2, 0)
+def scratch_meta(name: str, rows: int, cols: int, pitch: int,
+                 item: int = 2) -> tuple:
+    """The meta of a (rows, cols) scratch of ``item``-byte elements (bf16
+    unless given) at ``pitch`` elements a row (allocated 16-byte
+    aligned)."""
+    return (name, (rows, cols), (pitch, 1), item, 0)
+
+
+def slice_k(item: int) -> int:
+    """Elements of K in one 128-byte slice of a K-major operand."""
+    return GEMM_SWIZZLE // item
 
 
 def tile_map(m: tuple, major: int, rows_box: int,
@@ -151,17 +164,21 @@ def tile_map(m: tuple, major: int, rows_box: int,
         raise ValueError(f"{what}: {name}'s row stride of {row_bytes} "
                          f"bytes is not a positive multiple of 16, which TMA "
                          f"cannot take")
-    box = (GEMM_K, rows_box) if major == K_MAJOR else (SLAB, GEMM_K)
+    if item == 1 and major != K_MAJOR:
+        raise ValueError(f"{what}: {name} is int8, which wgmma reads "
+                         f"K-major only")
+    box = ((slice_k(item), rows_box) if major == K_MAJOR
+           else (SLAB, GEMM_K))
     return TileMap((inner, outer), row_bytes, box, major)
 
 
-def split_k(tiles: int, k: int) -> tuple[int, int]:
+def split_k(tiles: int, k: int, slice_: int = GEMM_K) -> tuple[int, int]:
     """(splits, slices a split) for a product of ``tiles`` output tiles over
     K: as many ranges of K as one wave of two blocks an SM holds (a block
     past the wave would run alone at its end), each a whole number of
-    GEMM_K slices, at most MAX_K_SPLITS; 1 where the tiles fill half the
-    wave or more (chosen in turns on the H100, bench_bwd.py)."""
-    ktiles = -(-k // GEMM_K)
+    ``slice_``-element slices, at most MAX_K_SPLITS; 1 where the tiles fill
+    half the wave or more (chosen in turns on the H100, bench_bwd.py)."""
+    ktiles = -(-k // slice_)
     want = min(max(1, 2 * SM_COUNT // tiles), ktiles, MAX_K_SPLITS)
     kslices = -(-ktiles // want)
     return -(-ktiles // kslices), kslices
@@ -175,7 +192,10 @@ def gemm_plan(a: tuple, a_major: int, b: tuple, b_major: int, bn: int,
     ``split_k`` chooses (the epilogue then writes (M, N) planes: ``ldc`` is
     N); ``dual``: the shared memory of a dual product's ring; ``paired``:
     the paired-column form (B K-major, N a multiple of ``bn``, its boxes
-    ``bn / 2`` rows; C is N / 2 wide)."""
+    ``bn / 2`` rows; C is N / 2 wide). Both operands bf16, or both int8
+    (K-major, K slices of 128)."""
+    if a[3] != b[3]:
+        raise ValueError(f"{what}: {a[0]} and {b[0]} differ in item size")
     am = tile_map(a, a_major, GEMM_ROWS, what)
     bm = tile_map(b, b_major, bn // 2 if paired else bn, what)
     m = am.dims[1] if a_major == K_MAJOR else am.dims[0]
@@ -190,8 +210,9 @@ def gemm_plan(a: tuple, a_major: int, b: tuple, b_major: int, bn: int,
                          f"K-major with its {n} rows a multiple of the tile "
                          f"width {bn}")
     grid_n, grid_m = -(-n // bn), -(-m // GEMM_ROWS)
-    splits, kslices = (split_k(grid_n * grid_m, k) if split
-                       else (1, -(-k // GEMM_K)))
+    sk = slice_k(a[3])
+    splits, kslices = (split_k(grid_n * grid_m, k, sk) if split
+                       else (1, -(-k // sk)))
     return GemmPlan(am, bm, swizzle=GEMM_SWIZZLE,
                     grid=(grid_n, grid_m, splits), threads=GEMM_THREADS,
                     smem=gemm_smem_bytes(bn, dual), bn=bn,
@@ -256,3 +277,40 @@ def tile_product(a: torch.Tensor, a_major: int, b: torch.Tensor,
 
 
 tile_product.launches = 0
+
+
+def tile_product_s8(a: torch.Tensor, b: torch.Tensor,
+                    s_row: torch.Tensor | None = None,
+                    s_col: torch.Tensor | None = None) -> torch.Tensor:
+    """C (M, N) = (float(A B^T) * s_row) * s_col in fp32 for int8 A (M, K)
+    and B (N, K), both K-major (unit scales when not given): the tile
+    product's int8 form for CUDA tensors (int32 sums, exact), the plain
+    float64 product for CPU tensors."""
+    m, n = a.shape[0], b.shape[0]
+    if s_row is None:
+        s_row = torch.ones(m, dtype=torch.float32, device=a.device)
+    if s_col is None:
+        s_col = torch.ones(n, dtype=torch.float32, device=a.device)
+    if not is_kernel_path(a):
+        acc = (a.double() @ b.double().T).float()
+        return acc * s_row[:, None] * s_col
+    for name, t in (("a", a), ("b", b)):
+        check_tensor(t, name, (torch.int8,), 2, a.device)
+    for name, t in (("s_row", s_row), ("s_col", s_col)):
+        check_tensor(t, name, (torch.float32,), 1, a.device)
+    if n % 8:
+        raise ValueError("tile product (int8): N must be a multiple of 8")
+    plan = gemm_plan(meta("a", a), K_MAJOR, meta("b", b), K_MAJOR, 128, n,
+                     what="tile product (int8)")
+    out = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    arr = PlanArray((plan,))
+    with torch.cuda.device(a.device):
+        _build.launch("amt_tile_product_s8", arr.c_array(), a.data_ptr(),
+                      b.data_ptr(), s_row.data_ptr(), s_col.data_ptr(),
+                      out.data_ptr(), m, n, a.shape[1], n,
+                      _build.stream_of(a))
+    tile_product_s8.launches += 1
+    return out
+
+
+tile_product_s8.launches = 0

@@ -19,7 +19,11 @@ quantizes at its first step, as JAX hoists the quantization out of its scan.
   product on the CPU (|sum| <= K * 127^2 < 2^53).
 - ``fused_ffn_q8`` (kernel 19): the GEGLU FFN with both products in int8.
 - ``fused_ffn_q8wide`` (kernel 20): the up-projection in x's dtype, the
-  down-projection in int8.
+  down-projection in int8. On the card: the up-projection g = gate *
+  gelu(a) on csrc/gemm_sm90.cuh's paired-column tile product (bf16, kernel
+  11's GEGLU product and epilogue) or on the fp64 tensor cores (fp32), the
+  LayerNorm and row codes, then the tile product's int8 form; its host plan
+  is ``q8wide_plan``.
 - ``fused_ln_mlp_q8`` (kernel 21): x + W8A8 Mlp(LayerNorm(x)), biased.
 
 The row statistics of the LayerNorms (the GEGLU's gamma-LN over the inner
@@ -34,6 +38,8 @@ within an ulp of these). Inference only: no backward, as in JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -47,8 +53,16 @@ from attention_models_torch.ops.dispatch import (
     needs_grad,
     rows_lane_tileable,
 )
+from attention_models_torch.ops.gemm_sm90 import (
+    K_MAJOR,
+    GemmPlan,
+    PlanArray,
+    gemm_plan,
+    row_pitch,
+    scratch_meta,
+)
 
-MAX_ROW = 4096  # widest row csrc/quant.cu's row passes hold in registers
+Q8WIDE_GEGLU_BN = 256  # the paired GEGLU product's tile width (kernel 11's)
 QUANT_MODES = (None, "int8", "int8_wide")
 
 
@@ -259,9 +273,9 @@ def _ffn_q8_kernel(x, q1, gamma, q2, eps, codes=None):
     d, inner = x.shape[-1], q2.q.shape[1]
     _check_q8(x, "w1", q1, (2 * inner, d))
     _check_q8(x, "w2", q2, (d, inner))
-    if d % 128 or inner % 128 or inner > MAX_ROW or d > MAX_ROW:
+    if d % 128 or inner % 128:
         raise ValueError(f"ffn_q8 kernel: d={d} and inner={inner} must be "
-                         f"multiples of 128, at most {MAX_ROW}")
+                         f"multiples of 128")
     gam = _vec(gamma, "gamma", inner, x.device)
     n, dev = x.numel() // d, x.device
     s = _ffn_scratch(n, inner, dev)
@@ -295,6 +309,53 @@ def fused_ffn_q8(x: torch.Tensor, q1: QuantWeight, gamma: torch.Tensor,
 fused_ffn_q8.launches = 0
 
 
+@dataclass(frozen=True)
+class Q8WidePlan:
+    """Kernel 20's two tile products (csrc/quant.cu): ``geglu``, the bf16
+    paired-column product of x (n, d) and W1 (2 inner, d), both K-major, W1
+    read as boxes of ``bn / 2`` rows, writing g = gate * gelu(a) into the
+    fp32 scratch g (n, inner) at ``g_pitch`` elements a row (fp32 x: only
+    that pitch is read; the fp64 tensor-core product writes g); ``out`` =
+    y_q W2q^T in the int8 form, y_q (n, inner) at ``q_pitch`` bytes a row and
+    W2q (d, inner), both K-major, K boxes of 128 int8."""
+    geglu: GemmPlan
+    out: GemmPlan
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_arr", PlanArray((self.geglu, self.out)))
+
+    def c_array(self):
+        """The 42 int64 values ``amt_ffn_q8wide`` reads (built once)."""
+        return self._arr.c_array()
+
+    @property
+    def g_pitch(self) -> int:
+        return self.geglu.ldc
+
+    @property
+    def q_pitch(self) -> int:
+        return self.out.a.stride
+
+
+@functools.lru_cache(maxsize=64)
+def q8wide_plan(n: int, d: int, inner: int) -> Q8WidePlan:
+    """Kernel 20's plan for n rows of x (n, d), W1 (2 inner, d) and W2q
+    (d, inner), cached on the sizes alone (the wrapper checks the operands
+    contiguous and 16-byte aligned first). The int8 product's tile width is
+    kernel 11's y W2^T rule: 256 above d 128."""
+    what = "ffn_q8wide kernel"
+    x = scratch_meta("x", n, d, d)
+    w1 = scratch_meta("w1", 2 * inner, d, d)
+    yq = scratch_meta("yq", n, inner, inner, item=1)
+    w2q = scratch_meta("w2 int8", d, inner, inner, item=1)
+    return Q8WidePlan(
+        gemm_plan(x, K_MAJOR, w1, K_MAJOR, Q8WIDE_GEGLU_BN, row_pitch(inner),
+                  paired=True, what=what),
+        gemm_plan(yq, K_MAJOR, w2q, K_MAJOR, 256 if d > 128 else 128, d,
+                  what=what))
+
+
 def _ffn_q8wide_kernel(x, w1, gamma, q2, eps, codes=None):
     check_tensor(x, "x", (torch.float32, torch.bfloat16))
     d, inner = x.shape[-1], q2.q.shape[1]
@@ -303,21 +364,30 @@ def _ffn_q8wide_kernel(x, w1, gamma, q2, eps, codes=None):
     if w1c.shape != (2 * inner, d):
         raise ValueError(f"ffn_q8wide kernel: w1 {tuple(w1c.shape)}")
     _check_q8(x, "w2", q2, (d, inner))
-    if d % 128 or inner % 128 or inner > MAX_ROW:
+    if d % 128 or inner % 128:
         raise ValueError(f"ffn_q8wide kernel: d={d} and inner={inner} must "
-                         f"be multiples of 128, inner at most {MAX_ROW}")
+                         f"be multiples of 128")
+    for name, t in (("x", x), ("w1", w1c), ("w2 int8", q2.q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ffn_q8wide kernel: {name} starts at an address "
+                             f"that is not 16-byte aligned")
     gam = _vec(gamma, "gamma", inner, x.device)
     n, dev = x.numel() // d, x.device
-    s = _ffn_scratch(n, inner, dev)
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    plan = q8wide_plan(n, d, inner)
+    g = torch.empty(n * plan.g_pitch, dtype=torch.float32, device=dev)
+    yq = torch.empty(n, plan.q_pitch, dtype=torch.int8, device=dev)
+    sy = torch.empty(n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _build.launch(
-            "amt_ffn_q8wide", x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
-            q2.q.data_ptr(), q2.scale.data_ptr(), s["g"].data_ptr(),
-            s["yq"].data_ptr(), s["sy"].data_ptr(), out.data_ptr(), n, d,
+            "amt_ffn_q8wide", plan.c_array(), x.data_ptr(), w1c.data_ptr(),
+            gam.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+            g.data_ptr(), yq.data_ptr(), sy.data_ptr(), out.data_ptr(), n, d,
             inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
     fused_ffn_q8wide.launches += 1
-    _keep(codes, yq=s["yq"])
+    _keep(codes, yq=yq[:, :inner])
     return out
 
 
@@ -341,9 +411,9 @@ def _ln_mlp_q8_kernel(x, lng, lnb, q1, b1, q2, b2, eps, codes=None):
     d, hid = x.shape[-1], q1.q.shape[0]
     _check_q8(x, "w1", q1, (hid, d))
     _check_q8(x, "w2", q2, (d, hid))
-    if d % 128 or d > MAX_ROW or hid > MAX_ROW or hid % 2:
+    if d % 128 or hid % 2:
         raise ValueError(f"ln_mlp_q8 kernel: d={d} must be a multiple of 128"
-                         f" and hid={hid} even, both at most {MAX_ROW}")
+                         f" and hid={hid} even")
     dev = x.device
     lng, lnb = _vec(lng, "ln_gamma", d, dev), _vec(lnb, "ln_beta", d, dev)
     b1, b2 = _vec(b1, "b1", hid, dev), _vec(b2, "b2", d, dev)

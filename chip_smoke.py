@@ -17,19 +17,25 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               (csrc/ln_mlp_bwd.cu), kernel 11's paired-column GEGLU product
               (BN 256) and y W2^T (BN 128 and 256; csrc/ffn.cu), kernel
               12's four (csrc/ffn_bwd.cu), kernel 13's and kernel 14's
-              three (csrc/xent.cu) and the four operand forms
+              three (csrc/xent.cu), kernel 20's paired GEGLU product and
+              int8 form (csrc/quant.cu) and the five operand forms
               (csrc/tile_product.cu), and of the fp32 FMA kernels
               (csrc/gemm.cuh's gemm_f32_kernel in each source that
               instantiates it, csrc/ffn.cu's geglu_f32_kernel, csrc/xent.cu's
               xent_stats_f32_kernel and xent_grad_f32_kernel) and the GEGLU
               FFN's row passes (ffn_ln_rows_kernel,
-              ffn_bwd_rows_kernel): registers, static shared memory, spill
-              bytes (a spill fails)
+              ffn_bwd_rows_kernel), kernel 20's fp32 up-projection on the
+              fp64 tensor cores (geglu_f64_kernel), the W8A8 row passes
+              (row_quant_kernel) and every LayerNorm instantiation
+              (layernorm_kernel, layernorm_rows_kernel): registers, static
+              shared memory, spill bytes (a spill fails)
   3. kernels  first the tile product's four operand forms (A and B each
               K-major or MN-major, K whole and split) and the fp32 FMA
               product's four layouts (A and B each kK or kR, tile width 128
-              and 64) against torch.matmul of the same views (TF32 off);
-              then each kernel at the main path's
+              and 64) against torch.matmul of the same views (TF32 off),
+              and the int8 form against torch._int_mm, bit for bit (ragged
+              M, K 8704, K past its last box); then each kernel at the
+              main path's
               shapes against its plain version on the card, in each dtype it takes, with kernel,
               plain and library (one PyTorch call; for a backward kernel
               its forward + backward) times and the bound; the repaired
@@ -75,7 +81,13 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               bit-equal repeat call and in turns; the fp32 flash forward
               (kernels 1, 9 and 16) also at tq < tk and at t 1096, bit-equal
               on a repeat call, and against SDPA in turns at the recon shape
-              (h 8 and 12) and at t 4096 (causal and not)
+              (h 8 and 12) and at t 4096 (causal and not); the LayerNorm
+              (kernel 3) at each of its shapes bit-equal on a repeat call
+              and against F.layer_norm in turns; the W8A8 wide FFN (kernel
+              20) at Muse's shape in both dtypes, bit-equal on a repeat
+              call, 0 int8 codes differing from plain in fp32, and in turns;
+              kernels 19-21 at rows past 4096 (inner / hid 8704; kernel 20
+              in both dtypes) with their differing codes counted
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -643,7 +655,8 @@ def main() -> int:
     from attention_models_torch.models.vitvqgan import vitvqgan_base
     from attention_models_torch.ops import _build, dispatch
     from attention_models_torch.ops import ffn as ffn_mod
-    from attention_models_torch.ops.gemm_sm90 import tile_product
+    from attention_models_torch.ops.gemm_sm90 import (
+        tile_product, tile_product_s8)
     from attention_models_torch.ops import flash_attention as flash_mod
     from attention_models_torch.ops import layernorm as ln_mod
     from attention_models_torch.ops.codebook import (
@@ -686,8 +699,8 @@ def main() -> int:
     from attention_models_torch.models.text_encoder import tokenize
     from attention_models_torch.ops.quant import (
         _ffn_q8_reference, _ffn_q8wide_reference, _ln_mlp_q8_reference,
-        fused_ffn_q8, fused_ffn_q8wide, fused_ln_mlp_q8, quantize_rows,
-        quantize_weight)
+        fused_ffn_q8, fused_ffn_q8wide, fused_ln_mlp_q8, int_dot,
+        quantize_rows, quantize_weight)
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -752,9 +765,14 @@ def main() -> int:
     # product (one block an SM) and its fp32 products, kernel 11's
     # paired-column GEGLU product (BN 256) and y W2^T (BN 128 and 256: 128
     # only where d is 128), kernel 12's
-    # four, kernel 13's statistics product, kernel 14's three and the four
-    # operand forms of the check below; a spill fails
-    epilogues = (("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
+    # four, kernel 13's statistics product, kernel 14's three, kernel 20's
+    # paired GEGLU product (BN 256) and its int8 down-projection (the S8
+    # form, DequantStore in bf16 and fp32 at BN 128 and 256), and the five
+    # operand forms of the checks below (the int8 one at BN 128); a spill
+    # fails
+    epilogues = (("DequantStoreIfE", "dequant f32"),
+                 ("DequantStoreI13__nv_bfloat16E", "dequant bf16"),
+                 ("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
                  ("StoreIfE", "f32"), ("StoreI13__nv_bfloat16E", "bf16"),
                  ("GeluBwd", "gelu backward"), ("XentDl", "dl"),
                  ("XentStats", "stats"), ("GegluF32", "geglu"))
@@ -763,6 +781,8 @@ def main() -> int:
         bn = re.search(r"gemm_kernelILi(\d+)E", mangled).group(1)
         if "6PairedE" in mangled:
             form = "K, K paired"
+        elif "2S8E" in mangled:
+            form = "K, K int8"
         else:
             form = ", ".join("K" if v == "0" else "MN" for v in re.search(
                 r"FormILi(n?\d)ELi(n?\d)ELi(n?\d)ELi(n?\d)E",
@@ -777,7 +797,8 @@ def main() -> int:
 
     mlp_ptxas = {}
     for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 4),
-                       ("tile_product", 4), ("ffn", 3), ("ffn_bwd", 4)):
+                       ("tile_product", 5), ("ffn", 3), ("ffn_bwd", 4),
+                       ("quant", 5)):
         rows = _build.ptxas_report(src, "gemm_kernel")
         for r in rows:
             label = f"{src}: {gemm_label(r['name'])}"
@@ -785,7 +806,7 @@ def main() -> int:
             ptxas_line(label, r)
         gate(len(rows) == count, f"{src}: {len(rows)} gemm_kernel "
              f"instantiations, expected {count}")
-    gate(len(mlp_ptxas) == 22
+    gate(len(mlp_ptxas) == 28
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in mlp_ptxas.values()),
          f"gemm_kernel ptxas: {mlp_ptxas}")
@@ -824,6 +845,39 @@ def main() -> int:
     gate(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
              for r in fma_ptxas.values()), f"fp32 FMA / row pass ptxas: "
          f"{fma_ptxas}")
+    # kernel 20's fp32 up-projection on the fp64 tensor cores (256 threads,
+    # one block an SM: up to 255 registers), the W8A8 row pass (LayerNorm
+    # and codes, 4 or 1 columns a thread, rows walked in chunks past 4096)
+    # in each instantiation and
+    # every instantiation of the LayerNorm kernel (dtype, piece width,
+    # pieces a lane; its row-loop kernel beside them); a spill fails
+    def tmpl_label(src, kern, mangled):
+        seg = mangled.split(kern + "I", 1)[1]
+        seg = seg[:seg.index("Ev")]
+        args = [("bf16" if m.group(0).startswith("13") else "float"
+                 if m.group(0) == "f" else m.group(1) or
+                 ("true" if m.group(2) == "1" else "false"))
+                for m in re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb(\d)E|f",
+                                     seg)]
+        return f"{src}: {kern}<{', '.join(args)}>"
+
+    for src, kern, count in (("quant", "geglu_f64_kernel", 1),
+                             ("quant", "row_quant_kernel", 8),
+                             ("layernorm", "layernorm_kernel", 23),
+                             ("layernorm", "layernorm_rows_kernel", 2)):
+        rows = _build.ptxas_report(src, kern)
+        for r in rows:
+            label = (tmpl_label(src, kern, r["name"]) if kern + "I" in r["name"]
+                     else f"{src}: {kern}")
+            fma_ptxas[label] = r
+            ptxas_line(label, r)
+        gate(len(rows) == count and len({tmpl_label(src, kern, r["name"])
+                                         if kern + "I" in r["name"] else ""
+                                         for r in rows}) == count,
+             f"{src}: {len(rows)} {kern} instantiations, expected {count}")
+    gate(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+             for r in fma_ptxas.values()), f"fp32 DMMA / row pass / "
+         f"LayerNorm ptxas: {fma_ptxas}")
 
     # ---------------------------------------------------------------- 3 --
     def time_ms(fn, iters=20):
@@ -898,7 +952,8 @@ def main() -> int:
         variants.append(v)
         print(f"[kernel] {kernel} {label}: {metric} {err:.3e} (tol {tol:g}) "
               f"max_abs {abs_err:.3e} | kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{plain_ms:.4f} ms, library "
+              f"{'-' if lib_ms is None else format(lib_ms, '.4f')} ms, bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
         gate(err <= tol, f"{kernel} {label}: {metric} {err} > {tol}")
         return v
@@ -946,17 +1001,43 @@ def main() -> int:
     gate(all(e <= 1e-5 for e in f32_form_errs.values()),
          f"fp32 FMA product layouts: {f32_form_errs}")
     del fa, fb, fwant, fgot
+    # the tile product's int8 form (kernel 20's down-projection: TMA boxes
+    # of 128 int8 of K, wgmma .s32.s8.s8) against torch._int_mm on the same
+    # codes, bit for bit: unit scales give float(acc) itself, row and column
+    # scales (float(acc) * s_row) * s_col; at ragged M (520 rows), at K
+    # 8704 and past K's last box (TMA's zero fill must add nothing)
+    s8_equal = {}
+    for fm, fn_, fk in ((520, 768, 8704), (16384, 1024, 4096),
+                        (520, 384, 1040)):
+        fa = torch.randint(-127, 128, (fm, fk), generator=gen, device=dev,
+                           dtype=torch.int8)
+        fb = torch.randint(-127, 128, (fn_, fk), generator=gen, device=dev,
+                           dtype=torch.int8)
+        acc = int_dot(fa, fb)
+        sr, sc = randn(fm, scale=1e-3).abs(), randn(fn_, scale=1e-3).abs()
+        label = f"({fm},{fn_},{fk})"
+        s8_equal[label] = (torch.equal(tile_product_s8(fa, fb), acc)
+                           and torch.equal(tile_product_s8(fa, fb, sr, sc),
+                                           (acc * sr[:, None]) * sc))
+        print(f"[form] int8 {label}: bit-equal to torch._int_mm "
+              f"{s8_equal[label]}", flush=True)
+    gate(all(s8_equal.values()), f"int8 tile product: {s8_equal}")
+    del fa, fb, acc
 
-    def in_turns(row, shape, run, lib, before, flops, peak="bfloat16"):
+    def in_turns(row, shape, run, lib, before, flops, peak="bfloat16",
+                 bytes_moved=0):
         """Device time of ``run`` against its library chain in turns
         (kernel, library, library, kernel; launches queued behind a sleep),
         then back to back, beside the time it replaces (PERF.md's table,
-        same card type); ``flops`` at the ``peak`` type's rate."""
+        same card type); the bound: ``flops`` (a count, or [(count, peak
+        type)]) at their types' rates, or ``bytes_moved`` at the memory
+        rate, whichever is longer."""
         k1, l1, l2, k2 = (device_ms(run), device_ms(lib), device_ms(lib),
                           device_ms(run))
         bk1, bl1, bl2, bk2 = (time_ms(run), time_ms(lib), time_ms(lib),
                               time_ms(run))
-        b_ms = bound(0, [(flops, peak)])[0]
+        b_ms = bound(bytes_moved, flops if isinstance(flops, list)
+                     else [(flops, peak)])[0]
         r = dict(row=row, shape=shape, dtype=peak, kernel_ms=(k1 + k2) / 2,
                  library_ms=(l1 + l2) / 2, ratio=(k1 + k2) / (l1 + l2),
                  back_to_back_kernel_ms=(bk1 + bk2) / 2,
@@ -988,7 +1069,18 @@ def main() -> int:
     # LayerNorm: the model-width rows (bf16 in the bf16 model, fp32 in the
     # fp32 one), the patch-embed rows (fp32 images from the services),
     # MaskGIT's gamma-only rows (no beta), Muse's (16 x 1024 rows at d
-    # 1024, no beta) and its CLIP tower's (8 x 77 rows at d 768, beta)
+    # 1024, no beta) and its CLIP tower's (8 x 77 rows at d 768, beta); each
+    # bit-equal on a repeat call and read against F.layer_norm in turns
+    # beside the time it replaces (PERF.md's table, back to back; the
+    # kernel's device time inside kernel 2 at (8192, 512) was 11.74 us)
+    ln_before = {(n_tok, dim, torch.bfloat16): 0.0198,
+                 (n_tok, dim, torch.float32): 0.0180,
+                 (n_tok, patch_feat, torch.float32): 0.0259,
+                 (n_tok, mg_dim, torch.bfloat16): 0.0242,
+                 (n_tok, mg_dim, torch.float32): 0.0234,
+                 (16 * 1024, 1024, torch.bfloat16): 0.0307,
+                 (8 * 77, 768, torch.bfloat16): 0.0279}
+    ln_turns = []
     for rows, d, dtype, beta in ((n_tok, dim, torch.bfloat16, True),
                                  (n_tok, dim, torch.float32, True),
                                  (n_tok, patch_feat, torch.float32, True),
@@ -1002,13 +1094,22 @@ def main() -> int:
         b = randn(d, scale=0.1) if beta else None
         got, want = layernorm(x, g, b), _ln_reference(x, g, b, 1e-5)
         gl, bl = g.to(dtype), b.to(dtype) if beta else None
-        record("layernorm", f"({rows},{d})" + ("" if beta else " no beta"),
+        ln_label = f"({rows},{d})" + ("" if beta else " no beta")
+        record("layernorm", ln_label,
                dtype, BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
                rel_l2(got, want), max_abs(got, want),
                time_ms(lambda: layernorm(x, g, b)),
                time_ms(lambda: _ln_reference(x, g, b, 1e-5)),
                time_ms(lambda: F.layer_norm(x, (d,), gl, bl)),
                nbytes(x, x, g, *([b] if beta else [])), 8 * x.numel())
+        repeat_equal(f"layernorm {ln_label} {str(dtype)[6:]}",
+                     lambda: (layernorm(x, g, b),), (got,))
+        ln_turns.append(in_turns(
+            3, ln_label, lambda: layernorm(x, g, b),
+            lambda: F.layer_norm(x, (d,), gl, bl),
+            ln_before.get((rows, d, dtype)), 8 * x.numel(),
+            str(dtype).split(".")[-1],
+            bytes_moved=nbytes(x, x, g, *([b] if beta else []))))
 
     # fused LN + MLP, bf16 only (the fp32 model runs LN kernel + matmuls)
     x = randn(n_tok, dim, dtype=torch.bfloat16)
@@ -1146,6 +1247,11 @@ def main() -> int:
            time_ms(lambda: _ln_reference(xw, gw, None, 1e-5)),
            time_ms(lambda: F.layer_norm(xw, (8192,), gw.to(torch.bfloat16))),
            nbytes(xw, xw, gw), 8 * xw.numel())
+    gw_b = gw.to(torch.bfloat16)
+    ln_turns.append(in_turns(
+        3, "(1024,8192) no beta, row loop", lambda: layernorm(xw, gw),
+        lambda: F.layer_norm(xw, (8192,), gw_b), 0.0243, 8 * xw.numel(),
+        bytes_moved=nbytes(xw, xw, gw)))
     del xw, got, want
 
     # backward kernels, bf16 and fp32, causal and not, at the main path's
@@ -2243,6 +2349,18 @@ def main() -> int:
                nbytes(x, got, w1c, gam, q2.q, q2.scale),
                [(q8_ops * 2 // 3, up), (q8_ops // 3, "int8")],
                main=dtype == torch.bfloat16)
+        # fp32: the float64 sums rounded once give the plain version's
+        # codes (the DMMA order against cuBLAS's DGEMM)
+        if dtype == torch.float32:
+            gate(flips["yq"] == 0, f"ffn_q8wide fp32: {flips['yq']} int8 "
+                 f"codes differ from the plain version's")
+        repeat_equal(f"ffn_q8wide ({mu_rows},{mu_dim}) {up}",
+                     lambda: (fused_ffn_q8wide(x, w1, gam, q2),), (got,))
+        bwd_turns.append(in_turns(
+            20, f"({mu_rows},{mu_dim}) inner {mu_inner}",
+            lambda: fused_ffn_q8wide(x, w1, gam, q2), ffn_q8wide_library,
+            1.6280 if dtype == torch.bfloat16 else 20.3003,
+            [(q8_ops * 2 // 3, up), (q8_ops // 3, "int8")], up))
         del x, w1, w1c, w2, q1, q2, got, want, ck, cp
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -2277,6 +2395,53 @@ def main() -> int:
                main=dtype == torch.bfloat16)
         gate(mlp_err <= 2 * tol, f"ln_mlp_q8 {dtype} MLP part: {mlp_err}")
         del x, q1, q2, got, want, args8
+
+    # rows wider than the 4096 values a W8A8 row pass holds in registers
+    # (walked in chunks): kernel 20 in both dtypes and kernel 19 at 520 rows,
+    # d 768, inner 8704; kernel 21 at hid 8704; bf16 except kernel 20's fp32
+    wn, wd, wi = 520, 768, 8704
+    for kern, dtype in (("ffn_q8wide", torch.bfloat16),
+                        ("ffn_q8wide", torch.float32),
+                        ("ffn_q8", torch.bfloat16),
+                        ("ln_mlp_q8", torch.bfloat16)):
+        x = randn(wn, wd, dtype=dtype)
+        tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+        ck, cp = {}, {}
+        if kern == "ln_mlp_q8":
+            lng, lnb = randn(wd, scale=0.1, shift=1.0), randn(wd, scale=0.1)
+            q1 = quantize_weight(randn(wi, wd, scale=wd ** -0.5))
+            q2 = quantize_weight(randn(wd, wi, scale=wi ** -0.5))
+            b1, b2 = randn(wi, scale=0.1), randn(wd, scale=0.1)
+            wargs = (x, lng, lnb, q1, b1, q2, b2)
+            run, ref = fused_ln_mlp_q8, _ln_mlp_q8_reference
+            ops = [(4 * wn * wd * wi, "int8")]
+        else:
+            gam = randn(wi, scale=0.1, shift=1.0)
+            w1 = randn(2 * wi, wd, scale=wd ** -0.5)
+            q2 = quantize_weight(randn(wd, wi, scale=wi ** -0.5))
+            if kern == "ffn_q8":
+                wargs = (x, quantize_weight(w1), gam, q2)
+                run, ref = fused_ffn_q8, _ffn_q8_reference
+                ops = [(6 * wn * wd * wi, "int8")]
+            else:
+                wargs = (x, w1, gam, q2)
+                run, ref = fused_ffn_q8wide, _ffn_q8wide_reference
+                ops = [(4 * wn * wd * wi, str(dtype).split(".")[-1]),
+                       (2 * wn * wd * wi, "int8")]
+        got, want = run(*wargs, codes=ck), ref(*wargs, 1e-5, cp)
+        flips = code_flips(ck, cp)
+        record(kern, f"({wn},{wd}) inner {wi}, rows past 4096 (int8 codes "
+               f"differing: " + ", ".join(f"{k} {v}" for k, v in flips.items())
+               + ")", dtype, tol, rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: run(*wargs)),
+               time_ms(lambda: ref(*wargs, 1e-5)), None,
+               nbytes(x, got), ops)
+        if kern == "ffn_q8wide":
+            repeat_equal(f"ffn_q8wide ({wn},{wd}) inner {wi} "
+                         f"{str(dtype)[6:]}", lambda: (run(*wargs),), (got,))
+        if dtype == torch.float32:
+            gate(flips["yq"] == 0, f"{kern} fp32 inner {wi}: {flips}")
+        del x, wargs, got, want, ck, cp
 
     # ---------------------------------------------------------- 4 and 5 --
     wrappers = {"flash_attention_bthd_kv": flash_attention_bthd_kv,
@@ -3693,6 +3858,8 @@ def main() -> int:
                            mlp_ptxas=mlp_ptxas, fma_ptxas=fma_ptxas,
                            mlp_vs_library=mlp_turns,
                            tile_product_forms_rel_l2=form_errs,
+                           int8_form_bit_equal=s8_equal,
+                           layernorm_vs_library=ln_turns,
                            fp32_product_layouts_rel_l2=f32_form_errs,
                            bwd_vs_library=bwd_turns,
                            flash_bwd_vs_sdpa=bwd_vs_sdpa,
