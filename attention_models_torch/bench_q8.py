@@ -1,33 +1,39 @@
-"""A/B timings of the W8A8 wide FFN (kernel 20) and the LayerNorm (kernel 3)
-on one card.
+"""A/B timings of the W8A8 FFNs (kernels 19 and 20), the LayerNorm (kernel
+3) and the decode-step sampling epilogue (kernel 15) on one card.
 
     python attention_models_torch/bench_q8.py [turns] [--iters N]
-        Kernel 20 in bf16 and fp32 (TF32 off) at Muse's shape (16384 rows,
-        d 1024, inner 4096) and at inner 8704 (520 rows, d 768), and kernel
-        3 at chip_smoke.py's shapes, each against its PyTorch chain in turns
-        (device time with the launches queued behind a sleep: kernel,
-        library, library, kernel), beside the bound; then each of kernel
-        20's three launches' device time (torch.profiler, 20 calls).
+        Kernels 19 and 20 in bf16 and fp32 (TF32 off) at Muse's shape
+        (16384 rows, d 1024, inner 4096) and at inner 8704 (520 rows, d
+        768), kernel 3 at chip_smoke.py's shapes and kernel 15 at
+        chip_smoke.py's six decode cases (8192 rows of 8192 classes, bf16
+        and fp32, with and without CFG, given bits or Philox) and at C 16384
+        (1024 rows, bf16 and fp32, Philox), each against its PyTorch chain
+        in turns (device time with the launches queued behind a sleep:
+        kernel, library, library, kernel), beside the bound; then each
+        launch's device time of kernels 19 and 20 (torch.profiler, 20
+        calls); then a diagnostic of kernel 15 at (8192, 8192) bf16 Philox: a build of csrc/sampling.cu without
+        the noise, at iters 16 and at iters 0 (no threshold search), beside
+        the kernel.
     python attention_models_torch/bench_q8.py bits --root R
         Builds the kernels' library of the checkout at R (the parent:
         unpack it with git archive under build/) beside this one's and
-        requires kernel 3 to give R's bits at every shape above, and kernel
-        20's down-projection to give R's bits at Muse's shape on every row
-        whose int8 codes and scale the two libraries' row passes agree on
-        (fp32: every row).
+        requires kernel 3 to give R's bits at every shape above, kernels 19
+        and 20 R's codes, scales, g and output on every row at Muse's shape
+        in both dtypes, and kernel 15 R's picks on every row of the six
+        decode cases (scores within relative 2e-6); then the kernel-15
+        diagnostic of ``turns`` on R's source.
     python attention_models_torch/bench_q8.py paths [--root R]
         Prints one JSON line for the checkout at R (default: this one):
-        Muse's int8_wide generate (cfg/muse.yaml as R's chip_smoke.py builds
-        it, bf16, 8 prompts, 18 steps, approx top-k) through muse_service,
-        ms/step over 5 generates after a warm-up, and the card's busy time
-        of one generate by kernel (torch.profiler); then MaskGIT's
-        unconditional generate (cfg/maskgit.yaml, bf16, batch 8, 18 steps,
-        approx top-k, as chip_smoke.py's phase 8), the other path that
-        runs kernel 3 at every layer, ms/step the same way. To compare two
-        commits,
-        run it at the parent (unpacked under build/) and at this checkout
-        in turns, parent, change, change, parent, in one call; run it as a
-        file, so the package is imported from R.
+        Muse's int8_wide and int8 generates (cfg/muse.yaml as R's
+        chip_smoke.py builds it, bf16, 8 prompts, 18 steps, approx top-k)
+        through muse_service, ms/step over 5 generates after a warm-up, and
+        the card's busy time of one generate by kernel (torch.profiler);
+        then MaskGIT's unconditional generate (cfg/maskgit.yaml, bf16, batch
+        8, 18 steps, approx top-k, as chip_smoke.py's phase 8), ms/step the
+        same way and the sampling epilogue's device time in one generate. To
+        compare two commits, run it at the parent (unpacked under build/)
+        and at this checkout in turns, parent, change, change, parent, in
+        one call; run it as a file, so the package is imported from R.
 
 Needs a Hopper card and nvcc; the card's name and power limit come first.
 """
@@ -38,6 +44,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -50,6 +57,19 @@ HBM = 3.35e12
 PEAK = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 MUSE = (16384, 1024, 4096)
 WIDE = (520, 768, 8704)
+# kernel 15: (rows, C, dtype, CFG, Philox): chip_smoke.py's decode cases,
+# then rows wider than the 8192 values a block holds in registers
+EPILOGUE = tuple((8192, 8192, dt, null, philox)
+                 for dt, null, philox in ((torch.bfloat16, False, False),
+                                          (torch.bfloat16, True, False),
+                                          (torch.float32, False, False),
+                                          (torch.float32, True, False),
+                                          (torch.bfloat16, False, True),
+                                          (torch.float32, False, True))) + (
+    (1024, 16384, torch.bfloat16, False, True),
+    (1024, 16384, torch.float32, False, True))
+P_KEEP, GS, STEP = 0.9, 3.0, 5
+TEMP = 17 / 18
 # (rows, d, dtype, beta): chip_smoke.py's LayerNorm shapes
 LN_SHAPES = ((8192, 512, torch.bfloat16, True), (8192, 512, torch.float32, True),
              (8192, 192, torch.float32, True), (8192, 192, torch.bfloat16, True),
@@ -75,6 +95,32 @@ def _helpers():
 def _rand(gen, *shape, dtype=torch.float32, scale=1.0, shift=0.0):
     return (torch.randn(*shape, generator=gen, device="cuda") * scale
             + shift).to(dtype)
+
+
+def _q8_operands(gen, n, d, inner, dtype):
+    """Kernel 19's x, W1q, gamma and W2q, quantized from fp32 weights."""
+    from attention_models_torch.ops import quant as q
+    x, w1, gam, q2 = _q8wide_operands(gen, n, d, inner, dtype)
+    return x, q.quantize_weight(w1), gam, q2
+
+
+def _epilogue_case(gen, rows, C, dtype, null, philox):
+    """Kernel 15's operands and keyword arguments for one case: logits of
+    scale 3 in 8 leading rows, the seeds, or given bits."""
+    from attention_models_torch.ops.sampling import philox_bits
+    cond = _rand(gen, 8, rows // 8, C, dtype=dtype, scale=3.0)
+    nl = _rand(gen, 8, rows // 8, C, dtype=dtype, scale=3.0) if null else None
+    seeds = torch.arange(100, 108, device="cuda")
+    ext = None if philox else torch.randint(
+        -2 ** 31, 2 ** 31 - 1, (8, rows // 8, C), generator=gen,
+        device="cuda", dtype=torch.int32)
+    bits = (philox_bits(seeds, rows // 8, STEP, C) if philox
+            else ext.reshape(-1, C))
+    kw = dict(guidance_scale=GS, p=P_KEEP, temperature=TEMP, seeds=seeds,
+              step=STEP, noise_bits=ext)
+    label = (f"({rows},{C}) {str(dtype)[6:]} null={null} "
+             f"bits={'philox' if philox else 'given'}")
+    return cond, nl, bits, kw, label
 
 
 def _q8wide_operands(gen, n, d, inner, dtype):
@@ -133,6 +179,30 @@ def turns(iters: int) -> None:
                 for k, v in sorted(prof.items(), key=lambda kv: -kv[1])),
                 flush=True)
             del x, w1, w1c, q2
+    for n, d, inner in (MUSE, WIDE):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, q1, gam, q2 = _q8_operands(gen, n, d, inner, dtype)
+
+            def chain():
+                xq, sx = q.quantize_rows(x.float())
+                a, gate = (q.int_dot(xq, q1.q) * sx * q1.scale).chunk(2, -1)
+                y = F.layer_norm(gate * F.gelu(a), (inner,), gam)
+                yq, sy = q.quantize_rows(y)
+                return (q.int_dot(yq, q2.q) * sy * q2.scale).to(dtype)
+
+            def run():
+                return q.fused_ffn_q8(x, q1, gam, q2)
+
+            label = f"19 ({n},{d}) inner {inner} {str(dtype)[6:]}"
+            in_turns(label, run, chain,
+                     6 * n * d * inner / PEAK["int8"] * 1e3)
+            prof = _profile(run)
+            total = sum(prof.values())
+            print(f"[launches] {label}: " + ", ".join(
+                f"{k} {v:.1f} us ({100 * v / total:.1f} %)"
+                for k, v in sorted(prof.items(), key=lambda kv: -kv[1])),
+                flush=True)
+            del x, q1, q2
     for rows, d, dtype, beta in LN_SHAPES:
         x = _rand(gen, rows, d, dtype=dtype, scale=2.0, shift=0.5)
         g = _rand(gen, d, scale=0.1, shift=1.0)
@@ -142,6 +212,109 @@ def turns(iters: int) -> None:
         in_turns(f"3 ({rows},{d}){'' if beta else ' no beta'} "
                  f"{str(dtype)[6:]}", lambda: layernorm(x, g, b),
                  lambda: F.layer_norm(x, (d,), gl, bl), nbytes / HBM * 1e3)
+    epilogue_turns(gen, in_turns)
+
+
+def epilogue_turns(gen, in_turns) -> None:
+    """Kernel 15 at each case against topk + Gumbel argmax + logsumexp, in
+    turns beside its bytes bound; then its diagnostic."""
+    from attention_models_torch.ops import _build
+    from attention_models_torch.ops.sampling import (
+        gumbel_of_bits, num_kept, sample_epilogue_fused)
+
+    for rows, C, dtype, null, philox in EPILOGUE:
+        cond, nl, bits, kw, label = _epilogue_case(gen, rows, C, dtype, null,
+                                                   philox)
+        k = num_kept(C, P_KEEP)
+        g_k = gumbel_of_bits(bits[:, :k])
+
+        def library():
+            xl = cond if nl is None else nl + GS * (cond - nl)
+            vals, idx = torch.topk(xl.reshape(-1, C), k)
+            choice = (vals.float() + TEMP * g_k).argmax(-1, keepdim=True)
+            lse = torch.logsumexp(xl.reshape(-1, C).float(), -1)
+            return (idx.gather(-1, choice),
+                    torch.exp(vals.gather(-1, choice)[:, 0].float() - lse))
+
+        nbytes = sum(t.numel() * t.element_size() for t in (cond, nl)
+                     if t is not None) + (0 if philox else 4 * rows * C) + 8 * rows
+        in_turns(f"15 {label}", lambda: sample_epilogue_fused(cond, nl, **kw),
+                 library, nbytes / HBM * 1e3)
+        del cond, nl, bits, g_k
+    lib = _variant_library(ROOT, "sampling.cu", (
+        "const bool kept = in && v[j][w] >= kth;", "const bool kept = false;"))
+    epilogue_diag(gen, "", _build.library(), lib)
+
+
+def epilogue_diag(gen, who, shipped, no_noise) -> None:
+    """Kernel 15 at (8192, 8192) bf16 Philox through ``shipped``'s entry and
+    through a build without the noise (``no_noise``) at iters 16 and 0 (no
+    threshold search): what the noise, the search and the rest take."""
+    from attention_models_torch.ops import _build
+    from attention_models_torch.ops.sampling import num_kept
+
+    rows, C = 8192, 8192
+    cond, _, _, kw, _ = _epilogue_case(gen, rows, C, torch.bfloat16, False,
+                                       True)
+    pred = torch.empty(rows, dtype=torch.int32, device="cuda")
+    score = torch.empty(rows, device="cuda")
+    seeds = kw["seeds"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(lib, iters):
+        return lambda: lib.amt_sample_epilogue(
+            cond.data_ptr(), None, None, seeds.data_ptr(), rows // 8, STEP,
+            pred.data_ptr(), score.data_ptr(), rows, C, num_kept(C, P_KEEP),
+            iters, GS, TEMP, _build.DTYPE_CODES[torch.bfloat16], stream)
+
+    for label, fn in (("kernel", call(shipped, 16)),
+                      ("without the noise", call(no_noise, 16)),
+                      ("without the noise and the threshold search (iters "
+                       "0)", call(no_noise, 0))):
+        ms = [_device_ms_raw(fn) for _ in range(2)]
+        print(f"[diag] {who}15 ({rows},{C}) bfloat16 Philox {label}: "
+              f"{ms[0]:.4f} / {ms[1]:.4f} ms", flush=True)
+
+
+def _device_ms_raw(fn, iters: int = 20) -> float:
+    """Device time of a C entry's launch (the return code checked)."""
+    def run():
+        err = fn()
+        if err:
+            raise RuntimeError(f"CUDA error {err}")
+    _device_ms, _ = _helpers()
+    return _device_ms(run, iters)
+
+
+def _variant_library(root: Path, source: str, *edits) -> ctypes.CDLL:
+    """``source`` of the checkout at ``root``'s csrc with each (old, new)
+    edit, built alone (with errors.cu) into a library under
+    build/q8_variants."""
+    from attention_models_torch.ops import _build
+    csrc = root / "attention_models_torch" / "csrc"
+    _variant_library.built += 1  # a new path: dlopen reuses a loaded one
+    out = ROOT / "build" / "q8_variants" / f"{root.name}{_variant_library.built}"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(csrc, out)
+    text = (out / source).read_text()
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"csrc/{source} has no {old!r}")
+        text = text.replace(old, new)
+    (out / source).write_text(text)
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.ARCH, *_build.FLAGS, "-shared",
+         str(out / source), str(out / "errors.cu"), "-o", str(out / "lib.so")],
+        capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    lib.amt_sample_epilogue.argtypes = _build._SIGNATURES["amt_sample_epilogue"]
+    lib.amt_sample_epilogue.restype = ctypes.c_int
+    return lib
+
+
+_variant_library.built = 0
 
 
 def _library_of(root: Path) -> ctypes.CDLL:
@@ -156,31 +329,39 @@ def bits(root: Path) -> None:
     _helpers()
     from attention_models_torch.ops import _build
     from attention_models_torch.ops import quant as q
+    from attention_models_torch.ops.sampling import num_kept
 
     _card()
     this, other = _build.library(), _library_of(root)
     sig = _build._SIGNATURES
-    other.amt_layernorm.argtypes = sig["amt_layernorm"]
-    # the parent's kernel 20 entry takes no plan
-    other.amt_ffn_q8wide.argtypes = sig["amt_ffn_q8wide"][1:]
-    for fn in ("amt_layernorm", "amt_ffn_q8wide"):
+    for fn in ("amt_layernorm", "amt_ffn_q8wide", "amt_sample_epilogue"):
+        getattr(other, fn).argtypes = sig[fn]
+    # R's kernel 19 entry takes no plan and writes g and the codes at
+    # their widths
+    other.amt_ffn_q8.argtypes = sig["amt_ffn_q8"][1:]
+    for fn in ("amt_layernorm", "amt_ffn_q8wide", "amt_ffn_q8",
+               "amt_sample_epilogue"):
         getattr(other, fn).restype = ctypes.c_int
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     same_all = True
+
+    def check(err, name):
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
     for rows, d, dtype, beta in LN_SHAPES:
         x = _rand(gen, rows, d, dtype=dtype, scale=2.0, shift=0.5)
         g = _rand(gen, d, scale=0.1, shift=1.0)
         b = _rand(gen, d, scale=0.1) if beta else None
         ys = [torch.empty_like(x), torch.empty_like(x)]
         for lib, y in zip((this, other), ys):
-            err = lib.amt_layernorm(x.data_ptr(), g.data_ptr(),
+            check(lib.amt_layernorm(x.data_ptr(), g.data_ptr(),
                                     b.data_ptr() if beta else None,
                                     y.data_ptr(), rows, d, 1e-5,
-                                    _build.DTYPE_CODES[dtype], stream)
-            if err:
-                raise RuntimeError(f"amt_layernorm: CUDA error {err}")
+                                    _build.DTYPE_CODES[dtype], stream),
+                  "amt_layernorm")
         torch.cuda.synchronize()
         same = torch.equal(ys[0], ys[1])
         differ = int((ys[0] != ys[1]).sum())
@@ -188,37 +369,94 @@ def bits(root: Path) -> None:
         print(f"[bits] 3 ({rows},{d}){'' if beta else ' no beta'} "
               f"{str(dtype)[6:]}: bit-equal to R's {same} ({differ} of "
               f"{x.numel()} values differ)", flush=True)
-    n, d, inner = MUSE  # the parent refuses inner above 4096
+    n, d, inner = MUSE
+    f32, i8 = dict(dtype=torch.float32, device="cuda"), dict(
+        dtype=torch.int8, device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
+        # kernel 19: x's codes and scales, g, y's codes and scales, out
+        x, q1, gam, q2 = _q8_operands(gen, n, d, inner, dtype)
+        plan = q.q8_plan(n, d, inner)
+        outs = []
+        for lib in (this, other):
+            xq, sx = torch.empty(n, d, **i8), torch.empty(n, **f32)
+            g, yq = torch.empty(n, inner, **f32), torch.empty(n, inner, **i8)
+            sy, out = torch.empty(n, **f32), torch.empty_like(x)
+            ptrs = (x.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
+                    gam.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+                    xq.data_ptr(), sx.data_ptr(), g.data_ptr(), yq.data_ptr(),
+                    sy.data_ptr(), out.data_ptr(), n, d, inner, 1e-5,
+                    _build.DTYPE_CODES[dtype], stream)
+            check(lib.amt_ffn_q8(plan.c_array(), *ptrs) if lib is this
+                  else lib.amt_ffn_q8(*ptrs), "amt_ffn_q8")
+            outs.append((xq, sx, g, yq, sy, out))
+        torch.cuda.synchronize()
+        names = ("x codes", "x scales", "g", "y codes", "y scales", "out")
+        rows_same = torch.ones(n, dtype=torch.bool, device="cuda")
+        for t0, t1 in zip(*outs):
+            eq = t0 == t1
+            rows_same &= eq.all(dim=1) if eq.dim() == 2 else eq
+        differ = {nm: int((t0 != t1).sum())
+                  for nm, t0, t1 in zip(names, *outs)}
+        same = bool(rows_same.all())
+        same_all &= same
+        print(f"[bits] 19 ({n},{d}) inner {inner} {str(dtype)[6:]}: every row "
+              f"bit-equal to R's (codes, scales, g, out) {same} "
+              f"({int(rows_same.sum())} of {n} rows; values differing "
+              f"{differ})", flush=True)
+        del x, q1, q2, outs
+        # kernel 20 (its plan is R's): y's codes and scales and out
         x, w1, gam, q2 = _q8wide_operands(gen, n, d, inner, dtype)
         w1c = w1.to(dtype).contiguous()
         plan = q.q8wide_plan(n, d, inner)
         outs = []
         for lib in (this, other):
-            g = torch.empty(n * plan.g_pitch, device="cuda")
-            yq = torch.empty(n, inner, dtype=torch.int8, device="cuda")
-            sy = torch.empty(n, device="cuda")
-            out = torch.empty_like(x)
-            ptrs = (x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
-                    q2.q.data_ptr(), q2.scale.data_ptr(), g.data_ptr(),
-                    yq.data_ptr(), sy.data_ptr(), out.data_ptr(), n, d,
-                    inner, 1e-5, _build.DTYPE_CODES[dtype], stream)
-            err = (lib.amt_ffn_q8wide(plan.c_array(), *ptrs)
-                   if lib is this else lib.amt_ffn_q8wide(*ptrs))
-            if err:
-                raise RuntimeError(f"amt_ffn_q8wide: CUDA error {err}")
+            g = torch.empty(n * plan.g_pitch, **f32)
+            yq = torch.empty(n, inner, **i8)
+            sy, out = torch.empty(n, **f32), torch.empty_like(x)
+            check(lib.amt_ffn_q8wide(
+                plan.c_array(), x.data_ptr(), w1c.data_ptr(), gam.data_ptr(),
+                q2.q.data_ptr(), q2.scale.data_ptr(), g.data_ptr(),
+                yq.data_ptr(), sy.data_ptr(), out.data_ptr(), n, d, inner,
+                1e-5, _build.DTYPE_CODES[dtype], stream), "amt_ffn_q8wide")
             outs.append((yq, sy, out))
         torch.cuda.synchronize()
-        (yq0, sy0, o0), (yq1, sy1, o1) = outs
-        rows_same = (yq0 == yq1).all(dim=1) & (sy0 == sy1)
-        same = torch.equal(o0[rows_same], o1[rows_same])
-        if dtype == torch.float32:
-            same &= bool(rows_same.all())
+        same = all(torch.equal(t0, t1) for t0, t1 in zip(*outs))
         same_all &= same
-        print(f"[bits] 20 ({n},{d}) inner {inner} {str(dtype)[6:]}: the "
-              f"down-projection bit-equal to R's on the {int(rows_same.sum())}"
-              f" of {n} rows with equal codes and scales: {same}",
-              flush=True)
+        print(f"[bits] 20 ({n},{d}) inner {inner} {str(dtype)[6:]}: codes, "
+              f"scales and out bit-equal to R's: {same}", flush=True)
+        del x, w1, w1c, q2, outs
+    # kernel 15: R's picks on every row, scores within relative 2e-6 (R
+    # refuses C above 8192); then R's kernel-15 diagnostic
+    for rows, C, dtype, null, philox in EPILOGUE:
+        if C > 8192:
+            continue
+        cond, nl, bits_, kw, label = _epilogue_case(gen, rows, C, dtype, null,
+                                                    philox)
+        ext = kw["noise_bits"]
+        res = []
+        for lib in (this, other):
+            pred = torch.empty(rows, dtype=torch.int32, device="cuda")
+            score = torch.empty(rows, **f32)
+            args = (cond.data_ptr(), nl.data_ptr() if nl is not None else None,
+                    ext.data_ptr() if ext is not None else None,
+                    kw["seeds"].data_ptr(), rows // 8, STEP, pred.data_ptr(),
+                    score.data_ptr(), rows, C, num_kept(C, P_KEEP), 16, GS,
+                    TEMP, _build.DTYPE_CODES[dtype], stream)
+            check(lib.amt_sample_epilogue(*args), "amt_sample_epilogue")
+            res.append((pred, score))
+        torch.cuda.synchronize()
+        (p0, s0), (p1, s1) = res
+        picks = torch.equal(p0, p1)
+        rel = float(((s0 - s1).abs() / s1).max())
+        same = picks and rel <= 2e-6
+        same_all &= same
+        print(f"[bits] 15 {label}: picks equal to R's on every row {picks}, "
+              f"scores bit-equal {torch.equal(s0, s1)}, largest relative "
+              f"score difference {rel:.3e} (tol 2e-6)", flush=True)
+        del cond, nl, bits_, ext
+    epilogue_diag(gen, "R's ", other, _variant_library(root, "sampling.cu", (
+        "if (v[j][0] >= kth || v[j][1] >= kth || v[j][2] >= kth || "
+        "v[j][3] >= kth)", "if (false)")))
     if not same_all:
         raise AssertionError("bits differ from R's")
 
@@ -238,52 +476,52 @@ def paths(root: Path) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    mm = build_model(cs.muse_config("bf16", "int8_wide"), device=dev).eval()
-    svc = muse_service(mm, timesteps=18, approx_topk=True)
+
+    def timed(call):
+        """ms/step of 5 generates after a warm-up, sorted; the busy time of
+        one more by kernel (ms)."""
+        def once():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        once()
+        times = sorted(once() / 18 * 1e3 for _ in range(5))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        busy = {}
+        for e in prof.key_averages():
+            t = (getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0))
+            if e.device_type == DeviceType.CUDA and t > 0:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0][-60:]
+                busy[name] = busy.get(name, 0.0) + t / 1e3
+        return times, busy
+
+    def summary(times, busy):
+        total = sum(busy.values())
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+        return dict(ms_per_step=times, median_ms_per_step=times[2],
+                    busy_ms=total, top=[(k, v, v / total) for k, v in top])
+
+    res = dict(root=str(root))
     text_ids, seeds = tokenize(cs.MUSE_PROMPTS), list(range(8))
-
-    def generate_s():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        svc(text_ids, seeds)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
-    generate_s()
-    times = [generate_s() for _ in range(5)]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        svc(text_ids, seeds)
-        torch.cuda.synchronize()
-    busy = {}
-    for e in prof.key_averages():
-        t = (getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and t > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0][-60:]
-            busy[name] = busy.get(name, 0.0) + t / 1e3
-    total = sum(busy.values())
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
-    times.sort()
-    res = dict(root=str(root), muse_int8_wide_ms_per_step=[
-        t / 18 * 1e3 for t in times], median_ms_per_step=times[2] / 18 * 1e3,
-        busy_ms=total, top=[(k, v, v / total) for k, v in top])
-    del mm, svc
-    torch.cuda.empty_cache()
+    for quant in ("int8_wide", "int8"):
+        mm = build_model(cs.muse_config("bf16", quant), device=dev).eval()
+        svc = muse_service(mm, timesteps=18, approx_topk=True)
+        res[f"muse_{quant}"] = summary(*timed(lambda: svc(text_ids, seeds)))
+        del mm, svc
+        torch.cuda.empty_cache()
     mg = build_model(cs.maskgit_config("bf16"), device=dev).eval()
     svc = maskgit_service(mg, timesteps=18, num_masked=1024, approx_topk=True)
-    seeds = list(range(8))
-
-    def maskgit_s():
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        svc({}, seeds)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
-
-    maskgit_s()
-    times = sorted(maskgit_s() for _ in range(5))
-    res["maskgit_ms_per_step"] = [t / 18 * 1e3 for t in times]
+    times, busy = timed(lambda: svc({}, seeds))
+    res["maskgit_ms_per_step"] = times
+    res["maskgit_sample_epilogue_ms_per_generate"] = sum(
+        v for k, v in busy.items() if "sample_epilogue" in k)
     print(json.dumps(res), flush=True)
 
 

@@ -14,9 +14,10 @@
 //   - MN-major (kMN): a row-major (K, rows) matrix, rows contiguous (W2
 //     read as the B of dy W2, dH and yc read as the A and B of the weight
 //     gradient dH^T yc), through wgmma's transpose bit;
-// or B paired (Paired, the GEGLU products of kernels 11 and 20): W1's "a"
-// and "gate" rows loaded as two K-major half boxes of one tile, so a
-// thread holds a and gate of the same inner column.
+// or B paired (Paired, the GEGLU products of kernels 11 and 20; PairedS8,
+// kernel 19's int8 one): W1's "a" and "gate" rows loaded as two K-major
+// half boxes of one tile, so a thread holds a and gate of the same inner
+// column.
 // The epilogue is a struct with an Args type and a run<BN>() the kernel
 // calls on a warpgroup's registers; a .cu brings its own or takes one of
 // these:
@@ -27,8 +28,11 @@
 //   - StoreBf16:    C = bf16(A B^T) (dh, the FFN's out and dx);
 //   - GegluF32:     g = gate * gelu(a) in fp32 over paired columns (the
 //     GEGLU up-projections of kernels 11 and 20);
+//   - GegluDequant: the same from PairedS8's s32 sums, a and gate each
+//     dequantised first (kernel 19's up-projection);
 //   - DequantStore: C = (float(acc) * s_row) * s_col in fp32 or bf16, each
-//     product rounded (the int8 form: kernel 20's down-projection).
+//     product rounded (the int8 form: the down-projections of kernels 19
+//     and 20).
 //
 // Shape of a block:
 //   - 128 rows x BN columns of C: two consumer warpgroups of 64 rows, each
@@ -102,9 +106,10 @@ struct Form {
   using Acc = float;
 };
 
-// The int8 form (kernel 20's down-projection): A and B int8, K-major (the
-// only majorness wgmma takes for int8), exact s32 sums. Its tiles, ring and
-// descriptors are the bf16 form's byte for byte: a slice is 128 int8 of K.
+// The int8 form (the down-projections of kernels 19 and 20): A and B int8,
+// K-major (the only majorness wgmma takes for int8), exact s32 sums. Its
+// tiles, ring and descriptors are the bf16 form's byte for byte: a slice is
+// 128 int8 of K.
 struct S8 : Form<kK, kK> {
   static constexpr int kS8 = 1;
   using Acc = int;
@@ -116,7 +121,7 @@ __host__ __device__ constexpr int slice_k() {
   return Fm::kS8 ? kSliceBytes : kSliceBytes / 2;
 }
 
-// The paired-column form of the GEGLU product (kernel 11): A and B
+// The paired-column form of the GEGLU product (kernels 11 and 20): A and B
 // K-major, B = W1 (2 inner, K) whose rows [0, inner) are the "a" half and
 // [inner, 2 inner) the "gate" half. Block x's B tile is two boxes of BN / 2
 // rows stacked in the stage: W1 rows c0 .. c0 + BN/2 - 1 and inner + c0 ..,
@@ -125,6 +130,13 @@ __host__ __device__ constexpr int slice_k() {
 // inner = gridDim.x BN / 2).
 struct Paired : Form<kK, kK> {
   static constexpr int kPairB = 1;
+};
+
+// The paired form on int8 operands (kernel 19's up-projection): x_q and
+// W1q K-major, W1q's half boxes 128 int8 of K deep, exact s32 sums.
+struct PairedS8 : Paired {
+  static constexpr int kS8 = 1;
+  using Acc = int;
 };
 
 template <int BN, int kDual>
@@ -396,6 +408,53 @@ struct GegluF32 {
   }
 };
 
+// The paired int8 form's epilogue (kernel 19): acc[4i + e] and
+// acc[4(i + BN/16) + e] are the s32 sums of a and gate of inner column
+// c = n0/2 + 8i + 2t + (e % 2), dequantised as (float(acc) * s_row[row]) *
+// s_col[c] and ... * s_col[inner + c], each product rounded; then g = gate *
+// gelu(a) in fp32 as GegluF32 writes it. Rows past M read no scale.
+struct GegluDequant {
+  struct Args {
+    float* g;            // (M, inner) fp32, rows ldg elements apart
+    const float* s_row;  // (M,): x's row scales
+    const float* s_col;  // (2 inner,): W1q's channel scales
+    int m, inner, ldg;
+  };
+  static __device__ __forceinline__ float dequant(int acc, float sr, float sc) {
+    return __fmul_rn(__fmul_rn(__int2float_rn(acc), sr), sc);
+  }
+  template <int BN>
+  static __device__ __forceinline__ void run(const int (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = Staged<BN / 2, float>;
+    constexpr int kHalf = BN / 16;
+    uint8_t* st = ring + c * S::kBytes;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+    const float sr[2] = {m0r + rl < a.m ? a.s_row[m0r + rl] : 0.f,
+                         m0r + rl + 8 < a.m ? a.s_row[m0r + rl + 8] : 0.f};
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      const int col = n0 / 2 + 8 * i + 2 * t;
+      const float2 sa = *reinterpret_cast<const float2*>(a.s_col + col);
+      const float2 sg = *reinterpret_cast<const float2*>(a.s_col + a.inner + col);
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float r = sr[e / 2];
+        const float av = dequant(acc[4 * i + e], r, e % 2 ? sa.y : sa.x);
+        const float gv = dequant(acc[4 * (i + kHalf) + e], r, e % 2 ? sg.y : sg.x);
+        v[e] = gv * gelu_exact(av);
+      }
+      S::put(st, rl, 8 * i + 2 * t, v[0], v[1]);
+      S::put(st, rl + 8, 8 * i + 2 * t, v[2], v[3]);
+    }
+    hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.g, a.ldg, m0r, n0 / 2, a.m, a.inner);
+  }
+};
+
 // The int8 form's epilogue: C = (float(acc) * s_row[row]) * s_col[col] in T
 // (fp32 or bf16), each product rounded as the plain version's
 // (int_dot(...) * s_row) * s_col; the s32 sums are exact, so equal codes
@@ -551,9 +610,10 @@ __global__ __launch_bounds__(kThreads, (Config<BN, Fm::kDual>::kBlocksPerSM)) vo
         load_tile<Fm::kMajA, kBM, kSK>(stage, &amap, &sm.full[st], kt, m0);
         if constexpr (Fm::kPairB) {  // a rows, then gate rows, BN / 2 each
           const int c0 = n0 / 2, inner = gridDim.x * (BN / 2);
-          load_tile<kK, BN / 2>(stage + R::kA, &bmap, &sm.full[st], kt, c0);
-          load_tile<kK, BN / 2>(stage + R::kA + BN / 2 * kSliceBytes, &bmap,
-                                &sm.full[st], kt, inner + c0);
+          load_tile<kK, BN / 2, kSK>(stage + R::kA, &bmap, &sm.full[st], kt,
+                                     c0);
+          load_tile<kK, BN / 2, kSK>(stage + R::kA + BN / 2 * kSliceBytes,
+                                     &bmap, &sm.full[st], kt, inner + c0);
         } else {
           load_tile<Fm::kMajB, BN, kSK>(stage + R::kA, &bmap, &sm.full[st], kt,
                                         n0);

@@ -1,63 +1,81 @@
-// W8A8 int8 inference blocks: the GEGLU FFN with both products in int8, the
-// wide-only GEGLU FFN (up-projection in the activations' dtype, down-
-// projection in int8) and the int8 pre-LN MLP block.
+// W8A8 int8 inference blocks: the GEGLU FFN with both products in int8
+// (kernel 19), the wide-only GEGLU FFN (kernel 20: the up-projection in the
+// activations' dtype, the down-projection in int8) and the int8 pre-LN MLP
+// block (kernel 21).
 //
 // Replace attention_models_tpu/ops/quant.py::_ffn_q8_kernel (entry
 // fused_ffn_q8), ::_ffn_q8wide_kernel (fused_ffn_q8wide) and
 // ::_ln_mlp_q8_kernel (fused_ln_mlp_q8); x in bf16 or fp32. Quantized
 // weights come in the torch Linear layout (d_out, d_in) int8 with fp32
 // per-output-channel scales (ops/quant.py::quantize_weight): each row is
-// K-contiguous, the "col" B operand of mma.sync as it stands.
+// K-contiguous, wgmma's K-major B (and mma.sync's "col" B) as it stands.
 //
 // Bound on the H100: operations. At Muse's decode shape (n = 16384 rows,
-// d 1024, inner 4096) the FFN's two products are 6*n*d*i = 412 G int8
-// operations: 0.208 ms at the int8 tensor-core peak (1979 TOPS); the wide
-// FFN's bf16 up-projection alone is 0.278 ms. Kernel 21 at the tokenizer's
-// shape (n 8192, d 512, hid 1368) is 4*n*d*hid = 23 G: 0.0116 ms.
+// d 1024, inner 4096) kernel 19's two products are 6*n*d*i = 412 G int8
+// operations: 0.208 ms at the int8 tensor-core peak (1979 TOPS), its
+// up-projection 0.139 of it; kernel 20's bf16 up-projection alone is 0.278
+// ms. Kernel 21 at the tokenizer's shape (n 8192, d 512, hid 1368) is
+// 4*n*d*hid = 23 G: 0.0116 ms.
 //
-// Design. Every activation scale is the amax of a whole row (4096 wide for
-// the FFN's y, 1368 for kernel 21's gelu output), and it must exist before
-// the next product starts; the FFN's LayerNorm also spans the whole inner
-// row. So each block runs as row passes and tile products through global
-// scratches, as csrc/ffn.cu does:
+// Design. Every activation scale is the amax of a whole row (d for x, inner
+// for the FFN's y, hid for kernel 21's gelu output), and it must exist
+// before the product that reads the codes starts; the FFN's LayerNorm also
+// spans the whole inner row. So each block runs as row passes and tile
+// products through global scratches, as csrc/ffn.cu does:
 //   row_quant:  one block a row: optionally the LayerNorm (float64 sums of
 //               the row and of its centred squares, rounded once to fp32),
 //               then amax, the scale and the int8 codes (round half to even,
 //               IEEE division, clip +-127). A row of up to 4096 values is
 //               held in registers; a wider one is walked in chunks of 4096,
 //               read again for each step, in the same order;
-//   kernel 20 (the wide FFN), three launches:
+//   kernels 19 (four launches) and 20 (three), from their host plans
+//   (ops/quant.py::q8_plan and q8wide_plan: a GemmPlan of the up-projection
+//   and one of the down-projection):
+//     - kernel 19 only: row_quant of x into x_q at the plan's pitch;
 //     - the up-projection g = gate * gelu(a) of [a | gate] = x W1^T into an
-//       fp32 scratch at the plan's row pitch. bf16: csrc/gemm_sm90.cuh's
-//       TMA/wgmma tile product in its paired-column form with the GegluF32
-//       epilogue, kernel 11's own (plan: ops/quant.py::q8wide_plan). fp32:
-//       geglu_f64_kernel on the fp64 tensor cores (DMMA, mma.sync m16n8k16
-//       .f64): each 32-deep fp32 slice is loaded into registers while the
-//       block multiplies the one before and becomes doubles in shared
-//       memory, each element converted once a block; a product of two fp32
-//       values is exact in float64 and DMMA sums in float64, so H is the
-//       float64 sum rounded once, as the plain version's float64 product
-//       (only the order of the float64 sums differs);
+//       fp32 scratch at the plan's row pitch, on csrc/gemm_sm90.cuh's
+//       TMA/wgmma tile product in its paired-column form (W1's "a" and
+//       "gate" rows as two K-major half boxes of one tile, so a thread holds
+//       a and gate of the same column):
+//         kernel 19: PairedS8 (x_q and W1q int8, boxes of 128 int8 of K,
+//           wgmma m64n256k32 .s32.s8.s8, exact s32 sums) with the
+//           GegluDequant epilogue, which dequantises a and gate, then
+//           writes g; one body for bf16 and fp32 x (only the row pass of x
+//           and the output's store differ by dtype);
+//         kernel 20, bf16: Paired with GegluF32, kernel 11's own;
+//         kernel 20, fp32: geglu_f64_kernel on the fp64 tensor cores (DMMA,
+//           mma.sync m16n8k16 .f64): each 32-deep fp32 slice is loaded into
+//           registers while the block multiplies the one before and becomes
+//           doubles in shared memory, each element converted once a block;
+//           a product of two fp32 values is exact in float64 and DMMA sums
+//           in float64, so H is the float64 sum rounded once, as the plain
+//           version's float64 product (only the order of the float64 sums
+//           differs);
 //     - row_quant with the gamma-LN over the inner width;
-//     - y_q W2q^T on the tile product's int8 form (sm90::S8: TMA boxes of
-//       128 int8 of K, wgmma m64nBNk32 .s32.s8.s8, exact s32 sums) with the
-//       DequantStore epilogue;
-//   kernels 19 and 21: gemm_s8 (128 x 128 int32 tiles of int8 A B^T,
-//               mma.sync m16n8k32 s8, 64-byte k slices copied by cp.async
-//               in three stages, an epilogue that dequantises as
-//               (float(acc) * s_row) * s_col (+ bias) and either applies
-//               gelu into an fp32 scratch or adds the residual and writes
-//               the output); kernel 19's first product interleaves 8 "a"
-//               rows of W1 with their 8 "gate" rows per tile, so each
-//               thread dequantises a and gate of one (row, column) and
-//               writes g = gate * gelu(a) to an fp32 scratch.
-// Each dequantisation, bias, residual and LayerNorm step is one IEEE
-// operation in the plain version's order (__fmul_rn / __fadd_rn keep nvcc
-// from contracting them into FMAs), and the gelu is PyTorch's CUDA
+//     - y_q W2q^T on the tile product's int8 form (sm90::S8) with the
+//       DequantStore epilogue, in x's dtype;
+//   kernel 21 (the only user of gemm_s8_kernel, mma_tile_s8 and
+//     mma_s8_16832): 128 x 128 int32 tiles of int8 A B^T on mma.sync
+//     m16n8k32 s8, 64-byte k slices copied by cp.async in three stages, an
+//     epilogue that dequantises (+ bias) and applies gelu into an fp32
+//     scratch or adds the residual and writes the output.
+// What the tile products do about their bound: TMA keeps the ring full
+// and wgmma reads both int8 operands straight from swizzled shared memory,
+// so no thread spends registers or issue slots on fragment loads (the
+// mma.sync body takes four 32-bit shared loads per m16 tile and 32-deep
+// step); the row passes between them are bound by bytes (g in fp32 is
+// written once and read by the LayerNorm pass).
+//
+// Bit-equality. Each dequantisation, bias, residual and LayerNorm step is
+// one IEEE operation in the plain version's order (__fmul_rn / __fadd_rn keep
+// nvcc from contracting them into FMAs) and the gelu is PyTorch's CUDA
 // expression, so the int8 codes equal the plain version's on the card
-// (bf16 kernel 20: up to its fp32 sums' order). Kernel 21's hid (1368) is
-// not a multiple of 16 bytes: its W2 and gelu codes are stored at a padded
-// stride with zero columns.
+// (bf16 kernel 20: up to its fp32 sums' order). Kernel 19's s32 sums are
+// exact in any order, so its g, codes and output are the bits of the
+// mma.sync GEGLU kernel it replaces (bench_q8.py bits holds them against
+// that version's library, in both dtypes). Kernel 21's hid (1368) is not a
+// multiple of 16 bytes: its W2 and gelu codes are stored at a padded stride
+// with zero columns.
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
 
@@ -90,28 +108,13 @@ __device__ __forceinline__ uint32_t ld32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// B row of tile row r: contiguous rows from n0, or csrc/ffn.cu's GEGLU
-// interleave (tile row r of inner block col0: W1 row col0 + (r/16)*8 + r%8,
-// plus inner when (r/8) is odd)
-struct Rows {
-  int n0;
-  __device__ int operator()(int r) const { return n0 + r; }
-};
-struct GegluRows {
-  int col0, inner;
-  __device__ int operator()(int r) const {
-    return col0 + (r >> 4) * 8 + (r & 7) + ((r >> 3) & 1) * inner;
-  }
-};
-
 // acc = this warp's 64 x 32 part of the 128 x 128 int32 tile of A B^T at
-// rows m0 and B rows brow(0..127): A (M, K) and B (N, K) int8, K-contiguous,
+// rows m0 and B rows n0..n0 + 127: A (M, K) and B (N, K) int8, K-contiguous,
 // K and the row strides (bytes) multiples of 16; rows past M or N and k past
 // K are zero-filled. Warp w holds rows m0 + (w/4)*64 + mt*16 + g (+8) and
 // tile columns (w%4)*32 + nt*8 + 2t (+1) in acc[mt][nt][0..3].
-template <class BRow>
 __device__ void mma_tile_s8(const int8_t* A, int lda, int M, const int8_t* B,
-                            int ldb, int N, int K, int m0, BRow brow,
+                            int ldb, int N, int K, int m0, int n0,
                             int8_t* smem, int acc[4][4][4]) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
@@ -126,7 +129,7 @@ __device__ void mma_tile_s8(const int8_t* A, int lda, int M, const int8_t* B,
     const int r = (tid + i * kThreads) >> 2;
     a_ok[i] = m0 + r < M;
     a_src[i] = A + (int64_t)(a_ok[i] ? m0 + r : 0) * lda + kc;
-    const int br = brow(r);
+    const int br = n0 + r;
     b_ok[i] = br < N;
     b_src[i] = B + (int64_t)(b_ok[i] ? br : 0) * ldb + kc;
     s_off[i] = r * kLd8 + kc;
@@ -211,7 +214,7 @@ __global__ __launch_bounds__(kThreads) void gemm_s8_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   int acc[4][4][4];
-  mma_tile_s8(A, lda, M, B, ldb, N, K, m0, Rows{n0},
+  mma_tile_s8(A, lda, M, B, ldb, N, K, m0, n0,
               reinterpret_cast<int8_t*>(smem_raw), acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
@@ -238,45 +241,6 @@ __global__ __launch_bounds__(kThreads) void gemm_s8_kernel(
           }
         }
         store2(C + (int64_t)row * ldc + col, v[0], v[1]);
-      }
-    }
-}
-
-// g (M, inner) fp32 = gate * gelu(a) of the dequantised [a | gate] =
-// A W1^T, A (M, K) int8 with row scales s_a, W1 (2 * inner, K) int8 with
-// column scales s_w; block column bx covers inner columns bx*64 .. +63.
-__global__ __launch_bounds__(kThreads) void gemm_s8_geglu_kernel(
-    const int8_t* __restrict__ A, const int8_t* __restrict__ W1,
-    const float* __restrict__ s_a, const float* __restrict__ s_w,
-    float* __restrict__ gout, int M, int K, int inner) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * kBM;
-  int acc[4][4][4];
-  mma_tile_s8(A, K, M, W1, K, 2 * inner, K, m0,
-              GegluRows{(int)blockIdx.x * 64, inner},
-              reinterpret_cast<int8_t*>(smem_raw), acc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-      if (row >= M) continue;
-      const float sr = s_a[row];
-      // tiles nt = 0, 1 (and 2, 3) hold a and gate of the same 8 columns
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int col = blockIdx.x * 64 + (wn * 2 + p) * 8 + 2 * t;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float a = dequant(acc[mt][2 * p][2 * half + e], sr, s_w[col + e]);
-          const float gate =
-              dequant(acc[mt][2 * p + 1][2 * half + e], sr, s_w[inner + col + e]);
-          v[e] = gate * gelu_torch(a);
-        }
-        store2(gout + (int64_t)row * inner + col, v[0], v[1]);
       }
     }
 }
@@ -578,8 +542,58 @@ __global__ __launch_bounds__(kThreads) void row_quant_kernel(
   if (threadIdx.x == 0) scale[blockIdx.x] = s;
 }
 
+// The codes of rows of at most kWarpRow values without the LayerNorm
+// (kernel 19's x): a warp a row, eight rows a block, 4 columns a lane in
+// each of 8 groups (group j at column 4 (lane + 32 j)) held in registers,
+// the amax by shuffles. A block a row spent most of its time waiting on
+// its barriers at such widths; max is order-free, so the scale and codes
+// are row_quant_kernel's.
+constexpr int kWarpRow = 1024;
+template <typename T>
+__global__ __launch_bounds__(kThreads) void row_codes_kernel(
+    const T* __restrict__ in, int ld_in, int8_t* __restrict__ q, int ld_q,
+    float* __restrict__ scale, int n, int width) {
+  constexpr int kG = kWarpRow / 128;
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const T* src = in + (int64_t)row * ld_in;
+  float v[4 * kG];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    const int c = 4 * (lane + 32 * j);
+    if (c < width) {
+      load_vals<4>(src + c, v + 4 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[4 * j + e]));
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  int8_t* out = q + (int64_t)row * ld_q;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    const int c = 4 * (lane + 32 * j);
+    if (c >= ld_q) continue;
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int8_t code =
+          c + e < width
+              ? (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v[4 * j + e], s)), -127.f), 127.f)
+              : (int8_t)0;
+      w |= (uint32_t)(uint8_t)code << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(out + c) = w;
+  }
+  if (lane == 0) scale[row] = s;
+}
+
 // row_quant_kernel over n rows, 4 columns a thread where every width,
-// stride and pointer allows it
+// stride and pointer allows it; rows of at most kWarpRow codes without the
+// LayerNorm a warp a row (row_codes_kernel)
 template <typename T, bool kLN>
 cudaError_t row_quant(const T* in, int ld_in, const float* gamma, const float* beta,
                       int8_t* q, int ld_q, float* scale, int n, int width, float eps,
@@ -587,7 +601,11 @@ cudaError_t row_quant(const T* in, int ld_in, const float* gamma, const float* b
   const bool vec = width % 4 == 0 && ld_in % 4 == 0 && ld_q % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(in) % (4 * sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(q) % 4 == 0;
-  if (vec)
+  if (!kLN && vec && ld_q <= kWarpRow) {
+    constexpr int kRows = kThreads / 32;
+    row_codes_kernel<T><<<(n + kRows - 1) / kRows, kThreads, 0, s>>>(in, ld_in, q, ld_q,
+                                                                    scale, n, width);
+  } else if (vec)
     row_quant_kernel<T, kLN, 4><<<n, kThreads, 0, s>>>(in, ld_in, gamma, beta, q, ld_q,
                                                       scale, width, eps);
   else
@@ -615,31 +633,46 @@ cudaError_t gemm_s8_out(const int8_t* A, int lda, const int8_t* B, int ldb, int 
   return cudaGetLastError();
 }
 
-// Kernel 19's tail: y = the FFN's gamma-LN of g, quantized; then
-// out = dequant(y_q W2q^T)
+// The tail of kernels 19 and 20 from the down-projection's plan: y = the
+// FFN's gamma-LN of each row of g (rows ldg elements apart), its codes into
+// y_q (rows ldq bytes apart), then out = dequant(y_q W2q^T) on the int8 form
 template <typename T>
-cudaError_t ffn_tail(const float* gs, const float* gamma, const int8_t* w2q,
-                     const float* s2, int8_t* yq, float* sy, T* out, int n, int d,
+cudaError_t ffn_tail(const int64_t* out_plan, const float* gs, int ldg,
+                     const float* gamma, const int8_t* w2q, const float* s2,
+                     int8_t* yq, int ldq, float* sy, T* out, int n, int d,
                      int inner, float eps, cudaStream_t s) {
-  cudaError_t err =
-      row_quant<float, true>(gs, inner, gamma, nullptr, yq, inner, sy, n, inner, eps, s);
+  cudaError_t err = row_quant<float, true>(gs, ldg, gamma, nullptr, yq, ldq, sy, n,
+                                           inner, eps, s);
   if (err != cudaSuccess) return err;
-  return gemm_s8_out<T>(yq, inner, w2q, inner, n, d, inner, sy, s2, nullptr, nullptr,
-                        out, d, s);
+  const typename sm90::DequantStore<T>::Args oa{out, sy, s2, n, d, d};
+  return sm90::gemm_from_plan<sm90::S8, sm90::DequantStore<T>, 128, 256>(
+      out_plan, nullptr, yq, w2q, nullptr, nullptr, oa, n, d, inner, d, s);
 }
 
+// Kernel 19 from its plan (ops/quant.py::q8_plan: the paired int8
+// up-projection's GemmPlan, then y_q W2q^T's): x's codes into x_q at the
+// plan's pitch, g = gate * gelu(a) of the dequantised paired product into
+// the fp32 scratch at its pitch, then the tail.
 template <typename T>
-cudaError_t ffn_q8(const T* x, const int8_t* w1q, const float* s1, const float* gamma,
-                   const int8_t* w2q, const float* s2, int8_t* xq, float* sx,
-                   float* gs, int8_t* yq, float* sy, T* out, int n, int d,
-                   int inner, float eps, cudaStream_t s) {
-  cudaError_t err = row_quant<T, false>(x, d, nullptr, nullptr, xq, d, sx, n, d, eps, s);
+cudaError_t ffn_q8(const int64_t* plan, const T* x, const int8_t* w1q,
+                   const float* s1, const float* gamma, const int8_t* w2q,
+                   const float* s2, int8_t* xq, float* sx, float* gs, int8_t* yq,
+                   float* sy, T* out, int n, int d, int inner, float eps,
+                   cudaStream_t s) {
+  constexpr int P = sm90::kPlanValues;
+  const int ldx = (int)plan[2];      // x_q's pitch: the up-projection's A map (bytes)
+  const int ldg = (int)plan[19];     // g's pitch (fp32 elements)
+  const int ldq = (int)plan[P + 2];  // y_q's: the down-projection's A map
+  if (ldx < d || ldg < inner || ldg % 4 || ldq < inner) return cudaErrorInvalidValue;
+  cudaError_t err =
+      row_quant<T, false>(x, d, nullptr, nullptr, xq, ldx, sx, n, d, eps, s);
   if (err != cudaSuccess) return err;
-  if ((err = set_smem((const void*)gemm_s8_geglu_kernel)) != cudaSuccess) return err;
-  gemm_s8_geglu_kernel<<<dim3(inner / 64, (n + kBM - 1) / kBM), kThreads, kSmem8, s>>>(
-      xq, w1q, sx, s1, gs, n, d, inner);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return ffn_tail<T>(gs, gamma, w2q, s2, yq, sy, out, n, d, inner, eps, s);
+  const sm90::GegluDequant::Args ga{gs, sx, s1, n, inner, ldg};
+  err = sm90::gemm_from_plan<sm90::PairedS8, sm90::GegluDequant, 256>(
+      plan, nullptr, xq, w1q, nullptr, nullptr, ga, n, 2 * inner, d, ldg, s);
+  if (err != cudaSuccess) return err;
+  return ffn_tail<T>(plan + P, gs, ldg, gamma, w2q, s2, yq, ldq, sy, out, n, d, inner,
+                     eps, s);
 }
 
 // Kernel 20 from its plan (ops/quant.py::q8wide_plan: the paired GEGLU
@@ -674,12 +707,8 @@ cudaError_t ffn_q8wide(const int64_t* plan, const T* x, const T* w1,
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
-  if ((err = row_quant<float, true>(gs, ldg, gamma, nullptr, yq, ldq, sy, n, inner, eps,
-                                    s)) != cudaSuccess)
-    return err;
-  const typename sm90::DequantStore<T>::Args oa{out, sy, s2, n, d, d};
-  return sm90::gemm_from_plan<sm90::S8, sm90::DequantStore<T>, 128, 256>(
-      plan + P, nullptr, yq, w2q, nullptr, nullptr, oa, n, d, inner, d, s);
+  return ffn_tail<T>(plan + P, gs, ldg, gamma, w2q, s2, yq, ldq, sy, out, n, d, inner,
+                     eps, s);
 }
 
 template <typename T>
@@ -705,15 +734,17 @@ cudaError_t ln_mlp_q8(const T* x, const float* lng, const float* lnb,
 
 }  // namespace
 
-// Scratch: xq (n, d) int8, sx (n), g (n, inner) fp32, yq (n, inner) int8,
-// sy (n). W1q (2 * inner, d), W2q (d, inner).
-AMT_EXPORT int amt_ffn_q8(const void* x, const void* w1q, const void* s1,
-                          const void* gamma, const void* w2q, const void* s2,
-                          void* xq, void* sx, void* g, void* yq, void* sy, void* out,
-                          int n, int d, int inner, float eps, int dtype, void* stream) {
+// plan: ops/quant.py::Q8Plan (42 int64, the same for bf16 and fp32 x).
+// Scratch: xq (n, d) int8, g (n, inner) fp32 and yq (n, inner) int8 at the
+// plan's pitches, sx (n), sy (n). W1q (2 * inner, d), W2q (d, inner).
+AMT_EXPORT int amt_ffn_q8(const int64_t* plan, const void* x, const void* w1q,
+                          const void* s1, const void* gamma, const void* w2q,
+                          const void* s2, void* xq, void* sx, void* g, void* yq,
+                          void* sy, void* out, int n, int d, int inner, float eps,
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (d % kBN || inner % kBN) return cudaErrorInvalidValue;
+  if (plan == nullptr || n < 0 || d % 128 || inner % 128) return cudaErrorInvalidValue;
   const auto* w1 = static_cast<const int8_t*>(w1q);
   const auto* w2 = static_cast<const int8_t*>(w2q);
   const auto* f1 = static_cast<const float*>(s1);
@@ -725,15 +756,15 @@ AMT_EXPORT int amt_ffn_q8(const void* x, const void* w1q, const void* s1,
   auto* syf = static_cast<float*>(sy);
   auto* gs = static_cast<float*>(g);
   if (dtype == AMT_BF16)
-    return ffn_q8(static_cast<const bf16*>(x), w1, f1, gm, w2, f2, xqi, sxf, gs, yqi,
-                  syf, static_cast<bf16*>(out), n, d, inner, eps, s);
+    return ffn_q8(plan, static_cast<const bf16*>(x), w1, f1, gm, w2, f2, xqi, sxf, gs,
+                  yqi, syf, static_cast<bf16*>(out), n, d, inner, eps, s);
   if (dtype == AMT_F32)
-    return ffn_q8(static_cast<const float*>(x), w1, f1, gm, w2, f2, xqi, sxf, gs, yqi,
-                  syf, static_cast<float*>(out), n, d, inner, eps, s);
+    return ffn_q8(plan, static_cast<const float*>(x), w1, f1, gm, w2, f2, xqi, sxf, gs,
+                  yqi, syf, static_cast<float*>(out), n, d, inner, eps, s);
   return cudaErrorInvalidValue;
 }
 
-// plan: ops/quant.py::Q8WidePlan (42 int64; fp32 reads the GEGLU product's
+// plan: ops/quant.py::Q8Plan (42 int64; fp32 reads the GEGLU product's
 // g pitch only). Scratch: g (n, inner) fp32 and yq (n, inner) int8 at the
 // plan's pitches, sy (n). W1 (2 * inner, d) in x's dtype, W2q (d, inner).
 AMT_EXPORT int amt_ffn_q8wide(const int64_t* plan, const void* x, const void* w1,

@@ -19,17 +19,43 @@
 //
 // Bound on the H100: bytes. At the decode shape (8192 rows of 8192 logits)
 // the logits are read once: 134 MB in bf16 (0.040 ms), 268 MB in fp32.
+// What kept a block-per-row kernel far from that bound was its instruction
+// stream (the register-bisection kernel this replaces read 0.52 ms at the
+// decode shape): sixteen counts over the whole row in series, each a
+// compare and an add per value and a block-wide reduction, and the noise
+// drawn wherever a lane happened to hold a kept value, so a warp ran
+// Philox and two logf for nearly every group of every lane (a kept value
+// is one in ten, spread over all the lanes).
 //
-// Design. Each bisection step is a row-wide count; the TPU kernel keeps its
-// row tile in VMEM across the 16 steps. Here the block's 256 threads hold
-// the row in registers (C <= 8192: 8 groups of 4 consecutive columns a
-// thread, group j at column 4 * (thread + 256 j)), so the row is read from
-// device memory once and the 16 counts, the noise, the argmax and the
-// logsumexp run on registers with block reductions through shared memory.
-// Noise is drawn only for the groups of 4 that hold a kept column (about
-// 1 - p of them): the two logf per column and the Philox rounds are what
-// bound the kernel beside its bytes, and a column below the threshold
-// cannot be picked whatever its noise.
+// Design. The block's 256 threads hold a chunk of up to 8192 values in
+// registers (8 groups of 4 consecutive columns a thread, group j at column
+// 4 * (thread + 256 j)); a wider row is walked chunk by chunk, read again
+// for each pass in the same order.
+//   - min and max with the load, one barrier;
+//   - the bisection, bit for bit kth_value_bisect's (ops/sampling.py): each
+//     midpoint mid = __fmul_rn(0.5f, __fadd_rn(lo, hi)), lo = mid where
+//     count(x >= mid) >= k, one block-wide count (a barrier, the warps'
+//     counts in double-buffered slots) a level. The first levels count the
+//     whole row, until at most kCap values lie in [lo, hi): count(x >= lo)
+//     - count(x >= hi), both known from the counts taken (count(x >= max)
+//     taken as 0 while hi is the max, and then [lo, max] is kept whole).
+//     Then each warp gathers its own such values (a ballot a value, no
+//     atomics), at most kPerWarp, four a lane in registers (a warp with
+//     more: one more whole-row level, and again), and the remaining levels
+//     count those four: count(x >= mid) = count(x >= hi) + theirs. At the
+//     decode shape three whole-row levels leave some 850 values;
+//   - the noise only for kept values, x >= kth (about 1 - p of them): each
+//     warp appends its kept (value, column) pairs to a ring in shared
+//     memory (a ballot and a population count a value) and draws their
+//     noise 32 at a time with every lane busy, each its own Philox4x32-10
+//     call (the word of its column) and two logf; the argmax is order-free
+//     (first index on ties), so the pick does not depend on that order;
+//   - the exp-sum in each thread's column order, then the warps'
+//     butterflies and the warps in order, as in the kernel this replaces,
+//     so picks and scores keep its bits.
+// tests/test_torch_sampling.py holds a numpy model of the search to
+// kth_value_bisect on ties, constant rows, k = 1 and k = C, collapsing
+// ranges and negative rows.
 #include <limits.h>
 #include <math.h>
 
@@ -38,8 +64,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kGroups = 8;
+constexpr int kGroups = 8;                      // groups of 4 a thread
+constexpr int kChunk = 4 * kGroups * kThreads;  // 8192 columns
 constexpr int kWarps = kThreads / 32;
+constexpr int kPerLane = 4;                     // gathered values a lane holds
+constexpr int kPerWarp = 32 * kPerLane;
+constexpr int kCap = kWarps * kPerWarp;  // values the last levels count
+constexpr int kQueue = 256;  // a warp's ring of kept values (a power of 2)
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 #pragma unroll
@@ -73,21 +104,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
   v[2] = __low2float(hi); v[3] = __high2float(hi);
 }
 
-// Block-wide reductions; every thread gets the result. red holds kWarps
-// entries and may be reused right after a call returns.
-template <typename Op, typename V>
-__device__ __forceinline__ V block_reduce(V v, V* red, Op op) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  V r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = op(r, red[w]);
-  return r;
-}
-
 struct Pick {
   float noised;  // the value compared
   int idx;       // its column
@@ -98,111 +114,257 @@ __device__ __forceinline__ bool better(const Pick& a, const Pick& b) {
   return a.noised > b.noised || (a.noised == b.noised && a.idx < b.idx);
 }
 
-template <typename T, bool kNull, bool kBits>
-__global__ __launch_bounds__(kThreads) void sample_epilogue_kernel(
+struct Shared {
+  float cand[kCap];  // each warp's values in [lo, hi), kPerWarp a warp
+  int nwarp[kWarps];
+  float redmax[kWarps], redmin[kWarps], redsum[kWarps];
+  int redcnt[2][kWarps];
+  Pick redp[kWarps];
+  float qx[kWarps][kQueue];  // each warp's ring of kept values ...
+  int qcol[kWarps][kQueue];  // ... and their columns
+};
+
+__device__ __forceinline__ uint32_t lanes_below() {
+  uint32_t m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+__device__ __forceinline__ float bisect_mid(float lo, float hi) {
+  return __fmul_rn(0.5f, __fadd_rn(lo, hi));
+}
+
+// Blocks an SM: three (at most 80 registers a thread); for fp32 logits
+// with CFG, whose cond and null loads in flight need more, two for a held
+// row and one for a row walked in chunks.
+template <typename T, bool kNull, bool kHeld>
+constexpr int min_blocks() {
+  return sizeof(T) == 4 && kNull ? (kHeld ? 2 : 1) : 3;
+}
+
+// kHeld: the row is one chunk, read once and held in registers through
+// every pass; else each pass reads its chunks again (a separate
+// instantiation, so neither pays the other's registers).
+template <typename T, bool kNull, bool kBits, bool kHeld>
+__global__ __launch_bounds__(kThreads, (min_blocks<T, kNull, kHeld>())) void sample_epilogue_kernel(
     const T* __restrict__ cond, const T* __restrict__ null,
     const int32_t* __restrict__ bits, const int64_t* __restrict__ seeds,
     int rows_per_seed, uint32_t step, int32_t* __restrict__ pred,
     float* __restrict__ score, int C, int k, int iters, float gs, float temperature) {
-  __shared__ float redf[kWarps];
-  __shared__ int redi[kWarps];
-  __shared__ Pick redp[kWarps];
+  __shared__ Shared sm;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row = blockIdx.x;
-  const int64_t base = (int64_t)row * C;
+  const int64_t base_off = (int64_t)row * C;
+  const int chunks = kHeld ? 1 : (C + kChunk - 1) / kChunk;
 
   float v[kGroups][4];
-  float vmax = -INFINITY, vmin = INFINITY;
+  // v = the (guided) logits of the chunk at column c0
+  const auto load = [&](int c0) {
 #pragma unroll
-  for (int j = 0; j < kGroups; ++j) {
-    const int col = 4 * (threadIdx.x + j * kThreads);
-    if (col < C) {
-      load4(cond + base + col, v[j]);
-      if (kNull) {
-        float nv[4];
-        load4(null + base + col, nv);
+    for (int j = 0; j < kGroups; ++j) {
+      const int col = c0 + 4 * (tid + j * kThreads);
+      if (col < C) {
+        load4(cond + base_off + col, v[j]);
+        if (kNull) {
+          float nv[4];
+          load4(null + base_off + col, nv);
 #pragma unroll
-        for (int w = 0; w < 4; ++w)
-          v[j][w] = __fadd_rn(nv[w], __fmul_rn(gs, __fsub_rn(v[j][w], nv[w])));
-      }
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        vmax = fmaxf(vmax, v[j][w]);
-        vmin = fminf(vmin, v[j][w]);
+          for (int w = 0; w < 4; ++w)
+            v[j][w] = __fadd_rn(nv[w], __fmul_rn(gs, __fsub_rn(v[j][w], nv[w])));
+        }
       }
     }
+  };
+  // fn(group values, first column) for each of this thread's groups of the
+  // row, chunk by chunk in order (each chunk read again unless the row is
+  // held)
+  const auto each_group = [&](auto&& fn) {
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = ch * kChunk;
+      if (!kHeld) load(c0);
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        const int col = c0 + 4 * (tid + j * kThreads);
+        if (col < C) fn(v[j], col);
+      }
+    }
+  };
+
+  if (kHeld) load(0);
+  float vmax = -INFINITY, vmin = INFINITY;
+  each_group([&](const float(&g)[4], int) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      vmax = fmaxf(vmax, g[w]);
+      vmin = fminf(vmin, g[w]);
+    }
+  });
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
+    vmin = fminf(vmin, __shfl_xor_sync(0xffffffffu, vmin, o));
   }
-  const float rmax = block_reduce(vmax, redf, [](float a, float b) { return fmaxf(a, b); });
-  float lo = block_reduce(vmin, redf, [](float a, float b) { return fminf(a, b); });
+  if (lane == 0) {
+    sm.redmax[warp] = vmax;
+    sm.redmin[warp] = vmin;
+  }
+  __syncthreads();
+  float rmax = sm.redmax[0], lo = sm.redmin[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    rmax = fmaxf(rmax, sm.redmax[w]);
+    lo = fminf(lo, sm.redmin[w]);
+  }
   float hi = rmax;
 
-  // the largest threshold found with count(x >= t) >= k
-  for (int it = 0; it < iters; ++it) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    int cnt = 0;
+  // the largest threshold found with count(x >= t) >= k. Whole-row counts
+  // until at most kCap values lie in [lo, hi) (all of [lo, max] while hi is
+  // the max); then each warp gathers its own such values, at most kPerWarp
+  // (else one more whole-row level, and again), four a lane in registers,
+  // and the counts take those: count(x >= mid) = count(x >= hi) + theirs.
+  int done = 0, cnt_lo = C, cnt_hi = 0, base = 0, mine = 0;
+  bool hi_moved = false, gathered = false;
+  float c[kPerLane];
+  for (; done < iters; ++done) {
+    if (!gathered && cnt_lo - cnt_hi <= kCap) {
+      const float hi_x = hi_moved ? hi : INFINITY;
+      float* region = sm.cand + warp * kPerWarp;
+      int n = 0;  // this warp's values in [lo, hi_x), the same in every lane
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int c0 = ch * kChunk;
+        if (!kHeld) load(c0);
 #pragma unroll
-    for (int j = 0; j < kGroups; ++j)
-      if (4 * (threadIdx.x + j * kThreads) < C)
+        for (int j = 0; j < kGroups; ++j) {
+          const bool in = c0 + 4 * (tid + j * kThreads) < C;
 #pragma unroll
-        for (int w = 0; w < 4; ++w) cnt += v[j][w] >= mid;
-    cnt = block_reduce(cnt, redi, [](int a, int b) { return a + b; });
+          for (int w = 0; w < 4; ++w) {
+            const bool take = in && v[j][w] >= lo && v[j][w] < hi_x;
+            const uint32_t m = __ballot_sync(0xffffffffu, take);
+            const int at = n + __popc(m & lanes_below());
+            if (take && at < kPerWarp) region[at] = v[j][w];
+            n += __popc(m);
+          }
+        }
+      }
+      if (lane == 0) sm.nwarp[warp] = n;
+      __syncthreads();
+      int most = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) most = max(most, sm.nwarp[w]);
+      if (most <= kPerWarp) {
+        gathered = true;
+        base = hi_moved ? cnt_hi : 0;
+        mine = n;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i)
+          c[i] = lane + 32 * i < n ? region[lane + 32 * i] : 0.f;
+      }
+    }
+    const float mid = bisect_mid(lo, hi);
+    int c2[2] = {0, 0};  // two chains of adds
+    if (gathered) {
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) c2[i & 1] += lane + 32 * i < mine && c[i] >= mid;
+    } else {
+      each_group([&](const float(&g)[4], int) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) c2[w & 1] += g[w] >= mid;
+      });
+    }
+    int cnt = __reduce_add_sync(0xffffffffu, c2[0] + c2[1]);
+    if (lane == 0) sm.redcnt[done & 1][warp] = cnt;
+    __syncthreads();
+    cnt = base;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) cnt += sm.redcnt[done & 1][w];
     if (cnt >= k) {
       lo = mid;
+      cnt_lo = cnt;
     } else {
       hi = mid;
+      cnt_hi = cnt;
+      hi_moved = true;
     }
   }
   const float kth = lo;
 
+  // the exp-sum in column order; the kept values' noise 32 at a time from
+  // the warp's ring; the argmax
   Pick best{-INFINITY, INT_MAX, 0.f};
   float esum = 0.f;
   const uint2 key = kBits ? make_uint2(0u, 0u)
                           : make_uint2((uint32_t)seeds[row / rows_per_seed], step);
   const uint32_t pos = (uint32_t)(row % rows_per_seed);
-#pragma unroll
-  for (int j = 0; j < kGroups; ++j) {
-    const int col = 4 * (threadIdx.x + j * kThreads);
-    if (col < C) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) esum += expf(v[j][w] - rmax);
-      // only kept columns (~(1 - p) of them) need their noise
-      if (v[j][0] >= kth || v[j][1] >= kth || v[j][2] >= kth || v[j][3] >= kth) {
-        uint32_t b[4];
-        if (kBits) {
-          const int4 q = *reinterpret_cast<const int4*>(bits + base + col);
-          b[0] = (uint32_t)q.x; b[1] = (uint32_t)q.y; b[2] = (uint32_t)q.z; b[3] = (uint32_t)q.w;
-        } else {
-          const uint4 q = philox4x32_10(make_uint4((uint32_t)(col / 4), pos, 0u, 0u), key);
-          b[0] = q.x; b[1] = q.y; b[2] = q.z; b[3] = q.w;
-        }
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const float x = v[j][w];
-          if (x >= kth) {
-            const Pick cand{__fadd_rn(x, __fmul_rn(temperature, gumbel_of_bits(b[w]))),
-                            col + w, x};
-            if (better(cand, best)) best = cand;
-          }
-        }
+  float* qx = sm.qx[warp];
+  int* qcol = sm.qcol[warp];
+  uint32_t head = 0, tail = 0;  // the same in every lane of the warp
+  const auto draw = [&](int count) {
+    if (lane < count) {
+      const uint32_t at = (head + lane) & (kQueue - 1);
+      const float x = qx[at];
+      const int col = qcol[at];
+      uint32_t b;
+      if (kBits) {
+        b = (uint32_t)bits[base_off + col];
+      } else {
+        const uint4 q = philox4x32_10(make_uint4((uint32_t)(col / 4), pos, 0u, 0u), key);
+        const int w = col % 4;
+        b = w == 0 ? q.x : w == 1 ? q.y : w == 2 ? q.z : q.w;
       }
+      const Pick cand{__fadd_rn(x, __fmul_rn(temperature, gumbel_of_bits(b))), col, x};
+      if (better(cand, best)) best = cand;
+    }
+    head += count;
+  };
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int c0 = ch * kChunk;
+    if (!kHeld) load(c0);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      const int col = c0 + 4 * (tid + j * kThreads);
+      const bool in = col < C;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        if (in) esum += expf(v[j][w] - rmax);
+        const bool kept = in && v[j][w] >= kth;
+        const uint32_t m = __ballot_sync(0xffffffffu, kept);
+        if (kept) {
+          const uint32_t at = (tail + __popc(m & lanes_below())) & (kQueue - 1);
+          qx[at] = v[j][w];
+          qcol[at] = col + w;
+        }
+        tail += __popc(m);
+      }
+      __syncwarp();
+      while (tail - head >= 32) draw(32);
     }
   }
-  const float total = block_reduce(esum, redf, [](float a, float b) { return a + b; });
-  // argmax: shuffle the (noised, idx, x) triples, first index on ties
+  draw((int)(tail - head));
+
+  // the exp-sum and the argmax (first index on ties) across the block: the
+  // warps' butterflies, then the warps in order
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
+    esum += __shfl_xor_sync(0xffffffffu, esum, o);
     Pick other;
     other.noised = __shfl_xor_sync(0xffffffffu, best.noised, o);
     other.idx = __shfl_xor_sync(0xffffffffu, best.idx, o);
     other.x = __shfl_xor_sync(0xffffffffu, best.x, o);
     if (better(other, best)) best = other;
   }
-  if (threadIdx.x % 32 == 0) redp[threadIdx.x / 32] = best;
+  if (lane == 0) {
+    sm.redsum[warp] = esum;
+    sm.redp[warp] = best;
+  }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    Pick r = redp[0];
+  if (tid == 0) {
+    Pick r = sm.redp[0];
+    float total = sm.redsum[0];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w)
-      if (better(redp[w], r)) r = redp[w];
+    for (int w = 1; w < kWarps; ++w) {
+      total += sm.redsum[w];
+      if (better(sm.redp[w], r)) r = sm.redp[w];
+    }
     const float lse = rmax + logf(total);
     pred[row] = r.idx;
     score[row] = expf(r.x - lse);
@@ -216,9 +378,14 @@ cudaError_t launch(const void* cond, const void* null, const int32_t* bits,
                    cudaStream_t s) {
   const T* c = static_cast<const T*>(cond);
   const T* nl = static_cast<const T*>(null);
-#define AMT_SAMPLE(NULL_, BITS_)                                                       \
-  sample_epilogue_kernel<T, NULL_, BITS_><<<rows, kThreads, 0, s>>>(                   \
-      c, nl, bits, seeds, rows_per_seed, step, pred, score, C, k, iters, gs, temp)
+  const bool held = C <= kChunk;
+#define AMT_SAMPLE(NULL_, BITS_)                                                \
+  do {                                                                          \
+    const auto kern = held ? sample_epilogue_kernel<T, NULL_, BITS_, true>      \
+                           : sample_epilogue_kernel<T, NULL_, BITS_, false>;    \
+    kern<<<rows, kThreads, 0, s>>>(c, nl, bits, seeds, rows_per_seed, step, pred, \
+                                   score, C, k, iters, gs, temp);               \
+  } while (0)
   if (nl && bits) AMT_SAMPLE(true, true);
   else if (nl) AMT_SAMPLE(true, false);
   else if (bits) AMT_SAMPLE(false, true);
@@ -229,7 +396,8 @@ cudaError_t launch(const void* cond, const void* null, const int32_t* bits,
 
 }  // namespace
 
-// null and bits may be null pointers; seeds is read only without bits.
+// null and bits may be null pointers; seeds is read only without bits. Any
+// C % 4 == 0: rows past 8192 columns are walked in chunks.
 AMT_EXPORT int amt_sample_epilogue(const void* cond, const void* null, const void* bits,
                                    const void* seeds, int rows_per_seed, int step,
                                    void* pred, void* score, int rows, int C, int k,
@@ -237,7 +405,7 @@ AMT_EXPORT int amt_sample_epilogue(const void* cond, const void* null, const voi
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0) return cudaSuccess;
-  if (C % 4 != 0 || C > 4 * kGroups * kThreads || rows_per_seed <= 0)
+  if (C <= 0 || C % 4 != 0 || rows_per_seed <= 0 || iters < 0)
     return cudaErrorInvalidValue;
   const auto* b = static_cast<const int32_t*>(bits);
   const auto* sd = static_cast<const int64_t*>(seeds);

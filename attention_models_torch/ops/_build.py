@@ -55,7 +55,7 @@ _SIGNATURES = {
     "amt_head_xent_bwd": [_P] * 12 + [_S] + [_I] * 4 + [_P],
     "amt_sample_epilogue": [_P] * 4 + [_I, _I, _P, _P, _I, _I, _I, _I, _F,
                                        _F, _I, _P],
-    "amt_ffn_q8": [_P] * 12 + [_I, _I, _I, _F, _I, _P],
+    "amt_ffn_q8": [_S] + [_P] * 12 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_q8wide": [_S] + [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "amt_ln_mlp_q8": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
     "amt_mlp": [_P] * 9 + [_S] + [_I] * 4 + [_P],

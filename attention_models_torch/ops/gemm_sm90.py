@@ -10,10 +10,11 @@ Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 (``ops/ffn.py::
 ln_mlp_bwd_plan``), 11 and 12 (``ops/ffn.py::ffn_plan`` and
 ``ffn_bwd_plan``), 13 and 14 (``ops/xent.py::xent_fwd_plan`` and
 ``xent_bwd_plan``) build their plans
-from these pieces, and kernel 20 (``ops/quant.py::q8wide_plan``) too. The
-GEGLU products of kernels 11 and 20 read W1 in the paired-column form: its
-B tile is two boxes of ``bn / 2`` rows, W1's "a" rows and the matching
-"gate" rows. Kernel 20's down-projection runs the product's int8 form: a K
+from these pieces, and kernels 19 and 20 (``ops/quant.py::q8_plan`` and
+``q8wide_plan``) too. The GEGLU products of kernels 11, 19 and 20 read W1
+in the paired-column form: its B tile is two boxes of ``bn / 2`` rows, W1's
+"a" rows and the matching "gate" rows. The down-projections of kernels 19
+and 20 and kernel 19's up-projection run the product's int8 form: a K
 slice is 128 bytes whatever the type, so its boxes are 128 int8 of K where
 bf16 ones are 64, over the same ring.
 

@@ -18,12 +18,15 @@ quantizes at its first step, as JAX hoists the quantization out of its scan.
   the integer product is ``torch._int_mm`` on the card, an exact float64
   product on the CPU (|sum| <= K * 127^2 < 2^53).
 - ``fused_ffn_q8`` (kernel 19): the GEGLU FFN with both products in int8.
+  On the card: the row codes of x, the up-projection on csrc/gemm_sm90.cuh's
+  paired-column tile product in its int8 form (a and gate dequantised, then
+  g = gate * gelu(a)), the LayerNorm and row codes of g, then the tile
+  product's int8 form; its host plan is ``q8_plan``.
 - ``fused_ffn_q8wide`` (kernel 20): the up-projection in x's dtype, the
   down-projection in int8. On the card: the up-projection g = gate *
-  gelu(a) on csrc/gemm_sm90.cuh's paired-column tile product (bf16, kernel
-  11's GEGLU product and epilogue) or on the fp64 tensor cores (fp32), the
-  LayerNorm and row codes, then the tile product's int8 form; its host plan
-  is ``q8wide_plan``.
+  gelu(a) on the paired-column tile product (bf16, kernel 11's GEGLU
+  product and epilogue) or on the fp64 tensor cores (fp32), then kernel
+  19's tail; its host plan is ``q8wide_plan``.
 - ``fused_ln_mlp_q8`` (kernel 21): x + W8A8 Mlp(LayerNorm(x)), biased.
 
 The row statistics of the LayerNorms (the GEGLU's gamma-LN over the inner
@@ -62,7 +65,7 @@ from attention_models_torch.ops.gemm_sm90 import (
     scratch_meta,
 )
 
-Q8WIDE_GEGLU_BN = 256  # the paired GEGLU product's tile width (kernel 11's)
+Q8_GEGLU_BN = 256  # the paired GEGLU products' tile width (kernel 11's)
 QUANT_MODES = (None, "int8", "int8_wide")
 
 
@@ -262,35 +265,47 @@ def _vec(p, name, size, dev) -> torch.Tensor:
     return p.float().contiguous()
 
 
-def _ffn_scratch(n, inner, dev):
-    return dict(g=torch.empty(n, inner, dtype=torch.float32, device=dev),
-                yq=torch.empty(n, inner, dtype=torch.int8, device=dev),
-                sy=torch.empty(n, dtype=torch.float32, device=dev))
+def _check_widths(what, d, inner):
+    if d % 128 or inner % 128:
+        raise ValueError(f"{what}: d={d} and inner={inner} must be multiples "
+                         f"of 128")
+
+
+def _check_aligned(what, **named):
+    for name, t in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} starts at an address that is "
+                             f"not 16-byte aligned")
 
 
 def _ffn_q8_kernel(x, q1, gamma, q2, eps, codes=None):
+    what = "ffn_q8 kernel"
     check_tensor(x, "x", (torch.float32, torch.bfloat16))
     d, inner = x.shape[-1], q2.q.shape[1]
     _check_q8(x, "w1", q1, (2 * inner, d))
     _check_q8(x, "w2", q2, (d, inner))
-    if d % 128 or inner % 128:
-        raise ValueError(f"ffn_q8 kernel: d={d} and inner={inner} must be "
-                         f"multiples of 128")
+    _check_widths(what, d, inner)
+    _check_aligned(what, **{"w1 int8": q1.q, "w2 int8": q2.q})
     gam = _vec(gamma, "gamma", inner, x.device)
     n, dev = x.numel() // d, x.device
-    s = _ffn_scratch(n, inner, dev)
-    xq = torch.empty(n, d, dtype=torch.int8, device=dev)
-    sx = torch.empty(n, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    plan = q8_plan(n, d, inner)
+    xq = torch.empty(n, plan.x_pitch, dtype=torch.int8, device=dev)
+    sx = torch.empty(n, dtype=torch.float32, device=dev)
+    g = torch.empty(n * plan.g_pitch, dtype=torch.float32, device=dev)
+    yq = torch.empty(n, plan.q_pitch, dtype=torch.int8, device=dev)
+    sy = torch.empty(n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _build.launch(
-            "amt_ffn_q8", x.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
-            gam.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
-            xq.data_ptr(), sx.data_ptr(), s["g"].data_ptr(),
-            s["yq"].data_ptr(), s["sy"].data_ptr(), out.data_ptr(), n, d,
-            inner, eps, _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
+            "amt_ffn_q8", plan.c_array(), x.data_ptr(), q1.q.data_ptr(),
+            q1.scale.data_ptr(), gam.data_ptr(), q2.q.data_ptr(),
+            q2.scale.data_ptr(), xq.data_ptr(), sx.data_ptr(), g.data_ptr(),
+            yq.data_ptr(), sy.data_ptr(), out.data_ptr(), n, d, inner, eps,
+            _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
     fused_ffn_q8.launches += 1
-    _keep(codes, xq=xq, yq=s["yq"])
+    _keep(codes, xq=xq[:, :d], yq=yq[:, :inner])
     return out
 
 
@@ -310,13 +325,15 @@ fused_ffn_q8.launches = 0
 
 
 @dataclass(frozen=True)
-class Q8WidePlan:
-    """Kernel 20's two tile products (csrc/quant.cu): ``geglu``, the bf16
-    paired-column product of x (n, d) and W1 (2 inner, d), both K-major, W1
-    read as boxes of ``bn / 2`` rows, writing g = gate * gelu(a) into the
-    fp32 scratch g (n, inner) at ``g_pitch`` elements a row (fp32 x: only
-    that pitch is read; the fp64 tensor-core product writes g); ``out`` =
-    y_q W2q^T in the int8 form, y_q (n, inner) at ``q_pitch`` bytes a row and
+class Q8Plan:
+    """The two tile products of kernels 19 and 20 (csrc/quant.cu):
+    ``geglu``, the paired-column product of x (n, d) and W1 (2 inner, d),
+    both K-major, W1 read as boxes of ``bn / 2`` rows, writing g = gate *
+    gelu(a) into the fp32 scratch g (n, inner) at ``g_pitch`` elements a
+    row -- kernel 19: x_q at ``x_pitch`` bytes a row and W1q in int8, K
+    boxes of 128; kernel 20: x and W1 bf16, K boxes of 64 (fp32 x: only the
+    pitch is read; the fp64 tensor-core product writes g); ``out`` = y_q
+    W2q^T in the int8 form, y_q (n, inner) at ``q_pitch`` bytes a row and
     W2q (d, inner), both K-major, K boxes of 128 int8."""
     geglu: GemmPlan
     out: GemmPlan
@@ -326,8 +343,13 @@ class Q8WidePlan:
         object.__setattr__(self, "_arr", PlanArray((self.geglu, self.out)))
 
     def c_array(self):
-        """The 42 int64 values ``amt_ffn_q8wide`` reads (built once)."""
+        """The 42 int64 values ``amt_ffn_q8`` / ``amt_ffn_q8wide`` read
+        (built once)."""
         return self._arr.c_array()
+
+    @property
+    def x_pitch(self) -> int:
+        return self.geglu.a.stride
 
     @property
     def g_pitch(self) -> int:
@@ -338,22 +360,41 @@ class Q8WidePlan:
         return self.out.a.stride
 
 
+def _out_plan(n: int, d: int, inner: int, what: str) -> GemmPlan:
+    """y_q W2q^T's plan; its tile width is kernel 11's y W2^T rule: 256
+    above d 128."""
+    yq = scratch_meta("yq", n, inner, inner, item=1)
+    w2q = scratch_meta("w2 int8", d, inner, inner, item=1)
+    return gemm_plan(yq, K_MAJOR, w2q, K_MAJOR, 256 if d > 128 else 128, d,
+                     what=what)
+
+
 @functools.lru_cache(maxsize=64)
-def q8wide_plan(n: int, d: int, inner: int) -> Q8WidePlan:
+def q8_plan(n: int, d: int, inner: int) -> Q8Plan:
+    """Kernel 19's plan for n rows of x (n, d), W1q (2 inner, d) and W2q
+    (d, inner), the same for bf16 and fp32 x, cached on the sizes alone
+    (the wrapper checks the weights 16-byte aligned first)."""
+    what = "ffn_q8 kernel"
+    xq = scratch_meta("xq", n, d, d, item=1)
+    w1q = scratch_meta("w1 int8", 2 * inner, d, d, item=1)
+    return Q8Plan(
+        gemm_plan(xq, K_MAJOR, w1q, K_MAJOR, Q8_GEGLU_BN, row_pitch(inner),
+                  paired=True, what=what),
+        _out_plan(n, d, inner, what))
+
+
+@functools.lru_cache(maxsize=64)
+def q8wide_plan(n: int, d: int, inner: int) -> Q8Plan:
     """Kernel 20's plan for n rows of x (n, d), W1 (2 inner, d) and W2q
     (d, inner), cached on the sizes alone (the wrapper checks the operands
-    contiguous and 16-byte aligned first). The int8 product's tile width is
-    kernel 11's y W2^T rule: 256 above d 128."""
+    contiguous and 16-byte aligned first)."""
     what = "ffn_q8wide kernel"
     x = scratch_meta("x", n, d, d)
     w1 = scratch_meta("w1", 2 * inner, d, d)
-    yq = scratch_meta("yq", n, inner, inner, item=1)
-    w2q = scratch_meta("w2 int8", d, inner, inner, item=1)
-    return Q8WidePlan(
-        gemm_plan(x, K_MAJOR, w1, K_MAJOR, Q8WIDE_GEGLU_BN, row_pitch(inner),
+    return Q8Plan(
+        gemm_plan(x, K_MAJOR, w1, K_MAJOR, Q8_GEGLU_BN, row_pitch(inner),
                   paired=True, what=what),
-        gemm_plan(yq, K_MAJOR, w2q, K_MAJOR, 256 if d > 128 else 128, d,
-                  what=what))
+        _out_plan(n, d, inner, what))
 
 
 def _ffn_q8wide_kernel(x, w1, gamma, q2, eps, codes=None):
@@ -364,13 +405,8 @@ def _ffn_q8wide_kernel(x, w1, gamma, q2, eps, codes=None):
     if w1c.shape != (2 * inner, d):
         raise ValueError(f"ffn_q8wide kernel: w1 {tuple(w1c.shape)}")
     _check_q8(x, "w2", q2, (d, inner))
-    if d % 128 or inner % 128:
-        raise ValueError(f"ffn_q8wide kernel: d={d} and inner={inner} must "
-                         f"be multiples of 128")
-    for name, t in (("x", x), ("w1", w1c), ("w2 int8", q2.q)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"ffn_q8wide kernel: {name} starts at an address "
-                             f"that is not 16-byte aligned")
+    _check_widths("ffn_q8wide kernel", d, inner)
+    _check_aligned("ffn_q8wide kernel", x=x, w1=w1c, **{"w2 int8": q2.q})
     gam = _vec(gamma, "gamma", inner, x.device)
     n, dev = x.numel() // d, x.device
     out = torch.empty_like(x)

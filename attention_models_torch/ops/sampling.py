@@ -18,7 +18,9 @@ it JAX's); otherwise it draws from the ``torch.Generator`` it is given.
 
 ``sample_epilogue_fused`` is the decode-step epilogue in one launch (CFG
 combine, bisection top-k threshold, Gumbel argmax, the chosen class's
-softmax probability). Its noise bits are Philox4x32-10 keyed by (row seed,
+softmax probability) at any class count C % 4 == 0; the kernel finds the
+bisection's threshold from histograms over the bisection tree's midpoints
+(csrc/sampling.cu), bit-equal to ``kth_value_bisect``. Its noise bits are Philox4x32-10 keyed by (row seed,
 step) with (column / 4, position under the seed) as the counter -- the
 kernel and ``philox_bits`` compute the same stream -- or an int32 tensor
 (``noise_bits``).
@@ -36,9 +38,6 @@ import torch
 
 from attention_models_torch.ops import _build
 from attention_models_torch.ops.dispatch import check_tensor, is_kernel_path
-
-MAX_CLASSES = 8192  # row width csrc/sampling.cu holds in registers
-
 
 def cosine_schedule(t: torch.Tensor) -> torch.Tensor:
     return torch.cos(t * (math.pi / 2))
@@ -303,9 +302,9 @@ def sample_epilogue_fused(
     cond = logits.reshape(rows, C)
     null = null_logits.reshape(rows, C) if null_logits is not None else None
     check_tensor(cond, "logits", (torch.float32, torch.bfloat16))
-    if C % 4 or C > MAX_CLASSES:
+    if C % 4:
         raise ValueError(f"sample epilogue kernel: C={C} must be a multiple "
-                         f"of 4 and at most {MAX_CLASSES}")
+                         f"of 4")
     if null is not None:
         check_tensor(null, "null_logits", (cond.dtype,), 2, dev)
         if null.shape != cond.shape:

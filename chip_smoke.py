@@ -18,7 +18,8 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               (BN 256) and y W2^T (BN 128 and 256; csrc/ffn.cu), kernel
               12's four (csrc/ffn_bwd.cu), kernel 13's and kernel 14's
               three (csrc/xent.cu), kernel 20's paired GEGLU product and
-              int8 form (csrc/quant.cu) and the five operand forms
+              int8 form and kernel 19's paired int8 product (csrc/quant.cu)
+              and the five operand forms
               (csrc/tile_product.cu), and of the fp32 FMA kernels
               (csrc/gemm.cuh's gemm_f32_kernel in each source that
               instantiates it, csrc/ffn.cu's geglu_f32_kernel, csrc/xent.cu's
@@ -26,8 +27,10 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               FFN's row passes (ffn_ln_rows_kernel,
               ffn_bwd_rows_kernel), kernel 20's fp32 up-projection on the
               fp64 tensor cores (geglu_f64_kernel), the W8A8 row passes
-              (row_quant_kernel) and every LayerNorm instantiation
-              (layernorm_kernel, layernorm_rows_kernel): registers, static
+              (row_quant_kernel, row_codes_kernel), every LayerNorm
+              instantiation
+              (layernorm_kernel, layernorm_rows_kernel) and the sampling
+              epilogue's sixteen (sample_epilogue_kernel): registers, static
               shared memory, spill bytes (a spill fails)
   3. kernels  first the tile product's four operand forms (A and B each
               K-major or MN-major, K whole and split) and the fp32 FMA
@@ -86,8 +89,12 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               and against F.layer_norm in turns; the W8A8 wide FFN (kernel
               20) at Muse's shape in both dtypes, bit-equal on a repeat
               call, 0 int8 codes differing from plain in fp32, and in turns;
+              the W8A8 GEGLU FFN (kernel 19) at Muse's shape in both dtypes,
+              0 int8 codes differing from plain, bit-equal on a repeat call;
               kernels 19-21 at rows past 4096 (inner / hid 8704; kernel 20
-              in both dtypes) with their differing codes counted
+              in both dtypes) with their differing codes counted; the
+              sampling epilogue at the six decode cases and at C 16384
+              (rows wider than a block holds in registers)
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -770,7 +777,8 @@ def main() -> int:
     # form, DequantStore in bf16 and fp32 at BN 128 and 256), and the five
     # operand forms of the checks below (the int8 one at BN 128); a spill
     # fails
-    epilogues = (("DequantStoreIfE", "dequant f32"),
+    epilogues = (("GegluDequant", "geglu dequant"),
+                 ("DequantStoreIfE", "dequant f32"),
                  ("DequantStoreI13__nv_bfloat16E", "dequant bf16"),
                  ("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
                  ("StoreIfE", "f32"), ("StoreI13__nv_bfloat16E", "bf16"),
@@ -779,7 +787,9 @@ def main() -> int:
 
     def gemm_label(mangled):
         bn = re.search(r"gemm_kernelILi(\d+)E", mangled).group(1)
-        if "6PairedE" in mangled:
+        if "8PairedS8E" in mangled:
+            form = "K, K paired int8"
+        elif "6PairedE" in mangled:
             form = "K, K paired"
         elif "2S8E" in mangled:
             form = "K, K int8"
@@ -798,7 +808,7 @@ def main() -> int:
     mlp_ptxas = {}
     for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 4),
                        ("tile_product", 5), ("ffn", 3), ("ffn_bwd", 4),
-                       ("quant", 5)):
+                       ("quant", 6)):
         rows = _build.ptxas_report(src, "gemm_kernel")
         for r in rows:
             label = f"{src}: {gemm_label(r['name'])}"
@@ -806,7 +816,7 @@ def main() -> int:
             ptxas_line(label, r)
         gate(len(rows) == count, f"{src}: {len(rows)} gemm_kernel "
              f"instantiations, expected {count}")
-    gate(len(mlp_ptxas) == 28
+    gate(len(mlp_ptxas) == 29
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in mlp_ptxas.values()),
          f"gemm_kernel ptxas: {mlp_ptxas}")
@@ -863,6 +873,8 @@ def main() -> int:
 
     for src, kern, count in (("quant", "geglu_f64_kernel", 1),
                              ("quant", "row_quant_kernel", 8),
+                             ("quant", "row_codes_kernel", 2),
+                             ("sampling", "sample_epilogue_kernel", 16),
                              ("layernorm", "layernorm_kernel", 23),
                              ("layernorm", "layernorm_rows_kernel", 2)):
         rows = _build.ptxas_report(src, kern)
@@ -2168,14 +2180,15 @@ def main() -> int:
 
     def guided(cond, null):
         """The fp32 logits the epilogue samples from (its CFG combine)."""
-        x32 = cond.reshape(-1, n_cls).float()
+        width = cond.shape[-1]
+        x32 = cond.reshape(-1, width).float()
         if null is None:
             return x32
-        n32 = null.reshape(-1, n_cls).float()
+        n32 = null.reshape(-1, width).float()
         return n32 + torch.tensor(gs, dtype=torch.float32) * (x32 - n32)
 
     def epilogue_check(label, x32, bits, temp, got, want, gap_tol,
-                       relative=True, x32_got=None):
+                       relative=True, x32_got=None, k=k_keep):
         """Picks equal wherever the plain noised top-2 gap (of the plain
         logits x32) exceeds gap_tol (times |top| if ``relative``), every
         pick in the kept set of the logits it was drawn from (``x32_got``,
@@ -2183,7 +2196,7 @@ def main() -> int:
         Returns (score rel err, its max abs err)."""
         pred, score = (t.reshape(-1) for t in got)
         pred_p, score_p = (t.reshape(-1) for t in want)
-        kth = kth_value_bisect(x32, k_keep)[:, None]
+        kth = kth_value_bisect(x32, k)[:, None]
         noised = torch.where(x32 >= kth, x32 + torch.tensor(
             temp, dtype=torch.float32) * gumbel_of_bits(bits), -inf)
         top2 = noised.topk(2, dim=-1).values
@@ -2194,7 +2207,7 @@ def main() -> int:
         worst = float(gap[differ].max()) if bool(differ.any()) else 0.0
         xg = x32 if x32_got is None else x32_got
         kept = bool((xg.gather(1, pred.long()[:, None])[:, 0]
-                     >= kth_value_bisect(xg, k_keep)).all())
+                     >= kth_value_bisect(xg, k)).all())
         agree = ~differ
         err = float(((score - score_p).abs() / score_p)[agree].max())
         abs_err = float((score - score_p).abs()[agree].max())
@@ -2282,6 +2295,47 @@ def main() -> int:
         raise AssertionError("sample_epilogue Philox criteria failed")
     del cond, null, ext, bits, x32, logits, flat
 
+    # rows wider than the 8192 values a block holds in registers (a 16384-
+    # entry codebook, which JAX's gate takes): 1024 rows of 16384, bf16 and
+    # fp32, Philox and given bits, against the plain version on the card
+    wide_cls = 16384
+    wide_k = math.ceil((1 - p_keep) * wide_cls)
+    seeds1 = seeds8[:1]
+    for dtype, philox in itertools.product((torch.bfloat16, torch.float32),
+                                           (True, False)):
+        cond = randn(1, 1024, wide_cls, dtype=dtype, scale=3.0)
+        if philox:
+            ext, bits = None, philox_bits(seeds1, 1024, 5, wide_cls)
+        else:
+            ext = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, 1024, wide_cls),
+                                generator=gen, device=dev, dtype=torch.int32)
+            bits = ext.reshape(-1, wide_cls)
+        kw = dict(p=p_keep, temperature=temp0, seeds=seeds1, step=5,
+                  noise_bits=ext)
+        label = (f"{dtype} C {wide_cls} bits="
+                 f"{'philox' if philox else 'given'}")
+        err, abs_err = epilogue_check(
+            label, guided(cond, None), bits, temp0,
+            sample_epilogue_fused(cond, **kw),
+            _sample_epilogue_reference(cond, **kw), 1e-5, k=wide_k)
+        g_k = gumbel_of_bits(bits[:, :wide_k])
+
+        def wide_library():
+            vals, idx = torch.topk(cond.reshape(-1, wide_cls), wide_k)
+            choice = (vals.float() + temp0 * g_k).argmax(-1, keepdim=True)
+            lse = torch.logsumexp(cond.reshape(-1, wide_cls).float(), -1)
+            return (idx.gather(-1, choice),
+                    torch.exp(vals.gather(-1, choice)[:, 0].float() - lse))
+
+        record("sample_epilogue", f"(1024,{wide_cls}) null=False bits="
+               f"{'philox' if philox else 'given'}", dtype, 1e-5, err,
+               abs_err, time_ms(lambda: sample_epilogue_fused(cond, **kw)),
+               time_ms(lambda: _sample_epilogue_reference(cond, **kw)),
+               time_ms(wide_library),
+               nbytes(cond, *(t for t in (ext,) if t is not None))
+               + 8 * 1024, 0, metric="score rel err (agreeing picks)")
+        del cond, ext, bits, g_k
+
     # the W8A8 blocks (kernels 19-21) at their main paths' shapes: Muse's FFN
     # (16 x 1024 rows of the CFG forward, d 1024, inner 4096) and the int8
     # tokenizer's LN + MLP (8 x 1024 rows, d 512, hid 1368), bf16 and fp32
@@ -2328,6 +2382,13 @@ def main() -> int:
                time_ms(lambda: _ffn_q8_reference(x, q1, gam, q2, 1e-5)),
                time_ms(ffn_q8_library), nbytes(x, got) + weights,
                [(q8_ops, "int8")], main=dtype == torch.bfloat16)
+        # exact s32 sums and the plain version's order of every other step:
+        # the same codes in both dtypes
+        gate(flips["xq"] == 0 and flips["yq"] == 0,
+             f"ffn_q8 {dtype}: int8 codes differ from the plain version's "
+             f"({flips})")
+        repeat_equal(f"ffn_q8 ({mu_rows},{mu_dim}) {str(dtype)[6:]}",
+                     lambda: (fused_ffn_q8(x, q1, gam, q2),), (got,))
 
         def ffn_q8wide_library():
             a, gate_ = F.linear(x, w1c).float().chunk(2, dim=-1)

@@ -1,7 +1,15 @@
-"""The host plan of the W8A8 wide FFN (kernel 20, csrc/quant.cu) and the
-widths the three W8A8 blocks take, checked through faked launches on the
-CPU: everything the C side is handed is decided in ops/quant.py (on
-ops/gemm_sm90.py).
+"""The host plans of the W8A8 GEGLU FFN (kernel 19) and wide FFN (kernel
+20, csrc/quant.cu) and the widths the three W8A8 blocks take, checked
+through faked launches on the CPU: everything the C side is handed is
+decided in ops/quant.py (on ops/gemm_sm90.py).
+
+- Kernel 19 at the same three shapes: the paired int8 product's maps (x_q
+  K-major, W1q read as boxes of half a tile of rows by 128 int8 of K), grid
+  and g's pitch; the int8 down-projection's plan; the scratches' pitches;
+  fp32 launching with the same plan; misaligned weights refused by name
+  before any launch; the plan cache; and a CPU emulation of the paired
+  int8 blocks in 128-int8 K slices, dequantised, through the tail, bit-equal
+  to ``_ffn_q8_reference``.
 
 - Kernel 20 at Muse's (16384, 1024), inner 4096, at ragged rows (520,
   1024, 4096) and at inner 8704 (520, 768): the paired-column GEGLU
@@ -36,6 +44,9 @@ SMEM_128 = 3 * (128 + 128) * 128 + 3 * 16 + 1024    # 99376
 SMEM_256 = 4 * (128 + 256) * 128 + 4 * 16 + 1024    # 197696
 # where amt_ffn_q8wide takes each pointer after the plan (ops/_build.py)
 ARGS = ("x", "w1", "gamma", "w2q", "s2", "g", "yq", "sy", "out")
+# ... and amt_ffn_q8
+ARGS_19 = ("x", "w1q", "s1", "gamma", "w2q", "s2", "xq", "sx", "g", "yq",
+           "sy", "out")
 
 
 def _fake_launches(monkeypatch):
@@ -303,3 +314,120 @@ def test_int8_tile_product_plan_and_plain_version(monkeypatch):
                              major=0)
     assert (plan["kslices"], plan["grid"], plan["bn"]) == (9, (1, 1, 1), 128)
     assert args[6:10] == (40, 24, 1040, 24)
+
+
+# -- kernel 19 -------------------------------------------------------------------
+
+def _q8(monkeypatch, n, d, inner, dtype=torch.bfloat16):
+    launched = _fake_launches(monkeypatch)
+    t_q.fused_ffn_q8(torch.zeros(n, d, dtype=dtype), _qw(2 * inner, d),
+                     torch.ones(inner), _qw(d, inner))
+    ((name, args),) = launched
+    assert name == "amt_ffn_q8"
+    assert args[13:18] == (n, d, inner, 1e-5, _build.DTYPE_CODES[dtype])
+    return args[0], dict(zip(ARGS_19, args[1:13]))
+
+
+@pytest.mark.parametrize("n,d,inner", KERNEL_20)
+def test_kernel_19_paired_int8_plan(monkeypatch, n, d, inner):
+    arr, _ = _q8(monkeypatch, n, d, inner)
+    geglu, _ = _decode(arr, 2)
+    # x_q (n, d) and W1q (2 inner, d) int8, K-major, K boxes of 128 int8
+    # (one 128-byte swizzle row); W1q's boxes 128 rows (half of BN 256):
+    # block x loads W1q rows 128 x .. ("a") and inner + 128 x .. ("gate")
+    # and writes g's columns 128 x .. + 127
+    assert geglu["a"] == dict(dims=(d, n), stride=d, box=(128, 128), major=0)
+    assert geglu["b"] == dict(dims=(d, 2 * inner), stride=d, box=(128, 128),
+                              major=0)
+    assert geglu["bn"] == 256
+    assert geglu["grid"] == (2 * inner // 256, -(-n // 128), 1)
+    assert geglu["grid"][0] * geglu["b"]["box"][1] == inner
+    assert geglu["kslices"] == d // 128
+    assert geglu["ldc"] >= inner and (4 * geglu["ldc"]) % 64 == 0
+    assert (geglu["swizzle"], geglu["threads"], geglu["smem"]) == (
+        128, 288, SMEM_256)
+
+
+@pytest.mark.parametrize("n,d,inner", KERNEL_20)
+def test_kernel_19_int8_out_plan(monkeypatch, n, d, inner):
+    """Kernel 19's down-projection is kernel 20's, plan for plan."""
+    arr, _ = _q8(monkeypatch, n, d, inner)
+    _, out = _decode(arr, 2)
+    assert out["a"] == dict(dims=(inner, n), stride=inner, box=(128, 128),
+                            major=0)
+    assert out["b"] == dict(dims=(inner, d), stride=inner, box=(128, 256),
+                            major=0)
+    assert (out["bn"], out["grid"], out["ldc"], out["kslices"]) == (
+        256, (-(-d // 256), -(-n // 128), 1), d, inner // 128)
+    assert out["smem"] == SMEM_256 <= SMEM_LIMIT
+    assert t_q.q8_plan(n, d, inner).out == t_q.q8wide_plan(n, d, inner).out
+
+
+@pytest.mark.parametrize("n,d,inner", KERNEL_20)
+def test_kernel_19_scratches(monkeypatch, n, d, inner):
+    _, ptrs = _q8(monkeypatch, n, d, inner)
+    plan = t_q.q8_plan(n, d, inner)
+    assert (plan.x_pitch, plan.g_pitch, plan.q_pitch) == (d, inner, inner)
+    for name in ("xq", "sx", "g", "yq", "sy", "out"):
+        assert ptrs[name] % 16 == 0
+
+
+def test_kernel_19_fp32_launches_with_the_same_plan(monkeypatch):
+    n, d, inner = 520, 768, 8704
+    arr, ptrs = _q8(monkeypatch, n, d, inner, dtype=torch.float32)
+    assert list(arr) == list(t_q.q8_plan(n, d, inner).c_array())
+    assert ptrs["g"] % 16 == 0
+
+
+@pytest.mark.parametrize("which", ["w1 int8", "w2 int8"])
+def test_kernel_19_misaligned_weights_refused_unlaunched(monkeypatch, which):
+    launched = _fake_launches(monkeypatch)
+    q1, q2 = _qw(256, 128), _qw(128, 128)
+    if which == "w1 int8":
+        q1 = t_q.QuantWeight(_misaligned(q1.q), q1.scale)
+    else:
+        q2 = t_q.QuantWeight(_misaligned(q2.q), q2.scale)
+    with pytest.raises(ValueError, match=f"ffn_q8 kernel: {which} starts"):
+        t_q.fused_ffn_q8(torch.zeros(16, 128, dtype=torch.bfloat16), q1,
+                         torch.ones(128), q2)
+    assert launched == []
+
+
+def test_kernel_19_plans_are_cached():
+    p = t_q.q8_plan(64, 128, 256)
+    assert p is t_q.q8_plan(64, 128, 256)
+    assert p.c_array() is p.c_array()
+    assert p is not t_q.q8wide_plan(64, 128, 256)
+
+
+@pytest.mark.parametrize("inner", [512, 1152])
+def test_paired_int8_blocks_match_the_plain_version(inner):
+    """x's codes, then H block by block from the plan's (a row, gate row)
+    pairs of W1q, as the paired int8 product's producer loads them, summed
+    over its 128-int8 K slices (int64: exact) and dequantised as the
+    GegluDequant epilogue does, g = gate * gelu(a), the row pass and the
+    int8 down-projection: equal to ``_ffn_q8_reference`` in fp32, codes and
+    bits."""
+    n, d = 48, 256
+    x, w1, gamma, q2 = _operands(n, d, inner, 7)
+    q1 = t_q.quantize_weight(w1)
+    plan = t_q.q8_plan(n, d, inner)
+    half, blocks = plan.geglu.b.box[1], plan.geglu.grid[0]
+    ks = plan.geglu.a.box[0]
+    xq, sx = t_q.quantize_rows(x)
+    acc = torch.zeros(n, 2 * inner, dtype=torch.int64)
+    for bx in range(blocks):
+        rows = list(range(bx * half, (bx + 1) * half))
+        pair = torch.cat([q1.q[rows], q1.q[[blocks * half + r for r in rows]]])
+        tile = torch.zeros(n, 2 * half, dtype=torch.int64)
+        for k0 in range(0, d, ks):
+            tile += xq[:, k0:k0 + ks].long() @ pair[:, k0:k0 + ks].long().T
+        acc[:, rows] = tile[:, :half]
+        acc[:, [inner + r for r in rows]] = tile[:, half:]
+    h = (acc.float() * sx) * q1.scale
+    got, yq = _tail(h, inner, gamma, q2, plan.out.a.box[0])
+    codes = {}
+    want = t_q._ffn_q8_reference(x, q1, gamma, q2, 1e-5, codes)
+    assert (ks, plan.geglu.kslices) == (128, d // 128)
+    assert torch.equal(yq, codes["yq"])
+    assert torch.equal(got, want)
