@@ -129,6 +129,31 @@ def _profile(fn) -> dict:
     return out
 
 
+def _launch_split(fn, calls: int = 20) -> dict:
+    """Each kernel of ``fn``: its device time a call (us) and its launches
+    a call, over ``calls`` calls (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = (getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and t > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0][-60:]
+            us, n = out.get(name, (0.0, 0.0))
+            out[name] = (us + t / calls, n + e.count / calls)
+    return out
+
+
 def run(iters: int) -> None:
     sys.path.insert(0, str(ROOT))
     from attention_models_torch.ops import _build, ffn

@@ -1,25 +1,32 @@
-"""A/B timings of the W8A8 FFNs (kernels 19 and 20), the LayerNorm (kernel
-3) and the decode-step sampling epilogue (kernel 15) on one card.
+"""A/B timings of the W8A8 blocks (kernels 19, 20 and 21), the LayerNorm
+(kernel 3) and the decode-step sampling epilogue (kernel 15) on one card.
 
     python attention_models_torch/bench_q8.py [turns] [--iters N]
         Kernels 19 and 20 in bf16 and fp32 (TF32 off) at Muse's shape
         (16384 rows, d 1024, inner 4096) and at inner 8704 (520 rows, d
-        768), kernel 3 at chip_smoke.py's shapes and kernel 15 at
+        768), kernel 21 in bf16 and fp32 at the int8 tokenizer's (8192
+        rows, d 512, hid 1368) and at hid 8704 (520 rows, d 768), kernel 3
+        at chip_smoke.py's shapes and kernel 15 at
         chip_smoke.py's six decode cases (8192 rows of 8192 classes, bf16
         and fp32, with and without CFG, given bits or Philox) and at C 16384
         (1024 rows, bf16 and fp32, Philox), each against its PyTorch chain
         in turns (device time with the launches queued behind a sleep:
         kernel, library, library, kernel), beside the bound; then each
-        launch's device time of kernels 19 and 20 (torch.profiler, 20
-        calls); then a diagnostic of kernel 15 at (8192, 8192) bf16 Philox: a build of csrc/sampling.cu without
-        the noise, at iters 16 and at iters 0 (no threshold search), beside
-        the kernel.
+        launch's device time of kernels 19, 20 and 21 (torch.profiler, 20
+        calls; kernel 21 a call, with launches a call); then a diagnostic
+        of kernel 15 at (8192, 8192) bf16 Philox: a build of
+        csrc/sampling.cu without the noise, at iters 16 and at iters 0 (no
+        threshold search), beside the kernel.
     python attention_models_torch/bench_q8.py bits --root R
         Builds the kernels' library of the checkout at R (the parent:
         unpack it with git archive under build/) beside this one's and
         requires kernel 3 to give R's bits at every shape above, kernels 19
         and 20 R's codes, scales, g and output on every row at Muse's shape
-        in both dtypes, and kernel 15 R's picks on every row of the six
+        in both dtypes, kernel 21 R's y codes and scales, g, gelu codes and
+        scales and output on every row at the tokenizer's shape and at hid
+        8704 in both dtypes, kernel 6 (csrc/ln_mlp_bwd.cu, whose dual
+        product's epilogue now sits in csrc/gemm_sm90.cuh) R's gradients at
+        (8192, 512), hid 1368, and kernel 15 R's picks on every row of the six
         decode cases (scores within relative 2e-6); then the kernel-15
         diagnostic of ``turns`` on R's source.
     python attention_models_torch/bench_q8.py paths [--root R]
@@ -57,6 +64,7 @@ HBM = 3.35e12
 PEAK = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 MUSE = (16384, 1024, 4096)
 WIDE = (520, 768, 8704)
+TOKENIZER = (8192, 512, 1368)  # kernel 21: rows, d, hid
 # kernel 15: (rows, C, dtype, CFG, Philox): chip_smoke.py's decode cases,
 # then rows wider than the 8192 values a block holds in registers
 EPILOGUE = tuple((8192, 8192, dt, null, philox)
@@ -69,6 +77,8 @@ EPILOGUE = tuple((8192, 8192, dt, null, philox)
     (1024, 16384, torch.bfloat16, False, True),
     (1024, 16384, torch.float32, False, True))
 P_KEEP, GS, STEP = 0.9, 3.0, 5
+# kernel 15's diagnostic build: no value is kept, so no noise is drawn
+NO_NOISE = ("const bool kept = in && v[j][w] >= kth;", "const bool kept = false;")
 TEMP = 17 / 18
 # (rows, d, dtype, beta): chip_smoke.py's LayerNorm shapes
 LN_SHAPES = ((8192, 512, torch.bfloat16, True), (8192, 512, torch.float32, True),
@@ -90,6 +100,13 @@ def _helpers():
     sys.path.insert(0, str(ROOT))
     from attention_models_torch.bench_mlp import _device_ms, _profile
     return _device_ms, _profile
+
+
+def _helpers_split():
+    """bench_mlp.py's per-call launch split, from this checkout."""
+    sys.path.insert(0, str(ROOT))
+    from attention_models_torch.bench_mlp import _launch_split
+    return _launch_split
 
 
 def _rand(gen, *shape, dtype=torch.float32, scale=1.0, shift=0.0):
@@ -121,6 +138,17 @@ def _epilogue_case(gen, rows, C, dtype, null, philox):
     label = (f"({rows},{C}) {str(dtype)[6:]} null={null} "
              f"bits={'philox' if philox else 'given'}")
     return cond, nl, bits, kw, label
+
+
+def _ln_mlp_q8_operands(gen, n, d, hid, dtype):
+    """Kernel 21's x, LN affine, W1q, b1, W2q and b2 (chip_smoke.py's)."""
+    from attention_models_torch.ops import quant as q
+    x = _rand(gen, n, d, dtype=dtype)
+    lng, lnb = _rand(gen, d, scale=0.1, shift=1.0), _rand(gen, d, scale=0.1)
+    q1 = q.quantize_weight(_rand(gen, hid, d, scale=d ** -0.5))
+    q2 = q.quantize_weight(_rand(gen, d, hid, scale=hid ** -0.5))
+    b1, b2 = _rand(gen, hid, scale=0.1), _rand(gen, d, scale=0.1)
+    return x, lng, lnb, q1, b1, q2, b2
 
 
 def _q8wide_operands(gen, n, d, inner, dtype):
@@ -203,6 +231,32 @@ def turns(iters: int) -> None:
                 for k, v in sorted(prof.items(), key=lambda kv: -kv[1])),
                 flush=True)
             del x, q1, q2
+    _launch_split = _helpers_split()
+    for n, d, hid in (TOKENIZER, WIDE):
+        for dtype in (torch.bfloat16, torch.float32):
+            a21 = _ln_mlp_q8_operands(gen, n, d, hid, dtype)
+            x, lng, lnb, q1, b1, q2, b2 = a21
+
+            def chain():
+                xq, sx = q.quantize_rows(F.layer_norm(x.float(), (d,), lng,
+                                                      lnb))
+                gq, sg = q.quantize_rows(F.gelu(
+                    q.int_dot(xq, q1.q) * sx * q1.scale + b1))
+                return (x.float() + q.int_dot(gq, q2.q) * sg * q2.scale
+                        + b2).to(dtype)
+
+            def run():
+                return q.fused_ln_mlp_q8(*a21)
+
+            label = f"21 ({n},{d}) hid {hid} {str(dtype)[6:]}"
+            in_turns(label, run, chain, 4 * n * d * hid / PEAK["int8"] * 1e3)
+            split = _launch_split(run)
+            print(f"[launches] {label}: device time a call "
+                  f"{sum(us for us, _ in split.values()):.1f} us; " + "; ".join(
+                      f"{k} {us:.1f} us x {c:g}" for k, (us, c) in sorted(
+                          split.items(), key=lambda kv: -kv[1][0])),
+                  flush=True)
+            del x, q1, q2, a21
     for rows, d, dtype, beta in LN_SHAPES:
         x = _rand(gen, rows, d, dtype=dtype, scale=2.0, shift=0.5)
         g = _rand(gen, d, scale=0.1, shift=1.0)
@@ -241,8 +295,7 @@ def epilogue_turns(gen, in_turns) -> None:
         in_turns(f"15 {label}", lambda: sample_epilogue_fused(cond, nl, **kw),
                  library, nbytes / HBM * 1e3)
         del cond, nl, bits, g_k
-    lib = _variant_library(ROOT, "sampling.cu", (
-        "const bool kept = in && v[j][w] >= kth;", "const bool kept = false;"))
+    lib = _variant_library(ROOT, "sampling.cu", NO_NOISE)
     epilogue_diag(gen, "", _build.library(), lib)
 
 
@@ -334,13 +387,16 @@ def bits(root: Path) -> None:
     _card()
     this, other = _build.library(), _library_of(root)
     sig = _build._SIGNATURES
-    for fn in ("amt_layernorm", "amt_ffn_q8wide", "amt_sample_epilogue"):
-        getattr(other, fn).argtypes = sig[fn]
-    # R's kernel 19 entry takes no plan and writes g and the codes at
-    # their widths
-    other.amt_ffn_q8.argtypes = sig["amt_ffn_q8"][1:]
     for fn in ("amt_layernorm", "amt_ffn_q8wide", "amt_ffn_q8",
-               "amt_sample_epilogue"):
+               "amt_sample_epilogue", "amt_ln_mlp_bwd"):
+        getattr(other, fn).argtypes = sig[fn]
+    # R's kernel 21 entry takes no plan; its W2q and gelu codes are rows
+    # padded to 16 bytes with zero columns
+    other.amt_ln_mlp_q8.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                                    + [ctypes.c_float, ctypes.c_int,
+                                       ctypes.c_void_p])
+    for fn in ("amt_layernorm", "amt_ffn_q8wide", "amt_ffn_q8",
+               "amt_sample_epilogue", "amt_ln_mlp_bwd", "amt_ln_mlp_q8"):
         getattr(other, fn).restype = ctypes.c_int
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -386,8 +442,7 @@ def bits(root: Path) -> None:
                     xq.data_ptr(), sx.data_ptr(), g.data_ptr(), yq.data_ptr(),
                     sy.data_ptr(), out.data_ptr(), n, d, inner, 1e-5,
                     _build.DTYPE_CODES[dtype], stream)
-            check(lib.amt_ffn_q8(plan.c_array(), *ptrs) if lib is this
-                  else lib.amt_ffn_q8(*ptrs), "amt_ffn_q8")
+            check(lib.amt_ffn_q8(plan.c_array(), *ptrs), "amt_ffn_q8")
             outs.append((xq, sx, g, yq, sy, out))
         torch.cuda.synchronize()
         names = ("x codes", "x scales", "g", "y codes", "y scales", "out")
@@ -425,8 +480,12 @@ def bits(root: Path) -> None:
         print(f"[bits] 20 ({n},{d}) inner {inner} {str(dtype)[6:]}: codes, "
               f"scales and out bit-equal to R's: {same}", flush=True)
         del x, w1, w1c, q2, outs
-    # kernel 15: R's picks on every row, scores within relative 2e-6 (R
-    # refuses C above 8192); then R's kernel-15 diagnostic
+    for n, d, hid in (TOKENIZER, WIDE):
+        for dtype in (torch.bfloat16, torch.float32):
+            same = _bits_21(this, other, gen, n, d, hid, dtype, stream)
+            same_all &= same
+    same_all &= _bits_6(this, other, gen, stream)
+    # kernel 15: R's picks on every row, scores within relative 2e-6
     for rows, C, dtype, null, philox in EPILOGUE:
         if C > 8192:
             continue
@@ -454,11 +513,102 @@ def bits(root: Path) -> None:
               f"scores bit-equal {torch.equal(s0, s1)}, largest relative "
               f"score difference {rel:.3e} (tol 2e-6)", flush=True)
         del cond, nl, bits_, ext
-    epilogue_diag(gen, "R's ", other, _variant_library(root, "sampling.cu", (
-        "if (v[j][0] >= kth || v[j][1] >= kth || v[j][2] >= kth || "
-        "v[j][3] >= kth)", "if (false)")))
+    epilogue_diag(gen, "R's ", other, _variant_library(root, "sampling.cu",
+                                                      NO_NOISE))
     if not same_all:
         raise AssertionError("bits differ from R's")
+
+
+def _rows_equal(outs, n) -> tuple[bool, dict]:
+    """Whether every row of each (this, R) pair of tensors, each of n rows,
+    is bit-equal, and the values that differ by name."""
+    rows_same = torch.ones(n, dtype=torch.bool, device="cuda")
+    differ = {}
+    for name, (t0, t1) in outs.items():
+        eq = t0 == t1
+        rows_same &= eq.reshape(n, -1).all(dim=1)
+        differ[name] = int((~eq).sum())
+    return bool(rows_same.all()), differ
+
+
+def _bits_21(this, other, gen, n, d, hid, dtype, stream) -> bool:
+    """Kernel 21 through this library's plan and R's plan-free entry: y's
+    codes and scales, g, the gelu codes and scales and the output on every
+    row."""
+    from attention_models_torch.ops import _build
+    from attention_models_torch.ops import quant as q
+    x, lng, lnb, q1, b1, q2, b2 = _ln_mlp_q8_operands(gen, n, d, hid, dtype)
+    f32, i8 = (dict(dtype=dt, device="cuda") for dt in (torch.float32,
+                                                        torch.int8))
+    plan = q.ln_mlp_q8_plan(n, d, hid)
+    yq, g = torch.empty(n, plan.y_pitch, **i8), torch.empty(n, plan.g_pitch, **f32)
+    gq, w2s = torch.empty(n, plan.q_pitch, **i8), torch.empty(
+        max(plan.w2_stage_bytes, 1), **i8)
+    sy, sg, out = torch.empty(n, **f32), torch.empty(n, **f32), torch.empty_like(x)
+    code = _build.DTYPE_CODES[dtype]
+    err = this.amt_ln_mlp_q8(
+        plan.c_array(), x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+        q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(), q2.q.data_ptr(),
+        q2.scale.data_ptr(), b2.data_ptr(),
+        w2s.data_ptr() if plan.w2_stage_bytes else None, yq.data_ptr(),
+        sy.data_ptr(), g.data_ptr(), gq.data_ptr(), sg.data_ptr(),
+        out.data_ptr(), n, d, hid, 1e-5, code, stream)
+    hid_pad = -(-hid // 16) * 16
+    w2p = torch.nn.functional.pad(q2.q, (0, hid_pad - hid)).contiguous()
+    yq_r, g_r = torch.empty(n, d, **i8), torch.empty(n, hid, **f32)
+    gq_r = torch.empty(n, hid_pad, **i8)
+    sy_r, sg_r, out_r = (torch.empty(n, **f32), torch.empty(n, **f32),
+                         torch.empty_like(x))
+    err_r = other.amt_ln_mlp_q8(
+        x.data_ptr(), lng.data_ptr(), lnb.data_ptr(), q1.q.data_ptr(),
+        q1.scale.data_ptr(), b1.data_ptr(), w2p.data_ptr(),
+        q2.scale.data_ptr(), b2.data_ptr(), yq_r.data_ptr(), sy_r.data_ptr(),
+        g_r.data_ptr(), gq_r.data_ptr(), sg_r.data_ptr(), out_r.data_ptr(),
+        n, d, hid, hid_pad, 1e-5, code, stream)
+    if err or err_r:
+        raise RuntimeError(f"amt_ln_mlp_q8: CUDA errors {err} / {err_r}")
+    torch.cuda.synchronize()
+    same, differ = _rows_equal({
+        "y codes": (yq[:, :d], yq_r), "y scales": (sy, sy_r),
+        "g": (g[:, :hid], g_r), "gelu codes": (gq[:, :hid], gq_r[:, :hid]),
+        "gelu scales": (sg, sg_r), "out": (out, out_r)}, n)
+    print(f"[bits] 21 ({n},{d}) hid {hid} {str(dtype)[6:]}: every row "
+          f"bit-equal to R's (y codes and scales, g, gelu codes and scales, "
+          f"out) {same} (values differing {differ})", flush=True)
+    return same
+
+
+def _bits_6(this, other, gen, stream) -> bool:
+    """Kernel 6 at (8192, 512), hid 1368 through this library and R's (the
+    same plan and scratch layout): dx and the fp32 gradients bit-equal."""
+    from attention_models_torch.ops import ffn
+    n, d, hid = TOKENIZER
+    x, dy = (_rand(gen, n, d, dtype=torch.bfloat16) for _ in range(2))
+    lng, lnb = _rand(gen, d, scale=0.1, shift=1.0), _rand(gen, d, scale=0.1)
+    w1 = _rand(gen, hid, d, dtype=torch.bfloat16, scale=d ** -0.5)
+    w2 = _rand(gen, d, hid, dtype=torch.bfloat16, scale=hid ** -0.5)
+    b1 = _rand(gen, hid, scale=0.1)
+    plan = ffn.ln_mlp_bwd_plan(dy, w1, w2)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    res = []
+    for lib in (this, other):
+        bufs, scratch = ffn._scratch(plan, "cuda", torch.bfloat16)
+        dx = torch.empty_like(x)
+        outs = (torch.empty(hid, d, **f32), torch.empty(hid, **f32),
+                torch.empty(d, hid, **f32), torch.empty(3, d, **f32))
+        err = lib.amt_ln_mlp_bwd(
+            plan.c_array(), x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), *(t.data_ptr() for t in outs), *scratch, n, d,
+            hid, 1e-5, stream)
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"amt_ln_mlp_bwd: CUDA error {err}")
+        res.append((dx, *outs))
+    same = all(torch.equal(a, b) for a, b in zip(*res))
+    print(f"[bits] 6 ({n},{d}) hid {hid} bfloat16: dx, dW1, db1, dW2 and "
+          f"dlng / dlnb / db2 bit-equal to R's: {same}", flush=True)
+    return same
 
 
 def paths(root: Path) -> None:

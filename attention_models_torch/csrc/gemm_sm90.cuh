@@ -26,13 +26,19 @@
 //     (the bias fp32 or bf16, added in fp32: kernels 7 and 2);
 //   - StoreF32:     C = A B^T in fp32 (weight gradients, dy_ln);
 //   - StoreBf16:    C = bf16(A B^T) (dh, the FFN's out and dx);
+//   - GeluBwd:      the dual product H = x W1^T, dG = dy W2 of the GELU-MLP
+//     backwards (kernels 6 and 8): G = bf16(gelu(H + b1)), dH = dG gelu'(H
+//     + b1) in bf16, and dH's fp32 column sums per 64 rows (for db1);
 //   - GegluF32:     g = gate * gelu(a) in fp32 over paired columns (the
 //     GEGLU up-projections of kernels 11 and 20);
 //   - GegluDequant: the same from PairedS8's s32 sums, a and gate each
 //     dequantised first (kernel 19's up-projection);
 //   - DequantStore: C = (float(acc) * s_row) * s_col in fp32 or bf16, each
-//     product rounded (the int8 form: the down-projections of kernels 19
-//     and 20).
+//     product rounded, then optionally + bias and res + C (the int8 form:
+//     the down-projections of kernels 19 and 20, kernel 21's residual
+//     one);
+//   - DequantBiasGelu: g = gelu(dequant + bias) in fp32 (the int8 form:
+//     kernel 21's up-projection).
 //
 // Shape of a block:
 //   - 128 rows x BN columns of C: two consumer warpgroups of 64 rows, each
@@ -375,6 +381,60 @@ struct Store {
 using StoreF32 = Store<float>;
 using StoreBf16 = Store<__nv_bfloat16>;
 
+// The dual product's epilogue of the GELU-MLP backwards (kernel 6 on yc =
+// LN(x), kernel 8 on x): acc = x W1^T and acc2 = dy W2 of a warpgroup's
+// 64 x BN tile (rows m0r.., hidden columns n0..).
+struct GeluBwd {
+  struct Args {
+    const float* b1;        // (hid,) fp32
+    __nv_bfloat16* g;       // (n, hid): bf16(gelu(H)), rows ld elements apart
+    __nv_bfloat16* dh;      // (n, hid): bf16(dH)
+    float* dhpart;          // (2 * row tiles, hid): fp32 column sums of dH
+    int m, n, ld;
+  };
+  template <int BN>
+  static __device__ __forceinline__ void run(const float (&h)[BN / 2],
+                                             const float (&dg)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = Staged<BN, __nv_bfloat16>;
+    static_assert(4 * S::kBytes + 8 * BN * 4 <= Ring<BN, 1>::kBytes,
+                  "the epilogue's staging fits the ring");
+    uint8_t* gs = ring + c * 2 * S::kBytes;
+    uint8_t* ds = gs + S::kBytes;
+    float* red = reinterpret_cast<float*>(ring + 4 * S::kBytes) + c * 4 * BN;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+    float cs[BN / 4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int cl = 8 * i + 2 * t, col = n0 + cl;
+      // hid % 8 == 0: both columns or neither; past hid, W1's and W2's
+      // zero-filled tiles give H = 0 and dG = 0, so dH = 0
+      const float2 bb = col < a.n ? bias_pair(a.b1, col) : make_float2(0.f, 0.f);
+      float gv[4], dv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float hv = h[4 * i + e] + ((e & 1) ? bb.y : bb.x);
+        const float phi = 0.5f * (1.f + erff(hv * kInvSqrt2));
+        const float pdf = expf(-0.5f * hv * hv) * kInvSqrt2Pi;
+        gv[e] = hv * phi;
+        dv[e] = dg[4 * i + e] * (phi + hv * pdf);  // rows past n: dy = 0
+      }
+      S::put(gs, rl, cl, gv[0], gv[1]);
+      S::put(gs, rl + 8, cl, gv[2], gv[3]);
+      S::put(ds, rl, cl, dv[0], dv[1]);
+      S::put(ds, rl + 8, cl, dv[2], dv[3]);
+      cs[2 * i] = dv[0] + dv[2];
+      cs[2 * i + 1] = dv[1] + dv[3];
+    }
+    colsum_rows<BN>(cs, red, a.dhpart + (int64_t)(2 * blockIdx.y + c) * a.n,
+                    n0, a.n, c);
+    S::flush(gs, a.g, a.ld, m0r, n0, a.m, a.n);
+    S::flush(ds, a.dh, a.ld, m0r, n0, a.m, a.n);
+  }
+};
+
 // The GEGLU up-projection's epilogue (bf16, paired columns: kernels 11 and
 // 20): acc[4i + e] and acc[4(i + BN/16) + e] are a and gate of inner column
 // n0/2 + 8i + 2t + (e % 2); g = gate * gelu(a) in fp32 through the
@@ -408,6 +468,20 @@ struct GegluF32 {
   }
 };
 
+// (float(acc) * s_row) * s_col, each product rounded as the plain
+// version's (int_dot(...) * s_row) * s_col.
+__device__ __forceinline__ float dequant_s8(int acc, float sr, float sc) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), sr), sc);
+}
+
+// res[0], res[1] of T as fp32.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // The paired int8 form's epilogue (kernel 19): acc[4i + e] and
 // acc[4(i + BN/16) + e] are the s32 sums of a and gate of inner column
 // c = n0/2 + 8i + 2t + (e % 2), dequantised as (float(acc) * s_row[row]) *
@@ -420,9 +494,6 @@ struct GegluDequant {
     const float* s_col;  // (2 inner,): W1q's channel scales
     int m, inner, ldg;
   };
-  static __device__ __forceinline__ float dequant(int acc, float sr, float sc) {
-    return __fmul_rn(__fmul_rn(__int2float_rn(acc), sr), sc);
-  }
   template <int BN>
   static __device__ __forceinline__ void run(const int (&acc)[BN / 2],
                                              const Args& a, uint8_t* ring,
@@ -443,8 +514,8 @@ struct GegluDequant {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float r = sr[e / 2];
-        const float av = dequant(acc[4 * i + e], r, e % 2 ? sa.y : sa.x);
-        const float gv = dequant(acc[4 * (i + kHalf) + e], r, e % 2 ? sg.y : sg.x);
+        const float av = dequant_s8(acc[4 * i + e], r, e % 2 ? sa.y : sa.x);
+        const float gv = dequant_s8(acc[4 * (i + kHalf) + e], r, e % 2 ? sg.y : sg.x);
         v[e] = gv * gelu_exact(av);
       }
       S::put(st, rl, 8 * i + 2 * t, v[0], v[1]);
@@ -455,10 +526,10 @@ struct GegluDequant {
   }
 };
 
-// The int8 form's epilogue: C = (float(acc) * s_row[row]) * s_col[col] in T
-// (fp32 or bf16), each product rounded as the plain version's
-// (int_dot(...) * s_row) * s_col; the s32 sums are exact, so equal codes
-// give equal bits in any sum order.
+// The int8 form's epilogue: C = (float(acc) * s_row[row]) * s_col[col],
+// then, where given, C + bias[col] and res[row][col] + C, each step one
+// IEEE operation in the plain version's order, in T (fp32 or bf16); the s32
+// sums are exact, so equal codes give equal bits in any sum order.
 template <typename T>
 struct DequantStore {
   struct Args {
@@ -466,15 +537,76 @@ struct DequantStore {
     const float* s_row;  // (M,)
     const float* s_col;  // (N,)
     int m, n, ldc;
+    const float* bias = nullptr;  // (N,) fp32, or null
+    const T* res = nullptr;       // (M, N) at ldc, or null
   };
-  static __device__ __forceinline__ float dequant(int acc, float sr, float sc) {
-    return __fmul_rn(__fmul_rn(__int2float_rn(acc), sr), sc);
-  }
   template <int BN>
   static __device__ __forceinline__ void run(const int (&acc)[BN / 2],
                                              const Args& a, uint8_t* ring,
                                              int m0r, int n0, int c) {
     using S = Staged<BN, T>;
+    uint8_t* st = ring + c * S::kBytes;
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
+    const int row0 = m0r + rl, row1 = row0 + 8;
+    const float sr0 = row0 < a.m ? a.s_row[row0] : 0.f;
+    const float sr1 = row1 < a.m ? a.s_row[row1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int cl = 8 * i + 2 * t, col = n0 + cl;
+      if (col >= a.n) continue;  // N % 8 == 0: col + 1 < N as well
+      const float sc0 = a.s_col[col], sc1 = a.s_col[col + 1];
+      float v[4] = {dequant_s8(acc[4 * i], sr0, sc0),
+                    dequant_s8(acc[4 * i + 1], sr0, sc1),
+                    dequant_s8(acc[4 * i + 2], sr1, sc0),
+                    dequant_s8(acc[4 * i + 3], sr1, sc1)};
+      if (a.bias != nullptr) {
+        const float2 bb = bias_pair(a.bias, col);
+        v[0] = __fadd_rn(v[0], bb.x);
+        v[1] = __fadd_rn(v[1], bb.y);
+        v[2] = __fadd_rn(v[2], bb.x);
+        v[3] = __fadd_rn(v[3], bb.y);
+      }
+      if (a.res != nullptr) {
+        if (row0 < a.m) {
+          const float2 r = load_pair(a.res + (int64_t)row0 * a.ldc + col);
+          v[0] = __fadd_rn(r.x, v[0]);
+          v[1] = __fadd_rn(r.y, v[1]);
+        }
+        if (row1 < a.m) {
+          const float2 r = load_pair(a.res + (int64_t)row1 * a.ldc + col);
+          v[2] = __fadd_rn(r.x, v[2]);
+          v[3] = __fadd_rn(r.y, v[3]);
+        }
+      }
+      S::put(st, rl, cl, v[0], v[1]);
+      S::put(st, rl + 8, cl, v[2], v[3]);
+    }
+    hopper::named_barrier_sync(2 + c, 128);
+    S::flush(st, a.c, a.ldc, m0r, n0, a.m, a.n);
+  }
+};
+
+// The int8 form's GELU epilogue (kernel 21's up-projection): g = gelu(
+// dequant(acc) + bias) in fp32, the dequantisation and the bias add each one
+// IEEE operation and the gelu PyTorch's CUDA expression, x * 0.5 * (1 +
+// erf(x / sqrt 2)), so equal codes give the plain version's g bit for bit.
+struct DequantBiasGelu {
+  struct Args {
+    float* g;            // (M, N) fp32, rows ldg elements apart
+    const float* s_row;  // (M,)
+    const float* s_col;  // (N,)
+    const float* bias;   // (N,) fp32
+    int m, n, ldg;
+  };
+  static __device__ __forceinline__ float gelu_torch(float v) {
+    return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
+  }
+  template <int BN>
+  static __device__ __forceinline__ void run(const int (&acc)[BN / 2],
+                                             const Args& a, uint8_t* ring,
+                                             int m0r, int n0, int c) {
+    using S = Staged<BN, float>;
     uint8_t* st = ring + c * S::kBytes;
     const int tid = threadIdx.x % 128, lane = tid % 32;
     const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
@@ -485,13 +617,16 @@ struct DequantStore {
       const int cl = 8 * i + 2 * t, col = n0 + cl;
       if (col >= a.n) continue;  // N % 8 == 0: col + 1 < N as well
       const float sc0 = a.s_col[col], sc1 = a.s_col[col + 1];
-      S::put(st, rl, cl, dequant(acc[4 * i], sr0, sc0),
-             dequant(acc[4 * i + 1], sr0, sc1));
-      S::put(st, rl + 8, cl, dequant(acc[4 * i + 2], sr1, sc0),
-             dequant(acc[4 * i + 3], sr1, sc1));
+      const float2 bb = bias_pair(a.bias, col);
+      S::put(st, rl, cl,
+             gelu_torch(__fadd_rn(dequant_s8(acc[4 * i], sr0, sc0), bb.x)),
+             gelu_torch(__fadd_rn(dequant_s8(acc[4 * i + 1], sr0, sc1), bb.y)));
+      S::put(st, rl + 8, cl,
+             gelu_torch(__fadd_rn(dequant_s8(acc[4 * i + 2], sr1, sc0), bb.x)),
+             gelu_torch(__fadd_rn(dequant_s8(acc[4 * i + 3], sr1, sc1), bb.y)));
     }
     hopper::named_barrier_sync(2 + c, 128);
-    S::flush(st, a.c, a.ldc, m0r, n0, a.m, a.n);
+    S::flush(st, a.g, a.ldg, m0r, n0, a.m, a.n);
   }
 };
 

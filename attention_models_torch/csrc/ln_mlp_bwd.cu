@@ -25,7 +25,8 @@
 //      d, so one ring stage carries the four tiles; the epilogue forms
 //      G = bf16(gelu(H + b1)) and dH = dG gelu'(H + b1) with the true erff,
 //      writes G and bf16(dH) to scratches with 64-byte aligned rows and the
-//      fp32 column sums of dH (before the rounding) per 64 rows, for db1;
+//      fp32 column sums of dH (before the rounding) per 64 rows, for db1
+//      (sm90::GeluBwd, csrc/gemm_sm90.cuh, which kernel 8 shares);
 //   3. dy_ln = dH W1 (W1 read MN-major), fp32;
 //   4. dW1 = dH^T yc and dW2 = dy^T G (both operands MN-major), fp32, K = n
 //      split into the plan's ranges whose partials are summed in order (the
@@ -45,67 +46,14 @@
 
 extern "C" int amt_layernorm(const void* x, const void* gamma, const void* beta, void* y,
                              int64_t n, int d, float eps, int dtype, void* stream);
-const __nv_bfloat16* stage_rows(const int64_t* plan, const __nv_bfloat16* w2,
-                                __nv_bfloat16* stage, int rows, int k, cudaStream_t s);
+const void* stage_rows(const int64_t* plan, const void* w, void* stage, int rows,
+                       int64_t row_bytes, cudaStream_t s);
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr int kRows = 32;  // rows per block of the LN backward
-
-// The dual product's epilogue: acc = yc W1^T and acc2 = dy W2 of a
-// warpgroup's 64 x BN tile (rows m0r.., hidden columns n0..).
-struct GeluBwd {
-  struct Args {
-    const float* b1;  // (hid,) fp32
-    bf16* g;          // (n, hid): bf16(gelu(H)), rows ld elements apart
-    bf16* dh;         // (n, hid): bf16(dH)
-    float* dhpart;    // (2 * row tiles, hid): fp32 column sums of dH
-    int m, n, ld;
-  };
-  template <int BN>
-  static __device__ __forceinline__ void run(const float (&h)[BN / 2],
-                                             const float (&dg)[BN / 2],
-                                             const Args& a, uint8_t* ring,
-                                             int m0r, int n0, int c) {
-    using S = sm90::Staged<BN, bf16>;
-    static_assert(4 * S::kBytes + 8 * BN * 4 <= sm90::Ring<BN, 1>::kBytes,
-                  "the epilogue's staging fits the ring");
-    uint8_t* gs = ring + c * 2 * S::kBytes;
-    uint8_t* ds = gs + S::kBytes;
-    float* red = reinterpret_cast<float*>(ring + 4 * S::kBytes) + c * 4 * BN;
-    const int tid = threadIdx.x % 128, lane = tid % 32;
-    const int rl = 16 * (tid / 32) + lane / 4, t = lane % 4;
-    float cs[BN / 4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-      const int cl = 8 * i + 2 * t, col = n0 + cl;
-      // hid % 8 == 0: both columns or neither; past hid, W1's and W2's
-      // zero-filled tiles give H = 0 and dG = 0, so dH = 0
-      const float2 bb = col < a.n ? sm90::bias_pair(a.b1, col) : make_float2(0.f, 0.f);
-      float gv[4], dv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float hv = h[4 * i + e] + ((e & 1) ? bb.y : bb.x);
-        const float phi = 0.5f * (1.f + erff(hv * sm90::kInvSqrt2));
-        const float pdf = expf(-0.5f * hv * hv) * sm90::kInvSqrt2Pi;
-        gv[e] = hv * phi;
-        dv[e] = dg[4 * i + e] * (phi + hv * pdf);  // rows past n: dy = 0
-      }
-      S::put(gs, rl, cl, gv[0], gv[1]);
-      S::put(gs, rl + 8, cl, gv[2], gv[3]);
-      S::put(ds, rl, cl, dv[0], dv[1]);
-      S::put(ds, rl + 8, cl, dv[2], dv[3]);
-      cs[2 * i] = dv[0] + dv[2];
-      cs[2 * i + 1] = dv[1] + dv[3];
-    }
-    sm90::colsum_rows<BN>(cs, red, a.dhpart + (int64_t)(2 * blockIdx.y + c) * a.n,
-                          n0, a.n, c);
-    S::flush(gs, a.g, a.ld, m0r, n0, a.m, a.n);
-    S::flush(ds, a.dh, a.ld, m0r, n0, a.m, a.n);
-  }
-};
 
 // The LN backward over a block of kRows rows, 256 threads. Phase 1, a warp
 // a row: the two-pass fp32 statistics of x (mean, rstd) and the row means
@@ -219,7 +167,7 @@ __global__ __launch_bounds__(kThreads) void ln_bwd_rows_kernel(
 
 }  // namespace
 
-// plan: ops/ffn.py::LnMlpBwdPlan, 5 GemmPlans (H, dG, dy_ln, dW1, dW2). x,
+// plan: ops/ffn.py::GeluBwdPlan, 5 GemmPlans (H, dG, dy_ln, dW1, dW2). x,
 // dy, dx (n, d) and W1 (hid, d), W2 (d, hid) contiguous bf16; lng, lnb,
 // b1 fp32. Outputs in fp32: dw1 (hid, d), db1 (hid,), dw2 (d, hid) and
 // lnbias (3, d): the rows dlng, dlnb, db2. Scratch: yc (n, d) bf16; g and
@@ -254,12 +202,11 @@ AMT_EXPORT int amt_ln_mlp_bwd(const int64_t* plan, const void* x, const void* ln
   cudaError_t err = static_cast<cudaError_t>(
       amt_layernorm(x, lng, lnb, yc, n, d, eps, AMT_BF16, stream));
   if (err != cudaSuccess) return err;
-  const bf16* w2r = stage_rows(plan + P, static_cast<const bf16*>(w2),
-                               static_cast<bf16*>(w2s), d, hid, s);
+  const void* w2r = stage_rows(plan + P, w2, w2s, d, 2 * (int64_t)hid, s);
   if (w2r == nullptr) return cudaErrorInvalidValue;
-  const GeluBwd::Args ga{static_cast<const float*>(b1), gs, dhs,
+  const sm90::GeluBwd::Args ga{static_cast<const float*>(b1), gs, dhs,
                          static_cast<float*>(dhpart), n, hid, ld};
-  if ((err = sm90::gemm_from_plan<Form<kK, kK, kK, kMN>, GeluBwd, 128>(
+  if ((err = sm90::gemm_from_plan<Form<kK, kK, kK, kMN>, sm90::GeluBwd, 128>(
            plan, plan + P, yci, w1i, dyi, w2r, ga, n, hid, d, ld, s)) != cudaSuccess ||
       (err = sm90::gemm_f32_from_plan<Form<kK, kMN>, 128>(plan + 2 * P, dhs, w1i, dyl, wp, n,
                                                            d, hid, d, s)) != cudaSuccess ||

@@ -36,16 +36,18 @@
 
 using bf16 = __nv_bfloat16;
 
-// W2 (rows, k) as the B map of `plan` reads it: W2 itself when the map's row
-// pitch is W2's, else `stage` after copying W2 (k elements a row) to the
-// map's pitch; null if the plan's pitch needs a stage that is missing.
-const bf16* stage_rows(const int64_t* plan, const bf16* w2, bf16* stage,
-                       int rows, int k, cudaStream_t s) {
+// A weight of `rows` rows of `row_bytes` (W2, bf16 or int8) as the B map of
+// `plan` reads it: the weight itself when the map's row pitch is its own,
+// else `stage` after copying it to the map's pitch; null if the plan's pitch
+// needs a stage that is missing. Called at every launch: the products read
+// the weight they are given at this call.
+const void* stage_rows(const int64_t* plan, const void* w, void* stage,
+                       int rows, int64_t row_bytes, cudaStream_t s) {
   const int64_t pitch = plan[8];  // the B map's row bytes
-  if (pitch == (int64_t)k * 2) return w2;
-  if (stage == nullptr || pitch < (int64_t)k * 2) return nullptr;
-  if (cudaMemcpy2DAsync(stage, pitch, w2, (size_t)k * 2, (size_t)k * 2, rows,
-                        cudaMemcpyDeviceToDevice, s) != cudaSuccess)
+  if (pitch == row_bytes) return w;
+  if (stage == nullptr || pitch < row_bytes) return nullptr;
+  if (cudaMemcpy2DAsync(stage, pitch, w, (size_t)row_bytes, (size_t)row_bytes,
+                        rows, cudaMemcpyDeviceToDevice, s) != cudaSuccess)
     return nullptr;
   return stage;
 }
@@ -71,7 +73,7 @@ cudaError_t amt_mlp_sm90(const int64_t* plan, const bf16* x, const bf16* w1,
   cudaError_t err = gemm_from_plan<Form<kK, kK>, BiasGelu, 128, 256>(
       plan, nullptr, x, w1, nullptr, nullptr, up, n, hid, d, up.ldc, s);
   if (err != cudaSuccess) return err;
-  const bf16* w2r = stage_rows(plan + kPlanValues, w2, w2_stage, d, hid, s);
+  const void* w2r = stage_rows(plan + kPlanValues, w2, w2_stage, d, 2 * (int64_t)hid, s);
   if (w2r == nullptr) return cudaErrorInvalidValue;
   const GemmArgs down{b2, res, out, n, d, hid, d, bf};
   return gemm_from_plan<Form<kK, kK>, BiasResidual, 128, 256>(

@@ -4,11 +4,12 @@
 // Replaces attention_models_tpu/ops/ffn.py::_mlp_bwd_kernel (entry
 // _mlp_bwd), bf16 as there. From x (n, d), W1 (hid, d), b1 (fp32), W2
 // (d, hid) -- the torch Linear layout -- and the cotangent dy (n, d) it
-// returns dx (n, d) and dW1 (hid, d), db1, dW2 (d, hid), db2 in fp32, with
-// the TPU kernel's formulas and rounding points: h = x W1^T + b1 recomputed
-// in fp32, g = bf16(gelu(h)), db2 = sum of dy, dW2 = dy^T g, dg = dy W2 in
-// fp32, dh = dg (Phi(h) + h phi(h)), db1 = sum of the fp32 dh, then
-// dx = bf16(dh) W1 and dW1 = bf16(dh)^T x. gelu uses the true erff.
+// returns dx (n, d) in bf16 and dW1 (hid, d), db1, dW2 (d, hid), db2 in
+// fp32, with the TPU kernel's formulas and rounding points: h = x W1^T + b1
+// recomputed in fp32, g = bf16(gelu(h)), db2 = sum of dy, dW2 = dy^T g,
+// dg = dy W2 in fp32, dh = dg (Phi(h) + h phi(h)), db1 = sum of the fp32
+// dh, then dx = bf16(dh) W1 (rounded to bf16) and dW1 = bf16(dh)^T x. gelu
+// uses the true erff.
 //
 // Bound on the H100: operations. Five products of 2 n d hid flops -- the
 // recompute x W1^T, dy W2, dW2, dx and dW1 -- are 10 n d hid (PERF.md's
@@ -18,139 +19,110 @@
 //
 // Design. The TPU kernel walks row tiles in order and accumulates the four
 // weight and bias gradients in resident fp32 outputs. Blocks run in
-// parallel here and no SM holds a 16 MB fp32 partial, so the work is split
-// into deterministic passes without atomics, as csrc/ffn_bwd.cu splits the
-// GEGLU backward:
-//   1. one tile kernel computes x W1^T and dy W2 over the same 128 x 128
-//      (rows, hidden) tile -- two csrc/gemm.cuh products into two register
-//      accumulators -- and its epilogue writes g and bf16(dh) to (n, hid)
-//      scratches and the tile's column sums of the fp32 dh;
-//   2. db2: per-64-row column sums of dy, then the partials in order;
-//   3. db1: pass 1's per-tile partials in order;
-//   4. dW2 = dy^T g, dx = bf16(dh) W1 and dW1 = bf16(dh)^T x, tile products
-//      of csrc/gemm.cuh (the A^T B ones reduce over all n rows in order
-//      inside each block).
-// The scratch (g and dh, 34 MB in bf16 at ViT's shape) is the price of the
-// deterministic split. csrc/ln_mlp_bwd.cu's wide path calls the same passes
-// with an fp32 dx (its LN backward takes dy_ln unrounded).
+// parallel here and no SM holds a 16 MB fp32 partial, so the work is
+// kernel 6's passes (csrc/ln_mlp_bwd.cu) on x in place of LN(x), on
+// csrc/gemm_sm90.cuh's TMA/wgmma tile product, without atomics (every sum
+// in one fixed order, so two calls on the same inputs are bit-equal):
+//   1. one dual product over each (128 rows x 128 hidden) tile: H = x W1^T
+//      (both K-major) and dG = dy W2 (W2 read MN-major, staged at a 64-byte
+//      pitch at every call where hid is not a multiple of 32), both over
+//      K = d; the GeluBwd epilogue writes G = bf16(gelu(H + b1)) and
+//      bf16(dH) to scratches with 64-byte aligned rows and the fp32 column
+//      sums of dH per 64 rows;
+//   2. dx = bf16(dH) W1 (W1 read MN-major), rounded to bf16 (StoreBf16);
+//   3. dW1 = dH^T x and dW2 = dy^T G (every operand MN-major), fp32, K = n
+//      split, where the tiles leave SMs idle, into the plan's ranges whose
+//      partials are summed in order (at ViT's shape each is 16 x 8 = 128
+//      tiles, one an SM: K whole);
+//   4. db1: step 1's partials in order; db2: per-32-row column sums of dy
+//      (8 columns a thread), then those partials in order.
+// The host plan (ops/ffn.py::mlp_bwd_plan) holds the five products' maps,
+// grids, splits, tile widths and shared memory, and the scratches'
+// pitches. The scratch (G and dH, 34 MB in bf16 at ViT's shape) is the
+// price of products that each run at the tensor cores' rate.
 #include "gemm.cuh"
+#include "gemm_sm90.cuh"
+
+const void* stage_rows(const int64_t* plan, const void* w, void* stage, int rows,
+                       int64_t row_bytes, cudaStream_t s);
 
 namespace {
 
-constexpr float kInvSqrt2 = 0.70710678118654752f;
-constexpr float kInvSqrt2Pi = 0.39894228040143268f;
-constexpr int kColRows = 64;  // rows per partial of the db2 column sums
+constexpr int kColRows = 32;   // rows per partial of the db2 column sums
+constexpr int kColThreads = 128;
 
-// Pass 1. Block (bx, by) owns rows by*128.. and hidden columns bx*128..;
-// dhpart is (gridDim.y, hid).
-__global__ __launch_bounds__(kThreads) void mlp_bwd_h_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w1, const float* __restrict__ b1,
-    const bf16* __restrict__ w2, const bf16* __restrict__ dy, bf16* __restrict__ gout,
-    bf16* __restrict__ dhout, float* __restrict__ dhpart, int n, int d, int hid) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red[2][kBN];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float hacc[4][4][4], gacc[4][4][4];
-  mma_tile<kK, kK>(x, d, n, w1, d, hid, d, m0, n0, smem, hacc);   // x W1^T
-  mma_tile<kK, kR>(dy, d, n, w2, hid, hid, d, m0, n0, smem, gacc);  // dy W2
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int cl = wn * 32 + nt * 8 + 2 * t;  // column within the tile
-    const int col = n0 + cl;
-    const bool ok = col < hid;  // hid % 8 == 0: both columns or neither
-    float csum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-        float gv[2], dv[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const float h = hacc[mt][nt][2 * half + u] + (ok ? b1[col + u] : 0.f);
-          const float phi = 0.5f * (1.f + erff(h * kInvSqrt2));
-          const float pdf = expf(-0.5f * h * h) * kInvSqrt2Pi;
-          gv[u] = h * phi;
-          dv[u] = gacc[mt][nt][2 * half + u] * (phi + h * pdf);
-          csum[u] += dv[u];  // rows past n have dy = 0, so dv = 0
-        }
-        if (ok && row < n) {
-          const int64_t at = (int64_t)row * hid + col;
-          store2(gout + at, gv[0], gv[1]);
-          store2(dhout + at, dv[0], dv[1]);
-        }
-      }
-#pragma unroll
-    for (int o = 4; o <= 16; o <<= 1) {
-      csum[0] += __shfl_xor_sync(0xffffffffu, csum[0], o);
-      csum[1] += __shfl_xor_sync(0xffffffffu, csum[1], o);
-    }
-    if (g == 0) {
-      red[wm][cl] = csum[0];
-      red[wm][cl + 1] = csum[1];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < kBN && n0 + threadIdx.x < hid)
-    dhpart[(int64_t)blockIdx.y * hid + n0 + threadIdx.x] =
-        red[0][threadIdx.x] + red[1][threadIdx.x];
-}
-
-// part[y][c] = sum of a[r][c] over rows y*kColRows.. in order
-__global__ void colsum_rows_bf16_kernel(const bf16* __restrict__ a, float* __restrict__ part,
-                                        int rows, int cols) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+// part[y][c .. c + 7] = the sums of a[r][c .. c + 7] over rows y kColRows ..
+// in order: a thread 8 columns, one 16-byte load a row (cols % 8 == 0).
+__global__ __launch_bounds__(kColThreads) void colsum_rows_bf16_kernel(
+    const bf16* __restrict__ a, float* __restrict__ part, int rows, int cols) {
+  const int c = 8 * (blockIdx.x * kColThreads + threadIdx.x);
   if (c >= cols) return;
   const int r0 = blockIdx.y * kColRows, r1 = min(r0 + kColRows, rows);
-  float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += __bfloat162float(a[(int64_t)r * cols + c]);
-  part[(int64_t)blockIdx.y * cols + c] = s;
+  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int r = r0; r < r1; ++r) {
+    const uint4 u = *reinterpret_cast<const uint4*>(a + (int64_t)r * cols + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] += __bfloat162float(e[j]);
+  }
+  float4* out = reinterpret_cast<float4*>(part + (int64_t)blockIdx.y * cols + c);
+  out[0] = make_float4(s[0], s[1], s[2], s[3]);
+  out[1] = make_float4(s[4], s[5], s[6], s[7]);
 }
 
 }  // namespace
 
-// The passes above; dx goes to dx16 (bf16) or, when that is null, to dx32.
-// Scratch: g and dh (n, hid) bf16; dhpart (ceil(n / 128), hid) and dypart
-// (ceil(n / 64), d) fp32.
-cudaError_t amt_mlp_bwd_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
-                             const bf16* dy, bf16* gs, bf16* dhs, float* dhpart,
-                             float* dypart, bf16* dx16, float* dx32, float* dw1, float* db1,
-                             float* dw2, float* db2, int n, int d, int hid, cudaStream_t s) {
-  if (n <= 0 || d % 8 != 0 || hid % 8 != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_bwd_h_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTileSmem);
-  if (err != cudaSuccess) return err;
-  const int row_tiles = (n + kBM - 1) / kBM;
-  mlp_bwd_h_kernel<<<dim3((hid + kBN - 1) / kBN, row_tiles), kThreads, kTileSmem, s>>>(
-      x, w1, b1, w2, dy, gs, dhs, dhpart, n, d, hid);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int dy_parts = (n + kColRows - 1) / kColRows;
-  colsum_rows_bf16_kernel<<<dim3((d + 255) / 256, dy_parts), 256, 0, s>>>(dy, dypart, n, d);
-  if ((err = cudaGetLastError()) != cudaSuccess ||
-      (err = colsum(dypart, db2, dy_parts, d, s)) != cudaSuccess ||
-      (err = colsum(dhpart, db1, row_tiles, hid, s)) != cudaSuccess ||
-      (err = gemm_bf16<kR, kR, float>(dy, d, gs, hid, dw2, hid, d, hid, n, s)) !=
-          cudaSuccess)
+// plan: ops/ffn.py::GeluBwdPlan, 5 GemmPlans (H, dG, dx, dW1, dW2). x, dy and
+// dx (n, d), W1 (hid, d) and W2 (d, hid) contiguous bf16; b1 fp32. Outputs
+// in fp32: dw1 (hid, d), db1 (hid,), dw2 (d, hid), db2 (d,). Scratch: g and
+// dh (n, hid) bf16 at the H plan's row stride; w2s (d, pitch) bf16 where
+// the dG plan stages W2 (else unused); dhpart (2 ceil(n / 128), hid),
+// dypart (ceil(n / 32), d) and wpart (splits, hid, d) fp32, the last for
+// the weight gradients' split partials.
+AMT_EXPORT int amt_mlp_bwd(const int64_t* plan, const void* x, const void* w1,
+                           const void* b1, const void* w2, const void* dy, void* dx,
+                           void* dw1, void* db1, void* dw2, void* db2, void* g, void* dh,
+                           void* w2s, void* dhpart, void* dypart, void* wpart, int n,
+                           int d, int hid, void* stream) {
+  using sm90::Form;
+  using sm90::kK;
+  using sm90::kMN;
+  constexpr int P = sm90::kPlanValues;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0 || hid % 8 != 0 || d % 128 != 0 || plan == nullptr)
+    return cudaErrorInvalidValue;
+  const auto* dyi = static_cast<const bf16*>(dy);
+  const auto* w1i = static_cast<const bf16*>(w1);
+  auto* gs = static_cast<bf16*>(g);
+  auto* dhs = static_cast<bf16*>(dh);
+  auto* wp = static_cast<float*>(wpart);
+  auto* dyp = static_cast<float*>(dypart);
+  const int ld = (int)plan[19];  // G's and dH's row stride
+  const void* w2r = stage_rows(plan + P, w2, w2s, d, 2 * (int64_t)hid, s);
+  if (w2r == nullptr) return cudaErrorInvalidValue;
+  const sm90::GeluBwd::Args ga{static_cast<const float*>(b1), gs, dhs,
+                               static_cast<float*>(dhpart), n, hid, ld};
+  const sm90::StoreBf16::Args xa{static_cast<bf16*>(dx), n, d, d, 0};
+  cudaError_t err;
+  if ((err = sm90::gemm_from_plan<Form<kK, kK, kK, kMN>, sm90::GeluBwd, 128>(
+           plan, plan + P, x, w1i, dyi, w2r, ga, n, hid, d, ld, s)) != cudaSuccess ||
+      (err = sm90::gemm_from_plan<Form<kK, kMN>, sm90::StoreBf16, 128>(
+           plan + 2 * P, nullptr, dhs, w1i, nullptr, nullptr, xa, n, d, hid, d, s)) !=
+          cudaSuccess ||
+      (err = sm90::gemm_f32_from_plan<Form<kMN, kMN>, 128>(
+           plan + 3 * P, dhs, x, static_cast<float*>(dw1), wp, hid, d, n, d, s)) !=
+          cudaSuccess ||
+      (err = sm90::gemm_f32_from_plan<Form<kMN, kMN>, 128>(
+           plan + 4 * P, dyi, gs, static_cast<float*>(dw2), wp, d, hid, n, hid, s)) !=
+          cudaSuccess ||
+      // db1 over the fp32 dH, one partial row per 64 rows, in order
+      (err = colsum(static_cast<const float*>(dhpart), static_cast<float*>(db1),
+                    2 * ((n + sm90::kBM - 1) / sm90::kBM), hid, s)) != cudaSuccess)
     return err;
-  err = dx16 != nullptr
-            ? gemm_bf16<kK, kR, bf16>(dhs, hid, w1, d, dx16, d, n, d, hid, s)
-            : gemm_bf16<kK, kR, float>(dhs, hid, w1, d, dx32, d, n, d, hid, s);
-  if (err != cudaSuccess) return err;
-  return gemm_bf16<kR, kR, float>(dhs, hid, x, d, dw1, d, hid, d, n, s);
-}
-
-AMT_EXPORT int amt_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* dy, void* g_scratch, void* dh_scratch, void* dhpart,
-                           void* dypart, void* dx, void* dw1, void* db1, void* dw2, void* db2,
-                           int n, int d, int hid, void* stream) {
-  return amt_mlp_bwd_bf16(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(dy), static_cast<bf16*>(g_scratch),
-      static_cast<bf16*>(dh_scratch), static_cast<float*>(dhpart), static_cast<float*>(dypart),
-      static_cast<bf16*>(dx), nullptr, static_cast<float*>(dw1), static_cast<float*>(db1),
-      static_cast<float*>(dw2), static_cast<float*>(db2), n, d, hid,
-      static_cast<cudaStream_t>(stream));
+  const int dy_parts = (n + kColRows - 1) / kColRows;
+  colsum_rows_bf16_kernel<<<dim3((d / 8 + kColThreads - 1) / kColThreads, dy_parts),
+                            kColThreads, 0, s>>>(dyi, dyp, n, d);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return colsum(dyp, static_cast<float*>(db2), dy_parts, d, s);
 }

@@ -8,40 +8,49 @@
 // ::_ln_mlp_q8_kernel (fused_ln_mlp_q8); x in bf16 or fp32. Quantized
 // weights come in the torch Linear layout (d_out, d_in) int8 with fp32
 // per-output-channel scales (ops/quant.py::quantize_weight): each row is
-// K-contiguous, wgmma's K-major B (and mma.sync's "col" B) as it stands.
+// K-contiguous, wgmma's K-major B as it stands.
 //
 // Bound on the H100: operations. At Muse's decode shape (n = 16384 rows,
 // d 1024, inner 4096) kernel 19's two products are 6*n*d*i = 412 G int8
 // operations: 0.208 ms at the int8 tensor-core peak (1979 TOPS), its
 // up-projection 0.139 of it; kernel 20's bf16 up-projection alone is 0.278
 // ms. Kernel 21 at the tokenizer's shape (n 8192, d 512, hid 1368) is
-// 4*n*d*hid = 23 G: 0.0116 ms.
+// 4*n*d*hid = 23 G: 0.0116 ms; its scratches (x read twice, y_q, g in fp32
+// written and read, g_q written and read, the output) move about 146 MB,
+// a floor near 0.044 ms at 3.35 TB/s.
 //
 // Design. Every activation scale is the amax of a whole row (d for x, inner
 // for the FFN's y, hid for kernel 21's gelu output), and it must exist
 // before the product that reads the codes starts; the FFN's LayerNorm also
 // spans the whole inner row. So each block runs as row passes and tile
-// products through global scratches, as csrc/ffn.cu does:
+// products through global scratches, as csrc/ffn.cu does. Every product is
+// csrc/gemm_sm90.cuh's TMA/wgmma tile product in its int8 form (x_q, y_q
+// or g_q and the int8 weight K-major, boxes of 128 int8 of K, wgmma
+// m64nBNk32 .s32.s8.s8, exact s32 sums) or, for kernel 20's up-projection,
+// in bf16 / on the fp64 tensor cores. The host plans (ops/quant.py::
+// q8_plan, q8wide_plan and ln_mlp_q8_plan: a GemmPlan of the up-projection
+// and one of the down-projection) fix each map, grid and tile width and
+// the scratches' pitches:
 //   row_quant:  one block a row: optionally the LayerNorm (float64 sums of
 //               the row and of its centred squares, rounded once to fp32),
 //               then amax, the scale and the int8 codes (round half to even,
 //               IEEE division, clip +-127). A row of up to 4096 values is
 //               held in registers; a wider one is walked in chunks of 4096,
-//               read again for each step, in the same order;
-//   kernels 19 (four launches) and 20 (three), from their host plans
-//   (ops/quant.py::q8_plan and q8wide_plan: a GemmPlan of the up-projection
-//   and one of the down-projection):
+//               read again for each step, in the same order. Rows of at
+//               most 1024 values with the LayerNorm (ln_codes_kernel, the
+//               same float64 order) and of at most 1024 codes without it
+//               (2048 of fp32: kernel 21's g; row_codes_kernel) take a
+//               warp a row;
+//   kernels 19 (four launches) and 20 (three):
 //     - kernel 19 only: row_quant of x into x_q at the plan's pitch;
 //     - the up-projection g = gate * gelu(a) of [a | gate] = x W1^T into an
-//       fp32 scratch at the plan's row pitch, on csrc/gemm_sm90.cuh's
-//       TMA/wgmma tile product in its paired-column form (W1's "a" and
-//       "gate" rows as two K-major half boxes of one tile, so a thread holds
-//       a and gate of the same column):
-//         kernel 19: PairedS8 (x_q and W1q int8, boxes of 128 int8 of K,
-//           wgmma m64n256k32 .s32.s8.s8, exact s32 sums) with the
-//           GegluDequant epilogue, which dequantises a and gate, then
-//           writes g; one body for bf16 and fp32 x (only the row pass of x
-//           and the output's store differ by dtype);
+//       fp32 scratch at the plan's row pitch, on the tile product's
+//       paired-column form (W1's "a" and "gate" rows as two K-major half
+//       boxes of one tile, so a thread holds a and gate of the same column):
+//         kernel 19: PairedS8 (x_q and W1q int8) with the GegluDequant
+//           epilogue, which dequantises a and gate, then writes g; one body
+//           for bf16 and fp32 x (only the row pass of x and the output's
+//           store differ by dtype);
 //         kernel 20, bf16: Paired with GegluF32, kernel 11's own;
 //         kernel 20, fp32: geglu_f64_kernel on the fp64 tensor cores (DMMA,
 //           mma.sync m16n8k16 .f64): each 32-deep fp32 slice is loaded into
@@ -52,197 +61,47 @@
 //           version's float64 product (only the order of the float64 sums
 //           differs);
 //     - row_quant with the gamma-LN over the inner width;
-//     - y_q W2q^T on the tile product's int8 form (sm90::S8) with the
-//       DequantStore epilogue, in x's dtype;
-//   kernel 21 (the only user of gemm_s8_kernel, mma_tile_s8 and
-//     mma_s8_16832): 128 x 128 int32 tiles of int8 A B^T on mma.sync
-//     m16n8k32 s8, 64-byte k slices copied by cp.async in three stages, an
-//     epilogue that dequantises (+ bias) and applies gelu into an fp32
-//     scratch or adds the residual and writes the output.
+//     - y_q W2q^T on the int8 form (sm90::S8) with the DequantStore
+//       epilogue, in x's dtype;
+//   kernel 21 (five launches and a copy):
+//     - x's LayerNorm and codes into y_q, a warp a row up to d 1024;
+//     - h = y_q W1q^T on sm90::S8 with the DequantBiasGelu epilogue: g =
+//       gelu(dequant + b1) into an fp32 scratch at the plan's pitch;
+//     - g's codes a warp a row into g_q at a 64-byte pitch;
+//     - W2q staged at that pitch where hid is not a multiple of 64 (one
+//       cudaMemcpy2DAsync at every call: the product reads the weight it is
+//       given); the down-projection's maps have K = hid, so TMA zero-fills
+//       past it and the padding is never read;
+//     - out = x + (dequant(g_q W2q^T) + b2) on sm90::S8 with DequantStore's
+//       bias and residual, in x's dtype.
 // What the tile products do about their bound: TMA keeps the ring full
 // and wgmma reads both int8 operands straight from swizzled shared memory,
-// so no thread spends registers or issue slots on fragment loads (the
-// mma.sync body takes four 32-bit shared loads per m16 tile and 32-deep
-// step); the row passes between them are bound by bytes (g in fp32 is
-// written once and read by the LayerNorm pass).
+// so no thread spends registers or issue slots on fragment loads; the row
+// passes between them are bound by bytes (g in fp32 is written once and
+// read by the next row pass).
 //
 // Bit-equality. Each dequantisation, bias, residual and LayerNorm step is
 // one IEEE operation in the plain version's order (__fmul_rn / __fadd_rn keep
 // nvcc from contracting them into FMAs) and the gelu is PyTorch's CUDA
 // expression, so the int8 codes equal the plain version's on the card
-// (bf16 kernel 20: up to its fp32 sums' order). Kernel 19's s32 sums are
-// exact in any order, so its g, codes and output are the bits of the
-// mma.sync GEGLU kernel it replaces (bench_q8.py bits holds them against
-// that version's library, in both dtypes). Kernel 21's hid (1368) is not a
-// multiple of 16 bytes: its W2 and gelu codes are stored at a padded stride
-// with zero columns.
+// (bf16 kernel 20: up to its fp32 sums' order). The s32 sums are exact in
+// any order, so kernels 19 and 21 give the bits of the mma.sync kernels
+// they replace (bench_q8.py bits holds them against that version's
+// library, in both dtypes).
 #include "gemm.cuh"
 #include "gemm_sm90.cuh"
 
+const void* stage_rows(const int64_t* plan, const void* w, void* stage, int rows,
+                       int64_t row_bytes, cudaStream_t s);
+
 namespace {
 
-constexpr int kBK8 = 64;            // k bytes per slice: two m16n8k32 steps
-constexpr int kLd8 = kBK8 + 16;     // shared row stride (bytes) of a tile
-constexpr int kTile8 = kBM * kLd8;  // bytes of one operand tile
-constexpr size_t kSmem8 = (size_t)kStages * 2 * kTile8;
 constexpr int kRowPer = 16;  // row_quant values a thread holds
 constexpr int kRowChunk = kRowPer * kThreads;  // ... a row or chunk of 4096
-
-// D (16x8, s32) += A (16x32, s8, row) B (32x8, s8, col). PTX ISA,
-// mma.m16n8k32 .s8, g = lane / 4, t = lane % 4, each register four k bytes:
-//   a[0] = A[g][4t..4t+3]    a[1] = A[g+8][4t..4t+3]
-//   a[2] = A[g][4t+16..+19]  a[3] = A[g+8][4t+16..+19]
-//   b[0] = B[4t..4t+3][g]    b[1] = B[4t+16..+19][g]
-//   d[0..1] = D[g][2t..2t+1] d[2..3] = D[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc = this warp's 64 x 32 part of the 128 x 128 int32 tile of A B^T at
-// rows m0 and B rows n0..n0 + 127: A (M, K) and B (N, K) int8, K-contiguous,
-// K and the row strides (bytes) multiples of 16; rows past M or N and k past
-// K are zero-filled. Warp w holds rows m0 + (w/4)*64 + mt*16 + g (+8) and
-// tile columns (w%4)*32 + nt*8 + 2t (+1) in acc[mt][nt][0..3].
-__device__ void mma_tile_s8(const int8_t* A, int lda, int M, const int8_t* B,
-                            int ldb, int N, int K, int m0, int n0,
-                            int8_t* smem, int acc[4][4][4]) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-  // each thread copies two 16-byte pieces of A and two of B per slice
-  const int kc = (tid & 3) * 16;
-  const int8_t* a_src[2];
-  const int8_t* b_src[2];
-  bool a_ok[2], b_ok[2];
-  int s_off[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = (tid + i * kThreads) >> 2;
-    a_ok[i] = m0 + r < M;
-    a_src[i] = A + (int64_t)(a_ok[i] ? m0 + r : 0) * lda + kc;
-    const int br = n0 + r;
-    b_ok[i] = br < N;
-    b_src[i] = B + (int64_t)(b_ok[i] ? br : 0) * ldb + kc;
-    s_off[i] = r * kLd8 + kc;
-  }
-  auto load = [&](int stage, int k0) {
-    int8_t* st = smem + stage * 2 * kTile8;
-    const bool kin = k0 + kc < K;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      cp_async16(st + s_off[i], a_ok[i] && kin ? a_src[i] + k0 : A, a_ok[i] && kin);
-      cp_async16(st + kTile8 + s_off[i], b_ok[i] && kin ? b_src[i] + k0 : B,
-                 b_ok[i] && kin);
-    }
-  };
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
-  const int KT = (K + kBK8 - 1) / kBK8;
-  __syncthreads();  // no thread still reads an earlier tile's slices
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load(s, s * kBK8);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();  // slice kt has landed for this thread
-    __syncthreads();               // ... for every thread; slice kt-1 is done
-    const int nk = kt + kStages - 1;
-    if (nk < KT) load(nk % kStages, nk * kBK8);
-    cp_async_commit();
-    const int8_t* at = smem + (kt % kStages) * 2 * kTile8;
-    const int8_t* bt = at + kTile8;
-#pragma unroll
-    for (int kk = 0; kk < kBK8; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int8_t* p = at + (wm * 64 + mt * 16 + g) * kLd8 + kk + 4 * t;
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * kLd8);
-        af[mt][2] = ld32(p + 16);
-        af[mt][3] = ld32(p + 8 * kLd8 + 16);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int8_t* p = bt + (wn * 32 + nt * 8 + g) * kLd8 + kk + 4 * t;
-        bf[nt][0] = ld32(p);
-        bf[nt][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_s8_16832(acc[mt][nt], af[mt], bf[nt]);
-    }
-  }
-  cp_async_wait<0>();
-}
 
 // PyTorch's CUDA gelu (approximate="none"): x * 0.5 * (1 + erf(x * M_SQRT1_2))
 __device__ __forceinline__ float gelu_torch(float v) {
   return v * 0.5f * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// (float(acc) * s_row) * s_col, each product rounded
-__device__ __forceinline__ float dequant(int acc, float s_row, float s_col) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(acc), s_row), s_col);
-}
-
-enum Epilogue { kGelu = 0, kOut = 1 };
-
-// kGelu: C (fp32) = gelu(dequant + bias); kOut: C = [res +] (dequant
-// [+ bias]) in OutT. N even.
-template <int E, typename OutT>
-__global__ __launch_bounds__(kThreads) void gemm_s8_kernel(
-    const int8_t* __restrict__ A, int lda, const int8_t* __restrict__ B, int ldb,
-    int M, int N, int K, const float* __restrict__ s_row,
-    const float* __restrict__ s_col, const float* __restrict__ bias,
-    const OutT* __restrict__ res, OutT* __restrict__ C, int ldc) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  int acc[4][4][4];
-  mma_tile_s8(A, lda, M, B, ldb, N, K, m0, n0,
-              reinterpret_cast<int8_t*>(smem_raw), acc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4, wm = warp / 4, wn = warp % 4;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
-      if (row >= M) continue;
-      const float sr = s_row[row];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-        if (col >= N) continue;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          v[e] = dequant(acc[mt][nt][2 * half + e], sr, s_col[col + e]);
-          if (bias != nullptr) v[e] = __fadd_rn(v[e], bias[col + e]);
-          if (E == kGelu) {
-            v[e] = gelu_torch(v[e]);
-          } else if (res != nullptr) {
-            v[e] = __fadd_rn(to_f32(res[(int64_t)row * ldc + col + e]), v[e]);
-          }
-        }
-        store2(C + (int64_t)row * ldc + col, v[0], v[1]);
-      }
-    }
 }
 
 // D (16x8, f64) += A (16x16, row) B (16x8, col), float64 (DMMA, the sm_90
@@ -542,29 +401,46 @@ __global__ __launch_bounds__(kThreads) void row_quant_kernel(
   if (threadIdx.x == 0) scale[blockIdx.x] = s;
 }
 
-// The codes of rows of at most kWarpRow values without the LayerNorm
-// (kernel 19's x): a warp a row, eight rows a block, 4 columns a lane in
-// each of 8 groups (group j at column 4 (lane + 32 j)) held in registers,
-// the amax by shuffles. A block a row spent most of its time waiting on
-// its barriers at such widths; max is order-free, so the scale and codes
-// are row_quant_kernel's.
-constexpr int kWarpRow = 1024;
-template <typename T>
+// Lane `lane`'s kG groups of 4 values of a row of `width` (a multiple of 4)
+// into v, group j from column 4 (lane + 32 j), zeros past width. Every load
+// is issued before any value is used (a group past width reloads the row's
+// last 4 values, then is zeroed): loads each followed by their use waited
+// for one another.
+template <int kG, typename T>
+__device__ __forceinline__ void load_row(const T* src, int width, int lane, float* v) {
+#pragma unroll
+  for (int j = 0; j < kG; ++j)
+    load_vals<4>(src + min(4 * (lane + 32 * j), width - 4), v + 4 * j);
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    if (4 * (lane + 32 * j) >= width) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[4 * j + e] = 0.f;
+    }
+  }
+}
+
+// The codes of rows of at most kG * 128 values without the LayerNorm
+// (kernel 19's x at kG 8, kernel 21's fp32 gelu output at kG 16): a warp a row,
+// eight rows a block, 4 columns a lane in each of kG groups (group j at
+// column 4 (lane + 32 j)) held in registers, the amax by shuffles. A block
+// a row spent most of its time waiting on its barriers at such widths; max
+// is order-free, so the scale and codes are row_quant_kernel's.
+constexpr int kWarpRow = 1024;  // the widths of kG 8; kG 16 takes twice them
+template <typename T, int kG>
 __global__ __launch_bounds__(kThreads) void row_codes_kernel(
     const T* __restrict__ in, int ld_in, int8_t* __restrict__ q, int ld_q,
     float* __restrict__ scale, int n, int width) {
-  constexpr int kG = kWarpRow / 128;
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= n) return;
   const T* src = in + (int64_t)row * ld_in;
   float v[4 * kG];
+  load_row<kG>(src, width, lane, v);
   float amax = 0.f;
 #pragma unroll
   for (int j = 0; j < kG; ++j) {
-    const int c = 4 * (lane + 32 * j);
-    if (c < width) {
-      load_vals<4>(src + c, v + 4 * j);
+    if (4 * (lane + 32 * j) < width) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fabsf(v[4 * j + e]));
     }
@@ -591,9 +467,100 @@ __global__ __launch_bounds__(kThreads) void row_codes_kernel(
   if (lane == 0) scale[row] = s;
 }
 
+// The LayerNorm and codes of rows of at most kWarpRow values (kernel 21's
+// x): a warp a row, eight rows a block, 4 columns a lane in each of 8
+// groups held in registers. The float64 sums keep row_quant_kernel's order
+// (4 columns a thread, one chunk) exactly: group j of lane l holds what
+// thread 32 j + l of that kernel's block held (its columns 4 (32 j + l) ..
+// + 3; its other 12 values lie past kWarpRow and are zeros, whose +0.0 is
+// added here once), each group's sums run the shuffle tree of that block's
+// warp j over the same lanes, and the 8 groups then add in order as its
+// warps did; so the mean, rstd, scale and codes are row_quant_kernel's bit
+// for bit, without its 8192 one-row blocks and their barriers.
+template <typename T>
+__global__ __launch_bounds__(kThreads) void ln_codes_kernel(
+    const T* __restrict__ in, int ld_in, const float* __restrict__ gamma,
+    const float* __restrict__ beta, int8_t* __restrict__ q, int ld_q,
+    float* __restrict__ scale, int n, int width, float eps) {
+  constexpr int kG = kWarpRow / 128;  // the groups: row_quant_kernel's warps
+  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n) return;
+  const T* src = in + (int64_t)row * ld_in;
+  // warp j's shuffle tree in block_sum_d
+  const auto tree = [](double x) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+  };
+  float v[4 * kG];
+  load_row<kG>(src, width, lane, v);
+  double s = 0.0;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    double sj = 0.0;
+    if (4 * (lane + 32 * j) < width) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sj += (double)v[4 * j + e];
+      sj += 0.0;
+    }
+    s += tree(sj);
+  }
+  const float mean = (float)(s / width);
+  double sq = 0.0;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    double sqj = 0.0;
+    if (4 * (lane + 32 * j) < width) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float cv = v[4 * j + e] - mean;
+        sqj += (double)cv * (double)cv;
+      }
+    }
+    sq += tree(sqj);
+  }
+  const float rstd = (float)(1.0 / sqrt(sq / width + (double)eps));
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * (lane + 32 * j) + e;
+      if (c < width) {
+        float y = __fmul_rn(__fmul_rn(v[4 * j + e] - mean, rstd), gamma[c]);
+        if (beta != nullptr) y = __fadd_rn(y, beta[c]);
+        v[4 * j + e] = y;
+        amax = fmaxf(amax, fabsf(y));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float sc = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+  int8_t* out = q + (int64_t)row * ld_q;
+#pragma unroll
+  for (int j = 0; j < kG; ++j) {
+    const int c = 4 * (lane + 32 * j);
+    if (c >= ld_q) continue;
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int8_t code =
+          c + e < width
+              ? (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v[4 * j + e], sc)), -127.f), 127.f)
+              : (int8_t)0;
+      w |= (uint32_t)(uint8_t)code << (8 * e);
+    }
+    *reinterpret_cast<uint32_t*>(out + c) = w;
+  }
+  if (lane == 0) scale[row] = sc;
+}
+
 // row_quant_kernel over n rows, 4 columns a thread where every width,
-// stride and pointer allows it; rows of at most kWarpRow codes without the
-// LayerNorm a warp a row (row_codes_kernel)
+// stride and pointer allows it; rows of at most kWarpRow values with the
+// LayerNorm (ln_codes_kernel) and of at most kWarpRow codes without it, or
+// 2 kWarpRow fp32 ones (kernel 21's g), a warp a row (row_codes_kernel)
 template <typename T, bool kLN>
 cudaError_t row_quant(const T* in, int ld_in, const float* gamma, const float* beta,
                       int8_t* q, int ld_q, float* scale, int n, int width, float eps,
@@ -601,35 +568,27 @@ cudaError_t row_quant(const T* in, int ld_in, const float* gamma, const float* b
   const bool vec = width % 4 == 0 && ld_in % 4 == 0 && ld_q % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(in) % (4 * sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(q) % 4 == 0;
-  if (!kLN && vec && ld_q <= kWarpRow) {
-    constexpr int kRows = kThreads / 32;
-    row_codes_kernel<T><<<(n + kRows - 1) / kRows, kThreads, 0, s>>>(in, ld_in, q, ld_q,
-                                                                    scale, n, width);
-  } else if (vec)
+  constexpr int kRows = kThreads / 32;
+  const unsigned blocks = (n + kRows - 1) / kRows;
+  if constexpr (!kLN && std::is_same<T, float>::value) {  // kernel 21's g
+    if (vec && ld_q > kWarpRow && ld_q <= 2 * kWarpRow) {
+      row_codes_kernel<T, 16><<<blocks, kThreads, 0, s>>>(in, ld_in, q, ld_q, scale, n,
+                                                          width);
+      return cudaGetLastError();
+    }
+  }
+  if (kLN && vec && ld_q <= kWarpRow) {
+    ln_codes_kernel<T><<<blocks, kThreads, 0, s>>>(in, ld_in, gamma, beta, q, ld_q, scale, n,
+                                                   width, eps);
+  } else if (!kLN && vec && ld_q <= kWarpRow) {
+    row_codes_kernel<T, 8><<<blocks, kThreads, 0, s>>>(in, ld_in, q, ld_q, scale, n, width);
+  } else if (vec) {
     row_quant_kernel<T, kLN, 4><<<n, kThreads, 0, s>>>(in, ld_in, gamma, beta, q, ld_q,
                                                       scale, width, eps);
-  else
+  } else {
     row_quant_kernel<T, kLN, 1><<<n, kThreads, 0, s>>>(in, ld_in, gamma, beta, q, ld_q,
                                                       scale, width, eps);
-  return cudaGetLastError();
-}
-
-cudaError_t set_smem(const void* fn) {
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)kSmem8);
-}
-
-// out = dequant(A B^T) [+ bias] [+ res] in T; N even
-template <typename T>
-cudaError_t gemm_s8_out(const int8_t* A, int lda, const int8_t* B, int ldb, int M,
-                        int N, int K, const float* s_row, const float* s_col,
-                        const float* bias, const T* res, T* C, int ldc,
-                        cudaStream_t s) {
-  cudaError_t err = set_smem((const void*)gemm_s8_kernel<kOut, T>);
-  if (err != cudaSuccess) return err;
-  gemm_s8_kernel<kOut, T><<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM),
-                            kThreads, kSmem8, s>>>(A, lda, B, ldb, M, N, K, s_row,
-                                                   s_col, bias, res, C, ldc);
+  }
   return cudaGetLastError();
 }
 
@@ -711,25 +670,38 @@ cudaError_t ffn_q8wide(const int64_t* plan, const T* x, const T* w1,
                      eps, s);
 }
 
+// Kernel 21 from its plan (ops/quant.py::ln_mlp_q8_plan: the int8
+// up-projection's GemmPlan, then the down-projection's): x's LayerNorm and
+// codes into y_q at the plan's pitch, g = gelu(dequant(y_q W1q^T) + b1)
+// into the fp32 scratch at its pitch, g's codes into g_q at the
+// down-projection's pitch (a warp a row up to 2048 codes), W2q staged at
+// that pitch where hid is not one, then out = x + (dequant(g_q W2q^T) +
+// b2) in x's dtype. The down-projection's map has K = hid, so TMA
+// zero-fills past it and g_q's padding columns are never read.
 template <typename T>
-cudaError_t ln_mlp_q8(const T* x, const float* lng, const float* lnb,
+cudaError_t ln_mlp_q8(const int64_t* plan, const T* x, const float* lng, const float* lnb,
                       const int8_t* w1q, const float* s1, const float* b1,
-                      const int8_t* w2q, const float* s2, const float* b2, int8_t* yq,
-                      float* sy, float* gs, int8_t* gq, float* sg, T* out, int n,
-                      int d, int hid, int hid_pad, float eps, cudaStream_t s) {
-  cudaError_t err = row_quant<T, true>(x, d, lng, lnb, yq, d, sy, n, d, eps, s);
+                      const int8_t* w2q, const float* s2, const float* b2, int8_t* w2s,
+                      int8_t* yq, float* sy, float* gs, int8_t* gq, float* sg, T* out,
+                      int n, int d, int hid, float eps, cudaStream_t s) {
+  constexpr int P = sm90::kPlanValues;
+  const int ldy = (int)plan[2];      // y_q's pitch: the up-projection's A map (bytes)
+  const int ldg = (int)plan[19];     // g's pitch (fp32 elements)
+  const int ldq = (int)plan[P + 2];  // g_q's: the down-projection's A map (bytes)
+  if (ldy < d || ldg < hid || ldg % 4 || ldq < hid) return cudaErrorInvalidValue;
+  const auto* w2r = static_cast<const int8_t*>(stage_rows(plan + P, w2q, w2s, d, hid, s));
+  if (w2r == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = row_quant<T, true>(x, d, lng, lnb, yq, ldy, sy, n, d, eps, s);
   if (err != cudaSuccess) return err;
-  if ((err = set_smem((const void*)gemm_s8_kernel<kGelu, float>)) != cudaSuccess)
+  const sm90::DequantBiasGelu::Args ga{gs, sy, s1, b1, n, hid, ldg};
+  if ((err = sm90::gemm_from_plan<sm90::S8, sm90::DequantBiasGelu, 128>(
+           plan, nullptr, yq, w1q, nullptr, nullptr, ga, n, hid, d, ldg, s)) != cudaSuccess ||
+      (err = row_quant<float, false>(gs, ldg, nullptr, nullptr, gq, ldq, sg, n, hid, eps,
+                                     s)) != cudaSuccess)
     return err;
-  gemm_s8_kernel<kGelu, float>
-      <<<dim3((hid + kBN - 1) / kBN, (n + kBM - 1) / kBM), kThreads, kSmem8, s>>>(
-          yq, d, w1q, d, n, hid, d, sy, s1, b1, nullptr, gs, hid);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = row_quant<float, false>(gs, hid, nullptr, nullptr, gq, hid_pad, sg, n, hid,
-                                     eps, s)) != cudaSuccess)
-    return err;
-  return gemm_s8_out<T>(gq, hid_pad, w2q, hid_pad, n, d, hid_pad, sg, s2, b2, x, out,
-                        d, s);
+  const typename sm90::DequantStore<T>::Args oa{out, sg, s2, n, d, d, b2, x};
+  return sm90::gemm_from_plan<sm90::S8, sm90::DequantStore<T>, 128, 256>(
+      plan + P, nullptr, gq, w2r, nullptr, nullptr, oa, n, d, hid, d, s);
 }
 
 }  // namespace
@@ -791,17 +763,20 @@ AMT_EXPORT int amt_ffn_q8wide(const int64_t* plan, const void* x, const void* w1
   return cudaErrorInvalidValue;
 }
 
-// Scratch: yq (n, d) int8, sy (n), g (n, hid) fp32, gq (n, hid_pad) int8,
-// sg (n). W1q (hid, d); W2q (d, hid_pad), its columns past hid zeros.
-AMT_EXPORT int amt_ln_mlp_q8(const void* x, const void* lng, const void* lnb,
-                             const void* w1q, const void* s1, const void* b1,
-                             const void* w2q, const void* s2, const void* b2, void* yq,
-                             void* sy, void* g, void* gq, void* sg, void* out, int n,
-                             int d, int hid, int hid_pad, float eps, int dtype,
-                             void* stream) {
+// plan: ops/quant.py::LnMlpQ8Plan (42 int64, the same for bf16 and fp32 x).
+// W1q (hid, d) and W2q (d, hid) contiguous; b1, b2 and the LN affine fp32.
+// Scratch: yq (n, d) int8, g (n, hid) fp32 and gq (n, hid) int8 at the
+// plan's pitches, sy and sg (n); w2s (d, pitch) int8 where the plan stages
+// W2q (else unused).
+AMT_EXPORT int amt_ln_mlp_q8(const int64_t* plan, const void* x, const void* lng,
+                             const void* lnb, const void* w1q, const void* s1,
+                             const void* b1, const void* w2q, const void* s2,
+                             const void* b2, void* w2s, void* yq, void* sy, void* g,
+                             void* gq, void* sg, void* out, int n, int d, int hid,
+                             float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0) return cudaSuccess;
-  if (d % kBN || hid % 2 || hid_pad % 16 || hid_pad < hid) return cudaErrorInvalidValue;
+  if (plan == nullptr || n < 0 || d % 128 || hid % 8) return cudaErrorInvalidValue;
   const auto* lg = static_cast<const float*>(lng);
   const auto* lb = static_cast<const float*>(lnb);
   const auto* w1 = static_cast<const int8_t*>(w1q);
@@ -810,18 +785,19 @@ AMT_EXPORT int amt_ln_mlp_q8(const void* x, const void* lng, const void* lnb,
   const auto* f2 = static_cast<const float*>(s2);
   const auto* c1 = static_cast<const float*>(b1);
   const auto* c2 = static_cast<const float*>(b2);
+  auto* w2st = static_cast<int8_t*>(w2s);
   auto* yqi = static_cast<int8_t*>(yq);
   auto* gqi = static_cast<int8_t*>(gq);
   auto* syf = static_cast<float*>(sy);
   auto* sgf = static_cast<float*>(sg);
   auto* gs = static_cast<float*>(g);
   if (dtype == AMT_BF16)
-    return ln_mlp_q8(static_cast<const bf16*>(x), lg, lb, w1, f1, c1, w2, f2, c2, yqi,
-                     syf, gs, gqi, sgf, static_cast<bf16*>(out), n, d, hid, hid_pad,
+    return ln_mlp_q8(plan, static_cast<const bf16*>(x), lg, lb, w1, f1, c1, w2, f2, c2,
+                     w2st, yqi, syf, gs, gqi, sgf, static_cast<bf16*>(out), n, d, hid,
                      eps, s);
   if (dtype == AMT_F32)
-    return ln_mlp_q8(static_cast<const float*>(x), lg, lb, w1, f1, c1, w2, f2, c2, yqi,
-                     syf, gs, gqi, sgf, static_cast<float*>(out), n, d, hid, hid_pad,
+    return ln_mlp_q8(plan, static_cast<const float*>(x), lg, lb, w1, f1, c1, w2, f2, c2,
+                     w2st, yqi, syf, gs, gqi, sgf, static_cast<float*>(out), n, d, hid,
                      eps, s);
   return cudaErrorInvalidValue;
 }

@@ -57,12 +57,12 @@ _SIGNATURES = {
                                        _F, _I, _P],
     "amt_ffn_q8": [_S] + [_P] * 12 + [_I, _I, _I, _F, _I, _P],
     "amt_ffn_q8wide": [_S] + [_P] * 9 + [_I, _I, _I, _F, _I, _P],
-    "amt_ln_mlp_q8": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
+    "amt_ln_mlp_q8": [_S] + [_P] * 16 + [_I] * 3 + [_F, _I, _P],
     "amt_mlp": [_P] * 9 + [_S] + [_I] * 4 + [_P],
     "amt_tile_product": [_S] + [_P] * 4 + [_I] * 5 + [_P],
     "amt_tile_product_f32": [_P, _I, _P, _I, _P] + [_I] * 5 + [_P],
     "amt_tile_product_s8": [_S] + [_P] * 5 + [_I] * 4 + [_P],
-    "amt_mlp_bwd": [_P] * 14 + [_I, _I, _I, _P],
+    "amt_mlp_bwd": [_S] + [_P] * 16 + [_I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

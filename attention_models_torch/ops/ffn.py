@@ -1,7 +1,12 @@
 """Fused feed-forward blocks: kernels and plain versions.
 
 - ``fused_mlp``: the biased GELU MLP gelu(x W1^T + b1) W2^T + b2, forward
-  and backward (kernels 7 and 8: csrc/mlp.cu, csrc/mlp_bwd.cu).
+  and backward (kernels 7 and 8: csrc/mlp.cu, csrc/mlp_bwd.cu). The
+  forward is two products (g = gelu(x W1^T + b1), then g W2^T + b2); the
+  backward is kernel 6's passes on x in place of LN(x): the dual product
+  (H = x W1^T and dG = dy W2 over one tile, G and dH in its epilogue), dx =
+  dH W1 in bf16, the weight gradients dH^T x and dy^T G with K split into
+  ordered partials, and the bias gradients' ordered column sums.
 - ``fused_ln_mlp``: the pre-LN MLP block x + Mlp(LayerNorm(x)), forward and
   backward (csrc/ln_mlp.cu, csrc/ln_mlp_bwd.cu). At every d % 128 == 0 the
   forward is the LayerNorm kernel writing Y and kernel 7's two products on
@@ -20,9 +25,9 @@
   on csrc/gemm.cuh's register-tiled FMA product.
 
 The forwards of kernels 7 and 2 run csrc/gemm_sm90.cuh's TMA/wgmma tile
-product twice, kernel 6 five times, kernel 11 twice and kernel 12 five
-times. ``mlp_plan``, ``ln_mlp_bwd_plan``, ``ffn_plan`` and ``ffn_bwd_plan``
-compute on the host what those launches need (``ops/gemm_sm90.py``: each
+product twice, kernels 6 and 8 five times, kernel 11 twice and kernel 12
+five times. ``mlp_plan``, ``ln_mlp_bwd_plan``, ``mlp_bwd_plan``,
+``ffn_plan`` and ``ffn_bwd_plan`` compute on the host what those launches need (``ops/gemm_sm90.py``: each
 operand's rank-2 tensor map, K-major or MN-major, the tile width of each
 product, the grids, the splits of K and the shared memory, and the
 scratches' pitches), cached by the operands' shapes, strides and alignment
@@ -86,8 +91,7 @@ BWD_ROWS = 32         # rows per block of csrc/ln_mlp_bwd.cu's LN backward
 FFN_BWD_ROWS = 16     # rows per block of csrc/ffn_bwd.cu's row pass
 FFN_GEGLU_BN = 256    # kernel 11's GEGLU product: 128 inner columns a block
 FFN_OUT_BN = 256      # kernel 11's y W2^T: 256 columns a block
-TILE_ROWS = 128       # rows of csrc/gemm.cuh's tiles (kernel 8's db1 partials)
-COL_ROWS = 64         # rows per partial of kernel 8's db2 column sums
+COL_ROWS = 32         # rows per partial of kernel 8's db2 column sums
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -273,18 +277,21 @@ def _layout(parts: list[tuple[str, int]], align: int = 128) -> tuple:
 
 
 @dataclass(frozen=True)
-class LnMlpBwdPlan:
-    """Kernel 6's five tile products (csrc/ln_mlp_bwd.cu) and its scratches:
-    the dual product ``h`` (H = yc W1^T) and ``dg`` (dG = dy W2, W2 read
-    MN-major, staged where hid is not a multiple of ROW_ALIGN) over the
-    same (128 rows x 128 hidden) tiles, ``dyln`` (dH W1, W1 MN-major),
-    ``dw1`` (dH^T yc) and ``dw2`` (dy^T G), both operands MN-major with K
-    split into ordered partials. G and dH are (n, hid) at ``h.ldc``
-    elements a row. ``bf16`` and ``f32`` lay out the scratches of one bf16
-    and one fp32 buffer: (name, offset, size) each, and the total."""
+class GeluBwdPlan:
+    """The five tile products of the GELU-MLP backwards and their
+    scratches: kernel 6 (csrc/ln_mlp_bwd.cu) on yc = LayerNorm(x), kernel 8
+    (csrc/mlp_bwd.cu) on x. The dual product ``h`` (H = yc W1^T, or x
+    W1^T) and ``dg`` (dG = dy W2, W2 read MN-major, staged where hid is not
+    a multiple of ROW_ALIGN) over the same (128 rows x 128 hidden) tiles;
+    ``back`` dH W1 (W1 MN-major: kernel 6's fp32 dy_ln, kernel 8's bf16
+    dx); ``dw1`` (dH^T yc, or dH^T x) and ``dw2`` (dy^T G), both operands
+    MN-major with K split into ordered partials where the tiles leave SMs
+    idle. G and dH are (n, hid) at ``h.ldc`` elements a row. ``bf16`` and
+    ``f32`` lay out the scratches of one bf16 and one fp32 buffer: (name,
+    offset, size) each, and the total."""
     h: GemmPlan
     dg: GemmPlan
-    dyln: GemmPlan
+    back: GemmPlan
     dw1: GemmPlan
     dw2: GemmPlan
     bf16: tuple
@@ -293,15 +300,16 @@ class LnMlpBwdPlan:
 
     def __post_init__(self):
         object.__setattr__(self, "_arr", PlanArray(
-            (self.h, self.dg, self.dyln, self.dw1, self.dw2)))
+            (self.h, self.dg, self.back, self.dw1, self.dw2)))
 
     def c_array(self):
-        """The 105 int64 values ``amt_ln_mlp_bwd`` reads (built once)."""
+        """The 105 int64 values ``amt_ln_mlp_bwd`` / ``amt_mlp_bwd`` read
+        (built once)."""
         return self._arr.c_array()
 
 
 @functools.lru_cache(maxsize=256)
-def _ln_mlp_bwd_plan(dy: tuple, w1: tuple, w2: tuple) -> LnMlpBwdPlan:
+def _ln_mlp_bwd_plan(dy: tuple, w1: tuple, w2: tuple) -> GeluBwdPlan:
     (n, d), hid = dy[1], w1[1][0]
     what = "ln_mlp backward"
     pitch = row_pitch(hid)
@@ -313,7 +321,7 @@ def _ln_mlp_bwd_plan(dy: tuple, w1: tuple, w2: tuple) -> LnMlpBwdPlan:
                     what=what),
         dg=gemm_plan(dy, K_MAJOR, w2s, MN_MAJOR, 128, pitch, dual=True,
                      what=what),
-        dyln=gemm_plan(dh, K_MAJOR, w1, MN_MAJOR, 128, d, what=what),
+        back=gemm_plan(dh, K_MAJOR, w1, MN_MAJOR, 128, d, what=what),
         dw1=gemm_plan(dh, MN_MAJOR, yc, MN_MAJOR, 128, d, split=True,
                       what=what),
         dw2=gemm_plan(dy, MN_MAJOR, g, MN_MAJOR, 128, hid, split=True,
@@ -325,16 +333,63 @@ def _ln_mlp_bwd_plan(dy: tuple, w1: tuple, w2: tuple) -> LnMlpBwdPlan:
     f32 = _layout([("dyln", n * d), ("dhpart", 2 * tiles * hid),
                    ("part", 3 * -(-n // BWD_ROWS) * d),
                    ("wpart", splits * hid * d if splits > 1 else 0)])
-    return LnMlpBwdPlan(**plans, bf16=bf16, f32=f32)
+    return GeluBwdPlan(**plans, bf16=bf16, f32=f32)
 
 
 def ln_mlp_bwd_plan(dy: torch.Tensor, w1: torch.Tensor,
-                    w2: torch.Tensor) -> LnMlpBwdPlan:
+                    w2: torch.Tensor) -> GeluBwdPlan:
     """Kernel 6's plan for the cotangent dy (n, d) (x, yc and dx are laid
     out as it), w1 (hid, d) and w2 (d, hid) in bf16, cached by their
     shapes, strides and 16-byte alignment; a view TMA cannot take raises a
     ValueError naming it."""
     return _ln_mlp_bwd_plan(meta("dy", dy), meta("w1", w1), meta("w2", w2))
+
+
+@functools.lru_cache(maxsize=256)
+def _mlp_bwd_plan(x: tuple, dy: tuple, w1: tuple, w2: tuple) -> GeluBwdPlan:
+    (n, d), hid = x[1], w1[1][0]
+    what = "mlp backward"
+    pitch = row_pitch(hid)
+    g, dh = scratch_meta("g", n, hid, pitch), scratch_meta("dh", n, hid, pitch)
+    w2s = _w2_meta(w2)
+    plans = dict(
+        h=gemm_plan(x, K_MAJOR, w1, K_MAJOR, 128, pitch, dual=True,
+                    what=what),
+        dg=gemm_plan(dy, K_MAJOR, w2s, MN_MAJOR, 128, pitch, dual=True,
+                     what=what),
+        back=gemm_plan(dh, K_MAJOR, w1, MN_MAJOR, 128, d, what=what),
+        dw1=gemm_plan(dh, MN_MAJOR, x, MN_MAJOR, 128, d, split=True,
+                      what=what),
+        dw2=gemm_plan(dy, MN_MAJOR, g, MN_MAJOR, 128, hid, split=True,
+                      what=what))
+    splits = max(plans["dw1"].splits, plans["dw2"].splits)
+    bf16 = _layout([("g", n * pitch), ("dh", n * pitch),
+                    ("w2s", d * pitch if w2s is not w2 else 0)])
+    f32 = _layout([("dhpart", 2 * -(-n // GEMM_ROWS) * hid),
+                   ("dypart", -(-n // COL_ROWS) * d),
+                   ("wpart", splits * hid * d if splits > 1 else 0)])
+    return GeluBwdPlan(**plans, bf16=bf16, f32=f32)
+
+
+def mlp_bwd_plan(x: torch.Tensor, dy: torch.Tensor, w1: torch.Tensor,
+                 w2: torch.Tensor) -> GeluBwdPlan:
+    """Kernel 8's plan for x and the cotangent dy (n, d) (dx is laid out
+    contiguous), w1 (hid, d) and w2 (d, hid) in bf16, cached by their
+    shapes, strides and 16-byte alignment; a view TMA cannot take raises a
+    ValueError naming it."""
+    return _mlp_bwd_plan(meta("x", x), meta("dy", dy), meta("w1", w1),
+                         meta("w2", w2))
+
+
+def _scratch(plan, dev, dtype) -> tuple:
+    """One bf16 (``dtype``) and one fp32 buffer laid out as the plan's
+    ``bf16`` and ``f32`` layouts say, and each part's address (None where
+    it is empty); the caller holds the buffers until its launch."""
+    bufs = (torch.empty(plan.bf16[1], dtype=dtype, device=dev),
+            torch.empty(plan.f32[1], dtype=torch.float32, device=dev))
+    return bufs, [buf.data_ptr() + off * buf.element_size() if size else None
+                  for buf, (layout, _) in zip(bufs, (plan.bf16, plan.f32))
+                  for _, off, size in layout]
 
 
 def _check_kernel_operands(x, w1, w2, vecs,
@@ -401,11 +456,7 @@ def fused_ln_mlp_backward(x, lng, lnb, w1, b1, w2, dy, *, eps: float = 1e-5):
     plan = ln_mlp_bwd_plan(dy.view(n, d), w1, w2)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    bufs = (torch.empty(plan.bf16[1], dtype=x.dtype, device=dev),
-            torch.empty(plan.f32[1], **f32))
-    scratch = [buf.data_ptr() + off * buf.element_size() if size else None
-               for buf, (layout, _) in zip(bufs, (plan.bf16, plan.f32))
-               for _, off, size in layout]
+    bufs, scratch = _scratch(plan, dev, x.dtype)
     dx = torch.empty_like(x)
     dw1, db1 = torch.empty(hid, d, **f32), torch.empty(hid, **f32)
     dw2 = torch.empty(d, hid, **f32)
@@ -533,24 +584,20 @@ def fused_mlp_backward(x, w1, b1, w2, dy):
     (b1f,) = _check_kernel_operands(x, w1, w2, (("b1", b1),))
     d, hid = x.shape[-1], w1.shape[0]
     n = x.numel() // d
+    xv, dyv = x.reshape(n, d), dy.view(n, d)
+    plan = mlp_bwd_plan(xv, dyv, w1, w2)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    # scratch: g and bf16(dh) (n, hid), per-128-row partials of db1 and
-    # per-64-row partials of db2
-    gs = torch.empty(n, hid, dtype=x.dtype, device=dev)
-    dhs = torch.empty(n, hid, dtype=x.dtype, device=dev)
-    dhpart = torch.empty(-(-n // TILE_ROWS), hid, **f32)
-    dypart = torch.empty(-(-n // COL_ROWS), d, **f32)
-    dx = torch.empty_like(x)
+    bufs, scratch = _scratch(plan, dev, x.dtype)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     dw1, db1 = torch.empty(hid, d, **f32), torch.empty(hid, **f32)
     dw2, db2 = torch.empty(d, hid, **f32), torch.empty(d, **f32)
     with torch.cuda.device(dev):
         _build.launch(
-            "amt_mlp_bwd", x.data_ptr(), w1.data_ptr(), b1f.data_ptr(),
-            w2.data_ptr(), dy.data_ptr(), gs.data_ptr(), dhs.data_ptr(),
-            dhpart.data_ptr(), dypart.data_ptr(), dx.data_ptr(),
+            "amt_mlp_bwd", plan.c_array(), xv.data_ptr(), w1.data_ptr(),
+            b1f.data_ptr(), w2.data_ptr(), dyv.data_ptr(), dx.data_ptr(),
             dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            n, d, hid, _build.stream_of(x),
+            *scratch, n, d, hid, _build.stream_of(x),
         )
     fused_mlp_backward.launches += 1
     return dx, dw1[:hid0], db1[:hid0], dw2[:, :hid0], db2

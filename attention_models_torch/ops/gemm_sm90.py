@@ -6,17 +6,17 @@ tensor map (dims, row pitch, box, K-major or MN-major), the grid, the split
 of K into ordered partials, the tile width and the shared memory. A view TMA
 cannot take raises a ValueError naming it before anything is launched; the
 C side checks the plan against the product, encodes the maps and launches.
-Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 (``ops/ffn.py::
-ln_mlp_bwd_plan``), 11 and 12 (``ops/ffn.py::ffn_plan`` and
-``ffn_bwd_plan``), 13 and 14 (``ops/xent.py::xent_fwd_plan`` and
-``xent_bwd_plan``) build their plans
-from these pieces, and kernels 19 and 20 (``ops/quant.py::q8_plan`` and
-``q8wide_plan``) too. The GEGLU products of kernels 11, 19 and 20 read W1
-in the paired-column form: its B tile is two boxes of ``bn / 2`` rows, W1's
-"a" rows and the matching "gate" rows. The down-projections of kernels 19
-and 20 and kernel 19's up-projection run the product's int8 form: a K
-slice is 128 bytes whatever the type, so its boxes are 128 int8 of K where
-bf16 ones are 64, over the same ring.
+Kernels 7 and 2 (``ops/ffn.py::mlp_plan``), 6 and 8 (``ops/ffn.py::
+ln_mlp_bwd_plan`` and ``mlp_bwd_plan``), 11 and 12 (``ops/ffn.py::ffn_plan``
+and ``ffn_bwd_plan``), 13 and 14 (``ops/xent.py::xent_fwd_plan`` and
+``xent_bwd_plan``) build their plans from these pieces, and kernels 19, 20
+and 21 (``ops/quant.py::q8_plan``, ``q8wide_plan`` and ``ln_mlp_q8_plan``)
+too. The GEGLU products of kernels 11, 19 and 20 read W1 in the
+paired-column form: its B tile is two boxes of ``bn / 2`` rows, W1's "a"
+rows and the matching "gate" rows. The down-projections of kernels 19 and
+20, kernel 19's up-projection and both of kernel 21's products run the
+product's int8 form: a K slice is 128 bytes whatever the type, so its boxes
+are 128 int8 of K where bf16 ones are 64, over the same ring.
 
 ``tile_product`` runs one product in any operand form with an fp32 result
 (``csrc/tile_product.cu``): the tile product for bf16 operands, csrc/
@@ -177,10 +177,13 @@ def split_k(tiles: int, k: int, slice_: int = GEMM_K) -> tuple[int, int]:
     """(splits, slices a split) for a product of ``tiles`` output tiles over
     K: as many ranges of K as one wave of two blocks an SM holds (a block
     past the wave would run alone at its end), each a whole number of
-    ``slice_``-element slices, at most MAX_K_SPLITS; 1 where the tiles fill
-    half the wave or more (chosen in turns on the H100, bench_bwd.py)."""
+    ``slice_``-element slices, at most MAX_K_SPLITS; 1 where the tiles give
+    all but a 32nd of the SMs a block of their own (chosen in turns on the
+    H100, bench_bwd.py: kernel 8's 128 tiles over K 4160 read faster whole
+    than in two ranges, kernel 6's 96 over K 8192 slower)."""
     ktiles = -(-k // slice_)
-    want = min(max(1, 2 * SM_COUNT // tiles), ktiles, MAX_K_SPLITS)
+    want = (1 if 32 * tiles >= 31 * SM_COUNT
+            else min(max(1, 2 * SM_COUNT // tiles), ktiles, MAX_K_SPLITS))
     kslices = -(-ktiles // want)
     return -(-ktiles // kslices), kslices
 

@@ -28,6 +28,10 @@ quantizes at its first step, as JAX hoists the quantization out of its scan.
   product and epilogue) or on the fp64 tensor cores (fp32), then kernel
   19's tail; its host plan is ``q8wide_plan``.
 - ``fused_ln_mlp_q8`` (kernel 21): x + W8A8 Mlp(LayerNorm(x)), biased.
+  On the card: x's LayerNorm and codes, y_q W1q^T on the tile product's
+  int8 form with g = gelu(dequant + b1) in its epilogue, g's codes at a
+  64-byte pitch, then g_q W2q^T on the int8 form with the bias and the
+  residual x in its epilogue; its host plan is ``ln_mlp_q8_plan``.
 
 The row statistics of the LayerNorms (the GEGLU's gamma-LN over the inner
 width, kernel 21's LN over d) are summed in float64 and rounded once to
@@ -58,6 +62,7 @@ from attention_models_torch.ops.dispatch import (
 )
 from attention_models_torch.ops.gemm_sm90 import (
     K_MAJOR,
+    ROW_ALIGN,
     GemmPlan,
     PlanArray,
     gemm_plan,
@@ -66,6 +71,11 @@ from attention_models_torch.ops.gemm_sm90 import (
 )
 
 Q8_GEGLU_BN = 256  # the paired GEGLU products' tile width (kernel 11's)
+# kernel 21's products: two blocks an SM, so one block's epilogue runs
+# under the other's products (at 256 its down-projection's 128 tiles would
+# leave SMs idle at the tokenizer's 8192 rows)
+LN_MLP_Q8_BN = 128
+INT8_ROW_ALIGN = 2 * ROW_ALIGN  # bytes: int8 rows start 64-byte aligned
 QUANT_MODES = (None, "int8", "int8_wide")
 
 
@@ -442,39 +452,121 @@ def fused_ffn_q8wide(x: torch.Tensor, w1: torch.Tensor, gamma: torch.Tensor,
 fused_ffn_q8wide.launches = 0
 
 
+def int8_pitch(k: int) -> int:
+    """Bytes a row of k int8 takes when rows start 64-byte aligned."""
+    return -(-k // INT8_ROW_ALIGN) * INT8_ROW_ALIGN
+
+
+@dataclass(frozen=True)
+class LnMlpQ8Plan:
+    """Kernel 21's two int8 tile products (csrc/quant.cu): ``up`` h = y_q
+    W1q^T, y_q (n, d) at ``y_pitch`` bytes a row and W1q (hid, d), both
+    K-major, K boxes of 128 int8, writing g = gelu(dequant + b1) into the
+    fp32 scratch g (n, hid) at ``g_pitch`` elements a row; ``down`` g_q
+    W2q^T + b2 + x, g_q (n, hid) at ``q_pitch`` bytes a row (64-byte
+    aligned) and W2q (d, hid) read at the same pitch, staged by the C side
+    at every call where hid is not a multiple of 64; its maps have K = hid,
+    so TMA zero-fills past it and the padding is never read."""
+    up: GemmPlan
+    down: GemmPlan
+    _arr: object = field(default=None, init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "_arr", PlanArray((self.up, self.down)))
+
+    def c_array(self):
+        """The 42 int64 values ``amt_ln_mlp_q8`` reads (built once)."""
+        return self._arr.c_array()
+
+    @property
+    def y_pitch(self) -> int:
+        return self.up.a.stride
+
+    @property
+    def g_pitch(self) -> int:
+        return self.up.ldc
+
+    @property
+    def q_pitch(self) -> int:
+        return self.down.a.stride
+
+    @property
+    def w2_stage_bytes(self) -> int:
+        """Bytes of the W2q stage the C side fills (0: W2q read as it
+        is)."""
+        pitch, (hid, d) = self.down.b.stride, self.down.b.dims
+        return 0 if pitch == hid else d * pitch
+
+
+@functools.lru_cache(maxsize=64)
+def ln_mlp_q8_plan(n: int, d: int, hid: int) -> LnMlpQ8Plan:
+    """Kernel 21's plan for n rows of x (n, d), W1q (hid, d) and W2q (d,
+    hid), hid a multiple of 8, the same for bf16 and fp32 x, cached on the
+    sizes alone (the wrapper checks the weights contiguous and 16-byte
+    aligned first)."""
+    what = "ln_mlp_q8 kernel"
+    pitch = int8_pitch(hid)
+    yq = scratch_meta("yq", n, d, d, item=1)
+    w1q = scratch_meta("w1 int8", hid, d, d, item=1)
+    gq = scratch_meta("gq", n, hid, pitch, item=1)
+    w2q = scratch_meta("w2 int8", d, hid, pitch, item=1)
+    return LnMlpQ8Plan(
+        gemm_plan(yq, K_MAJOR, w1q, K_MAJOR, LN_MLP_Q8_BN, row_pitch(hid),
+                  what=what),
+        gemm_plan(gq, K_MAJOR, w2q, K_MAJOR, LN_MLP_Q8_BN, d, what=what))
+
+
+def _pad_hid(q1: QuantWeight, b1, q2: QuantWeight):
+    """The kernel takes a hidden width that is a multiple of 8; zero rows of
+    W1q with a zero bias give gelu(0) = 0, whose codes are 0 and leave the
+    row's amax as it is, and W2q's zero columns add nothing: the same bits
+    on the first hid columns."""
+    pad = -q1.q.shape[0] % 8
+    if not pad:
+        return q1, b1, q2
+    return (QuantWeight(F.pad(q1.q, (0, 0, 0, pad)),
+                        F.pad(q1.scale, (0, pad), value=1.0)),
+            F.pad(b1, (0, pad)),
+            QuantWeight(F.pad(q2.q, (0, pad)).contiguous(), q2.scale))
+
+
 def _ln_mlp_q8_kernel(x, lng, lnb, q1, b1, q2, b2, eps, codes=None):
+    what = "ln_mlp_q8 kernel"
     check_tensor(x, "x", (torch.float32, torch.bfloat16))
-    d, hid = x.shape[-1], q1.q.shape[0]
-    _check_q8(x, "w1", q1, (hid, d))
-    _check_q8(x, "w2", q2, (d, hid))
-    if d % 128 or hid % 2:
-        raise ValueError(f"ln_mlp_q8 kernel: d={d} must be a multiple of 128"
-                         f" and hid={hid} even")
+    d, hid0 = x.shape[-1], q1.q.shape[0]
+    _check_q8(x, "w1", q1, (hid0, d))
+    _check_q8(x, "w2", q2, (d, hid0))
+    if d % 128:
+        raise ValueError(f"{what}: d={d} must be a multiple of 128")
+    _check_aligned(what, x=x, **{"w1 int8": q1.q, "w2 int8": q2.q})
     dev = x.device
     lng, lnb = _vec(lng, "ln_gamma", d, dev), _vec(lnb, "ln_beta", d, dev)
-    b1, b2 = _vec(b1, "b1", hid, dev), _vec(b2, "b2", d, dev)
-    # int8 rows of hid bytes start 16-byte aligned for cp.async only at a
-    # stride that is a multiple of 16: W2 and the gelu codes are padded with
-    # zero columns, which add nothing to the sums
-    hid_pad = -(-hid // 16) * 16
-    w2p = F.pad(q2.q, (0, hid_pad - hid)).contiguous()
-    n = x.numel() // d
-    f32 = dict(dtype=torch.float32, device=dev)
-    yq = torch.empty(n, d, dtype=torch.int8, device=dev)
-    sy, sg = torch.empty(n, **f32), torch.empty(n, **f32)
-    g = torch.empty(n, hid, **f32)
-    gq = torch.empty(n, hid_pad, dtype=torch.int8, device=dev)
+    b1, b2 = _vec(b1, "b1", hid0, dev), _vec(b2, "b2", d, dev)
+    q1, b1, q2 = _pad_hid(q1, b1, q2)
+    hid, n = q1.q.shape[0], x.numel() // d
     out = torch.empty_like(x)
+    if n == 0:
+        return out
+    plan = ln_mlp_q8_plan(n, d, hid)
+    f32, i8 = (dict(dtype=dt, device=dev) for dt in (torch.float32,
+                                                     torch.int8))
+    yq = torch.empty(n, plan.y_pitch, **i8)
+    g = torch.empty(n * plan.g_pitch, **f32)
+    gq = torch.empty(n, plan.q_pitch, **i8)
+    sy, sg = torch.empty(n, **f32), torch.empty(n, **f32)
+    w2s = (torch.empty(plan.w2_stage_bytes, **i8) if plan.w2_stage_bytes
+           else None)
     with torch.cuda.device(dev):
         _build.launch(
-            "amt_ln_mlp_q8", x.data_ptr(), lng.data_ptr(), lnb.data_ptr(),
-            q1.q.data_ptr(), q1.scale.data_ptr(), b1.data_ptr(),
-            w2p.data_ptr(), q2.scale.data_ptr(), b2.data_ptr(),
-            yq.data_ptr(), sy.data_ptr(), g.data_ptr(), gq.data_ptr(),
-            sg.data_ptr(), out.data_ptr(), n, d, hid, hid_pad, eps,
+            "amt_ln_mlp_q8", plan.c_array(), x.data_ptr(), lng.data_ptr(),
+            lnb.data_ptr(), q1.q.data_ptr(), q1.scale.data_ptr(),
+            b1.data_ptr(), q2.q.data_ptr(), q2.scale.data_ptr(),
+            b2.data_ptr(), None if w2s is None else w2s.data_ptr(),
+            yq.data_ptr(), sy.data_ptr(), g.data_ptr(),
+            gq.data_ptr(), sg.data_ptr(), out.data_ptr(), n, d, hid, eps,
             _build.DTYPE_CODES[x.dtype], _build.stream_of(x))
     fused_ln_mlp_q8.launches += 1
-    _keep(codes, yq=yq, gq=gq[:, :hid])
+    _keep(codes, yq=yq[:, :d], gq=gq[:, :hid0])
     return out
 
 

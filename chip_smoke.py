@@ -14,11 +14,13 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               product (gemm_kernel): the GELU-MLP forwards' (csrc/mlp.cu,
               kernels 7 and 2: BN 128 and 256, GELU and residual
               epilogues), kernel 6's dual product and fp32 products
-              (csrc/ln_mlp_bwd.cu), kernel 11's paired-column GEGLU product
+              (csrc/ln_mlp_bwd.cu), kernel 8's dual product, bf16 dx and
+              fp32 products (csrc/mlp_bwd.cu), kernel 11's paired-column GEGLU product
               (BN 256) and y W2^T (BN 128 and 256; csrc/ffn.cu), kernel
               12's four (csrc/ffn_bwd.cu), kernel 13's and kernel 14's
               three (csrc/xent.cu), kernel 20's paired GEGLU product and
-              int8 form and kernel 19's paired int8 product (csrc/quant.cu)
+              int8 form, kernel 19's paired int8 product and kernel 21's
+              int8 up-projection (csrc/quant.cu)
               and the five operand forms
               (csrc/tile_product.cu), and of the fp32 FMA kernels
               (csrc/gemm.cuh's gemm_f32_kernel in each source that
@@ -27,7 +29,8 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               FFN's row passes (ffn_ln_rows_kernel,
               ffn_bwd_rows_kernel), kernel 20's fp32 up-projection on the
               fp64 tensor cores (geglu_f64_kernel), the W8A8 row passes
-              (row_quant_kernel, row_codes_kernel), every LayerNorm
+              (row_quant_kernel, row_codes_kernel, ln_codes_kernel),
+              every LayerNorm
               instantiation
               (layernorm_kernel, layernorm_rows_kernel) and the sampling
               epilogue's sixteen (sample_epilogue_kernel): registers, static
@@ -44,7 +47,9 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               its forward + backward) times and the bound; the repaired
               widths too (ln_mlp forward and backward at d 768 and 1024,
               nearest codes at widths 8 and 64, LayerNorm at d 8192); the
-              fused GELU MLP (kernels 7 and 8) at ViT's shape; kernels 7
+              fused GELU MLP (kernels 7 and 8) at ViT's shape (kernel 8
+              also bit-equal on a repeat call and against its library
+              chain, forward + backward, in turns); kernels 7
               and 2 at ragged rows (n 520: kernel 7 at ViT's widths, kernel
               2 at d 128, 256 and 384, hidden 1368) and both against their
               library chains in turns (kernel, library, library, kernel) at
@@ -91,8 +96,12 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               call, 0 int8 codes differing from plain in fp32, and in turns;
               the W8A8 GEGLU FFN (kernel 19) at Muse's shape in both dtypes,
               0 int8 codes differing from plain, bit-equal on a repeat call;
-              kernels 19-21 at rows past 4096 (inner / hid 8704; kernel 20
-              in both dtypes) with their differing codes counted; the
+              the W8A8 pre-LN MLP (kernel 21) at the int8 tokenizer's shape
+              in both dtypes, 0 int8 codes differing from plain, bit-equal
+              on a repeat call, and in turns; kernels 19-21 at rows past
+              4096 (inner / hid 8704; kernel 20 in both dtypes) with their
+              differing codes counted (kernel 21: none, and a bit-equal
+              repeat call); the
               sampling epilogue at the six decode cases and at C 16384
               (rows wider than a block holds in registers)
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
@@ -775,9 +784,12 @@ def main() -> int:
     # four, kernel 13's statistics product, kernel 14's three, kernel 20's
     # paired GEGLU product (BN 256) and its int8 down-projection (the S8
     # form, DequantStore in bf16 and fp32 at BN 128 and 256), and the five
-    # operand forms of the checks below (the int8 one at BN 128); a spill
-    # fails
+    # operand forms of the checks below (the int8 one at BN 128), kernel 8's
+    # dual product, bf16 dx and fp32 weight gradients, kernel 21's int8
+    # up-projection (DequantBiasGelu at BN 128; its down-projection is the
+    # S8 DequantStore above); a spill fails
     epilogues = (("GegluDequant", "geglu dequant"),
+                 ("DequantBiasGelu", "dequant bias gelu"),
                  ("DequantStoreIfE", "dequant f32"),
                  ("DequantStoreI13__nv_bfloat16E", "dequant bf16"),
                  ("BiasActILb1E", "gelu"), ("BiasActILb0E", "residual"),
@@ -806,9 +818,9 @@ def main() -> int:
               f"{r['spill_loads']} bytes spill loads", flush=True)
 
     mlp_ptxas = {}
-    for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("xent", 4),
-                       ("tile_product", 5), ("ffn", 3), ("ffn_bwd", 4),
-                       ("quant", 6)):
+    for src, count in (("mlp", 4), ("ln_mlp_bwd", 3), ("mlp_bwd", 3),
+                       ("xent", 4), ("tile_product", 5), ("ffn", 3),
+                       ("ffn_bwd", 4), ("quant", 7)):
         rows = _build.ptxas_report(src, "gemm_kernel")
         for r in rows:
             label = f"{src}: {gemm_label(r['name'])}"
@@ -816,7 +828,7 @@ def main() -> int:
             ptxas_line(label, r)
         gate(len(rows) == count, f"{src}: {len(rows)} gemm_kernel "
              f"instantiations, expected {count}")
-    gate(len(mlp_ptxas) == 29
+    gate(len(mlp_ptxas) == 33
          and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
                  for r in mlp_ptxas.values()),
          f"gemm_kernel ptxas: {mlp_ptxas}")
@@ -873,7 +885,8 @@ def main() -> int:
 
     for src, kern, count in (("quant", "geglu_f64_kernel", 1),
                              ("quant", "row_quant_kernel", 8),
-                             ("quant", "row_codes_kernel", 2),
+                             ("quant", "row_codes_kernel", 3),
+                             ("quant", "ln_codes_kernel", 2),
                              ("sampling", "sample_epilogue_kernel", 16),
                              ("layernorm", "layernorm_kernel", 23),
                              ("layernorm", "layernorm_rows_kernel", 2)):
@@ -1920,6 +1933,11 @@ def main() -> int:
            time_ms(lambda: _fused_mlp_backward_reference(*mbwd)),
            time_ms(mlp_library_fwd_bwd), nbytes(x, w1, b1, w2, dy, *got),
            10 * vn * vd * vh, main=True)
+    # kernel 8 on kernel 6's passes: no atomics, every sum in one order
+    repeat_equal("mlp_bwd", lambda: fused_mlp_backward(*mbwd), got)
+    bwd_turns.append(in_turns(
+        8, f"({vn},{vd}) hid {vh}", lambda: fused_mlp_backward(*mbwd),
+        mlp_library_fwd_bwd, 0.5694, 10 * vn * vd * vh))
     del x, w1, w2, got, want, leaves
 
     # kernels 7 and 2 at ragged rows (n 520 = 4 x 128 + 8: the last row
@@ -2455,6 +2473,18 @@ def main() -> int:
                       b2), [(4 * n_tok * dim * hid, "int8")],
                main=dtype == torch.bfloat16)
         gate(mlp_err <= 2 * tol, f"ln_mlp_q8 {dtype} MLP part: {mlp_err}")
+        # float64 LayerNorm sums, exact s32 sums and the plain version's
+        # order of every other step: the same codes in both dtypes
+        gate(flips["yq"] == 0 and flips["gq"] == 0,
+             f"ln_mlp_q8 {dtype}: int8 codes differ from the plain "
+             f"version's ({flips})")
+        repeat_equal(f"ln_mlp_q8 ({n_tok},{dim}) {str(dtype)[6:]}",
+                     lambda: (fused_ln_mlp_q8(*args8),), (got,))
+        bwd_turns.append(in_turns(
+            21, f"({n_tok},{dim}) hid {hid}", lambda: fused_ln_mlp_q8(*args8),
+            ln_mlp_q8_library,
+            0.2099 if dtype == torch.bfloat16 else 0.2123,
+            [(4 * n_tok * dim * hid, "int8")], str(dtype)[6:]))
         del x, q1, q2, got, want, args8
 
     # rows wider than the 4096 values a W8A8 row pass holds in registers
@@ -2497,9 +2527,12 @@ def main() -> int:
                time_ms(lambda: run(*wargs)),
                time_ms(lambda: ref(*wargs, 1e-5)), None,
                nbytes(x, got), ops)
-        if kern == "ffn_q8wide":
-            repeat_equal(f"ffn_q8wide ({wn},{wd}) inner {wi} "
+        if kern in ("ffn_q8wide", "ln_mlp_q8"):
+            repeat_equal(f"{kern} ({wn},{wd}) inner {wi} "
                          f"{str(dtype)[6:]}", lambda: (run(*wargs),), (got,))
+        if kern == "ln_mlp_q8":
+            gate(all(v == 0 for v in flips.values()),
+                 f"ln_mlp_q8 hid {wi}: {flips}")
         if dtype == torch.float32:
             gate(flips["yq"] == 0, f"{kern} fp32 inner {wi}: {flips}")
         del x, wargs, got, want, ck, cp

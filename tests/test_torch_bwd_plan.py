@@ -1,8 +1,9 @@
-"""The host plans of the LN-MLP backward (kernel 6, csrc/ln_mlp_bwd.cu) and
-the head cross-entropy backward (kernel 14, csrc/xent.cu), both on
-csrc/gemm_sm90.cuh's TMA/wgmma tile product, checked through faked launches
-on the CPU: everything the C side is handed is decided in ops/ffn.py and
-ops/xent.py (on ops/gemm_sm90.py).
+"""The host plans of the LN-MLP backward (kernel 6, csrc/ln_mlp_bwd.cu), the
+GELU-MLP backward (kernel 8, csrc/mlp_bwd.cu) and the head cross-entropy
+backward (kernel 14, csrc/xent.cu), all on csrc/gemm_sm90.cuh's TMA/wgmma
+tile product, checked through faked launches on the CPU: everything the C
+side is handed is decided in ops/ffn.py and ops/xent.py (on
+ops/gemm_sm90.py).
 
 - Kernel 6 at ViTVQGAN's main path (8192, 512), hidden 1368, at the wide
   widths (d 768, hidden 2048; d 1024, hidden 2728) and at ragged rows
@@ -11,6 +12,11 @@ ops/xent.py (on ops/gemm_sm90.py).
   gradients' K = n into ordered ranges, the scratches' sizes and 64-byte
   row pitches, W2 staged where hidden is not a multiple of 32, and the
   launch's name, sizes and pointers.
+- Kernel 8 at ViT's (4160, 1024), hidden 2048, at ragged rows (n 520),
+  at hidden 100 (padded to 104) and 1368: the same five products on x in
+  place of LayerNorm(x), dx's bf16 product (dH K-major, W1 MN-major), the
+  split, W2 staged at every call, the scratches, the cache, and
+  misaligned or strided operands refused by name before any launch.
 - Kernel 14 at MaskGIT's training shape (8192, 768), vocab 8192, bf16
   with and without Parti's bias (and fp32, which takes no plan).
 - The tile product's forms one by one, the cache, and views TMA cannot
@@ -222,6 +228,148 @@ def test_kernel_6_plan_refuses_views_tma_cannot_take():
         t_ffn.ln_mlp_bwd_plan(_misaligned(16, 128), w1, _bf16(128, 96))
 
 
+# -- kernel 8 ---------------------------------------------------------------
+
+# where amt_mlp_bwd takes each pointer after the plan (ops/_build.py)
+MLP_BWD_ARGS = ("x", "w1", "b1", "w2", "dy", "dx", "dw1", "db1", "dw2",
+                "db2", "g", "dh", "w2s", "dhpart", "dypart", "wpart")
+
+
+def _mlp_bwd(monkeypatch, n, d, hid, w2=None):
+    launched = _fake_launches(monkeypatch)
+    x = _bf16(n, d)
+    w2 = _bf16(d, hid) if w2 is None else w2
+    out = t_ffn.fused_mlp_backward(x, _bf16(hid, d), torch.zeros(hid), w2,
+                                   _bf16(n, d))
+    ((name, args),) = launched
+    assert name == "amt_mlp_bwd"
+    hid8 = -(-hid // 8) * 8  # _pad_hidden's width
+    assert args[17:20] == (n, d, hid8)
+    # the gradients come back at the caller's hidden width
+    assert [tuple(t.shape) for t in out] == [(n, d), (hid, d), (hid,),
+                                             (d, hid), (d,)]
+    return _decode(args[0], 5), dict(zip(MLP_BWD_ARGS, args[1:17])), hid8
+
+
+# (n, d, hid, G/dH/W2 pitch, splits of dW1 and dW2, K slices a split)
+KERNEL_8 = [(4160, 1024, 2048, 2048, 1, 65), (520, 1024, 2048, 2048, 1, 9),
+            (520, 128, 100, 128, 5, 2), (8192, 512, 1368, 1376, 6, 22)]
+
+
+@pytest.mark.parametrize("n,d,hid,pitch,splits,kslices", KERNEL_8)
+def test_kernel_8_products(monkeypatch, n, d, hid, pitch, splits, kslices):
+    (h, dg, dx, dw1, dw2), _, hk = _mlp_bwd(monkeypatch, n, d, hid)
+    rt, ht, dt = -(-n // 128), -(-hk // 128), d // 128
+    # kernel 6's dual product on x: H = x W1^T (both K-major) and dG = dy
+    # W2 (W2 (d, hid) MN-major at its staged pitch), (128 x 128) tiles
+    # over K = d; G and dH written at the 64-byte pitch
+    assert h["a"] == kmap(d, n, d) and h["b"] == kmap(d, hk, d)
+    assert dg["a"] == kmap(d, n, d) and dg["b"] == mnmap(hk, d, pitch)
+    for p in (h, dg):
+        assert (p["grid"], p["bn"], p["ldc"]) == ((ht, rt, 1), 128, pitch)
+        assert (p["smem"], p["kslices"]) == (DUAL_SMEM, d // 64)
+    # dx = bf16(dH W1): dH K-major at its pitch, W1 (hid, d) MN-major
+    assert dx["a"] == kmap(hk, n, pitch) and dx["b"] == mnmap(d, hk, d)
+    assert (dx["grid"], dx["ldc"], dx["kslices"]) == (
+        (dt, rt, 1), d, -(-hk // 64))
+    # dW1 (hid, d) = dH^T x and dW2 (d, hid) = dy^T G: every operand
+    # MN-major, K = n in `splits` ranges of `kslices` slices
+    assert dw1["a"] == mnmap(hk, n, pitch) and dw1["b"] == mnmap(d, n, d)
+    assert dw2["a"] == mnmap(d, n, d) and dw2["b"] == mnmap(hk, n, pitch)
+    assert (dw1["grid"], dw1["ldc"]) == ((dt, ht, splits), d)
+    assert (dw2["grid"], dw2["ldc"]) == ((ht, dt, splits), hk)
+    ktiles = -(-n // 64)
+    for p in (dw1, dw2):
+        assert p["kslices"] == kslices
+        assert (splits - 1) * kslices < ktiles <= splits * kslices
+    for p in (dx, dw1, dw2):
+        assert (p["smem"], p["bn"]) == (SINGLE_SMEM, 128)
+    for p in (h, dg, dx, dw1, dw2):
+        assert (p["swizzle"], p["threads"]) == (128, 288)
+
+
+@pytest.mark.parametrize("n,d,hid,pitch,splits,kslices", KERNEL_8)
+def test_kernel_8_scratches(monkeypatch, n, d, hid, pitch, splits, kslices):
+    _, ptrs, hk = _mlp_bwd(monkeypatch, n, d, hid)
+    # bf16: G and dH (n, pitch), W2's stage (d, pitch) where the padded
+    # hidden width is not a multiple of 32; fp32: db1's partials (2 a
+    # 128-row tile), db2's (1 a 32-row block), the split's planes
+    staged = hk % 32 != 0
+    bf16 = [("g", n * pitch), ("dh", n * pitch),
+            ("w2s", d * pitch if staged else 0)]
+    f32 = [("dhpart", 2 * -(-n // 128) * hk), ("dypart", -(-n // 32) * d),
+           ("wpart", splits * hk * d if splits > 1 else 0)]
+    for parts, item in ((bf16, 2), (f32, 4)):
+        base = ptrs[parts[0][0]]
+        for (name, size), (nxt, _) in zip(parts, parts[1:] + [(None, 0)]):
+            if not size:
+                assert ptrs[name] is None
+                continue
+            assert (ptrs[name] - base) % 256 == 0 and ptrs[name] % 64 == 0
+            if nxt is not None and ptrs[nxt] is not None:
+                assert ptrs[nxt] - ptrs[name] >= size * item
+    assert (ptrs["w2s"] is None) == (not staged)
+    for name in ("x", "dy", "dx", "dw1", "db1", "dw2", "db2"):
+        assert ptrs[name] % 16 == 0
+
+
+def test_kernel_8_reads_w2_as_given_at_every_call(monkeypatch):
+    """W2 (512, 1368) reaches the C side as the weight itself, staged there
+    at every call (no copy keyed on its version); a write through ``.data``
+    reaches the next call."""
+    w2 = torch.randn(512, 1368, generator=torch.Generator().manual_seed(2))
+    w2 = w2.bfloat16()
+    for _ in range(2):
+        (_, dg, *_), ptrs, _ = _mlp_bwd(monkeypatch, 64, 512, 1368, w2=w2)
+        assert ptrs["w2"] == w2.data_ptr() and ptrs["w2s"] is not None
+        assert dg["b"]["stride"] == 2 * 1376
+        buf = (ctypes.c_int16 * w2.numel()).from_address(ptrs["w2"])
+        assert torch.equal(torch.frombuffer(buf, dtype=torch.int16),
+                           w2.view(torch.int16).reshape(-1))
+        w2.data.mul_(2)
+        monkeypatch.undo()
+
+
+def test_kernel_8_plan_is_cached():
+    x, w1, w2 = _bf16(64, 256), _bf16(96, 256), _bf16(256, 96)
+    p = t_ffn.mlp_bwd_plan(x, x, w1, w2)
+    assert p is t_ffn.mlp_bwd_plan(x, x, w1, w2)
+    assert p.c_array() is p.c_array()
+    assert len(list(p.c_array())) == 105
+
+
+@pytest.mark.parametrize("which", ["x", "w1", "w2", "dy"])
+def test_kernel_8_refuses_a_misaligned_operand_unlaunched(monkeypatch, which):
+    launched = _fake_launches(monkeypatch)
+    ops = dict(x=_bf16(16, 128), w1=_bf16(96, 128), w2=_bf16(128, 96),
+               dy=_bf16(16, 128))
+    ops[which] = _misaligned(*ops[which].shape)
+    with pytest.raises(ValueError, match=f"{which}"):
+        t_ffn.fused_mlp_backward(ops["x"], ops["w1"], torch.zeros(96),
+                                 ops["w2"], ops["dy"])
+    assert launched == []
+
+
+def test_kernel_8_refuses_a_strided_x_unlaunched(monkeypatch):
+    launched = _fake_launches(monkeypatch)
+    x = _bf16(16, 136)[:, :128]
+    with pytest.raises(ValueError, match="x: must be contiguous"):
+        t_ffn.fused_mlp_backward(x, _bf16(96, 128), torch.zeros(96),
+                                 _bf16(128, 96), _bf16(16, 128))
+    assert launched == []
+
+
+def test_kernel_8_plan_refuses_views_tma_cannot_take():
+    x, w1, w2 = _bf16(16, 128), _bf16(96, 128), _bf16(128, 96)
+    with pytest.raises(ValueError, match="mlp backward: x's row stride of "
+                                         "264 bytes"):
+        t_ffn.mlp_bwd_plan(_bf16(16, 132)[:, :128], x, w1, w2)
+    with pytest.raises(ValueError, match="dy starts at an address"):
+        t_ffn.mlp_bwd_plan(x, _misaligned(16, 128), w1, w2)
+    with pytest.raises(ValueError, match="w2's row stride of 200 bytes"):
+        t_ffn.mlp_bwd_plan(x, x, w1, _bf16(128, 100)[:, :96])
+
+
 # -- kernel 14 --------------------------------------------------------------
 
 def _xent_bwd(monkeypatch, n, d, v, bias, dtype=torch.bfloat16):
@@ -322,6 +470,9 @@ def test_the_split_rule():
     # whole 64-row slices
     assert t_gemm.split_k(44, 8192) == (6, 22)    # 264 blocks
     assert t_gemm.split_k(96, 8192) == (2, 64)    # 192, not 288
+    # all but a 32nd of the SMs hold a block of their own: K whole
+    assert t_gemm.split_k(128, 4160) == (1, 65)
+    assert t_gemm.split_k(123, 4160) == (2, 33)
     assert t_gemm.split_k(176, 8192) == (1, 128)
     assert t_gemm.split_k(384, 8192) == (1, 128)
     assert t_gemm.split_k(44, 520) == (5, 2)

@@ -1,7 +1,17 @@
-"""The host plans of the W8A8 GEGLU FFN (kernel 19) and wide FFN (kernel
-20, csrc/quant.cu) and the widths the three W8A8 blocks take, checked
-through faked launches on the CPU: everything the C side is handed is
-decided in ops/quant.py (on ops/gemm_sm90.py).
+"""The host plans of the W8A8 GEGLU FFN (kernel 19), wide FFN (kernel 20)
+and pre-LN MLP (kernel 21, csrc/quant.cu) and the widths the three W8A8
+blocks take, checked through faked launches on the CPU: everything the C
+side is handed is decided in ops/quant.py (on ops/gemm_sm90.py).
+
+- Kernel 21 at the int8 tokenizer's (8192, 512), hid 1368, and at (520,
+  768), hid 8704: both int8 products' maps (K-major, boxes of 128 int8 of
+  K; the down-projection's K = hid, so TMA zero-fills past it), grids, tile
+  widths, g's pitch, g_q's and W2q's 64-byte pitch (W2q staged at every
+  call where hid is not a multiple of 64), fp32 launching with the same
+  plan, a hidden width not a multiple of 8 padded with the same bits,
+  misaligned operands refused by name unlaunched, the cache, and a CPU
+  emulation of both int8 products in 128-int8 K slices through the
+  dequantising epilogues, bit-equal to ``_ln_mlp_q8_reference``.
 
 - Kernel 19 at the same three shapes: the paired int8 product's maps (x_q
   K-major, W1q read as boxes of half a tile of rows by 128 int8 of K), grid
@@ -430,4 +440,168 @@ def test_paired_int8_blocks_match_the_plain_version(inner):
     want = t_q._ffn_q8_reference(x, q1, gamma, q2, 1e-5, codes)
     assert (ks, plan.geglu.kslices) == (128, d // 128)
     assert torch.equal(yq, codes["yq"])
+    assert torch.equal(got, want)
+
+
+# -- kernel 21 -------------------------------------------------------------------
+
+# where amt_ln_mlp_q8 takes each pointer after the plan (ops/_build.py)
+ARGS_21 = ("x", "lng", "lnb", "w1q", "s1", "b1", "w2q", "s2", "b2", "w2s",
+           "yq", "sy", "g", "gq", "sg", "out")
+
+
+def _ln_q8(monkeypatch, n, d, hid, dtype=torch.bfloat16, q2=None):
+    launched = _fake_launches(monkeypatch)
+    q2 = _qw(d, hid) if q2 is None else q2
+    t_q.fused_ln_mlp_q8(torch.zeros(n, d, dtype=dtype), torch.ones(d),
+                        torch.zeros(d), _qw(hid, d), torch.zeros(hid), q2,
+                        torch.zeros(d))
+    ((name, args),) = launched
+    assert name == "amt_ln_mlp_q8"
+    hid8 = -(-hid // 8) * 8
+    assert args[17:22] == (n, d, hid8, 1e-5, _build.DTYPE_CODES[dtype])
+    return args[0], dict(zip(ARGS_21, args[1:17])), hid8
+
+
+# (n, d, hid, g's pitch in fp32 elements, g_q's and W2q's pitch in bytes)
+KERNEL_21 = [(8192, 512, 1368, 1376, 1408), (520, 768, 8704, 8704, 8704)]
+
+
+@pytest.mark.parametrize("n,d,hid,g_pitch,q_pitch", KERNEL_21)
+def test_kernel_21_int8_plans(monkeypatch, n, d, hid, g_pitch, q_pitch):
+    arr, _, _ = _ln_q8(monkeypatch, n, d, hid)
+    up, down = _decode(arr, 2)
+    # h = y_q W1q^T: y_q (n, d) and W1q (hid, d) int8, K-major, K boxes of
+    # 128 int8; tile width 128 (two blocks an SM), g fp32 at a 64-byte pitch
+    assert up["a"] == dict(dims=(d, n), stride=d, box=(128, 128), major=0)
+    assert up["b"] == dict(dims=(d, hid), stride=d, box=(128, 128), major=0)
+    assert (up["bn"], up["grid"], up["ldc"], up["kslices"]) == (
+        128, (-(-hid // 128), -(-n // 128), 1), g_pitch, d // 128)
+    assert (4 * up["ldc"]) % 64 == 0
+    # out = g_q W2q^T + b2 + x: g_q (n, hid) and W2q (d, hid) at a 64-byte
+    # pitch, K = hid (not the pitch): the last box reaches past hid and TMA
+    # zero-fills it, so the padding columns are never read
+    assert down["a"] == dict(dims=(hid, n), stride=q_pitch, box=(128, 128),
+                             major=0)
+    assert down["b"] == dict(dims=(hid, d), stride=q_pitch, box=(128, 128),
+                             major=0)
+    assert q_pitch % 64 == 0
+    assert (down["bn"], down["grid"], down["ldc"], down["kslices"]) == (
+        128, (d // 128, -(-n // 128), 1), d, -(-hid // 128))
+    for p in (up, down):
+        assert (p["swizzle"], p["threads"], p["smem"]) == (128, 288,
+                                                            SMEM_128)
+
+
+@pytest.mark.parametrize("n,d,hid,g_pitch,q_pitch", KERNEL_21)
+def test_kernel_21_scratches(monkeypatch, n, d, hid, g_pitch, q_pitch):
+    _, ptrs, _ = _ln_q8(monkeypatch, n, d, hid)
+    plan = t_q.ln_mlp_q8_plan(n, d, hid)
+    assert (plan.y_pitch, plan.g_pitch, plan.q_pitch) == (d, g_pitch, q_pitch)
+    staged = hid % 64 != 0
+    assert plan.w2_stage_bytes == (d * q_pitch if staged else 0)
+    assert (ptrs["w2s"] is None) == (not staged)
+    for name, p in ptrs.items():
+        assert p is None or p % 16 == 0, name
+
+
+def test_kernel_21_stages_w2q_at_every_call(monkeypatch):
+    """W2q (512, 1368) reaches the C side as the weight itself, with a
+    stage of 512 rows of 1408 bytes for the C side to fill at every call;
+    a write through ``.data`` reaches the next call."""
+    q2 = t_q.QuantWeight(torch.ones(512, 1368, dtype=torch.int8),
+                         torch.ones(512))
+    for step in range(2):
+        _, ptrs, _ = _ln_q8(monkeypatch, 64, 512, 1368, q2=q2)
+        assert ptrs["w2q"] == q2.q.data_ptr() and ptrs["w2s"] is not None
+        assert int(q2.q[0, 0]) == 1 + step
+        q2.q.data.add_(1)
+        monkeypatch.undo()
+
+
+def test_kernel_21_fp32_launches_with_the_same_plan(monkeypatch):
+    n, d, hid = 8192, 512, 1368
+    arr, _, _ = _ln_q8(monkeypatch, n, d, hid, dtype=torch.float32)
+    assert list(arr) == list(t_q.ln_mlp_q8_plan(n, d, hid).c_array())
+
+
+def test_kernel_21_plan_is_cached():
+    p = t_q.ln_mlp_q8_plan(64, 128, 96)
+    assert p is t_q.ln_mlp_q8_plan(64, 128, 96)
+    assert p.c_array() is p.c_array()
+
+
+@pytest.mark.parametrize("which", ["x", "w1 int8", "w2 int8"])
+def test_kernel_21_misaligned_operands_refused_unlaunched(monkeypatch, which):
+    launched = _fake_launches(monkeypatch)
+    x = torch.zeros(16, 128, dtype=torch.bfloat16)
+    q1, q2 = _qw(96, 128), _qw(128, 96)
+    if which == "x":
+        x = _misaligned(x)
+    elif which == "w1 int8":
+        q1 = t_q.QuantWeight(_misaligned(q1.q), q1.scale)
+    else:
+        q2 = t_q.QuantWeight(_misaligned(q2.q), q2.scale)
+    with pytest.raises(ValueError, match=f"ln_mlp_q8 kernel: {which} starts"):
+        t_q.fused_ln_mlp_q8(x, torch.ones(128), torch.zeros(128), q1,
+                            torch.zeros(96), q2, torch.zeros(128))
+    assert launched == []
+
+
+def _ln_q8_operands(n, d, hid, seed):
+    rng = np.random.default_rng(seed)
+    def f32(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.standard_normal(shape) * scale + shift,
+                            dtype=torch.float32)
+    return (f32(n, d), f32(d, scale=0.1, shift=1.0), f32(d, scale=0.1),
+            t_q.quantize_weight(f32(hid, d, scale=d ** -0.5)),
+            f32(hid, scale=0.1),
+            t_q.quantize_weight(f32(d, hid, scale=hid ** -0.5)),
+            f32(d, scale=0.1))
+
+
+def test_kernel_21_pads_a_hidden_width_with_the_same_bits(monkeypatch):
+    """hid 100 reaches the kernel as 104: W1q's zero rows with a zero bias
+    give gelu(0) = 0, code 0, the row's amax unchanged, and W2q's zero
+    columns add nothing -- the plain version on the padded weights gives
+    the same codes and output."""
+    x, lng, lnb, q1, b1, q2, b2 = _ln_q8_operands(24, 128, 100, 3)
+    q1p, b1p, q2p = t_q._pad_hid(q1, b1, q2)
+    assert q1p.q.shape == (104, 128) and q2p.q.shape == (128, 104)
+    want, got = {}, {}
+    out = t_q._ln_mlp_q8_reference(x, lng, lnb, q1, b1, q2, b2, 1e-5, want)
+    outp = t_q._ln_mlp_q8_reference(x, lng, lnb, q1p, b1p, q2p, b2, 1e-5, got)
+    assert torch.equal(out, outp) and torch.equal(want["yq"], got["yq"])
+    assert torch.equal(got["gq"][:, :100], want["gq"])
+    assert not got["gq"][:, 100:].any()
+    _ln_q8(monkeypatch, 24, 128, 100)
+
+
+@pytest.mark.parametrize("hid", [136, 1368])
+def test_kernel_21_int8_slices_match_the_plain_version(hid):
+    """x's LayerNorm and codes, then y_q W1q^T summed over the up plan's
+    128-int8 K slices (int64: exact), dequantised, + b1 and gelu as the
+    DequantBiasGelu epilogue takes them, g's codes, then g_q W2q^T summed
+    over the down plan's slices up to K = hid (the last one cut short, as
+    TMA's zero fill does), dequantised, + b2, then x + that, as
+    DequantStore's bias and residual: equal to ``_ln_mlp_q8_reference`` in
+    fp32, codes and bits."""
+    n, d = 48, 256
+    x, lng, lnb, q1, b1, q2, b2 = _ln_q8_operands(n, d, hid, 9)
+    plan = t_q.ln_mlp_q8_plan(n, d, hid)
+    ks_up, ks_down = plan.up.a.box[0], plan.down.a.box[0]
+    yq, sy = t_q.quantize_rows(t_q.ln_rows(x, lng, lnb, 1e-5))
+    acc = torch.zeros(n, hid, dtype=torch.int64)
+    for k0 in range(0, d, ks_up):
+        acc += yq[:, k0:k0 + ks_up].long() @ q1.q[:, k0:k0 + ks_up].long().T
+    g = t_q.gelu_exact((acc.float() * sy) * q1.scale + b1)
+    gq, sg = t_q.quantize_rows(g)
+    acc = torch.zeros(n, d, dtype=torch.int64)
+    for k0 in range(0, plan.down.a.dims[0], ks_down):
+        acc += gq[:, k0:k0 + ks_down].long() @ q2.q[:, k0:k0 + ks_down].long().T
+    got = x + ((acc.float() * sg) * q2.scale + b2)
+    codes = {}
+    want = t_q._ln_mlp_q8_reference(x, lng, lnb, q1, b1, q2, b2, 1e-5, codes)
+    assert (ks_up, ks_down, plan.down.a.dims[0]) == (128, 128, hid)
+    assert torch.equal(yq, codes["yq"]) and torch.equal(gq, codes["gq"])
     assert torch.equal(got, want)
