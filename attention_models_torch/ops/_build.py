@@ -41,7 +41,7 @@ _F = ctypes.c_float
 _S = ctypes.POINTER(ctypes.c_int64)  # an int64 array: strides, a host plan
 _SIGNATURES = {
     "amt_layernorm": [_P, _P, _P, _P, ctypes.c_int64, _I, _F, _I, _P],
-    "amt_nearest_codes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "amt_nearest_codes": [_P] * 5 + [_I] * 5 + [_P, _P],
     "amt_flash_fwd_kv": [_P] * 4 + [_S] + [_I] * 5 + [_F, _I, _I, _P],
     "amt_ln_mlp": [_P] * 11 + [_S] + [_I, _I, _I, _F, _I, _P],
     "amt_flash_bwd_kv": [_P] * 7 + [_S] + [_I] * 5 + [_F, _I, _I, _P],

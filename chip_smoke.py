@@ -32,8 +32,10 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               (row_quant_kernel, row_codes_kernel, ln_codes_kernel),
               every LayerNorm
               instantiation
-              (layernorm_kernel, layernorm_rows_kernel) and the sampling
-              epilogue's sixteen (sample_epilogue_kernel): registers, static
+              (layernorm_kernel, layernorm_rows_kernel), the sampling
+              epilogue's sixteen (sample_epilogue_kernel) and kernel 4's
+              (codes_prep_kernel, nearest_codes_wgmma_kernel,
+              nearest_codes_tiles_kernel, nearest_codes_any_kernel): registers, static
               shared memory, spill bytes (a spill fails)
   3. kernels  first the tile product's four operand forms (A and B each
               K-major or MN-major, K whole and split) and the fp32 FMA
@@ -46,7 +48,15 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               plain and library (one PyTorch call; for a backward kernel
               its forward + backward) times and the bound; the repaired
               widths too (ln_mlp forward and backward at d 768 and 1024,
-              nearest codes at widths 8 and 64, LayerNorm at d 8192); the
+              nearest codes at widths 8 and 64, LayerNorm at d 8192);
+              kernel 4 (bf16 on wgmma, fp32 on register tiles) bit-equal
+              on a repeat call and in turns against the faster of cdist +
+              argmin and addmm + argmin at (8192, 32) x 8192, and at bf16
+              widths 8, 16 and 64 and width 20 (the first design, both
+              dtypes) under the codebook index criterion, and at ragged
+              shapes in both dtypes (the overfit's 32 x 64 codes at width
+              8, (100, 77) at 8, 64 and 20, (520, 1000) at 16, 32 and 20,
+              (8192, 8256) at 32); the
               fused GELU MLP (kernels 7 and 8) at ViT's shape (kernel 8
               also bit-equal on a repeat call and against its library
               chain, forward + backward, in turns); kernels 7
@@ -304,7 +314,9 @@ Tolerances (kernel against plain on the card):
     every weight and bias gradient (kernel 8: g and dh are rounded to bf16
     before the products that take them, as in the TPU kernels), bf16;
   - nearest codes at widths 8 and 64 (fp32, TF32 off): every index equal
-    to the plain version's;
+    to the plain version's; bf16 at widths 8, 16 and 64 and width 20 in
+    both dtypes: the codebook index criterion; the ragged shapes: fp32 at
+    widths 8-64 every index equal, else the index criterion;
   - the flash kernels 9, 10 and 16-18 against their plain versions: forward
     bf16 1e-2, backward bf16 2e-2, fp32 1e-5 (the plain versions round
     where the kernels do); the layout gates exactly (one template, the same
@@ -872,7 +884,11 @@ def main() -> int:
     # and codes, 4 or 1 columns a thread, rows walked in chunks past 4096)
     # in each instantiation and
     # every instantiation of the LayerNorm kernel (dtype, piece width,
-    # pieces a lane; its row-loop kernel beside them); a spill fails
+    # pieces a lane; its row-loop kernel beside them), and kernel 4's (the
+    # |e|^2 pass, the bf16 wgmma argmin: 288 threads, two blocks an SM, so
+    # at most 112 registers, and the fp32 register tiles: two blocks an SM,
+    # so at most 128, at widths 8, 16, 32 and 64; the any-width kernel); a
+    # spill fails
     def tmpl_label(src, kern, mangled):
         seg = mangled.split(kern + "I", 1)[1]
         seg = seg[:seg.index("Ev")]
@@ -888,6 +904,10 @@ def main() -> int:
                              ("quant", "row_codes_kernel", 3),
                              ("quant", "ln_codes_kernel", 2),
                              ("sampling", "sample_epilogue_kernel", 16),
+                             ("codebook", "codes_prep_kernel", 8),
+                             ("codebook", "nearest_codes_wgmma_kernel", 4),
+                             ("codebook", "nearest_codes_tiles_kernel", 4),
+                             ("codebook", "nearest_codes_any_kernel", 2),
                              ("layernorm", "layernorm_kernel", 23),
                              ("layernorm", "layernorm_rows_kernel", 2)):
         rows = _build.ptxas_report(src, kern)
@@ -1261,6 +1281,84 @@ def main() -> int:
                time_ms(lambda: torch.cdist(z, codes).argmin(dim=1)),
                nbytes(z, codes, idx), 2 * n_tok * 8192 * width,
                metric="chosen-distance excess")
+
+    # kernel 4's designs (bf16: the dots on wgmma; fp32: exact FMA dots on
+    # register tiles) at the main path's shape: bit-equal on a repeat call
+    # and in turns against the faster of two library chains (cdist +
+    # argmin; addmm(|e|^2, z, codes^T, alpha=-2) + argmin on fp32
+    # operands, TF32 off: the same function for bf16 inputs, whose
+    # products are exact in fp32), beside the first design's back-to-back
+    # time (PERF.md's table)
+    codes_turns = []
+    for dtype, before in ((torch.bfloat16, 0.1867), (torch.float32, 0.1875)):
+        z = l2_normalize(randn(n_tok, 32)).to(dtype)
+        codes = l2_normalize(randn(8192, 32)).to(dtype)
+        chains = {
+            "cdist+argmin": lambda: torch.cdist(
+                z.float(), codes.float()).argmin(dim=1),
+            "addmm+argmin": lambda: torch.addmm(
+                torch.sum(codes.float() ** 2, dim=-1), z.float(),
+                codes.float().T, alpha=-2).argmin(dim=1)}
+        chain_ms = {k: device_ms(f) for k, f in chains.items()}
+        chain = min(chain_ms, key=chain_ms.get)
+        print(f"[kernel] nearest_codes {str(dtype)[6:]} library chains: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in chain_ms.items()),
+              flush=True)
+        repeat_equal(f"nearest_codes (8192,32) {str(dtype)[6:]}",
+                     lambda: [nearest_codes(z, codes)], [nearest_codes(z, codes)])
+        codes_turns.append(in_turns(
+            4, f"z ({n_tok},32) codes (8192,32) against {chain}",
+            lambda: nearest_codes(z, codes), chains[chain], before,
+            2 * n_tok * 8192 * 32, peak=str(dtype)[6:]))
+    # the other widths: bf16 8, 16 and 64 on wgmma, and width 20, which both
+    # dtypes route to the first design (32-wide steps through shared
+    # memory): the index criterion of the main shape
+    for width, dtype in ((8, torch.bfloat16), (16, torch.bfloat16),
+                         (64, torch.bfloat16), (20, torch.bfloat16),
+                         (20, torch.float32)):
+        z = l2_normalize(randn(n_tok, width)).to(dtype)
+        codes = l2_normalize(randn(8192, width)).to(dtype)
+        idx, idx_p = nearest_codes(z, codes), _nearest_codes_reference(z, codes)
+        agree, worst_gap, excess = index_report(idx, idx_p,
+                                                plain_distances(z, codes))
+        gate(worst_gap <= 1e-5 and excess <= 1e-5,
+             f"nearest_codes width {width} {dtype}: largest gap at a "
+             f"disagreement {worst_gap}, chosen-distance excess {excess}")
+        zf, cf = z.float(), codes.float()
+        record("nearest_codes", f"z ({n_tok},{width}) codes (8192,{width}) "
+               f"(index agreement {agree:.6f})", dtype, 1e-5, excess, excess,
+               time_ms(lambda: nearest_codes(z, codes)),
+               time_ms(lambda: _nearest_codes_reference(z, codes)),
+               time_ms(lambda: torch.cdist(zf, cf).argmin(dim=1)),
+               nbytes(z, codes, idx), 2 * n_tok * 8192 * width,
+               metric="chosen-distance excess")
+    # ragged shapes, both dtypes: the overfit micro-step's (32 tokens x 64
+    # codes, width 8: one slice writing the indices itself, a last chunk
+    # TMA zero-fills), fewer than 128 tokens and codes, a ragged last token
+    # tile and chunk, a 65th chunk, and width 20's one slice and two on the
+    # first design. fp32 on the new designs: every index equal to the
+    # plain version's; else the index criterion
+    ragged = []
+    for n_z, n_c, width in ((32, 64, 8), (100, 77, 8), (520, 1000, 32),
+                            (8192, 8256, 32), (520, 1000, 16),
+                            (100, 77, 64), (100, 77, 20), (520, 1000, 20)):
+        for dtype in (torch.bfloat16, torch.float32):
+            z = l2_normalize(randn(n_z, width)).to(dtype)
+            codes = l2_normalize(randn(n_c, width)).to(dtype)
+            idx = nearest_codes(z, codes)
+            agree, worst_gap, excess = index_report(
+                idx, _nearest_codes_reference(z, codes),
+                plain_distances(z, codes))
+            exact = dtype == torch.float32 and width in (8, 16, 32, 64)
+            gate(idx.shape == (n_z,) and (agree == 1.0 if exact else True)
+                 and worst_gap <= 1e-5 and excess <= 1e-5,
+                 f"nearest_codes ({n_z},{width}) x {n_c} {dtype}: agreement "
+                 f"{agree}, largest gap at a disagreement {worst_gap}, "
+                 f"chosen-distance excess {excess}")
+            ragged.append(f"({n_z},{width})x{n_c} {str(dtype)[6:]} {agree:.6f}")
+    print("[kernel] nearest_codes ragged shapes, index agreement: "
+          + "; ".join(ragged), flush=True)
+    del z, codes, zf, cf
 
     # a LayerNorm row past the register path (d 8192: the block-a-row loop)
     xw = randn(1024, 8192, dtype=torch.bfloat16, scale=2.0, shift=0.5)
@@ -3954,6 +4052,7 @@ def main() -> int:
                            tile_product_forms_rel_l2=form_errs,
                            int8_form_bit_equal=s8_equal,
                            layernorm_vs_library=ln_turns,
+                           codebook_vs_library=codes_turns,
                            fp32_product_layouts_rel_l2=f32_form_errs,
                            bwd_vs_library=bwd_turns,
                            flash_bwd_vs_sdpa=bwd_vs_sdpa,
