@@ -4,8 +4,8 @@
         [dotted.key=value ...] [--device cuda|cpu]
 
 (``cfg/maskgit.yaml`` trains MaskGIT over the frozen tokenizer,
-``cfg/vit.yaml`` the ViT classifier; ``cfg_exp/*_overfit.yaml`` are their
-small synthetic runs.)
+``cfg/vit.yaml`` the ViT classifier, ``cfg/vit_moe.yaml`` the ViT-MoE;
+``cfg_exp/*_overfit.yaml`` are their small synthetic runs.)
 
 Counterpart of the repository's ``main.py``: config -> model -> loaders ->
 trainer -> ``train()``. ``--device`` defaults to the card and raises without

@@ -17,7 +17,9 @@ fp32 otherwise.
 - ``vit``: the ViT classifier, ``model.transformer`` giving its widths and
   ``dataset.preprocessing.resolution`` its image size, seeded from
   ``training.seed`` and placed on ``device`` as ``maskgit`` is.
-  ``vit_moe`` raises until its slice (after slice 10a) is ported.
+- ``vit_moe``: the ViT-MoE classifier, built as ``vit`` is, with
+  ``model.transformer``'s ``n_experts``, ``sel_experts``,
+  ``capacity_factor`` (None: dropless) and ``moe_impl`` (default "auto").
 - ``muse``: the text-conditioned generator (``model.decoder`` and
   ``model.encoder`` give its decoder and CLIP widths) over the ``vitvqgan``
   block's tokenizer, seeded, loaded and placed as ``maskgit`` is.
@@ -39,6 +41,7 @@ import torch
 from attention_models_torch.models.maskgit import MaskGitTransformer
 from attention_models_torch.models.muse import MUSE
 from attention_models_torch.models.vit import ViT
+from attention_models_torch.models.vit_moe import ViTMoE
 from attention_models_torch.models.vitvqgan import ViTVQGAN
 from attention_models_torch.ops.dispatch import resolve_device
 
@@ -119,8 +122,9 @@ def _seeded_on(model, cfg, dev):
 
 
 def build_model(cfg, device: str | torch.device | None = None):
-    """The config's model; ``device`` places the ``maskgit``, ``muse`` and
-    ``vit`` models (the ``vitvqgan`` model is placed by its trainer)."""
+    """The config's model; ``device`` places the ``maskgit``, ``muse``,
+    ``vit`` and ``vit_moe`` models (the ``vitvqgan`` model is placed by its
+    trainer)."""
     name = cfg.model.name
     quant = cfg.model.get("quant")
     if name == "vitvqgan":
@@ -150,9 +154,20 @@ def build_model(cfg, device: str | torch.device | None = None):
                     num_classes=t.num_classes, dtype=_dtype(cfg))
         return _seeded(model, cfg).to(dev)
     if name == "vit_moe":
-        raise NotImplementedError(
-            "ViT-MoE is not ported yet: it needs SwitchHeadAttention and the "
-            "MoE layer (port slice 8, after slice 10a)")
+        dev = resolve_device(device)
+        _refuse_unported(cfg)
+        t = cfg.model.transformer
+        cf = t.get("capacity_factor")
+        model = ViTMoE(
+            dim=t.dim, image_size=cfg.dataset.preprocessing.resolution,
+            patch_size=t.patch_size, n_heads=t.n_heads,
+            d_head=t.get("d_head", 64), depth=t.depth,
+            n_experts=t.n_experts, sel_experts=t.sel_experts,
+            dropout=float(t.dropout), num_classes=t.num_classes,
+            moe_impl=t.get("moe_impl", "auto"),
+            capacity_factor=None if cf is None else float(cf),
+            dtype=_dtype(cfg))
+        return _seeded(model, cfg).to(dev)
     if name in ("muse", "muse_vqgan"):
         if name == "muse_vqgan" or "vitvqgan" not in cfg:
             raise NotImplementedError(

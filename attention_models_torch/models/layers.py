@@ -279,11 +279,14 @@ class Dropout(nn.Module):
         return dropout(x, self.p, deterministic, generator, keep)
 
 
-def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                  fan_in: int | None = None) -> torch.Tensor:
     """flax ``lecun_normal``: truncated normal (+-2 sd) with variance
     1/fan_in, fan_in being the size of one output row of a torch Linear
-    (in) or Conv2d (in * kh * kw) weight."""
-    std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
+    (in) or Conv2d (in * kh * kw) weight unless given (flax counts an
+    (E, in, out) expert bank's fan_in as E * in)."""
+    fan_in = w[0].numel() if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)

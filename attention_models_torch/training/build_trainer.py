@@ -1,6 +1,6 @@
 """Trainer dispatch: the ViTVQGAN GAN trainer, the MaskGIT trainer and the
-ViT classifier's; Muse, Parti and ViT-MoE raise until their trainers are
-ported (counterpart of ``attention_models_tpu/training/build_trainer.py``)."""
+classifiers' (ViT and ViT-MoE); Muse and Parti raise until their trainers
+are ported (counterpart of ``attention_models_tpu/training/build_trainer.py``)."""
 
 from __future__ import annotations
 
@@ -20,14 +20,10 @@ def build_trainer(cfg, model, dataloaders, device=None):
         )
 
         return MaskGitTrainer(cfg, model, dataloaders, device)
-    if name == "vit":
+    if name in ("vit", "vit_moe"):
         from attention_models_torch.training.vit_trainer import VitTrainer
 
         return VitTrainer(cfg, model, dataloaders, device)
-    if name == "vit_moe":
-        raise NotImplementedError(
-            "no trainer for vit_moe in the port yet: ViT-MoE comes with its "
-            "model (port slice 8, after slice 10a)")
     if name in ("muse", "parti"):
         raise NotImplementedError(
             f"no trainer for model {name!r} in the port yet: Muse's and "

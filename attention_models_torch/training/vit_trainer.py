@@ -1,4 +1,4 @@
-"""Classification trainer of the ViT.
+"""Classification trainer of the ViT and the ViT-MoE.
 
 Counterpart of ``attention_models_tpu/training/vit_trainer.py::VitTrainer``:
 AdamW through ``build_optimizer`` over every parameter (optax ``adamw``
@@ -8,8 +8,11 @@ effective batches; the config's ``decay_steps`` is not read, as in JAX),
 softmax cross-entropy on the fp32 logits with integer labels, and the
 batch accuracy of the logits the step computed. A micro-step is the JAX
 step: the loss (dropout active, drawn from the trainer's generator),
-``autograd.grad`` over the parameters, ``opt.step`` (accumulation,
-clipping, AdamW, the schedule), the EMA with ``training.ema_decay``.
+``autograd.grad`` over the parameters (a parameter the loss does not
+reach, as ViT-MoE's unweighted output-MoE gates ``W_d.0``, gets a zero
+gradient, as JAX's autodiff gives it, so AdamW still decays it),
+``opt.step`` (accumulation, clipping, AdamW, the schedule), the EMA with
+``training.ema_decay``.
 ``evaluate`` pads a ragged tail batch (``pad_batch``), keeps the real rows'
 per-sample correctness and logs their mean, through the EMA weights when
 there is an EMA.
@@ -62,7 +65,7 @@ class VitTrainer(BaseTrainer):
         logits = self.model(img, deterministic=False,
                             generator=self.generator)
         loss = F.cross_entropy(logits.float(), target)
-        grads = torch.autograd.grad(loss, self.params)
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         acc = (logits.detach().argmax(-1) == target).float().mean()
         self.opt.step(grads)
         if self.ema:

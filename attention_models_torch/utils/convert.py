@@ -17,6 +17,15 @@ so this module needs neither JAX nor flax:
   ``torch_convert.py::convert_decoder``, the CLIP tower with those of
   ``convert_hf_clip_text``, the tokenizer through ``from_jax_params``. A
   quantized model takes the same weights (it quantizes them at use).
+- ``vit_moe_from_jax``: ``models.vit_moe.ViTMoE``, with the keys of
+  ``torch_convert.py::convert_vit_moe``; ``switchhead_from_jax``,
+  ``moe_layer_from_jax`` and ``agent_attention_from_jax`` (the keys of
+  ``convert_switchhead_attention``, ``convert_moe_layer`` and
+  ``convert_agent_attention``) convert one module. The expert banks keep
+  JAX's stacked (E, d_in, d_out) layout under JAX's names
+  (``experts_v``, ``experts_out``, ``experts_kernel``, ``experts_bias``),
+  where the reference has one ``Linear`` an expert
+  (``experts_v.{i}.weight`` (out, in), ...).
 - ``discriminator_from_jax``: ``NLayerDiscriminator`` params and
   ``batch_stats``.
 - ``lpips_from_jax``: the LPIPS VGG16 tower and its 1x1 heads.
@@ -185,6 +194,69 @@ def muse_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
             _gamma_ln(blk[n], f"{q}.{n}", sd)
     _gamma_ln(dec["final_norm"], f"{p}.final_norm", sd)
     _lin(dec["linear"], f"{p}.linear", sd)
+    return sd
+
+
+def _prefixed(prefix: str) -> str:
+    return f"{prefix}." if prefix else ""
+
+
+def switchhead_from_jax(tree: Mapping, prefix: str = ""
+                        ) -> dict[str, torch.Tensor]:
+    """flax ``SwitchHeadAttention`` params -> the keys of
+    ``models.attention.SwitchHeadAttention`` under ``prefix``."""
+    p, sd = _prefixed(prefix), {}
+    for name, key in (("wq", "q.0"), ("wk", "k.0"), ("ws", "W_s.0"),
+                      ("wd", "W_d.0")):
+        _lin(tree[name], f"{p}{key}", sd)
+    for name in ("experts_v", "experts_out"):
+        sd[f"{p}{name}"] = _t(tree[name])
+    return sd
+
+
+def moe_layer_from_jax(tree: Mapping, prefix: str = ""
+                       ) -> dict[str, torch.Tensor]:
+    """flax ``MoELayer`` params -> the keys of ``models.moe.MoELayer``."""
+    p, sd = _prefixed(prefix), {}
+    _lin(tree["gate"], f"{p}gate", sd)
+    for name in ("experts_kernel", "experts_bias"):
+        sd[f"{p}{name}"] = _t(tree[name])
+    return sd
+
+
+def agent_attention_from_jax(tree: Mapping, prefix: str = ""
+                             ) -> dict[str, torch.Tensor]:
+    """flax ``AgentAttention`` params -> the keys of
+    ``models.attention.AgentAttention``."""
+    p, sd = _prefixed(prefix), {}
+    _lin(tree["wqkv"], f"{p}qkv", sd)
+    _lin(tree["wo"], f"{p}W_o", sd)
+    sd[f"{p}bias1"] = _t(tree["bias1"])
+    sd[f"{p}bias2"] = _t(tree["bias2"])
+    _conv(tree["dwc"], f"{p}dwc.1", sd)
+    return sd
+
+
+def vit_moe_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``ViTMoE`` params (with or without the top-level ``"params"``)
+    -> fp32 ``state_dict`` for ``models.vit_moe.ViTMoE``."""
+    if "params" in tree:
+        tree = tree["params"]
+    pe, p = tree["patch_embed"], "to_patch_embedding"
+    sd: dict[str, torch.Tensor] = {}
+    _ln(pe["norm1"], f"{p}.1", sd)
+    _lin(pe["proj"], f"{p}.2", sd)
+    _ln(pe["norm2"], f"{p}.3", sd)
+    sd["class_token"] = _t(tree["class_token"])
+    sd["pos_enc"] = _t(tree["pos_enc"])
+    for i, blk in enumerate(_layers(tree)):
+        q = f"encoder.layers.{i}"
+        _ln(blk["norm1"], f"{q}.norm1", sd)
+        sd.update(switchhead_from_jax(blk["self_attn"], f"{q}.self_attn"))
+        _ln(blk["norm2"], f"{q}.norm2", sd)
+        sd.update(moe_layer_from_jax(blk["moe"], f"{q}.moe"))
+    _ln(tree["norm"], "norm", sd)
+    _lin(tree["class_embed"], "class_embed", sd)
     return sd
 
 

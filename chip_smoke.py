@@ -215,16 +215,40 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               gradients against the full-length kernels, every output
               finite, ms; then fp32 at t 4096 against the plain
               full-length attention
- 16. flash_bthd  the separate-k/v API flash_attention_bthd (no model calls
-              it in this slice) at the recon shape, bf16: forward +
-              backward through its autograd Function (one launch each of
-              kernels 9 and 10) and one no-grad forward, against the fp32
-              plain attention
+ 16. flash_bthd  the separate-k/v API flash_attention_bthd at the recon
+              shape, bf16: forward + backward through its autograd
+              Function (one launch each of kernels 9 and 10) and one
+              no-grad forward, against the fp32 plain attention
+ 17. vit_moe  ViT-MoE: build_model + build_trainer on cfg/vit_moe.yaml
+              (restated in Python as VIT_MOE_YAML, cut in scale only by
+              VIT_OVERRIDES as ViT is: synthetic labelled images, batch 64,
+              256 px, bf16): the eval forward's exact launch deltas
+              (VIT_MOE_FORWARD: 15 LayerNorms with beta, kernel 3; nothing
+              else: no flash at 65 tokens, the MoE dispatch is PyTorch),
+              bf16 logits kernels vs plain on the same routing and against
+              the fp32 plain logits on its routing (every gate's logits
+              pinned to the reference run's through forward hooks), the
+              free-routing figures and the (token, head) routing decisions
+              that differ reported; the pairs each layer's FFN MoE and
+              output MoE drop at capacity factor 2.0, eval imgs/s and peak
+              memory; 4 training micro-steps at the shipped dropout 0.1
+              and 4 at dropout 0 (exact launches, ms, imgs/s, peak
+              memory); device time by kernel over 2 eval forwards and 2
+              training micro-steps; one fp32 step (TF32 off), kernels vs
+              plain on the same routing (free routing reported)
+ 18. switchhead  one SwitchHeadAttention at a flash-sized length and
+              ViT-MoE's width (b 8, t 1024, dim 1024, 16 x 64 heads, E 32,
+              top-2, capacity factor 2.0, bf16): forward + backward through
+              kernels 9 and 10 (one launch each, from the module) against
+              the module on the plain attention; forward ms both ways
+ 19. agent    AgentAttention (no kernel: a path check), dim 1024, 49
+              agents (7 heads of 64), t 1025, batch 8, bf16 against the
+              same module in fp32 (TF32 off)
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
-Each kernel's "launches" there is the sum of its counts over the ten
+Each kernel's "launches" there is the sum of its counts over the twelve
 driven paths (serving, training, maskgit, maskgit_train, muse, recon_int8,
-vit, longcontext, ring, flash_bthd, each counted from 0), listed one by one
-beside it.
+vit, longcontext, ring, flash_bthd, vit_moe, switchhead, each counted from
+0), listed one by one beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -326,11 +350,24 @@ Tolerances (kernel against plain on the card):
     merge of four chunks in fp32 is the only difference), against the plain
     full-length attention 1e-5 in fp32; flash_attention_bthd through
     autograd against the fp32 plain attention, 1e-2 and 2e-2;
-  - ViT (bf16, batch 64): the logits within relative L2 2e-2 of the plain
-    path, and against the fp32 plain logits kernels at most FLOOR_RATIO
-    times the plain path's; one fp32 step (TF32 off): the loss within
-    relative 1e-5 and every gradient within relative L2 1e-4 of the plain
-    path (summation order only).
+  - ViT and ViT-MoE (bf16, batch 64): the logits within relative L2 2e-2
+    of the plain path, and against the fp32 plain logits kernels at most
+    FLOOR_RATIO times the plain path's; one fp32 step (TF32 off): the loss
+    within relative 1e-5 and every gradient within relative L2 1e-4 of the
+    plain path (summation order only; ViT-MoE's W_d.0 gates get no
+    gradient on either path). ViT-MoE's comparisons run on one routing:
+    the compared path's gate logits are pinned to the reference's. With
+    free routing a one-ulp difference in a LayerNorm output flips top-2
+    decisions at near ties, and a flipped decision moves its token by
+    O(1): the seeded model's free bf16 logits differ from the plain
+    path's by 3.4e-2 and the plain path's from fp32 by 4.3e-2 (reported,
+    not gated);
+  - SwitchHeadAttention at t 1024 (bf16): the output within relative L2
+    1e-2 and dx and every parameter gradient within 2e-2 of the module on
+    the plain attention (the attention is the only difference: both gates
+    read the module's input);
+  - AgentAttention: bf16 within relative L2 2e-2 of fp32 (two softmax
+    stages rounded to bf16 and a bf16 convolution).
 """
 
 from __future__ import annotations
@@ -506,6 +543,19 @@ VIT_OVERRIDES = {"dataset.name": "synthetic",
 # micro-step adds kernel 8 once a block when dropout is 0 (the LayerNorms'
 # backward is the plain vjp, as in JAX)
 VIT_FORWARD = {"layernorm": 2 + 2 * 6, "mlp": 6}
+# cfg/vit_moe.yaml as PyYAML reads it (cfg/vit.yaml with its MoE keys);
+# tests/test_torch_vit_moe.py holds the two equal. It runs with
+# VIT_OVERRIDES, cut in scale as ViT is
+VIT_MOE_YAML = json.loads(json.dumps(VIT_YAML))
+VIT_MOE_YAML["experiment"]["project_name"] = "vit_moe"
+VIT_MOE_YAML["model"] = {"name": "vit_moe", "transformer": {
+    **VIT_YAML["model"]["transformer"], "n_experts": 32, "sel_experts": 2,
+    "capacity_factor": 2.0}}
+# kernel launches per ViT-MoE forward (bf16) and per training micro-step:
+# the 2 patch-embed LayerNorms, norm1 and norm2 a block and the final norm
+# (kernel 3 with beta); the 65-token attention takes the plain attention
+# (no flash) and the MoE dispatch is PyTorch, so nothing else launches
+VIT_MOE_FORWARD = {"layernorm": 2 + 2 * 6 + 1}
 
 # cfg_exp/vitvqgan_overfit.yaml as PyYAML reads it; tests/test_torch_vit.py
 # holds the two equal
@@ -543,12 +593,13 @@ VQGAN_OVERFIT_YAML = {
 
 
 def vit_config(dropout: float | None, output_dir: str,
-               mixed_precision: str = "bf16"):
-    """cfg/vit.yaml with VIT_OVERRIDES, ``model.transformer.dropout``
-    (None: the shipped 0.1) and ``training.mixed_precision``."""
+               mixed_precision: str = "bf16", yaml: dict = VIT_YAML):
+    """cfg/vit.yaml (or ``yaml``) with VIT_OVERRIDES,
+    ``model.transformer.dropout`` (None: the shipped 0.1) and
+    ``training.mixed_precision``."""
     from attention_models_torch.utils.config import Config
 
-    cfg = Config(json.loads(json.dumps(VIT_YAML)))
+    cfg = Config(json.loads(json.dumps(yaml)))
     for k, v in VIT_OVERRIDES.items():
         cfg.set_path(k, v)
     if dropout is not None:
@@ -556,6 +607,13 @@ def vit_config(dropout: float | None, output_dir: str,
     cfg.set_path("training.mixed_precision", mixed_precision)
     cfg.set_path("experiment.output_dir", output_dir)
     return cfg
+
+
+def vit_moe_config(dropout: float | None, output_dir: str,
+                   mixed_precision: str = "bf16"):
+    """cfg/vit_moe.yaml with VIT_OVERRIDES, the dropout and the precision,
+    as ``vit_config``."""
+    return vit_config(dropout, output_dir, mixed_precision, VIT_MOE_YAML)
 
 
 def maskgit_step(depth: int, approx: bool) -> dict:
@@ -3643,19 +3701,20 @@ def main() -> int:
     gate(vit_k32 <= FLOOR_RATIO * vit_p32,
          f"ViT bf16 logits against fp32: {vit_k32} vs {vit_p32}")
 
-    def vit_eval_ips(iters=10):
+    def eval_ips(model, imgs, iters=10):
+        """Images a second over ``iters`` no-grad forwards after one."""
         with torch.no_grad():
-            vit(vimg)
+            model(imgs)
             torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(iters):
-                vit(vimg)
+                model(imgs)
             torch.cuda.synchronize()
-        return 64 * iters / (time.perf_counter() - t)
+        return imgs.shape[0] * iters / (time.perf_counter() - t)
 
-    vit_ips = vit_eval_ips()
+    vit_ips = eval_ips(vit, vimg)
     vit.use_kernels(False)
-    vit_plain_ips = vit_eval_ips()
+    vit_plain_ips = eval_ips(vit, vimg)
     vit.use_kernels(True)
     expect_delta(c, {k: 11 * v for k, v in VIT_FORWARD.items()},
                  "ViT eval throughput (11 forwards)")
@@ -3665,11 +3724,13 @@ def main() -> int:
     del vit, vit32, lg_k, lg_p, lg32
     torch.cuda.empty_cache()
 
-    def vit_train(dropout):
-        """4 micro-steps of VitTrainer.train() on cfg/vit.yaml with
-        VIT_OVERRIDES and the dropout; exact launch deltas per micro-step,
-        finite losses; ms, imgs/s, peak memory."""
-        cfg = vit_config(dropout, vit_out)
+    def vit_train(dropout, config=vit_config, out_dir=vit_out,
+                  forward=VIT_FORWARD, tag="vit_train", label="ViT"):
+        """4 micro-steps of VitTrainer.train() on cfg/vit.yaml (or the
+        ``config``'s) with VIT_OVERRIDES and the dropout; exact launch
+        deltas per micro-step (``forward``, kernel 7 only without dropout,
+        then with kernel 8), finite losses; ms, imgs/s, peak memory."""
+        cfg = config(dropout, out_dir)
         cfg.set_path("experiment.eval_every", 3)  # after the last micro-step
         dropout = float(cfg.model.transformer.dropout)
         torch.cuda.synchronize()
@@ -3679,10 +3740,10 @@ def main() -> int:
         fn, rows, accs = tr.train_step, [], []
         evaluate = tr.evaluate
         tr.evaluate = lambda: accs.append(evaluate())
-        want = {k: v for k, v in VIT_FORWARD.items()
+        want = {k: v for k, v in forward.items()
                 if k != "mlp" or dropout == 0.0}
-        if dropout == 0.0:
-            want["mlp_bwd"] = VIT_FORWARD["mlp"]
+        if dropout == 0.0 and "mlp" in forward:
+            want["mlp_bwd"] = forward["mlp"]
 
         def traced(img, tgt):
             torch.cuda.synchronize()
@@ -3704,18 +3765,18 @@ def main() -> int:
         tr.train_step = fn
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         for i, st in enumerate(rows):
-            print(f"[vit_train] dropout {dropout:g} micro-step {i}: "
+            print(f"[{tag}] dropout {dropout:g} micro-step {i}: "
                   f"{st['ms']:.2f} ms, loss {st['loss']:.4f}, acc "
                   f"{st['acc']:.4f}", flush=True)
             gate(st["launches"] == {k: want.get(k, 0) for k in wrappers},
-                 f"ViT micro-step {i} (dropout {dropout}): launches "
+                 f"{label} micro-step {i} (dropout {dropout}): launches "
                  f"{st['launches']}, expected {want}")
-            gate(math.isfinite(st["loss"]), f"ViT micro-step {i}: loss")
+            gate(math.isfinite(st["loss"]), f"{label} micro-step {i}: loss")
         gate(len(rows) == 4 and tr.opt.count == 4 and len(accs) == 1,
-             f"{len(rows)} ViT micro-steps, {tr.opt.count} optimizer steps, "
-             f"{len(accs)} evaluations")
+             f"{len(rows)} {label} micro-steps, {tr.opt.count} optimizer "
+             f"steps, {len(accs)} evaluations")
         ms = float(np.mean([st["ms"] for st in rows[2:]]))
-        print(f"[vit_train] dropout {dropout:g}: launches per micro-step "
+        print(f"[{tag}] dropout {dropout:g}: launches per micro-step "
               f"{want}; micro-step {ms:.2f} ms (mean of steps 2-3; steps 0-1 "
               f"{rows[0]['ms']:.2f}, {rows[1]['ms']:.2f} ms), "
               f"{64 / ms * 1e3:.2f} imgs/s, peak memory {peak:.3f} GiB "
@@ -3902,9 +3963,9 @@ def main() -> int:
     del q, k, v, g, leaves, out, grads, out_p, lse_p, grads_p
 
     # --------------------------------------------------------------- 16 --
-    # the separate-k/v API (kernels 9 and 10; no model calls it in this
-    # slice): flash_attention_bthd at the recon shape, bf16, forward +
-    # backward through its autograd Function, then one no-grad forward
+    # the separate-k/v API (kernels 9 and 10; SwitchHeadAttention calls it
+    # in phase 18): flash_attention_bthd at the recon shape, bf16, forward
+    # + backward through its autograd Function, then one no-grad forward
     c = zero_counts()
     q, k, v, g = (randn(b_, t_, h_, d_, dtype=torch.bfloat16)
                   for _ in range(4))
@@ -3936,6 +3997,306 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 17 --
+    # ViT-MoE on cfg/vit_moe.yaml (VIT_MOE_YAML with VIT_OVERRIDES, cut in
+    # scale only: synthetic labelled images, batch 64, 256 px, bf16): the
+    # eval forward (kernel 3 only; the dispatch is PyTorch), the pairs each
+    # MoE drops, imgs/s; 4 training micro-steps at the shipped dropout 0.1
+    # and 4 at dropout 0; one fp32 micro-step, kernels vs plain
+    from attention_models_torch.models.attention import (
+        AgentAttention, SwitchHeadAttention)
+    from attention_models_torch.ops.moe import expert_slots, topk_gate
+
+    moe_out = os.path.abspath(os.path.join("chiprun_out",
+                                           "chip_smoke_vit_moe"))
+    mcfg = vit_moe_config(None, moe_out)
+    n_exp = int(mcfg.model.transformer.n_experts)
+    t0 = time.perf_counter()
+    vmoe = build_model(mcfg, device=dev).eval()
+    mimg_np, mtgt_np = next(iter(build_loader(mcfg)[0]))
+    mimg = torch.as_tensor(mimg_np, device=dev)
+    print(f"[vit_moe] build_model(cfg/vit_moe.yaml, {VIT_OVERRIDES}) in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in vmoe.parameters()) / 1e6:.1f} M "
+          f"parameters", flush=True)
+
+    def gates(model):
+        """Every gate Linear by (block, MoE): the V MoE's W_s.0, the output
+        MoE's W_d.0, the FFN MoE's gate."""
+        return {(i, name): lin for i, blk in enumerate(model.encoder.layers)
+                for name, lin in (("v", blk.self_attn.W_s[0]),
+                                  ("out", blk.self_attn.W_d[0]),
+                                  ("ffn", blk.moe.gate))}
+
+    def routed(model, run, pinned=None):
+        """``run()``'s result and every gate's logits in it. With
+        ``pinned`` (logits by gate) each gate's output takes the pinned
+        value (its gradient still reaches the gate's weight), so the
+        routing is the pinned run's."""
+        got, hooks = {}, []
+        for key, lin in gates(model).items():
+            def hook(m, a, o, key=key):
+                if pinned is not None:
+                    o = pinned[key].to(o.dtype) + (o - o.detach())
+                got[key] = o.detach()
+                return o
+            hooks.append(lin.register_forward_hook(hook))
+        try:
+            return run(), got
+        finally:
+            for hk in hooks:
+                hk.remove()
+
+    def selections(logits):
+        """Each gate's top-2 experts (b, t, heads, 2) by gate."""
+        return {key: topk_gate(v.unflatten(-1, (-1, n_exp)), 2)[1]
+                for key, v in logits.items()}
+
+    def flips(a, b):
+        """(token, head) routing decisions that differ between two runs'
+        gate logits, and all decisions."""
+        sa, sb = selections(a), selections(b)
+        return (sum(int((sa[k] != sb[k]).any(-1).sum()) for k in sa),
+                sum(v[..., 0].numel() for v in sa.values()))
+
+    # free routing: both paths route on their own gate logits; pinned: the
+    # plain path takes the kernel path's gate logits, so the two differ
+    # only by the kernels' rounding (a one-ulp difference in a LayerNorm
+    # output flips decisions at near ties, and a flipped decision moves its
+    # token's output by O(1))
+    torch.cuda.synchronize()
+    c = zero_counts()
+    with torch.no_grad():
+        lg_k, moe_gates = routed(vmoe, lambda: vmoe(mimg))
+        c = expect_delta(c, VIT_MOE_FORWARD, "ViT-MoE eval forward")
+        vmoe.use_kernels(False)
+        lg_p, gates_p = routed(vmoe, lambda: vmoe(mimg))
+        lg_pp, _ = routed(vmoe, lambda: vmoe(mimg), moe_gates)
+        vmoe.use_kernels(True)
+        c = expect_delta(c, {}, "ViT-MoE plain forwards")
+    moe_free_err, moe_err = rel_l2(lg_k, lg_p), rel_l2(lg_k, lg_pp)
+    moe_flips = flips(moe_gates, gates_p)
+    gate(lg_k.shape == (64, 1000) and bool(torch.isfinite(lg_k).all()),
+         f"ViT-MoE logits {tuple(lg_k.shape)}")
+    vmoe32 = build_model(vit_moe_config(None, moe_out, "no"),
+                         device=dev).eval()
+    with torch.no_grad():
+        lg32, gates32 = routed(vmoe32, lambda: vmoe32.use_kernels(False)(
+            mimg))
+        lg_k_pin, _ = routed(vmoe, lambda: vmoe(mimg), gates32)
+        vmoe.use_kernels(False)
+        lg_p_pin, _ = routed(vmoe, lambda: vmoe(mimg), gates32)
+        vmoe.use_kernels(True)
+    c = expect_delta(c, VIT_MOE_FORWARD, "ViT-MoE forward on fp32 routing")
+    moe_k32, moe_p32 = rel_l2(lg_k_pin, lg32), rel_l2(lg_p_pin, lg32)
+    moe_free32 = dict(kernels=rel_l2(lg_k, lg32), plain=rel_l2(lg_p, lg32))
+    moe_flips32 = dict(kernels=flips(moe_gates, gates32),
+                       plain=flips(gates_p, gates32))
+    print(f"[vit_moe] eval forward (batch 64, bf16): launches "
+          f"{VIT_MOE_FORWARD}; logits kernels vs plain on the same routing "
+          f"rel_l2 {moe_err:.3e} (tol {MODEL_BF16_TOL:g}); with free routing "
+          f"{moe_free_err:.3e}, {moe_flips[0]} of {moe_flips[1]} (token, "
+          f"head) decisions differing (reported); on the fp32 plain path's "
+          f"routing, against its logits, kernels {moe_k32:.3e}, plain "
+          f"{moe_p32:.3e} (tol kernels <= {FLOOR_RATIO:g} x plain); free: "
+          f"kernels {moe_free32['kernels']:.3e}, plain "
+          f"{moe_free32['plain']:.3e}, decisions differing from fp32's "
+          f"{moe_flips32['kernels'][0]} / {moe_flips32['plain'][0]} "
+          f"(reported)", flush=True)
+    gate(moe_err <= MODEL_BF16_TOL, f"ViT-MoE bf16 logits: {moe_err}")
+    gate(moe_k32 <= FLOOR_RATIO * moe_p32,
+         f"ViT-MoE bf16 logits against fp32: {moe_k32} vs {moe_p32}")
+    moe_sel = selections(moe_gates)
+    del vmoe32, lg32, lg_p, lg_pp, lg_k_pin, lg_p_pin, gates_p, gates32
+    cf = float(mcfg.model.transformer.capacity_factor)
+    moe_drops = []
+    for i in range(len(vmoe.encoder.layers)):
+        row = {}
+        for moe_name in ("ffn", "out"):
+            _, keep, cap = expert_slots(moe_sel[(i, moe_name)], n_exp, cf)
+            row[moe_name] = dict(dropped=int((~keep).sum()),
+                                 pairs=keep.numel(), capacity=cap)
+        moe_drops.append(row)
+        print(f"[vit_moe] layer {i} pairs dropped at capacity factor {cf:g}:"
+              f" FFN MoE {row['ffn']['dropped']} of {row['ffn']['pairs']} "
+              f"(capacity {row['ffn']['capacity']} an expert), output MoE "
+              f"{row['out']['dropped']} of {row['out']['pairs']} (capacity "
+              f"{row['out']['capacity']})", flush=True)
+
+    torch.cuda.synchronize()
+    moe_eval_held = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    moe_ips = eval_ips(vmoe, mimg)
+    moe_eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vmoe.use_kernels(False)
+    moe_plain_ips = eval_ips(vmoe, mimg)
+    vmoe.use_kernels(True)
+    expect_delta(c, {k: 11 * v for k, v in VIT_MOE_FORWARD.items()},
+                 "ViT-MoE eval throughput (11 forwards)")
+    print(f"[vit_moe] eval throughput, batch 64, 256 px, bf16: kernels "
+          f"{moe_ips:.2f} imgs/s, plain {moe_plain_ips:.2f} imgs/s; peak "
+          f"memory {moe_eval_peak:.3f} GiB ({moe_eval_held:.3f} GiB of it "
+          f"held before the forwards: the model, its inputs and earlier "
+          f"phases) | {smi}", flush=True)
+    del vmoe, lg_k
+    torch.cuda.empty_cache()
+
+    tr, moe_train_drop = vit_train(None, vit_moe_config, moe_out,
+                                   VIT_MOE_FORWARD, "vit_moe_train",
+                                   "ViT-MoE")
+    del tr
+    tr, moe_train_nodrop = vit_train(0.0, vit_moe_config, moe_out,
+                                     VIT_MOE_FORWARD, "vit_moe_train",
+                                     "ViT-MoE")
+    moe_launches = counts()
+    mtgt = tr.labels(mtgt_np)
+    tr.model.eval()
+    with torch.no_grad():
+        moe_eval_profile = profile(
+            torch, lambda: [tr.model(mimg) for _ in range(2)],
+            lambda: tr.model(mimg), "2 ViT-MoE eval forwards")
+    tr.model.train()
+    moe_train_profile = profile(
+        torch, lambda: [tr.train_step(mimg, mtgt) for _ in range(2)],
+        lambda: tr.train_step(mimg, mtgt), "2 ViT-MoE training micro-steps "
+        "(dropout 0)")
+    del tr
+    torch.cuda.empty_cache()
+
+    # one fp32 step's loss and gradients (TF32 off), kernels against plain,
+    # at dropout 0.1 from one generator seed on both paths, the plain path
+    # on the kernel path's routing (its gate logits pinned; the routing
+    # decisions a free plain step takes otherwise are counted and its
+    # figures reported); W_d.0 gets no gradient on either path (the
+    # unweighted output MoE)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 must be off for the fp32 ViT-MoE step")
+    m32 = build_model(vit_moe_config(None, moe_out, "no"), device=dev)
+    m32_names = [k for k, _ in m32.named_parameters()]
+
+    def moe_loss_grads(kernels, pinned=None):
+        m32.use_kernels(kernels)
+        drop = torch.Generator(device=dev).manual_seed(21)
+        loss, logits = routed(m32, lambda: F.cross_entropy(
+            m32(mimg, deterministic=False, generator=drop).float(), mtgt),
+            pinned)
+        grads = torch.autograd.grad(loss, list(m32.parameters()),
+                                    allow_unused=True)
+        m32.use_kernels(True)
+        return loss.detach().double(), grads, logits
+
+    def step_errs(a, b):
+        (la, ga, _), (lb, gb, _) = a, b
+        return (float((la - lb).abs() / lb.abs()),
+                {n: rel_l2(x, y) for n, x, y in zip(m32_names, ga, gb)
+                 if x is not None})
+
+    step_k = moe_loss_grads(True)
+    moe32_loss, moe32_grads = step_errs(step_k, moe_loss_grads(False,
+                                                               step_k[2]))
+    step_free = moe_loss_grads(False)
+    moe32_free = step_errs(step_k, step_free)
+    moe32_flips = flips(step_k[2], step_free[2])
+    unused = [n for n, a in zip(m32_names, step_k[1]) if a is None]
+    print(f"[vit_moe] fp32 step (TF32 off), kernels vs plain on the same "
+          f"routing: loss relative {moe32_loss:.3e} (tol 1e-5); worst of "
+          f"{len(moe32_grads)} gradients rel_l2 "
+          f"{max(moe32_grads.values()):.3e} (tol 1e-4), "
+          f"{max(moe32_grads, key=moe32_grads.get)}; no gradient: "
+          f"{len(unused)} (the W_d.0 gates); with free routing "
+          f"{moe32_flips[0]} of {moe32_flips[1]} (token, head) decisions "
+          f"differ, loss {moe32_free[0]:.3e}, worst gradient "
+          f"{max(moe32_free[1].values()):.3e} (reported)", flush=True)
+    gate(unused == [n for n in m32_names if ".W_d.0." in n]
+         and len(unused) == 6
+         and all(b is None for n, b in zip(m32_names, step_free[1])
+                 if n in unused),
+         f"ViT-MoE fp32 step: parameters without a gradient {unused}")
+    gate(moe32_loss <= 1e-5 and max(moe32_grads.values()) <= 1e-4,
+         f"ViT-MoE fp32 step: loss {moe32_loss}, gradients {moe32_grads}")
+    del step_k, step_free
+    del m32
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 18 --
+    # SwitchHeadAttention at a flash-sized length, ViT-MoE's width: b 8,
+    # t 1024, dim 1024, 16 x 64 heads, E 32, top-2, capacity factor 2.0,
+    # bf16 over fp32 parameters: kernel 9 forward and kernel 10 backward
+    # launched by the module, against the module on the plain attention
+    # (the routing reads the module's input, so both paths route alike)
+    torch.manual_seed(0)
+    sw = SwitchHeadAttention(1024, 16, 64, 32, 2,
+                             capacity_factor=2.0).to(dev)
+    xs = randn(8, 1024, 1024, dtype=torch.bfloat16)
+    gs = randn(8, 1024, 1024, dtype=torch.bfloat16)
+    sw_names = ["dx"] + [k for k, _ in sw.named_parameters()]
+
+    def sw_grads(kernels):
+        sw.kernels = kernels
+        xr = xs.clone().requires_grad_(True)
+        out = sw(xr)
+        grads = torch.autograd.grad(out, [xr, *sw.parameters()], gs,
+                                    allow_unused=True)
+        sw.kernels = True
+        return out.detach(), grads
+
+    c = zero_counts()
+    sw_out_k, sw_g_k = sw_grads(True)
+    c = expect_delta(c, {"flash_attention_bthd": 1,
+                         "flash_attention_bwd_bthd": 1},
+                     "SwitchHeadAttention forward + backward")
+    switchhead_launches = counts()
+    sw_out_p, sw_g_p = sw_grads(False)
+    c = expect_delta(c, {}, "SwitchHeadAttention on the plain attention")
+    sw_errs = {"out": rel_l2(sw_out_k, sw_out_p),
+               **{n: rel_l2(a, b) for n, a, b in zip(sw_names, sw_g_k,
+                                                      sw_g_p)
+                  if a is not None}}
+    sw_unused = [n for n, a in zip(sw_names, sw_g_k) if a is None]
+    with torch.no_grad():
+        sw_ms = time_ms(lambda: sw(xs), iters=10)
+        sw.kernels = False
+        sw_plain_ms = time_ms(lambda: sw(xs), iters=10)
+        sw.kernels = True
+    zero_counts()
+    print(f"[switchhead] b8 t1024 dim 1024 h16 d64 E32 k2 cf2 bf16, kernels "
+          f"9 / 10 vs the plain attention: output {sw_errs['out']:.3e} (tol "
+          f"{BF16_TOL:g}), worst gradient "
+          f"{max(v for k, v in sw_errs.items() if k != 'out'):.3e} (tol "
+          f"{BWD_BF16_TOL:g}) of {len(sw_errs) - 1}, no gradient "
+          f"{sw_unused}; forward {sw_ms:.3f} ms (plain attention "
+          f"{sw_plain_ms:.3f}) | {smi}", flush=True)
+    gate(bool(torch.isfinite(sw_out_k).all())
+         and sw_errs["out"] <= BF16_TOL
+         and all(v <= BWD_BF16_TOL for k, v in sw_errs.items() if k != "out")
+         and sw_unused == ["W_d.0.weight"],
+         f"SwitchHeadAttention at t 1024: {sw_errs}, no gradient "
+         f"{sw_unused}")
+    del sw, xs, gs, sw_g_k, sw_g_p, sw_out_k, sw_out_p
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 19 --
+    # AgentAttention (no kernel; a path check): dim 1024, 49 agents (7
+    # heads of 64), t 1025, batch 8, bf16 against the same module in fp32
+    # (TF32 off), relative L2 <= MODEL_BF16_TOL
+    torch.manual_seed(0)
+    ag = AgentAttention(1024, 7, 64, agent_num=49).to(dev)
+    xa = randn(8, 1025, 1024)
+    c = counts()
+    with torch.no_grad():
+        ya16 = ag(xa.bfloat16())
+        ya32 = ag(xa)
+    ag_err = rel_l2(ya16, ya32)
+    expect_delta(c, {}, "AgentAttention")
+    print(f"[agent] AgentAttention b8 t1025 dim 1024 h7 d64 49 agents, bf16 "
+          f"vs fp32: rel_l2 {ag_err:.3e} (tol {MODEL_BF16_TOL:g})",
+          flush=True)
+    gate(ya16.shape == (8, 1025, 1024) and ya16.dtype == torch.bfloat16
+         and bool(torch.isfinite(ya16).all()) and ag_err <= MODEL_BF16_TOL,
+         f"AgentAttention bf16 vs fp32: {ag_err}")
+    del ag, xa, ya16, ya32
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 20 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -3971,7 +4332,9 @@ def main() -> int:
                      "maskgit_train": mtrain_launches, "muse": muse_launches,
                      "recon_int8": recon_int8_launches, "vit": vit_launches,
                      "longcontext": longcontext_launches,
-                     "ring": ring_launches, "flash_bthd": bthd_launches}
+                     "ring": ring_launches, "flash_bthd": bthd_launches,
+                     "vit_moe": moe_launches,
+                     "switchhead": switchhead_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
@@ -4043,6 +4406,33 @@ def main() -> int:
                                train_profile=vit_train_profile,
                                fp32_loss_rel=vit32_loss,
                                fp32_grad_rel_l2=vit32_grads),
+                           vit_moe=dict(
+                               logits_rel_l2_bf16=moe_err,
+                               logits_rel_l2_bf16_free_routing=moe_free_err,
+                               routing_decisions_differing=moe_flips,
+                               bf16_logits_vs_fp32=dict(kernels=moe_k32,
+                                                        plain=moe_p32),
+                               bf16_logits_vs_fp32_free_routing=moe_free32,
+                               routing_decisions_differing_from_fp32=(
+                                   moe_flips32),
+                               dropped_pairs=moe_drops,
+                               eval_imgs_per_s=moe_ips,
+                               plain_eval_imgs_per_s=moe_plain_ips,
+                               eval_peak_gib=moe_eval_peak,
+                               eval_held_gib=moe_eval_held,
+                               eval_profile=moe_eval_profile,
+                               train_dropout_0_1=moe_train_drop,
+                               train_dropout_0=moe_train_nodrop,
+                               train_profile=moe_train_profile,
+                               fp32_loss_rel=moe32_loss,
+                               fp32_grad_rel_l2=moe32_grads,
+                               fp32_free_routing=dict(
+                                   loss_rel=moe32_free[0],
+                                   grad_rel_l2=moe32_free[1],
+                                   decisions_differing=moe32_flips)),
+                           switchhead=dict(rel_l2=sw_errs, ms=sw_ms,
+                                           plain_attention_ms=sw_plain_ms),
+                           agent_bf16_vs_fp32_rel_l2=ag_err,
                            longcontext=dict(rows=lc_rows, t16384_rel_l2=lc_err),
                            ring=ring, flash_bthd_rel_l2=bthd_errs,
                            flash_fwd_ptxas=ptxas,
@@ -4063,7 +4453,7 @@ def main() -> int:
     print(f"[nvidia-smi] {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -218,7 +218,7 @@ def test_cli_trains_and_evaluates_on_cpu(tmp_path):
     assert any('"val_acc"' in line for line in lines)
 
 
-def test_build_model_vit_is_seeded_and_vit_moe_waits_for_its_slice():
+def test_build_model_vit_is_seeded_and_vit_moe_waits_for_its_slice(tmp_path):
     cfg = t_load_config(OVERFIT)
     a = t_build_model(cfg, "cpu").state_dict()
     b = t_build_model(cfg, "cpu").state_dict()
@@ -227,11 +227,17 @@ def test_build_model_vit_is_seeded_and_vit_moe_waits_for_its_slice():
     cfg.set_path("training.mixed_precision", "bf16")
     m = t_build_model(cfg, "cpu")
     assert m.dtype == torch.bfloat16 and m.final_fc.weight.dtype == torch.float32
+    # its slice is ported: the factory and the trainer take vit_moe (its
+    # own widths from cfg/vit_moe.yaml, tests/test_torch_vit_moe.py)
     cfg.set_path("model.name", "vit_moe")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        t_build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        t_build_trainer(cfg, None, None, "cpu")
+    cfg.set_path("experiment.output_dir", str(tmp_path))
+    for k, v in (("n_experts", 4), ("sel_experts", 2),
+                 ("capacity_factor", 2.0)):
+        cfg.set_path(f"model.transformer.{k}", v)
+    moe = t_build_model(cfg, "cpu")
+    assert type(moe).__name__ == "ViTMoE" and moe.dtype == torch.bfloat16
+    assert type(t_build_trainer(cfg, moe, t_build_loader(cfg), "cpu")
+                ).__name__ == "VitTrainer"
 
 
 def _chip_smoke():
