@@ -9,13 +9,16 @@ against), for one NVIDIA H100. It imports torch and never JAX.
                   FFN, the samplers and the fused sampling epilogue; the
                   autograd Functions around them. Kernels are CUDA C++ in
                   ``csrc/``, built with nvcc at first use (``ops/_build.py``).
-- ``models``    — the ViTVQGAN tokenizer with the reference's parameter
-                  names, the PatchGAN discriminator, the transformer encoder
-                  and decoder (causal and KV-cached), MaskGIT, Muse and
-                  Parti over the tokenizer, the ViTs, ``build_model``.
+- ``models``    — the ViTVQGAN and CNN VQGAN tokenizers with the
+                  reference's parameter names, the PatchGAN discriminator,
+                  the transformer encoder and decoder (causal and
+                  KV-cached), the seq2seq Transformer, MaskGIT, Muse and
+                  Parti over a tokenizer, the ViTs, ``build_model``.
 - ``training``  — GAN losses and LPIPS, optax-style Adam, schedules, the
-                  base, ViTVQGAN, generator and ViT trainers.
-- ``data``      — synthetic and COCO datasets, the transform, the loader.
+                  base, tokenizer (GAN), generator, ViT and seq2seq
+                  trainers.
+- ``data``      — synthetic, COCO and sequence-reversal datasets, the
+                  transform, the loader.
 - ``utils``     — config, checkpoints, metrics, eval metrics, flax params ->
                   ``state_dict`` conversion.
 - ``serving``   — the tokenize, reconstruct, MaskGIT, Muse and Parti batch

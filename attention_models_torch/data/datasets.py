@@ -1,10 +1,11 @@
-"""Datasets: COCO captions (plain JSON reader), ImageFolder and seeded
-synthetic images.
+"""Datasets: COCO captions (plain JSON reader), ImageFolder, seeded
+synthetic images and seeded sequence-reversal pairs.
 
 The port's copies of ``attention_models_tpu/data/datasets.py``'s
-``CocoCaptions``, ``ImageFolder`` and ``SyntheticImages``: each item is
-(image CHW float32, caption str) or, for the classifier, (image, class
-index). Per-item randomness (caption choice, crops, flips) is keyed on
+``CocoCaptions``, ``ImageFolder``, ``SyntheticImages`` and
+``SyntheticSeq2Seq``: each item is (image CHW float32, caption str), for the
+classifier (image, class index), for the seq2seq Transformer (src, tgt)
+int32 sequences. Per-item randomness (caption choice, crops, flips) is keyed on
 (seed, epoch, idx), so a resumed run replays the same draws. Pillow is
 imported only when an image is read.
 """
@@ -117,6 +118,31 @@ class SyntheticImages:
         if self.with_captions:
             return img, self._CAPTIONS[idx % len(self._CAPTIONS)]
         return img, idx % self.num_classes
+
+
+class SyntheticSeq2Seq:
+    """Sequence-reversal pairs for the seq2seq ``Transformer``: PAD 0,
+    START 1, END 2, payload tokens uniform in [3, vocab_size); items
+    ``(src, tgt)`` int32 of shapes (seq_len,) and (seq_len + 1,) with
+    ``tgt = reversed(src) + [END]``, item i drawn from ``RandomState(seed +
+    i)``."""
+
+    PAD, START, END = 0, 1, 2
+
+    def __init__(self, n: int, seq_len: int, vocab_size: int, seed: int = 0):
+        if vocab_size <= 3:
+            raise ValueError("vocab_size must exceed the 3 special tokens")
+        self.n, self.seq_len = int(n), int(seq_len)
+        self.vocab_size, self.seed = int(vocab_size), seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        rs = np.random.RandomState(self.seed + idx)
+        src = rs.randint(3, self.vocab_size, self.seq_len).astype(np.int32)
+        tgt = np.concatenate([src[::-1], [self.END]]).astype(np.int32)
+        return src, tgt
 
 
 class Subset:

@@ -16,11 +16,14 @@ import numpy as np
 
 
 def _collate(items):
-    """(images (b, 3, H, W), captions as a list or labels as int32 (b,))."""
+    """(images (b, 3, H, W), captions as a list or labels as int32 (b,)),
+    or (src, tgt) stacked for sequence pairs."""
     imgs = np.stack([it[0] for it in items])
     seconds = [it[1] for it in items]
     if isinstance(seconds[0], (int, np.integer)):
         return imgs, np.asarray(seconds, np.int32)
+    if isinstance(seconds[0], np.ndarray):
+        return imgs, np.stack(seconds)
     return imgs, seconds
 
 
@@ -70,14 +73,19 @@ class DataLoader:
 
 
 def build_loader(cfg):
-    """(train_dl, val_dl) for the ``synthetic``, ``coco`` and ``imagenet``
-    (an ImageFolder, split by ``train_test_split``) datasets; synthetic items
-    carry captions unless ``dataset.params.with_captions`` is false, then
-    labels of 10 classes, as in JAX."""
+    """(train_dl, val_dl) for the ``synthetic``, ``coco``, ``imagenet``
+    (an ImageFolder, split by ``train_test_split``) and ``seq2seq``
+    datasets; synthetic items carry captions unless
+    ``dataset.params.with_captions`` is false, then labels of 10 classes;
+    ``seq2seq`` gives min(``experiment.max_train_examples``,
+    ``num_examples``) reversal pairs of ``seq_len`` over ``vocab_size``
+    (default ``model.vocab_size``) for training and an eighth of them (at
+    least 2, seed 10^7) for validation; all as in JAX."""
     from attention_models_torch.data.datasets import (
         CocoCaptions,
         ImageFolder,
         SyntheticImages,
+        SyntheticSeq2Seq,
         random_split,
     )
     from attention_models_torch.data.transforms import Transform
@@ -108,6 +116,15 @@ def build_loader(cfg):
         captions = bool(params.get("with_captions", True))
         train_ds = SyntheticImages(n, res, captions)
         val_ds = SyntheticImages(max(n // 4, 2), res, captions, seed=10_000)
+    elif name == "seq2seq":
+        n = min(int(cfg.experiment.max_train_examples),
+                int(params.get("num_examples", 10_000)))
+        seq_len = int(params.seq_len)
+        vocab = int(params.get("vocab_size",
+                               cfg.model.get("vocab_size", 1000)))
+        train_ds = SyntheticSeq2Seq(n, seq_len, vocab)
+        val_ds = SyntheticSeq2Seq(max(n // 8, 2), seq_len, vocab,
+                                  seed=10_000_000)
     else:
         raise ValueError(f"unknown dataset {name!r}")
     bs = int(params.batch_size)

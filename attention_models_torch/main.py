@@ -6,7 +6,10 @@
 (``cfg/maskgit.yaml`` trains MaskGIT over the frozen tokenizer,
 ``cfg/muse.yaml`` Muse and ``cfg/parti.yaml`` Parti over it and the frozen
 CLIP tower, ``cfg/vit.yaml`` the ViT classifier, ``cfg/vit_moe.yaml`` the
-ViT-MoE; ``cfg_exp/*_overfit.yaml`` are their small synthetic runs.)
+ViT-MoE, ``cfg/transformer.yaml`` the seq2seq Transformer,
+``cfg_exp/muse_vqgan.yaml`` Muse over the CNN tokenizer, and
+``cfg/vitvqgan.yaml`` with ``model.name=vqgan`` the CNN tokenizer;
+``cfg_exp/*_overfit.yaml`` are their small synthetic runs.)
 
 Counterpart of the repository's ``main.py``: config -> model -> loaders ->
 trainer -> ``train()``. ``--device`` defaults to the card and raises without

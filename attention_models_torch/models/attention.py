@@ -70,7 +70,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from attention_models_torch.models.layers import Dropout, Linear, lecun_normal_
+from attention_models_torch.models.layers import (
+    Conv2d,
+    Dropout,
+    Linear,
+    lecun_normal_,
+)
 from attention_models_torch.ops.attention import (
     make_causal_mask,
     multihead_attention,
@@ -289,14 +294,6 @@ class _Permute(nn.Module):
         return x.permute(*self.dims)
 
 
-class _Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in its input's dtype, as ``Linear``."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
-
-
 class AgentAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int = 8, dim_head: int = 64,
                  agent_num: int = 47, dropout: float = 0.0):
@@ -316,7 +313,7 @@ class AgentAttention(nn.Module):
         self.bias2 = nn.Parameter(torch.zeros(1, 1, 1, 1))
         # v (b, h, t, d) as an image of d channels over the (h, t) grid
         self.dwc = nn.Sequential(
-            _Permute(0, 3, 1, 2), _Conv2d(d, d, 3, padding=1, groups=d),
+            _Permute(0, 3, 1, 2), Conv2d(d, d, 3, padding=1, groups=d),
             _Permute(0, 2, 3, 1))
         self.drop = Dropout(dropout)
 

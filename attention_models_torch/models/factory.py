@@ -8,6 +8,9 @@ fp32 otherwise.
   ``dataset.preprocessing.resolution`` the image size, ``codebook`` the
   quantiser. Unplaced and not yet initialised: the trainer seeds and places
   it.
+- ``vqgan``: the CNN tokenizer, ``codebook.codebook_dim`` its width and
+  code width, ``codebook.codebook_size`` its codes; unplaced and not yet
+  initialised, as ``vitvqgan``.
 - ``maskgit``: the generator over the ``vitvqgan`` block's tokenizer,
   seeded from ``training.seed``, with the tokenizer checkpoint
   ``vitvqgan.checkpoint`` loaded over its ``vq`` when the file exists,
@@ -24,8 +27,13 @@ fp32 otherwise.
   ``model.encoder`` give its decoder and CLIP widths, and
   ``model.decoder.embeds_drop_prob`` its training keep-probability of the
   text) over the ``vitvqgan`` block's tokenizer, seeded, loaded and placed
-  as ``maskgit`` is. ``muse_vqgan`` (the CNN tokenizer) raises until slice
-  7.
+  as ``maskgit`` is. ``muse_vqgan`` (and ``muse`` without a ``vitvqgan``
+  block): the same generator over a seeded CNN tokenizer of ``codebook``'s
+  widths, with no checkpoint, as in JAX.
+- ``transformer``: the seq2seq encoder-decoder (``model.dim``,
+  ``vocab_size``, ``n_heads``, ``d_head`` (64), ``enc_depth``,
+  ``dec_depth``, ``n_classes`` (the vocabulary)), seeded and placed as
+  ``vit`` is.
 - ``parti``: the autoregressive generator (``model`` gives the decoder's
   widths, ``model.encoder`` the CLIP tower's, ``model.cond_keep_prob``
   its training keep-probability of the text, default 1.0) over the
@@ -48,9 +56,11 @@ import torch
 from attention_models_torch.models.maskgit import MaskGitTransformer
 from attention_models_torch.models.muse import MUSE
 from attention_models_torch.models.parti import Parti
+from attention_models_torch.models.transformer import Transformer
 from attention_models_torch.models.vit import ViT
 from attention_models_torch.models.vit_moe import ViTMoE
 from attention_models_torch.models.vitvqgan import ViTVQGAN
+from attention_models_torch.models.vqgan import VQGAN
 from attention_models_torch.ops.dispatch import resolve_device
 
 log = logging.getLogger(__name__)
@@ -131,8 +141,9 @@ def _seeded_on(model, cfg, dev):
 
 def build_model(cfg, device: str | torch.device | None = None):
     """The config's model; ``device`` places the ``maskgit``, ``muse``,
-    ``parti``, ``vit`` and ``vit_moe`` models (the ``vitvqgan`` model is
-    placed by its trainer)."""
+    ``muse_vqgan``, ``parti``, ``transformer``, ``vit`` and ``vit_moe``
+    models (the ``vitvqgan`` and ``vqgan`` models are placed by their
+    trainer)."""
     name = cfg.model.name
     quant = cfg.model.get("quant")
     if name == "vitvqgan":
@@ -140,6 +151,10 @@ def build_model(cfg, device: str | torch.device | None = None):
         return ViTVQGAN(vit_params=_vit_params(t, cfg),
                         codebook_params=_codebook_params(cfg),
                         dtype=_dtype(cfg), quant=quant)
+    if name == "vqgan":
+        return VQGAN(dim=cfg.codebook.codebook_dim,
+                     codebook_size=cfg.codebook.codebook_size,
+                     dtype=_dtype(cfg))
     if name == "maskgit":
         dev = resolve_device(device)
         _refuse_unported(cfg)
@@ -177,21 +192,23 @@ def build_model(cfg, device: str | torch.device | None = None):
             dtype=_dtype(cfg))
         return _seeded(model, cfg).to(dev)
     if name in ("muse", "muse_vqgan"):
-        if name == "muse_vqgan" or "vitvqgan" not in cfg:
-            raise NotImplementedError(
-                "Muse over the CNN VQGAN tokenizer (muse_vqgan) is not ported "
-                "yet (port slice 7)")
         dev = resolve_device(device)
         _refuse_unported(cfg)
+        cnn = name == "muse_vqgan" or "vitvqgan" not in cfg
+        vq_cfg = (dict(kind="vqgan", dim=cfg.codebook.codebook_dim,
+                       codebook_size=cfg.codebook.codebook_size)
+                  if cnn else _vq_config(cfg))
         d, e = cfg.model.decoder, cfg.model.encoder
         model = MUSE(
-            dim=cfg.model.dim, vq_config=_vq_config(cfg),
+            dim=cfg.model.dim, vq_config=vq_cfg,
             max_length=e.max_length, n_heads=d.n_heads, d_head=d.d_head,
             depth=d.depth, mult=d.mult,
             dropout=float(d.get("dropout", 0.0) or 0.0),
             clip_width=e.get("width", 768), clip_layers=e.get("layers", 12),
             clip_heads=e.get("heads", 12), dtype=_dtype(cfg), quant=quant,
             cond_keep_prob=float(d.get("embeds_drop_prob", 0.9)))
+        if cnn:  # a seeded CNN tokenizer, no checkpoint, as in JAX
+            return _seeded(model, cfg).to(dev)
         return _seeded_on(model, cfg, dev)
     if name == "parti":
         dev = resolve_device(device)
@@ -204,4 +221,13 @@ def build_model(cfg, device: str | torch.device | None = None):
             clip_heads=e.get("heads", 12), dtype=_dtype(cfg), quant=quant,
             cond_keep_prob=float(m.get("cond_keep_prob", 1.0)))
         return _seeded_on(model, cfg, dev)
+    if name == "transformer":
+        dev = resolve_device(device)
+        m = cfg.model
+        model = Transformer(
+            dim=m.dim, vocab_size=m.vocab_size, n_heads=m.n_heads,
+            d_head=m.get("d_head", 64), enc_depth=m.enc_depth,
+            dec_depth=m.dec_depth, n_classes=m.get("n_classes", m.vocab_size),
+            dtype=_dtype(cfg))
+        return _seeded(model, cfg).to(dev)
     raise NotImplementedError(f"model {name!r} is not ported yet")

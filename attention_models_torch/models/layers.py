@@ -1,6 +1,7 @@
 """Layers of the ViTVQGAN, ViT and MaskGIT paths: LayerNorm, Mlp, the fused
 pre-LN MLP block; the gamma-only LayerNorm, the GEGLU FeedForward,
-Dropout and Parti's sinusoidal positional encoding.
+Dropout, Parti's sinusoidal positional encoding, the learned
+L2-normalised position table and the dtype-following Conv2d.
 
 Counterparts of ``attention_models_tpu/models/layers.py``. Parameter names
 are the reference PyTorch modules' (``weight``/``bias``; the Mlp is a
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from attention_models_torch.ops.codebook import l2_normalize
 from attention_models_torch.ops.ffn import (
     _ffn_reference,
     _fused_mlp_reference,
@@ -92,6 +94,14 @@ class Linear(nn.Linear):
             y = quant_dot(x, self.q8.get("weight", self.weight))
             return y + bias if bias is not None else y
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's dtype, as ``Linear``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.bias.to(x.dtype) if self.bias is not None else None
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def xformers_hidden(hidden_features: int) -> int:
@@ -308,6 +318,19 @@ class SinusoidalPositionalEncoding(nn.Module):
                 keep: torch.Tensor | None = None) -> torch.Tensor:
         x = x + self.pe[offset:offset + x.shape[1]].to(x.dtype)
         return self.drop(x, deterministic, generator, keep)
+
+
+class AbsolutePositionalEmbedding(nn.Module):
+    """A learned (max_len, dim) position table, its rows L2-normalised at
+    lookup (the JAX package's ``AbsolutePositionalEmbedding``, kept for API
+    parity: no model uses it); key ``emb.weight``."""
+
+    def __init__(self, dim: int, max_len: int):
+        super().__init__()
+        self.emb = nn.Embedding(max_len, dim)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        return l2_normalize(self.emb(positions.long()))
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator,

@@ -1,5 +1,6 @@
 """Muse: text-conditioned masked token generation with classifier-free
-guidance, over the frozen ViTVQGAN's token grid.
+guidance, over the frozen tokenizer's token grid (the ViTVQGAN's, or the
+CNN VQGAN's 16 x 16 under ``muse_vqgan``).
 
 Counterpart of ``attention_models_tpu/models/muse.py``: the forward of
 ``BidirectionalDecoder`` (logits, or with ``targets`` the training loss),

@@ -3,8 +3,9 @@
 Counterparts of ``attention_models_tpu/serving.py``'s ``vq_encode_service``,
 ``vq_recon_service``, ``maskgit_service``, ``muse_service`` and
 ``parti_service``: each returns
-``run_batch(inputs, seeds)``. The tokenizer services take a batch of images
-(b, 3, H, W) as float32 and ignore the seeds (both are deterministic).
+``run_batch(inputs, seeds)``. The tokenizer services (over the ViTVQGAN or
+the CNN VQGAN) take a batch of images (b, 3, H, W) as float32 and ignore
+the seeds (both are deterministic).
 Results are tensors on the model's device. The dynamic-batching engine is
 not ported yet.
 """

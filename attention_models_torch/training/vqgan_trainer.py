@@ -1,4 +1,4 @@
-"""GAN trainer of the ViTVQGAN tokenizer.
+"""GAN trainer of the image tokenizers: the ViTVQGAN and the CNN VQGAN.
 
 Counterpart of ``attention_models_tpu/training/vqgan_trainer.py``, with the
 same step structure (``VQGANTrainer.train_step`` there):

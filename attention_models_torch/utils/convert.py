@@ -15,7 +15,8 @@ so this module needs neither JAX nor flax:
   SURVEY §2.9#3), so the keys are the port's own.
 - ``muse_from_jax``: ``MUSE``: the decoder with the keys of
   ``torch_convert.py::convert_decoder``, the CLIP tower with those of
-  ``convert_hf_clip_text``, the tokenizer through ``from_jax_params``. A
+  ``convert_hf_clip_text``, the tokenizer through ``from_jax_params`` (the
+  ViTVQGAN) or ``vqgan_from_jax`` (the CNN VQGAN). A
   quantized model takes the same weights (it quantizes them at use).
 - ``parti_from_jax``: ``models.parti.Parti``: the CLIP tower as Muse's
   (without ``project_embeds``), the causal decoder's layers as Muse's, the
@@ -31,6 +32,10 @@ so this module needs neither JAX nor flax:
   (``experts_v``, ``experts_out``, ``experts_kernel``, ``experts_bias``),
   where the reference has one ``Linear`` an expert
   (``experts_v.{i}.weight`` (out, in), ...).
+- ``vqgan_from_jax``: the CNN ``VQGAN`` (``models.vqgan``), the inverse
+  of ``torch_convert.py::convert_vqgan``: the reference's keys.
+- ``transformer_from_jax``: the seq2seq ``Transformer``, with the keys of
+  ``torch_convert.py::convert_transformer``.
 - ``discriminator_from_jax``: ``NLayerDiscriminator`` params and
   ``batch_stats``.
 - ``lpips_from_jax``: the LPIPS VGG16 tower and its 1x1 heads.
@@ -113,12 +118,7 @@ def maskgit_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     sd[f"{p}.input_proj.weight"] = _t(bt["input_proj"]["embedding"])
     sd[f"{p}.pos_enc"] = _t(bt["pos_enc"])
     _gamma_ln(bt["init_norm"], f"{p}.init_norm", sd)
-    for i, blk in enumerate(_layers(bt["decoder"])):
-        q = f"{p}.decoder.layers.{i}"
-        _gamma_ln(blk["norm1"], f"{q}.norm1", sd)
-        _attention(blk["self_attn"], f"{q}.self_attn", sd)
-        _gamma_ln(blk["norm2"], f"{q}.norm2", sd)
-        _feed_forward(blk["ff"], f"{q}.feed_forward", sd)
+    _encoder_layers(bt["decoder"], f"{p}.decoder", sd)
     _gamma_ln(bt["final_norm"], f"{p}.final_norm", sd)
     sd[f"{p}.linear.weight"] = _t(bt["linear"]["kernel"]).T.contiguous()
     return sd
@@ -184,6 +184,16 @@ def _clip_text(clip: Mapping, sd: dict) -> None:
     _ln(clip["final_ln"], f"{p}.final_layer_norm", sd)
 
 
+def _encoder_layers(tree: Mapping, key: str, sd: dict) -> None:
+    """An ``Encoder``'s layers under ``key``."""
+    for i, blk in enumerate(_layers(tree)):
+        q = f"{key}.layers.{i}"
+        _gamma_ln(blk["norm1"], f"{q}.norm1", sd)
+        _attention(blk["self_attn"], f"{q}.self_attn", sd)
+        _gamma_ln(blk["norm2"], f"{q}.norm2", sd)
+        _feed_forward(blk["ff"], f"{q}.feed_forward", sd)
+
+
 def _decoder_layers(tree: Mapping, key: str, sd: dict) -> None:
     """A cross-attention ``Decoder``'s layers under ``key``."""
     for i, blk in enumerate(_layers(tree)):
@@ -200,7 +210,10 @@ def muse_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     -> fp32 ``state_dict`` for ``models.muse.MUSE``."""
     if "params" in tree:
         tree = tree["params"]
-    sd = {f"vq.{k}": v for k, v in from_jax_params(tree["vq"]).items()}
+    vq = tree["vq"]
+    vq_sd = (vqgan_from_jax(vq) if "m0" in vq["encoder"]
+             else from_jax_params(vq))
+    sd = {f"vq.{k}": v for k, v in vq_sd.items()}
     te = tree["text_encoder"]
     _clip_text(te["clip"], sd)
     _lin(te["project_embeds"], "text_encoder.project_embeds", sd)
@@ -226,6 +239,24 @@ def parti_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     sd["token_emb.weight"] = _t(tree["token_emb"]["embedding"])
     _decoder_layers(tree["transformer_decoder"], "transformer_decoder", sd)
     _lin(tree["to_logits"], "to_logits", sd)
+    return sd
+
+
+def transformer_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax seq2seq ``Transformer`` params (with or without the top-level
+    ``"params"``) -> fp32 ``state_dict`` for
+    ``models.transformer.Transformer``."""
+    if "params" in tree:
+        tree = tree["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("enc_input_proj", "dec_input_proj"):
+        sd[f"{name}.weight"] = _t(tree[name]["embedding"])
+    for name in ("enc_init_norm", "enc_final_norm", "dec_init_norm",
+                 "dec_final_norm"):
+        _gamma_ln(tree[name], name, sd)
+    _encoder_layers(tree["encoder"], "encoder", sd)
+    _decoder_layers(tree["decoder"], "decoder", sd)
+    _lin(tree["linear"], "linear", sd)
     return sd
 
 
@@ -324,4 +355,53 @@ def lpips_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
         _conv(conv, f"vgg.{name}", sd)
     for i in range(5):
         _conv(tree[f"lin{i}"], f"lins.{i}", sd)
+    return sd
+
+
+def _group_norm(tree: Mapping, key: str, sd: dict) -> None:
+    """A GroupNorm wrapper's ``gn``: flax scale / bias -> weight / bias."""
+    sd[f"{key}.gn.weight"] = _t(tree["gn"]["scale"])
+    sd[f"{key}.gn.bias"] = _t(tree["gn"]["bias"])
+
+
+def _planned_stack(tree: Mapping, key: str, plan, sd: dict) -> None:
+    """A CNN encoder / decoder: flax ``m{i}`` -> ``{key}.{i}``, i the plan
+    index (the swish has no parameters)."""
+    for i, (kind, _) in enumerate(plan):
+        m, p = tree.get(f"m{i}"), f"{key}.{i}"
+        if kind in ("conv_in", "conv_out"):
+            _conv(m, p, sd)
+        elif kind == "res":
+            _group_norm(m["norm1"], f"{p}.block.0", sd)
+            _conv(m["conv1"], f"{p}.block.2", sd)
+            _group_norm(m["norm2"], f"{p}.block.3", sd)
+            _conv(m["conv2"], f"{p}.block.5", sd)
+            if "channel_up" in m:
+                _conv(m["channel_up"], f"{p}.channel_up", sd)
+        elif kind == "attn":
+            _group_norm(m["gn"], f"{p}.gn", sd)
+            for name in ("q", "k", "v"):
+                _conv(m[name], f"{p}.{name}", sd)
+        elif kind in ("down", "up"):
+            _conv(m["conv"], f"{p}.conv", sd)
+        elif kind == "norm":
+            _group_norm(m, p, sd)
+
+
+def vqgan_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """flax CNN ``VQGAN`` params (with or without the top-level
+    ``"params"``) -> fp32 ``state_dict`` for ``models.vqgan.VQGAN``: conv
+    kernels (kh, kw, in, out) -> (out, in, kh, kw), GroupNorm scale / bias
+    -> weight / bias, the reference's keys."""
+    from attention_models_torch.models.vqgan import decoder_plan, encoder_plan
+
+    if "params" in tree:
+        tree = tree["params"]
+    dim = np.asarray(tree["pre_quant"]["kernel"]).shape[-1]
+    sd: dict[str, torch.Tensor] = {}
+    _planned_stack(tree["encoder"], "encoder.model", encoder_plan(dim), sd)
+    _conv(tree["pre_quant"], "pre_quant", sd)
+    sd["codebook.embedding.weight"] = _t(tree["codebook"]["embedding"])
+    _conv(tree["post_quant"], "post_quant", sd)
+    _planned_stack(tree["decoder"], "decoder.model", decoder_plan(dim), sd)
     return sd

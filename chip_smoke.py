@@ -113,7 +113,15 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               differing codes counted (kernel 21: none, and a bit-equal
               repeat call); the
               sampling epilogue at the six decode cases and at C 16384
-              (rows wider than a block holds in registers)
+              (rows wider than a block holds in registers); then this
+              slice's shapes: kernel 4 at z (2048, 256) x 1024 codes (the
+              first design) in both dtypes, bit-equal on a repeat call and
+              in turns against addmm + argmin; kernel 3 at the
+              Transformer's rows (1280 and 1344) at d 512 and 1365, both
+              dtypes, bit-equal and in turns against F.layer_norm; kernels
+              1 (b 16) and 5 (b 8) at t 256, h 16, both dtypes, bit-equal;
+              kernels 13 and 14 at V 1024 (2048 rows, d 1024), both
+              dtypes, bit-equal; kernel 15 at C 1024 (2048 CFG rows)
   4. block    one full-width ViTVQGANBlock (b 8, t 1024, d 512, bf16
               compute over fp32 parameters), forward + backward with the
               kernels against the same block on the plain versions: dx and
@@ -254,7 +262,7 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               1024) and (8, 1, 2730), 50 in all); greedy generates at
               guidance scale 0 and 3 (finite (8, 3, 256, 256) images,
               exact launches); the whole greedy generate's id agreement,
-              kernels vs plain (reported); three parti_service generates
+              kernels vs plain (reported); two parti_service generates
               of 8 hash-tokenized prompts (1024 tokens, approx top-k,
               temperature 1), the first with exact launch deltas: ms a
               token, images/s and peak memory; device time by kernel over
@@ -275,11 +283,49 @@ Needs one Hopper card. Phases, one line each (any failure raises):
               (batch 8, accumulation 4, bf16: the shipped config has batch
               1, accumulation 16, fp32); its layer gate is bidirectional
               with the unbiased head over targets 36 % ignored
+ 23. vqgan    the CNN tokenizer: build_model on cfg/vitvqgan.yaml with
+              VQGAN_OVERRIDES (code width 256, 1024 codes; bf16 over fp32
+              weights), seeded, batch 8, 256 px: 3 recon + 1 encode
+              requests, kernel 4 once each (width 256: the first design;
+              nothing else is a kernel); kernels vs plain (index criterion,
+              recon rel L2 2e-2); recon and encode imgs/s over 10 requests;
+              device time by kernel over 3 of each; the fp32 golden encode
+              (TF32 off)
+ 24. vqgan_train  VQGANTrainer.train() on that config with TRAIN_OVERRIDES
+              (4 micro-steps, 2 optimizer steps): exact launches, finite
+              losses, ms, imgs/s, peak memory, device time by kernel over 2
+              micro-steps
+ 25. muse_vqgan  Muse over the CNN tokenizer: build_model on
+              cfg_exp/muse_vqgan.yaml (MUSE_VQGAN_YAML; dim 1024, 22 layers
+              of 16 x 64, mult 6, CLIP-L; 256 tokens, 1024 classes), bf16,
+              muse_service on the 8 prompts (18 steps, guidance 3, approx
+              top-k) with exact launches; the first step's logits (bf16
+              within FLOOR_RATIO x the plain path's nudged drift, which
+              reads 2.1e-2 on this seeded model), layer 0's update and the
+              fp32 logits and picks (the shipped "no", TF32 off) under
+              phase 11's gates; ms/step, images/s, peak, device time by
+              kernel
+ 26. muse_vqgan_train  the layer gate at t 256 and vocab 1024; 4
+              micro-steps of MuseTrainer on MUSE_VQGAN_YAML with
+              GEN_TRAIN_OVERRIDES (batch 8, accumulation 4, bf16: the
+              shipped config has accumulation 16, fp32) and exact launches;
+              an fp32 whole-model step, kernels vs plain
+ 27. transformer  the seq2seq Transformer: build_model + build_trainer on
+              cfg/transformer.yaml (TRANSFORMER_YAML; dim 512, 16 x 64, 6 +
+              6 layers, vocab 1000, batch 64, 20 tokens, bf16) with
+              TRANSFORMER_OVERRIDES (4 micro-steps): 46 launches of kernel 3
+              a micro-step and nothing else (flash gate and GEGLU gate fail,
+              as in JAX), ms, target tokens/s, peak; on_sample's generate
+              at max_len 21 (exact launches, ms, kernels vs plain id
+              agreement reported); an fp32 step (TF32 off), kernels vs
+              plain: loss 1e-5, every gradient 1e-4
+ 28. kernels  the closing map
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
-Each kernel's "launches" there is the sum of its counts over the fifteen
+Each kernel's "launches" there is the sum of its counts over the twenty
 driven paths (serving, training, maskgit, maskgit_train, muse, recon_int8,
 vit, longcontext, ring, flash_bthd, vit_moe, switchhead, parti,
-parti_train, muse_train, each counted from 0), listed one by one beside it.
+parti_train, muse_train, vqgan, vqgan_train, muse_vqgan, muse_vqgan_train,
+transformer, each counted from 0), listed one by one beside it.
 
 Tolerances (kernel against plain on the card):
   - bf16: relative L2 error |a - b| / |b| <= 1e-2 (bf16 rounds at ~4e-3);
@@ -409,7 +455,25 @@ Tolerances (kernel against plain on the card):
     and head loss, the loss and dx and every parameter gradient within
     relative L2 2e-2 of the plain path (bf16); the whole model in fp32
     (TF32 off), the loss within relative 1e-5 and every trainable
-    gradient within relative L2 1e-4 of the plain path.
+    gradient within relative L2 1e-4 of the plain path;
+  - the CNN tokenizer: kernel 4 is its only kernel, so bf16 indices
+    kernels vs plain under the codebook index criterion and the whole
+    recon within relative L2 2e-2; the fp32 golden encode as phase 6's;
+  - Muse over it: the bf16 first-step logits within FLOOR_RATIO x the
+    plain path's drift under the one-ulp nudge (the seeded model's floor
+    reads 2.1e-2, above quant none's fixed 2e-2), every other gate as
+    quant none's in phase 11; its training as Muse's (the layer gate at
+    t 256, V 1024);
+  - the seq2seq Transformer in fp32 (TF32 off): the loss within relative
+    1e-5 and every gradient within relative L2 1e-4 of the plain path
+    (the same dropout draws); whole-generate ids reported, not gated.
+
+Every profile (torch.profiler over traced calls) prints the device time
+by kernel and the card's busy share, then a host line: the own CPU time
+of the recorded ops, the kernel launches and their calls' time, the
+optimizer's step and the backward (CPU time with children of the
+autograd engine's outermost nodes); phase 27 lists its 15 largest host
+ops.
 """
 
 from __future__ import annotations
@@ -799,17 +863,135 @@ def parti_train_step(depth: int) -> dict:
     return want
 
 
-def muse_train_step(depth: int) -> dict:
-    """Launches of one Muse training micro-step: VQ_ENCODE, the CLIP tower's
+def muse_train_step(depth: int, encode: dict = VQ_ENCODE) -> dict:
+    """Launches of one Muse training micro-step: the tokenizer's encode
+    (VQ_ENCODE; CNN_ENCODE over the CNN tokenizer), the CLIP tower's
     LayerNorms, the decoder (kernel 1, the GEGLU FFN (kernel 11) and 3
     gamma LayerNorms a layer, final_norm) and the head loss (kernel 13);
     the backward: kernels 5 and 12 a layer and kernel 14 once."""
-    want = dict(VQ_ENCODE)
+    want = {"layernorm": 0, "flash_attention_bthd_kv": 0, **encode}
     want["layernorm"] += CLIP_LAYERNORMS + 3 * depth + 1
     want["flash_attention_bthd_kv"] += depth
     want.update(flash_attention_bwd_kv=depth, ffn=depth, ffn_bwd=depth,
                 head_xent=1, head_xent_bwd=1)
     return want
+
+
+# cfg_exp/muse_vqgan.yaml as PyYAML reads it; tests/test_torch_muse_vqgan.py
+# holds the two equal
+MUSE_VQGAN_YAML = {
+    "experiment": {
+        "project_name": "muse_vqgan", "exp_name": "run1",
+        "max_train_examples": 10000000000, "save_every": 1000,
+        "eval_every": 50000000000, "sample_every": 500, "log_every": 100,
+        "log_level": "info", "resume_path_from_checkpoint": None,
+        "wandb": False},
+    "codebook": {"codebook_dim": 256, "beta": 0.25, "codebook_size": 1024},
+    "model": {"name": "muse_vqgan", "dim": 1024,
+              "encoder": MUSE_YAML["model"]["encoder"],
+              "decoder": MUSE_YAML["model"]["decoder"]},
+    "dataset": {
+        "name": "coco",
+        "params": {"train_path": "/datasets/coco2017", "val_path": None,
+                   "num_workers": 4, "pin_memory": True, "batch_size": 8,
+                   "persistent_workers": True, "shuffle": True,
+                   "train_test_split": 0.9},
+        "preprocessing": MUSE_YAML["dataset"]["preprocessing"]},
+    "optimizer": MUSE_YAML["optimizer"],
+    "lr_scheduler": MUSE_YAML["lr_scheduler"],
+    "training": MUSE_YAML["training"],
+}
+# kernel launches of the CNN tokenizer (any dtype): encode_imgs and the
+# training forward run kernel 4 once; the convolutions, GroupNorms and the
+# NonLocal attention are PyTorch, so decode_indices launches nothing
+CNN_ENCODE = {"nearest_codes": 1}
+# the CNN tokenizer of inference/vqgan.py and muse_vqgan (code width 256,
+# 1024 codes) under cfg/vitvqgan.yaml's training settings
+VQGAN_OVERRIDES = {"model.name": "vqgan", "codebook.codebook_dim": 256,
+                   "codebook.codebook_size": 1024}
+
+# cfg/transformer.yaml as PyYAML reads it; tests/test_torch_transformer.py
+# holds the two equal
+TRANSFORMER_YAML = {
+    "experiment": {
+        "project_name": "transformer", "exp_name": "run1",
+        "max_train_examples": 100000000, "save_every": 1000,
+        "eval_every": 500, "sample_every": 1000, "log_every": 100,
+        "log_level": "info", "resume_path_from_checkpoint": None,
+        "wandb": False},
+    "model": {"name": "transformer", "dim": 512, "vocab_size": 1000,
+              "n_heads": 16, "d_head": 64, "enc_depth": 6, "dec_depth": 6,
+              "n_classes": 1000},
+    "dataset": {
+        "name": "seq2seq",
+        "params": {"num_examples": 100000, "seq_len": 20,
+                   "vocab_size": "${model.vocab_size}", "num_workers": 0,
+                   "batch_size": 64, "shuffle": True},
+        "preprocessing": {"resolution": 0}},
+    "optimizer": {"name": "adamw", "params": {
+        "learning_rate": "3e-4", "beta1": 0.9, "beta2": 0.98,
+        "weight_decay": 0.01}},
+    "lr_scheduler": {"name": "cosine_with_warmup", "params": {
+        "learning_rate": "${optimizer.params.learning_rate}",
+        "warmup_steps": 4000, "decay_steps": None}},
+    "training": {"gradient_accumulation_steps": 1, "mixed_precision": "bf16",
+                 "seed": 42, "num_epochs": 20, "max_grad_norm": 1.0,
+                 "tensor_parallel": 1},
+}
+# the Transformer's training, cut in scale only: 256 examples = 4
+# micro-steps of batch 64 in one epoch
+TRANSFORMER_OVERRIDES = {"experiment.max_train_examples": 256,
+                         "training.num_epochs": 1}
+
+
+def transformer_step(enc_depth: int, dec_depth: int) -> dict:
+    """Launches of one Transformer training micro-step: kernel 3 for
+    enc_init_norm, norm1, norm2 and the FFN's gamma LayerNorm (1365 wide) a
+    layer and enc_final_norm, then dec_init_norm, norm1-3 and the FFN's a
+    layer and dec_final_norm; nothing else (20 and 21 tokens fail the flash
+    gate and inner 1365 the GEGLU kernel's, as in JAX; the LayerNorms'
+    backward is the plain vjp)."""
+    return {"layernorm": 2 + 3 * enc_depth + 2 + 4 * dec_depth}
+
+
+def transformer_generate(enc_depth: int, dec_depth: int,
+                         max_len: int) -> dict:
+    """Launches of one generate: the encoder's (as in training), then
+    norm1-3 and the FFN's LayerNorm a decoder layer a step (generate
+    applies no init or final norm around the decoder)."""
+    return {"layernorm": 2 + 3 * enc_depth + max_len * 4 * dec_depth}
+
+
+def vqgan_config(mixed_precision: str, output_dir: str):
+    """cfg/vitvqgan.yaml with VQGAN_OVERRIDES, TRAIN_OVERRIDES and
+    training.mixed_precision, outputs under output_dir."""
+    cfg = training_config(output_dir)
+    for k, v in VQGAN_OVERRIDES.items():
+        cfg.set_path(k, v)
+    cfg.set_path("training.mixed_precision", mixed_precision)
+    return cfg
+
+
+def muse_vqgan_config(mixed_precision: str):
+    """cfg_exp/muse_vqgan.yaml with training.mixed_precision set."""
+    from attention_models_torch.utils.config import Config
+
+    cfg = Config(json.loads(json.dumps(MUSE_VQGAN_YAML)))
+    cfg.set_path("training.mixed_precision", mixed_precision)
+    return cfg
+
+
+def transformer_config(mixed_precision: str, output_dir: str):
+    """cfg/transformer.yaml with TRANSFORMER_OVERRIDES and
+    training.mixed_precision, outputs under output_dir."""
+    from attention_models_torch.utils.config import Config
+
+    cfg = Config(json.loads(json.dumps(TRANSFORMER_YAML)))
+    for k, v in TRANSFORMER_OVERRIDES.items():
+        cfg.set_path(k, v)
+    cfg.set_path("training.mixed_precision", mixed_precision)
+    cfg.set_path("experiment.output_dir", output_dir)
+    return cfg
 
 
 def parti_config(mixed_precision: str):
@@ -923,6 +1105,8 @@ def main() -> int:
     from attention_models_torch.serving import (
         maskgit_service, muse_service, parti_service, vq_encode_service,
         vq_recon_service)
+    from attention_models_torch.training.transformer_trainer import (
+        ce_and_acc)
     from attention_models_torch.models.layers import FeedForward, LayerNorm
     from attention_models_torch.models.parti import parti_generate
     from attention_models_torch.models.text_encoder import tokenize
@@ -2837,6 +3021,214 @@ def main() -> int:
             gate(flips["yq"] == 0, f"{kern} fp32 inner {wi}: {flips}")
         del x, wargs, got, want, ck, cp
 
+    # the shapes this slice's paths give the kernels, each against its plain
+    # version: kernel 4 at the CNN tokenizer's z (8 images x 256 tokens of
+    # width 256) against its 1024 codes (width 256 takes the first design),
+    # both dtypes under the index criterion, bit-equal on a repeat call and
+    # in turns against addmm + argmin (TF32 off)
+    for dtype in (torch.bfloat16, torch.float32):
+        z = l2_normalize(randn(2048, 256)).to(dtype)
+        codes = l2_normalize(randn(1024, 256)).to(dtype)
+        idx, idx_p = nearest_codes(z, codes), _nearest_codes_reference(z, codes)
+        agree, worst_gap, excess = index_report(idx, idx_p,
+                                                plain_distances(z, codes))
+        gate(worst_gap <= 1e-5 and excess <= 1e-5,
+             f"nearest_codes (2048,256) x 1024 {dtype}: largest gap at a "
+             f"disagreement {worst_gap}, chosen-distance excess {excess}")
+        zf, cf = z.float(), codes.float()
+
+        def codes_addmm():
+            return torch.addmm(torch.sum(cf * cf, dim=-1), zf, cf.T,
+                               alpha=-2).argmin(dim=1)
+
+        record("nearest_codes", f"z (2048,256) codes (1024,256) (index "
+               f"agreement {agree:.6f})", dtype, 1e-5, excess, excess,
+               time_ms(lambda: nearest_codes(z, codes)),
+               time_ms(lambda: _nearest_codes_reference(z, codes)),
+               time_ms(codes_addmm), nbytes(z, codes, idx),
+               2 * 2048 * 1024 * 256, metric="chosen-distance excess")
+        repeat_equal(f"nearest_codes (2048,256) x 1024 {str(dtype)[6:]}",
+                     lambda: [nearest_codes(z, codes)], [idx])
+        codes_turns.append(in_turns(
+            4, "z (2048,256) codes (1024,256) against addmm+argmin",
+            lambda: nearest_codes(z, codes), codes_addmm, None,
+            2 * 2048 * 1024 * 256, peak=str(dtype)[6:]))
+    del z, codes, zf, cf
+
+    # kernel 3 at the Transformer's rows (64 x 20 encoder, 64 x 21 decoder
+    # tokens): its gamma LayerNorms at d 512 and its FFN's inner norm at d
+    # 1365 (an odd width: the unaligned scalar path, a block a row), bf16
+    # and fp32, bit-equal on a repeat call, in turns against F.layer_norm
+    for rows, d, dtype in itertools.product(
+            (1280, 1344), (512, 1365), (torch.bfloat16, torch.float32)):
+        x = randn(rows, d, dtype=dtype, scale=2.0, shift=0.5)
+        g = randn(d, scale=0.1, shift=1.0)
+        got, want = layernorm(x, g), _ln_reference(x, g, None, 1e-5)
+        gl = g.to(dtype)
+        ln_label = f"({rows},{d}) no beta"
+        record("layernorm", ln_label, dtype,
+               BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+               rel_l2(got, want), max_abs(got, want),
+               time_ms(lambda: layernorm(x, g)),
+               time_ms(lambda: _ln_reference(x, g, None, 1e-5)),
+               time_ms(lambda: F.layer_norm(x, (d,), gl)),
+               nbytes(x, x, g), 8 * x.numel())
+        repeat_equal(f"layernorm {ln_label} {str(dtype)[6:]}",
+                     lambda: (layernorm(x, g),), (got,))
+        ln_turns.append(in_turns(
+            3, ln_label, lambda: layernorm(x, g),
+            lambda: F.layer_norm(x, (d,), gl), None, 8 * x.numel(),
+            str(dtype).split(".")[-1], bytes_moved=nbytes(x, x, g)))
+    del x, got, want
+
+    # kernels 1 and 5 at Muse's 256 tokens (the CNN tokenizer's grid), h 16:
+    # the forward at the 16-row CFG batch, the backward at the training
+    # batch of 8, both dtypes (both pass the flash gate at t 256), against
+    # the plain versions and SDPA, bit-equal on a repeat call
+    scale = d_ ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        q = randn(16, 256, 16, d_, dtype=dtype)
+        kv = randn(16, 256, 2, 16, d_, dtype=dtype)
+        out, lse = flash_attention_bthd_kv(q, kv)
+        out_p, lse_p = _flash_reference(q, kv, scale, False)
+        lse_err = rel_l2(lse, lse_p)
+        gate(lse_err <= tol, f"flash t256 h16 lse rel_l2 {lse_err}")
+        qs = q.transpose(1, 2).contiguous()
+        ks = kv[:, :, 0].transpose(1, 2).contiguous()
+        vs = kv[:, :, 1].transpose(1, 2).contiguous()
+        record("flash_attention_bthd_kv", f"b16 t256 h16 d{d_} (lse rel_l2 "
+               f"{lse_err:.2e})", dtype, tol, rel_l2(out, out_p),
+               max_abs(out, out_p),
+               time_ms(lambda: flash_attention_bthd_kv(q, kv)),
+               time_ms(lambda: _flash_reference(q, kv, scale, False)),
+               time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs)),
+               nbytes(q, kv, out, lse), 4 * 16 * 16 * d_ * 256 * 256)
+        repeat_equal(f"flash_attention_bthd_kv b16 t256 h16 "
+                     f"{str(dtype)[6:]}",
+                     lambda: flash_attention_bthd_kv(q, kv), (out, lse))
+        q, kv = q[:8].contiguous(), kv[:8].contiguous()
+        out, lse = flash_attention_bthd_kv(q, kv)
+        g = randn(8, 256, 16, d_, dtype=dtype)
+        got = flash_attention_bwd_kv(q, kv, out, lse, g, scale=scale)
+        want = _flash_backward_reference(q, kv, out, lse, g, scale, False)
+        pairs = [(got[0], want[0]), (got[1][:, :, 0], want[1][:, :, 0]),
+                 (got[1][:, :, 1], want[1][:, :, 1])]
+        errs = [rel_l2(a, b) for a, b in pairs]
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, kv[:, :, 0], kv[:, :, 1]))
+        gs_ = g.transpose(1, 2).contiguous()
+
+        def sdpa_t256_fwd_bwd():
+            o = F.scaled_dot_product_attention(qs, ks, vs)
+            return torch.autograd.grad(o, (qs, ks, vs), gs_)
+
+        record("flash_attention_bwd_kv", f"b8 t256 h16 d{d_} (dq, dk, dv "
+               f"rel_l2 {errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e})", dtype,
+               BWD_BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+               max(errs), max(max_abs(a, b) for a, b in pairs),
+               time_ms(lambda: flash_attention_bwd_kv(q, kv, out, lse, g,
+                                                      scale=scale)),
+               time_ms(lambda: _flash_backward_reference(q, kv, out, lse, g,
+                                                         scale, False)),
+               time_ms(sdpa_t256_fwd_bwd), nbytes(q, kv, out, lse, g, *got),
+               10 * 8 * 16 * d_ * 256 * 256)
+        repeat_equal(f"flash_attention_bwd_kv b8 t256 h16 {str(dtype)[6:]}",
+                     lambda: flash_attention_bwd_kv(q, kv, out, lse, g,
+                                                    scale=scale), got)
+    del q, kv, out, lse, g, got, want, qs, ks, vs
+
+    # kernels 13 and 14 at Muse's training head over the CNN tokenizer's
+    # codebook: 8 x 256 rows, d 1024, vocab 1024, no bias, ~36 % of the
+    # targets ignored, bf16 and fp32, bit-equal on a repeat call
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        h = randn(2048, 1024, dtype=dtype)
+        w = randn(1024, 1024, dtype=dtype, scale=1024 ** -0.5)
+        tgt = torch.randint(0, 1024, (2048,), generator=gen, device=dev)
+        tgt[torch.rand(2048, generator=gen, device=dev) < 0.36] = -1
+        nll, lse = _head_xent_fwd_kernel(h, w, None, tgt)
+        nll_p, lse_p = _head_xent_reference(h, w, tgt)
+        errs = {"nll": rel_l2(nll, nll_p), "lse": rel_l2(lse, lse_p)}
+        record("head_xent", f"(2048,1024) V 1024 (nll {errs['nll']:.2e}, "
+               f"lse {errs['lse']:.2e})", dtype, tol, max(errs.values()),
+               max(max_abs(nll, nll_p), max_abs(lse, lse_p)),
+               time_ms(lambda: _head_xent_fwd_kernel(h, w, None, tgt)),
+               time_ms(lambda: _head_xent_reference(h, w, tgt)),
+               time_ms(lambda: F.cross_entropy(F.linear(h, w), tgt,
+                                               ignore_index=-1)),
+               nbytes(h, w, tgt, nll, lse), 2 * 2048 * 1024 * 1024)
+        repeat_equal(f"head_xent V 1024 {str(dtype)[6:]}",
+                     lambda: _head_xent_fwd_kernel(h, w, None, tgt),
+                     (nll, lse))
+        valid = tgt != -1
+        coef = valid.float() / valid.sum()
+        got = head_xent_backward(h, w, tgt, lse_p, coef)
+        want = _head_xent_backward_reference(h, w, tgt, lse_p, coef, None)
+        errs = {k: rel_l2(a, b) for k, a, b in zip(("dh", "dw"), got, want)}
+        leaves = [t.detach().clone().requires_grad_(True) for t in (h, w)]
+
+        def xent_v1024_fwd_bwd():
+            loss = F.cross_entropy(F.linear(*leaves), tgt, ignore_index=-1)
+            return torch.autograd.grad(loss, leaves)
+
+        record("head_xent_bwd", "(2048,1024) V 1024 (" + ", ".join(
+                   f"{k} {v:.2e}" for k, v in errs.items()) + ")", dtype,
+               BWD_BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+               max(errs.values()),
+               max(max_abs(a, b) for a, b in zip(got, want) if b is not None),
+               time_ms(lambda: head_xent_backward(h, w, tgt, lse_p, coef)),
+               time_ms(lambda: _head_xent_backward_reference(
+                   h, w, tgt, lse_p, coef, None)),
+               time_ms(xent_v1024_fwd_bwd),
+               nbytes(h, w, tgt, lse_p, coef,
+                      *(t for t in got if t is not None)),
+               6 * 2048 * 1024 * 1024)
+        repeat_equal(f"head_xent_bwd V 1024 {str(dtype)[6:]}",
+                     lambda: head_xent_backward(h, w, tgt, lse_p, coef), got)
+    del h, w, tgt, nll, lse, got, want, leaves
+
+    # kernel 15 at Muse's decode step over the CNN tokenizer: 8 x 256 rows
+    # of 1024 classes (k 103), CFG, bf16 on Philox bits (the service's
+    # approx path) and fp32 on given bits
+    k_1024 = math.ceil((1 - p_keep) * 1024)
+    for dtype, philox in ((torch.bfloat16, True), (torch.float32, False)):
+        cond = randn(8, 256, 1024, dtype=dtype, scale=3.0)
+        null = randn(8, 256, 1024, dtype=dtype, scale=3.0)
+        if philox:
+            ext, bits = None, philox_bits(seeds8, 256, 5, 1024)
+        else:
+            ext = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 256, 1024),
+                                generator=gen, device=dev, dtype=torch.int32)
+            bits = ext.reshape(-1, 1024)
+        kw = dict(guidance_scale=gs, p=p_keep, temperature=temp0,
+                  seeds=seeds8, step=5, noise_bits=ext)
+        label = (f"{dtype} C 1024 null=True bits="
+                 f"{'philox' if philox else 'given'}")
+        err, abs_err = epilogue_check(
+            label, guided(cond, null), bits, temp0,
+            sample_epilogue_fused(cond, null, **kw),
+            _sample_epilogue_reference(cond, null, **kw), 1e-5, k=k_1024)
+        g_k = gumbel_of_bits(bits[:, :k_1024])
+
+        def sample_1024_library():
+            xl = (null + gs * (cond - null)).reshape(-1, 1024)
+            vals, idx = torch.topk(xl, k_1024)
+            choice = (vals.float() + temp0 * g_k).argmax(-1, keepdim=True)
+            lse = torch.logsumexp(xl.float(), -1)
+            return (idx.gather(-1, choice),
+                    torch.exp(vals.gather(-1, choice)[:, 0].float() - lse))
+
+        record("sample_epilogue", f"(2048,1024) null=True bits="
+               f"{'philox' if philox else 'given'}", dtype, 1e-5, err,
+               abs_err,
+               time_ms(lambda: sample_epilogue_fused(cond, null, **kw)),
+               time_ms(lambda: _sample_epilogue_reference(cond, null, **kw)),
+               time_ms(sample_1024_library),
+               nbytes(cond, null, *(t for t in (ext,) if t is not None))
+               + 8 * 2048, 0, metric="score rel err (agreeing picks)")
+    del cond, null, ext, bits, g_k
+
     # ---------------------------------------------------------- 4 and 5 --
     wrappers = {"flash_attention_bthd_kv": flash_attention_bthd_kv,
                 "ln_mlp": fused_ln_mlp, "layernorm": layernorm,
@@ -2874,6 +3266,23 @@ def main() -> int:
         if delta != want:
             raise AssertionError(f"{what}: launches {delta}, expected {want}")
         return now
+
+    def traced(step_fn, rows, scalars):
+        """``step_fn`` that also appends to ``rows`` its ms (the card
+        synchronised before and after), the named scalars of the dict it
+        returns and the kernels it launched."""
+        def step(*args, **kw):
+            torch.cuda.synchronize()
+            before = counts()
+            t = time.perf_counter()
+            m = step_fn(*args, **kw)
+            torch.cuda.synchronize()
+            rows.append(dict(ms=(time.perf_counter() - t) * 1e3,
+                             launches={k: v - before[k]
+                                       for k, v in counts().items()},
+                             **{k: float(m[k]) for k in scalars}))
+            return m
+        return step
 
     # one full-width block, forward + backward, kernels against plain
     torch.manual_seed(0)
@@ -3007,12 +3416,12 @@ def main() -> int:
     if not (z_err <= MODEL_BF16_TOL and dec_err <= MODEL_BF16_TOL):
         raise AssertionError("bf16 model kernel path disagrees with plain")
 
-    def imgs_per_s(iters=10):
-        recon(requests[0], None)
+    def imgs_per_s(svc=recon, iters=10):
+        svc(requests[0], None)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for i in range(iters):
-            recon(requests[i % 3], None)
+            svc(requests[i % 3], None)
         torch.cuda.synchronize()
         return 8 * iters / (time.perf_counter() - t)
 
@@ -3537,13 +3946,15 @@ def main() -> int:
                 m.kernels = True
 
     def muse_first_step(model, kernels, ffn_only=False):
-        """The first decode step of the 8 prompts (all 1024 positions
-        masked; the text and the null context in one 16-row forward):
-        logits and the epilogue's picks."""
+        """The first decode step of the 8 prompts (every position masked:
+        1024 over the ViTVQGAN, 256 over the CNN tokenizer; the text and the
+        null context in one 16-row forward): logits and the epilogue's
+        picks."""
         use_kernels(model, kernels, ffn_only)
         with torch.inference_mode():
             text = model.encode_texts(torch.as_tensor(text_ids, device=dev))
-            ids0 = torch.full((16, 1024), model.mask_token_id, device=dev)
+            ids0 = torch.full((16, model.num_patches), model.mask_token_id,
+                              device=dev)
             lg = model.decoder(ids0, torch.cat([text, torch.zeros_like(text)]))
             epi = (sample_epilogue_fused if kernels and not ffn_only
                    else _sample_epilogue_reference)
@@ -3563,7 +3974,8 @@ def main() -> int:
             model.use_kernels(False)
             text = model.encode_texts(torch.as_tensor(text_ids, device=dev))
             ctx = torch.cat([text, torch.zeros_like(text)])
-            ids0 = torch.full((16, 1024), model.mask_token_id, device=dev)
+            ids0 = torch.full((16, model.num_patches), model.mask_token_id,
+                              device=dev)
             h0 = (F.embedding(ids0, dec.token_emb.weight).to(dt)
                   + dec.pos_enc.to(dt))
             upd["fp32"] = layer0(h0.float(), ctx.float()) - h0.float()
@@ -3679,7 +4091,7 @@ def main() -> int:
             return time.perf_counter() - t
 
         muse_generate_s()
-        row["generate_s"] = [muse_generate_s() for _ in range(5)]
+        row["generate_s"] = [muse_generate_s() for _ in range(3)]
         gen_s = float(np.median(row["generate_s"]))
         torch.cuda.reset_peak_memory_stats()
         muse_generate_s()
@@ -3692,7 +4104,7 @@ def main() -> int:
                      f"(1 run)")
         print(f"[muse] {label} generate, batch 8, 18 steps, bf16, approx: "
               f"{gen_s * 1e3:.2f} ms ({row['ms_per_step']:.3f} ms/step, "
-              f"{row['images_per_s']:.3f} images/s; median of 5, "
+              f"{row['images_per_s']:.3f} images/s; median of 3, "
               f"{min(row['generate_s']) * 1e3:.2f}-"
               f"{max(row['generate_s']) * 1e3:.2f} ms){exact}; peak memory "
               f"{row['peak_gib']:.3f} GiB | {smi}", flush=True)
@@ -3888,20 +4300,7 @@ def main() -> int:
                 if k != "mlp" or dropout == 0.0}
         if dropout == 0.0 and "mlp" in forward:
             want["mlp_bwd"] = forward["mlp"]
-
-        def traced(img, tgt):
-            torch.cuda.synchronize()
-            before = counts()
-            t = time.perf_counter()
-            m = fn(img, tgt)
-            torch.cuda.synchronize()
-            rows.append(dict(ms=(time.perf_counter() - t) * 1e3,
-                             loss=float(m["loss"]), acc=float(m["acc"]),
-                             launches={k: v - before[k]
-                                       for k, v in counts().items()}))
-            return m
-
-        tr.train_step = traced
+        tr.train_step = traced(fn, rows, ("loss", "acc"))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr.train()
@@ -4569,8 +4968,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t, out
 
-    # the serving path: three service generates, the first with its launches
-    # counted from 0 and its images checked; all three timed
+    # the serving path: two service generates, the first with its launches
+    # counted from 0 and its images checked; both timed (three until the
+    # phases of the CNN tokenizer and the Transformer came; a generate is
+    # 20-29 s of host time)
     torch.cuda.reset_peak_memory_stats()
     c = zero_counts()
     first_s, pa_out = parti_generate_s()
@@ -4579,15 +4980,14 @@ def main() -> int:
     gate(pa_out.shape == (8, 3, 256, 256)
          and bool(torch.isfinite(pa_out).all()),
          f"parti_service: {tuple(pa_out.shape)}")
-    parti["generate_s"] = [first_s] + [parti_generate_s()[0]
-                                       for _ in range(2)]
+    parti["generate_s"] = [first_s, parti_generate_s()[0]]
     parti["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     pa_s = float(np.median(parti["generate_s"]))
     parti["ms_per_token"], parti["images_per_s"] = pa_s / 1024 * 1e3, 8 / pa_s
     print(f"[parti] parti_service generate, batch 8, 1024 tokens, bf16, "
           f"approx top-k, temperature 1: {pa_s * 1e3:.1f} ms "
           f"({parti['ms_per_token']:.3f} ms a token, "
-          f"{parti['images_per_s']:.4f} images/s; median of 3, "
+          f"{parti['images_per_s']:.4f} images/s; median of 2, "
           f"{min(parti['generate_s']) * 1e3:.1f}-"
           f"{max(parti['generate_s']) * 1e3:.1f} ms); peak memory "
           f"{parti['peak_gib']:.3f} GiB | {smi}", flush=True)
@@ -4625,18 +5025,21 @@ def main() -> int:
                 m.kernels = kernels
 
     def layer_gate(label, layer, norm, bias, context, causal, targets,
-                   want):
+                   want, vocab=8192):
+        """The length is the targets' (8, t); ``vocab`` the head's (1024
+        over the CNN tokenizer)."""
         init = torch.Generator().manual_seed(3)
         for m in layer.modules():
             if isinstance(m, torch.nn.Linear):
                 lecun_normal_(m.weight, init)
         layer, norm = layer.to(dev), norm.to(dev)
+        t_len = targets.shape[1]
         head_w = torch.nn.init.trunc_normal_(
-            torch.empty(8192, 1024), 0.0, 0.02, -0.04, 0.04,
+            torch.empty(vocab, 1024), 0.0, 0.02, -0.04, 0.04,
             generator=init).to(dev).requires_grad_(True)
-        head_b = (randn(8192, scale=0.02).requires_grad_(True) if bias
+        head_b = (randn(vocab, scale=0.02).requires_grad_(True) if bias
                   else None)
-        xl = randn(8, 1024, 1024, dtype=torch.bfloat16)
+        xl = randn(8, t_len, 1024, dtype=torch.bfloat16)
         params = [*layer.parameters(), *norm.parameters(), head_w,
                   *([head_b] if bias else [])]
         names = (["loss", "dx"]
@@ -4661,7 +5064,8 @@ def main() -> int:
         mode = "causal" if causal else "bidirectional"
         head = "biased head" if bias else "head"
         print(f"[{label}] one DecoderLayer ({mode}) + final_norm + {head} "
-              f"loss, b8 t1024 d1024, bf16 over fp32 params, kernels vs "
+              f"loss, b8 t{t_len} d1024 V {vocab}, bf16 over fp32 params, "
+              f"kernels vs "
               f"plain: loss {errs['loss']:.3e}, dx {errs['dx']:.3e}, worst "
               f"{worst} {errs[worst]:.3e} (tol {MODEL_BF16_TOL:g}), {len(errs) - 1} "
               f"gradients", flush=True)
@@ -4677,20 +5081,7 @@ def main() -> int:
         tr = build_trainer(tcfg_, build_model(tcfg_, device=dev),
                            build_loader(tcfg_), dev)
         step_fn, steps = tr.train_step, []
-
-        def traced(batch, **kw):
-            torch.cuda.synchronize()
-            before = counts()
-            t = time.perf_counter()
-            m = step_fn(batch, **kw)
-            torch.cuda.synchronize()
-            steps.append(dict(ms=(time.perf_counter() - t) * 1e3,
-                              loss=float(m["loss"]),
-                              launches={k: v - before[k]
-                                        for k, v in counts().items()}))
-            return m
-
-        tr.train_step = traced
+        tr.train_step = traced(step_fn, steps, ("loss",))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -4797,6 +5188,398 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- 23 --
+    # the CNN tokenizer (code width 256, 1024 codes: the model of
+    # inference/vqgan.py and muse_vqgan) on the serving path: build_model on
+    # the vqgan config (cfg/vitvqgan.yaml's settings, bf16 compute over fp32
+    # weights), seeded, batch 8, 256 px. Kernel 4 is its one kernel (width
+    # 256: the first design); the convolutions, GroupNorms and the NonLocal
+    # attention are PyTorch, so the plain path differs in the codebook only
+    torch.backends.cudnn.allow_tf32 = False
+    out_root = os.path.dirname(tcfg.experiment.output_dir)
+    vq_out = os.path.join(out_root, "chip_smoke_vqgan")
+    t0 = time.perf_counter()
+    vqm = build_model(vqgan_config("bf16", vq_out)).reset_parameters(
+        torch.Generator().manual_seed(42)).to(dev).eval()
+    vqgan = dict(build_s=time.perf_counter() - t0)
+    vq_recon, vq_encode = vq_recon_service(vqm), vq_encode_service(vqm)
+    torch.cuda.synchronize()
+    c = zero_counts()
+    vrecs = []
+    for r in requests:
+        vrecs.append(vq_recon(r, None))
+        c = expect_delta(c, CNN_ENCODE, "vqgan recon request")
+    vidx = vq_encode(requests[0], None)
+    c = expect_delta(c, CNN_ENCODE, "vqgan encode request")
+    torch.cuda.synchronize()
+    vqgan_launches = counts()
+    gate(all(bool(torch.isfinite(t).all()) for t in vrecs)
+         and vrecs[0].shape == (8, 3, 256, 256) and vidx.shape == (8, 256),
+         f"vqgan outputs {tuple(vrecs[0].shape)}, {tuple(vidx.shape)}")
+    with torch.inference_mode():
+        z0 = vqm._encode_features(torch.as_tensor(requests[0], device=dev))
+        vqm.use_kernels(False)
+        vrec_p = vq_recon(requests[0], None)
+        vidx_p = vq_encode(requests[0], None)
+        vqm.use_kernels(True)
+        vdist = plain_distances(
+            l2_normalize(z0.float()).reshape(-1, 256).to(torch.bfloat16),
+            l2_normalize(vqm.codebook.embedding.weight.float()).to(
+                torch.bfloat16))
+    agree, worst_gap, excess = index_report(vidx.reshape(-1),
+                                            vidx_p.reshape(-1), vdist)
+    vqgan.update(index_agreement_bf16=agree,
+                 recon_rel_l2_bf16=rel_l2(vrecs[0], vrec_p))
+    print(f"[vqgan] build_model(vqgan: cfg/vitvqgan.yaml + {VQGAN_OVERRIDES},"
+          f" bf16) {vqgan['build_s']:.1f} s, "
+          f"{sum(p.numel() for p in vqm.parameters()) / 1e6:.1f} M "
+          f"parameters; launches over 3 recon + 1 encode requests "
+          f"{vqgan_launches}; kernels vs plain (bf16): index agreement "
+          f"{agree:.6f}, largest gap at a disagreement {worst_gap:.3e} (tol "
+          f"1e-5), chosen-distance excess {excess:.3e} (tol 1e-5), recon "
+          f"rel_l2 {vqgan['recon_rel_l2_bf16']:.3e} (tol {MODEL_BF16_TOL:g})",
+          flush=True)
+    gate(worst_gap <= 1e-5 and excess <= 1e-5
+         and vqgan["recon_rel_l2_bf16"] <= MODEL_BF16_TOL,
+         f"vqgan kernels vs plain: {vqgan}")
+
+    vqgan.update(recon_imgs_per_s=imgs_per_s(vq_recon),
+                 encode_imgs_per_s=imgs_per_s(vq_encode))
+    print(f"[vqgan] batch 8, 256 px, bf16, 10 requests: recon "
+          f"{vqgan['recon_imgs_per_s']:.2f} imgs/s, encode "
+          f"{vqgan['encode_imgs_per_s']:.2f} imgs/s | {smi}", flush=True)
+    vqgan["recon_profile"] = profile(
+        torch, lambda: [vq_recon(r, None) for r in requests],
+        lambda: vq_recon(requests[0], None), "3 vqgan recon requests")
+    vqgan["encode_profile"] = profile(
+        torch, lambda: [vq_encode(r, None) for r in requests],
+        lambda: vq_encode(requests[0], None), "3 vqgan encode requests")
+    del vqm, vrecs, vrec_p, z0, vdist
+
+    # the fp32 golden encode (the shipped mixed_precision "no"), TF32 off:
+    # the index criterion of phase 6 at width 256
+    gate(not (torch.backends.cuda.matmul.allow_tf32
+              or torch.backends.cudnn.allow_tf32),
+         "TF32 must be off for the fp32 golden path")
+    vq32 = build_model(vqgan_config("no", vq_out)).reset_parameters(
+        torch.Generator().manual_seed(42)).to(dev).eval()
+    with torch.inference_mode():
+        x32 = torch.as_tensor(requests[1], device=dev)
+        c = counts()
+        idx_k = vq32.encode_imgs(x32).reshape(-1)
+        expect_delta(c, CNN_ENCODE, "vqgan fp32 encode")
+        vq32.use_kernels(False)
+        z_p = vq32._encode_features(x32)
+        idx_p = vq32.codebook.nearest(z_p).reshape(-1)
+        vq32.use_kernels(True)
+        dist = plain_distances(
+            l2_normalize(z_p.float()).reshape(-1, 256),
+            l2_normalize(vq32.codebook.embedding.weight.float()))
+    agree, worst_gap, _ = index_report(idx_k, idx_p, dist)
+    vqgan.update(golden_index_agreement=agree, golden_worst_gap=worst_gap)
+    print(f"[vqgan] fp32 encode_imgs, TF32 off: index agreement {agree:.6f} "
+          f"(tol >= 0.999), largest plain top-2 gap at a disagreement "
+          f"{worst_gap:.3e} (tol 1e-4)", flush=True)
+    gate(agree >= 0.999 and worst_gap <= 1e-4,
+         "vqgan fp32 golden index criterion failed")
+    del vq32, x32, z_p, dist
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 24 --
+    # the CNN tokenizer's GAN training: VQGANTrainer.train() on the vqgan
+    # config with TRAIN_OVERRIDES (as phase 7: synthetic data, 16 examples,
+    # 2 epochs = 4 micro-steps of batch 8, 2 optimizer steps; PyTorch's
+    # TF32 defaults for the convolutions)
+    torch.backends.cudnn.allow_tf32 = True
+    vcfg = vqgan_config("bf16", vq_out)
+    vtr = build_trainer(vcfg, build_model(vcfg), build_loader(vcfg), dev)
+    vstep_fn, vsteps = vtr.train_step, []
+    vq_losses = ("d_loss", "gp", "codebook_loss", "g_loss", "per_loss",
+                 "logit_laplace", "l2_loss")
+    vtr.train_step = traced(vstep_fn, vsteps, vq_losses)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    vtr.train()
+    torch.cuda.synchronize()
+    vqgan_train_launches = counts()
+    vtr.train_step = vstep_fn
+    vqgan_train = dict(steps=vsteps,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for i, st in enumerate(vsteps):
+        losses = {k: st[k] for k in vq_losses}
+        print(f"[vqgan_train] micro-step {i}: {st['ms']:.2f} ms, losses "
+              + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()),
+              flush=True)
+        gate(st["launches"] == {k: CNN_ENCODE.get(k, 0)
+                                for k in st["launches"]}
+             and all(np.isfinite(v) for v in losses.values()),
+             f"vqgan_train micro-step {i}: launches {st['launches']}, "
+             f"losses {losses}")
+    gate(len(vsteps) == 4 and vtr.g_opt.count == 2,
+         f"vqgan_train: {len(vsteps)} micro-steps, {vtr.g_opt.count} "
+         f"optimizer steps")
+    vqgan_train["step_ms"] = float(np.mean([st["ms"] for st in vsteps[2:]]))
+    vqgan_train["imgs_per_s"] = vtr.batch_size / vqgan_train["step_ms"] * 1e3
+    print(f"[vqgan_train] 4 micro-steps, 2 optimizer steps, launches a "
+          f"micro-step {CNN_ENCODE}; micro-step {vqgan_train['step_ms']:.2f} "
+          f"ms (mean of steps 2-3; steps 0-1 {vsteps[0]['ms']:.2f}, "
+          f"{vsteps[1]['ms']:.2f} ms), {vqgan_train['imgs_per_s']:.2f} "
+          f"imgs/s, peak memory {vqgan_train['peak_gib']:.3f} GiB | {smi}",
+          flush=True)
+    img = vtr.to_device(next(iter(vtr.train_dl))[0])
+    vqgan_train["profile"] = profile(
+        torch, lambda: [vstep_fn(img) for _ in range(2)],
+        lambda: vstep_fn(img), "2 vqgan training micro-steps")
+    del vtr, img
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 25 --
+    # Muse over the CNN tokenizer: build_model on cfg_exp/muse_vqgan.yaml
+    # (dim 1024, 22 layers of 16 x 64 heads, mult 6, CLIP-L; 256 tokens and
+    # 1024 classes), seeded, bf16 compute over fp32 weights (the shipped
+    # "no" in the fp32 check), quant none: muse_service on the 8 prompts,
+    # 18 steps, guidance 3, approx top-k
+    mv_depth = MUSE_VQGAN_YAML["model"]["decoder"]["depth"]
+    t0 = time.perf_counter()
+    mv = build_model(muse_vqgan_config("bf16"), device=dev).eval()
+    muse_vqgan = dict(build_s=time.perf_counter() - t0)
+    mv_svc = muse_service(mv, timesteps=18, approx_topk=True)
+    mv_want = {k: v * 18 for k, v in muse_step(mv_depth, None, True).items()}
+    mv_want["layernorm"] += CLIP_LAYERNORMS  # the CNN decode launches none
+    torch.cuda.synchronize()
+    c = zero_counts()
+    out = mv_svc(text_ids, mu_seeds)
+    torch.cuda.synchronize()
+    expect_delta(c, mv_want, "muse_vqgan generate")
+    muse_vqgan_launches = counts()
+    gate(out.shape == (8, 3, 256, 256) and bool(torch.isfinite(out).all()),
+         f"muse_vqgan: {tuple(out.shape)}")
+    print(f"[muse_vqgan] build_model(cfg_exp/muse_vqgan.yaml, bf16) "
+          f"{muse_vqgan['build_s']:.1f} s, "
+          f"{sum(p.numel() for p in mv.parameters()) / 1e6:.1f} M "
+          f"parameters; launches per generate {mv_want} (per step "
+          f"{muse_step(mv_depth, None, True)})", flush=True)
+    lg_k, picks_k = muse_first_step(mv, True)
+    lg_p, picks_p = muse_first_step(mv, False)
+    muse_vqgan.update(
+        first_step_logits_rel_l2_bf16=rel_l2(lg_k, lg_p),
+        first_step_pick_agreement_bf16=float(
+            (picks_k[0] == picks_p[0]).float().mean()),
+        nudged_rel_l2_bf16=rel_l2(muse_nudged(mv), lg_p))
+    # the seeded model's own bf16 floor (the nudged plain path) lies at or
+    # above the 2e-2 of phase 11's quant none, so the logits are held, as
+    # the quant modes' are, to FLOOR_RATIO x that floor; fp32 and layer 0
+    # below carry the tight gates
+    lg_tol = FLOOR_RATIO * muse_vqgan["nudged_rel_l2_bf16"]
+    print(f"[muse_vqgan] first decode step, bf16: logits rel_l2 "
+          f"{muse_vqgan['first_step_logits_rel_l2_bf16']:.3e} (tol "
+          f"{lg_tol:.3e} = 1.25 x nudged); plain path with 1 % of the "
+          f"position rows nudged by about one bf16 ulp "
+          f"{muse_vqgan['nudged_rel_l2_bf16']:.3e}; pick agreement "
+          f"{muse_vqgan['first_step_pick_agreement_bf16']:.6f} (reported)",
+          flush=True)
+    gate(muse_vqgan["first_step_logits_rel_l2_bf16"] <= lg_tol,
+         f"muse_vqgan bf16 first-step logits: {muse_vqgan}")
+    upd = muse_layer0(mv)
+    l0 = muse_vqgan["layer0_update_rel_l2_bf16"] = dict(
+        kernels_vs_plain=rel_l2(upd["kernels"], upd["plain"]),
+        kernels_vs_fp32=rel_l2(upd["kernels"], upd["fp32"]),
+        plain_vs_fp32=rel_l2(upd["plain"], upd["fp32"]))
+    print(f"[muse_vqgan] layer 0 update, bf16: kernels vs plain "
+          f"{l0['kernels_vs_plain']:.3e} (tol {BF16_TOL:g}); against fp32 "
+          f"kernels {l0['kernels_vs_fp32']:.3e}, plain "
+          f"{l0['plain_vs_fp32']:.3e} (tol kernels <= {FLOOR_RATIO:g} x "
+          f"plain)", flush=True)
+    gate(l0["kernels_vs_plain"] <= BF16_TOL
+         and l0["kernels_vs_fp32"] <= FLOOR_RATIO * l0["plain_vs_fp32"],
+         f"muse_vqgan layer 0: {l0}")
+    del upd
+
+    muse_vqgan["generate_s"] = [muse_generate_s(mv_svc) for _ in range(3)]
+    gen_s = float(np.median(muse_vqgan["generate_s"]))
+    torch.cuda.reset_peak_memory_stats()
+    muse_generate_s(mv_svc)
+    muse_vqgan.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                      ms_per_step=gen_s / 18 * 1e3, images_per_s=8 / gen_s)
+    print(f"[muse_vqgan] generate, batch 8, 18 steps, bf16, approx: "
+          f"{gen_s * 1e3:.2f} ms ({muse_vqgan['ms_per_step']:.3f} ms/step, "
+          f"{muse_vqgan['images_per_s']:.3f} images/s; median of 3, "
+          f"{min(muse_vqgan['generate_s']) * 1e3:.2f}-"
+          f"{max(muse_vqgan['generate_s']) * 1e3:.2f} ms); peak memory "
+          f"{muse_vqgan['peak_gib']:.3f} GiB | {smi}", flush=True)
+    muse_vqgan["profile"] = profile(
+        torch, lambda: mv_svc(text_ids, mu_seeds),
+        lambda: mv_svc(text_ids, mu_seeds),
+        "1 muse_vqgan generate (batch 8, 18 steps)")
+    del mv, mv_svc, out
+    torch.cuda.empty_cache()
+    gate(not (torch.backends.cuda.matmul.allow_tf32
+              or torch.backends.cudnn.allow_tf32),
+         "TF32 must be off for the fp32 muse_vqgan check")
+    m32 = build_model(muse_vqgan_config("no"), device=dev).eval()
+    lg32_k, picks32_k = muse_first_step(m32, True)
+    lg32_p, picks32_p = muse_first_step(m32, False)
+    r16 = muse_vqgan["bf16_logits_vs_fp32"] = dict(
+        kernels=rel_l2(lg_k, lg32_p), plain=rel_l2(lg_p, lg32_p))
+    muse_vqgan["first_step_logits_rel_l2_fp32"] = rel_l2(lg32_k, lg32_p)
+    print(f"[muse_vqgan] first decode step, fp32 (TF32 off): logits rel_l2 "
+          f"{muse_vqgan['first_step_logits_rel_l2_fp32']:.3e} (tol 1e-4); "
+          f"bf16 logits against them: kernels {r16['kernels']:.3e}, plain "
+          f"{r16['plain']:.3e} (tol kernels <= {FLOOR_RATIO:g} x plain)",
+          flush=True)
+    gate(muse_vqgan["first_step_logits_rel_l2_fp32"] <= 1e-4
+         and r16["kernels"] <= FLOOR_RATIO * r16["plain"],
+         f"muse_vqgan fp32 first step: {muse_vqgan}")
+    cond32 = [t.reshape(-1, 1024) for t in lg32_p.chunk(2)]
+    cond32_k = [t.reshape(-1, 1024) for t in lg32_k.chunk(2)]
+    epilogue_check("muse_vqgan fp32 first step", guided(*cond32),
+                   philox_bits(seeds_dev, 256, 0, 1024), temp0, picks32_k,
+                   picks32_p, 1e-4, relative=False,
+                   x32_got=guided(*cond32_k), k=k_1024)
+    del m32, lg32_k, lg32_p, lg_k, lg_p, cond32, cond32_k
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 26 --
+    # Muse's training over the CNN tokenizer: the layer gate at 256 tokens
+    # and vocab 1024, the trainer with GEN_TRAIN_OVERRIDES (batch 8,
+    # accumulation 4, bf16: the shipped config has accumulation 16, fp32),
+    # then the fp32 whole-model step (TF32 off)
+    tgen = torch.Generator(device=dev).manual_seed(26)
+    tgt_v = torch.randint(0, 1024, (8, 256), generator=tgen, device=dev)
+    tgt_v[torch.rand(8, 256, generator=tgen, device=dev) < 0.36] = -1
+    muse_vqgan_train = dict(layer_rel_l2=layer_gate(
+        "muse_vqgan_train", DecoderLayer(1024, 16, 64, 6),
+        GammaLayerNorm(1024), False,
+        randn(8, 77, 1024, dtype=torch.bfloat16), False, tgt_v,
+        {"flash_attention_bthd_kv": 1, "flash_attention_bwd_kv": 1,
+         "layernorm": 4, "ffn": 1, "ffn_bwd": 1, "head_xent": 1,
+         "head_xent_bwd": 1}, vocab=1024))
+    row, muse_vqgan_train_launches = run_trainer(
+        "muse_vqgan_train", MUSE_VQGAN_YAML,
+        muse_train_step(mv_depth, CNN_ENCODE))
+    muse_vqgan_train.update(row)
+    m32 = build_model(muse_vqgan_config("no"), device=dev)
+    grid = m32.encode_to_indices(
+        torch.rand(8, 3, 256, 256, generator=tgen, device=dev))
+    draws = ((torch.rand(8, generator=tgen, device=dev),
+              torch.rand(8, 256, generator=tgen, device=dev)),
+             torch.rand(8, generator=tgen, device=dev))
+    muse_vqgan_train["fp32"] = fp32_gate(
+        "muse_vqgan_train", m32, lambda m: m.loss_from_indices(
+            pa_text, grid, mask_draws=draws[0], cond_draws=draws[1]))
+    del m32, grid
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 27 --
+    # the seq2seq Transformer: build_model + build_trainer on
+    # cfg/transformer.yaml (dim 512, 16 x 64 heads, 6 + 6 layers, vocab
+    # 1000, batch 64, 20 source tokens, bf16) with TRANSFORMER_OVERRIDES (4
+    # micro-steps), exact launches each; one generate at max_len 21 (the
+    # trainer's on_sample decode); an fp32 step, kernels vs plain
+    tf_cfg = transformer_config("bf16", os.path.join(
+        out_root, "chip_smoke_transformer"))
+    tf_m = tf_cfg.model
+    tf_step = transformer_step(tf_m.enc_depth, tf_m.dec_depth)
+    ttr = build_trainer(tf_cfg, build_model(tf_cfg, device=dev),
+                        build_loader(tf_cfg), dev)
+    tstep_fn, tsteps = ttr.train_step, []
+    ttr.train_step = traced(tstep_fn, tsteps, ("loss", "acc"))
+    torch.cuda.synchronize()
+    tf_held = torch.cuda.memory_allocated() / 2 ** 30  # by earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ttr.train()
+    ttr.train_step = tstep_fn
+    # the trainer's sample decode (on_sample's generate) on the first
+    # validation batch, padded to the batch
+    src_val, tgt_val = next(iter(ttr.val_dl))
+    src_d = ttr.ids(ttr.pad_batch(np.asarray(src_val))[0])
+    max_len = int(np.asarray(tgt_val).shape[1])
+    tf_gen = transformer_generate(tf_m.enc_depth, tf_m.dec_depth, max_len)
+    ttr.model.eval()
+    torch.cuda.synchronize()
+    c = counts()
+    t = time.perf_counter()
+    toks_k = ttr.model.generate(src_d, max_len, generator=torch.Generator(
+        device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t) * 1e3
+    expect_delta(c, tf_gen, "transformer generate")
+    transformer_launches = counts()
+    transformer = dict(steps=tsteps, held_gib=tf_held,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    ttr.model.use_kernels(False)
+    toks_p = ttr.model.generate(src_d, max_len, generator=torch.Generator(
+        device=dev).manual_seed(7))
+    ttr.model.use_kernels(True)
+    ttr.model.train()
+    gate(toks_k.shape == (64, max_len + 1) and bool((toks_k[:, 0] == 1).all()),
+         f"transformer generate: {tuple(toks_k.shape)}")
+    for i, st in enumerate(tsteps):
+        print(f"[transformer] micro-step {i}: {st['ms']:.2f} ms, loss "
+              f"{st['loss']:.4f}, token accuracy {st['acc']:.4f}", flush=True)
+        gate(st["launches"] == {k: tf_step.get(k, 0) for k in st["launches"]}
+             and np.isfinite(st["loss"]),
+             f"transformer micro-step {i}: launches {st['launches']}, "
+             f"expected {tf_step}, loss {st['loss']}")
+    gate(len(tsteps) == 4 and ttr.opt.count == 4,
+         f"transformer: {len(tsteps)} micro-steps, {ttr.opt.count} "
+         f"optimizer steps")
+    tgt_tokens = ttr.batch_size * (TRANSFORMER_YAML["dataset"]["params"][
+        "seq_len"] + 1)
+    transformer.update(
+        step_ms=float(np.mean([st["ms"] for st in tsteps[2:]])),
+        generate_ms=gen_ms,
+        generate_id_agreement=float((toks_k == toks_p).float().mean()))
+    transformer["tokens_per_s"] = tgt_tokens / transformer["step_ms"] * 1e3
+    print(f"[transformer] 4 micro-steps, launches a micro-step {tf_step}; "
+          f"micro-step {transformer['step_ms']:.2f} ms (mean of steps 2-3; "
+          f"steps 0-1 {tsteps[0]['ms']:.2f}, {tsteps[1]['ms']:.2f} ms), "
+          f"{transformer['tokens_per_s']:.1f} target tokens/s ({tgt_tokens} "
+          f"a micro-step), peak memory {transformer['peak_gib']:.3f} GiB "
+          f"({tf_held:.3f} GiB of it held by earlier phases); "
+          f"generate, batch 64, max_len {max_len}: {gen_ms:.2f} ms, "
+          f"launches {tf_gen}, kernels vs plain id agreement "
+          f"{transformer['generate_id_agreement']:.4f} (reported) | {smi}",
+          flush=True)
+    tb = ttr.batch(*next(iter(ttr.train_dl)))
+    transformer["profile"] = profile(
+        torch, lambda: [tstep_fn(*tb) for _ in range(2)],
+        lambda: tstep_fn(*tb), "2 transformer micro-steps", host_rows=15)
+    # fp32 (TF32 off), kernels vs plain: the same weights, batch and
+    # dropout draws (one generator seed on both paths)
+    gate(not (torch.backends.cuda.matmul.allow_tf32
+              or torch.backends.cudnn.allow_tf32),
+         "TF32 must be off for the fp32 transformer check")
+    tm32 = build_model(transformer_config("no", tf_cfg.experiment.output_dir),
+                       device=dev)
+    t_params = list(tm32.parameters())
+    tf_out = {}
+    for kernels in (True, False):
+        tm32.use_kernels(kernels)
+        drop = torch.Generator(device=dev).manual_seed(5)
+        loss, _ = ce_and_acc(tm32(tb[0], tb[1], deterministic=False,
+                                  generator=drop), tb[2])
+        tf_out[kernels] = (loss.detach().double(),
+                           torch.autograd.grad(loss, t_params))
+    (lk, gk), (lp, gp) = tf_out[True], tf_out[False]
+    transformer.update(fp32_loss_rel=float((lk - lp).abs() / lp.abs()),
+                       fp32_grad_rel_l2=[rel_l2(a, b) for a, b in zip(gk, gp)])
+    print(f"[transformer] fp32 step (TF32 off), kernels vs plain: loss "
+          f"{float(lk):.6f} vs {float(lp):.6f}, relative "
+          f"{transformer['fp32_loss_rel']:.3e} (tol 1e-5); worst of "
+          f"{len(gk)} gradients rel_l2 "
+          f"{max(transformer['fp32_grad_rel_l2']):.3e} (tol 1e-4)",
+          flush=True)
+    gate(transformer["fp32_loss_rel"] <= 1e-5
+         and max(transformer["fp32_grad_rel_l2"]) <= 1e-4,
+         f"transformer fp32 step: {transformer['fp32_loss_rel']}, "
+         f"{max(transformer['fp32_grad_rel_l2'])}")
+    del ttr, tm32, tb, tf_out, gk, gp
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 28 --
     sources = {
         "flash_attention_bthd_kv": ("flash_attention.cu",
                                     "attention_models_tpu/ops/flash_attention.py:217"),
@@ -4837,7 +5620,12 @@ def main() -> int:
                      "switchhead": switchhead_launches,
                      "parti": parti_launches,
                      "parti_train": parti_train_launches,
-                     "muse_train": muse_train_launches}
+                     "muse_train": muse_train_launches,
+                     "vqgan": vqgan_launches,
+                     "vqgan_train": vqgan_train_launches,
+                     "muse_vqgan": muse_vqgan_launches,
+                     "muse_vqgan_train": muse_vqgan_train_launches,
+                     "transformer": transformer_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         v = (next((v for v in variants if v["kernel"] == k and v["main"]), None)
@@ -4936,7 +5724,10 @@ def main() -> int:
                            switchhead=dict(rel_l2=sw_errs, ms=sw_ms,
                                            plain_attention_ms=sw_plain_ms),
                            parti=parti, parti_train=parti_train,
-                           muse_train=muse_train,
+                           muse_train=muse_train, vqgan=vqgan,
+                           vqgan_train=vqgan_train, muse_vqgan=muse_vqgan,
+                           muse_vqgan_train=muse_vqgan_train,
+                           transformer=transformer,
                            agent_bf16_vs_fp32_rel_l2=ag_err,
                            longcontext=dict(rows=lc_rows, t16384_rel_l2=lc_err),
                            ring=ring, flash_bthd_rel_l2=bthd_errs,
@@ -4963,10 +5754,11 @@ def main() -> int:
     return 0
 
 
-def profile(torch, run, warm, label):
+def profile(torch, run, warm, label, host_rows=0):
     """Device time by kernel over ``run()`` (torch.profiler), after one
-    ``warm()``, and the share of the traced window's wall time the card was
-    busy."""
+    ``warm()``, the share of the traced window's wall time the card was
+    busy, and the host's side (``host_time``); the ``host_rows`` largest
+    host ops by their own CPU time are printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
@@ -4990,8 +5782,9 @@ def profile(torch, run, warm, label):
     # device time of the kernels it launched, and so does a user annotation
     # on the device timeline ("Optimizer.step#OptaxAdam.step"); the
     # profiler's own buffer requests are not work
+    events = prof.key_averages()
     rows = sorted(((e.key, dev_us(e) / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in events
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0
                    and not getattr(e, "is_user_annotation", False)
                    and not e.key.startswith(("Optimizer.", "Activity Buffer"))),
@@ -5002,8 +5795,58 @@ def profile(torch, run, warm, label):
     for key, ms, count in rows[:20]:
         print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f} % x{count:<4d}"
               f" {key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy,
+    host = host_time(prof, DeviceType.CPU, wall_ms)
+    print(f"[profile] {label}, host: {host['op_ms']:.3f} ms of own CPU time"
+          f" in recorded ops (all threads), {host['launches']} kernel "
+          f"launches taking {host['launch_ms']:.3f} ms; the optimizer's "
+          f"step {host['optimizer_ms']:.3f} ms, the autograd engine's "
+          f"backward {host['backward_ms']:.3f} ms (CPU time with children "
+          f"of its outermost nodes)")
+    for key, ms, total, count in host["rows"][:host_rows]:
+        print(f"[profile]   host {ms:9.3f} ms own, {total:9.3f} ms with "
+              f"children x{count:<5d} {key[:70]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, host=host,
                 rows=[dict(key=k, ms=m, count=c) for k, m, c in rows])
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def host_time(prof, cpu, wall_ms):
+    """The host's side of a trace (its ops on ``cpu``): the own CPU time
+    of every recorded op, the kernel launches (count and time), the
+    optimizer's ``step`` and the autograd engine's backward (CPU time with
+    children of the outermost such events: a backward that runs
+    ``autograd.grad`` inside nests engine events), and the 40 largest ops
+    by own time with their time with children."""
+    events = prof.key_averages()
+    host = [e for e in events if e.device_type == cpu
+            and not getattr(e, "is_user_annotation", False)]
+    launch = [e for e in host if e.key in LAUNCH_CALLS]
+
+    def outermost_ms(prefix):
+        total = 0.0
+        for e in prof.events():
+            if e.device_type != cpu or not e.name.startswith(prefix):
+                continue
+            up = e.cpu_parent
+            while up is not None and not up.name.startswith(prefix):
+                up = up.cpu_parent
+            if up is None:
+                total += e.cpu_time_total
+        return total / 1e3
+
+    return dict(
+        wall_ms=wall_ms,
+        op_ms=sum(e.self_cpu_time_total for e in host) / 1e3,
+        launches=sum(e.count for e in launch),
+        launch_ms=sum(e.self_cpu_time_total for e in launch) / 1e3,
+        optimizer_ms=outermost_ms("Optimizer.step#"),
+        backward_ms=outermost_ms("autograd::engine::evaluate_function"),
+        rows=sorted(((e.key, e.self_cpu_time_total / 1e3,
+                      e.cpu_time_total / 1e3, e.count) for e in host),
+                    key=lambda r: -r[1])[:40])
 
 
 if __name__ == "__main__":

@@ -243,7 +243,7 @@ def test_build_model_muse_from_config(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("model.name", "muse_vqgan", NotImplementedError),
+    ("training.pipeline_microbatches", 4, NotImplementedError),
     ("training.scan_layers", True, NotImplementedError),
     ("model.quant", "int4", ValueError)])
 def test_build_model_muse_refuses(tmp_path, key, value, err):
